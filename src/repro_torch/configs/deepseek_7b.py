@@ -1,0 +1,24 @@
+"""deepseek-7b — copy of ``repro/configs/deepseek_7b.py``.
+
+[dense] deepseek-7b — llama-arch [arXiv:2401.02954; hf]
+30L d_model=4096 32H (GQA kv=32) d_ff=11008 vocab=102400
+"""
+from repro_torch.configs.base import ArchConfig
+
+DEEPSEEK_7B = ArchConfig(
+    name="deepseek-7b",
+    family="dense",
+    num_layers=30,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=11008,
+    vocab_size=102_400,
+    layer_pattern=("attn",),
+    norm="rmsnorm",
+    act="silu",
+    rope_theta=10_000.0,
+    tie_embeddings=False,
+)
+
+CONFIG = DEEPSEEK_7B
