@@ -3,12 +3,17 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card: ``nvidia-smi`` name and power limit, torch's CUDA device;
-  2. build every CUDA kernel of the serving path from ``src/`` with nvcc;
+  1. the card: ``nvidia-smi`` name and power limit, torch's CUDA device and
+     its properties beside the H100 spec the planner uses;
+  2. build every CUDA kernel from ``src/`` with nvcc, one nvcc per source,
+     all started together;
   3. each kernel against its plain PyTorch version on the card, in bf16 and
-     f32, at the shapes the serving path gives it and at the TPU kernel's
-     own (BH, S, d) case; the kernel's time beside the plain version's, one
-     PyTorch library call's, and the least time the card could take;
+     f32: flash attention at the shapes the serving path and the
+     tensor-parallel path give it and at the TPU kernel's own (BH, S, d)
+     case; matmul at the TPU kernel's test shapes and at the shapes the
+     ring schedules of phase 6 give it; the kernel's time beside the plain
+     version's, one PyTorch library call's, and the least time the card
+     could take;
   4. gemma3-1b at full width cut to 2 layers (one sliding-window, one
      global), f32: the engine on the CPU
      (plain attention) and on the card (the kernel) must give identical
@@ -17,7 +22,23 @@ Phases (any failure exits non-zero):
      weights from seed 0) served through ``repro_torch.launch.serve``: 4
      requests of 600-700 prompt tokens, 16 new tokens each; every kernel
      launch counter is set to 0 just before and read just after, and the
-     flash-attention kernel must have run once per layer per step.
+     flash-attention kernel must have run once per layer per step;
+  6. the tensor-parallel training forward: internlm2-1.8b at full width and
+     depth (24 layers), batch 2 of 4096 tokens from a numpy seed, random
+     weights from seed 0, ``LM.loss`` on one device (the per-block path)
+     and on a ring of 4 ranks sharing the card over gloo (each rank its own
+     process holding its weight shards; gloo moves host memory, so every
+     ring hop is staged through the host, which makes this phase a check
+     of correctness and not of TP speed): ``barrier`` and ``cais`` with 1
+     and 2 microbatches in f32, and ``cais`` with 2 microbatches in bf16.
+     The f32 losses must lie within 1e-4 relative of the one-device f32
+     loss, the bf16 loss within ``BF16_LOSS_RTOL`` of the one-device bf16
+     loss, and the f32 final hidden states of the cais 2-microbatch run
+     within ``HIDDEN_TOL`` of one device's; every rank's matmul launches
+     must equal the count derived from its optimized period graphs, its
+     flash launches one per layer per microbatch, every matmul call shape
+     must be among those phase 3 checked, and a 2-microbatch run must
+     execute ``overlap_asym``.
 The line before the last is the kernels' JSON record; the last line is the
 device JSON. Imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -49,6 +70,21 @@ CHECK_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-4),
              torch.bfloat16: dict(rtol=1 / 128, atol=2e-3)}
 
 ARCH = "gemma3-1b"
+# phase 6: the tensor-parallel training forward (train_4k's length)
+TP_ARCH, TP_WORLD, TP_BATCH, TP_SEQ, SEED = "internlm2-1.8b", 4, 2, 4096, 0
+TP_RUNS = [("barrier", 1, "float32"), ("barrier", 2, "float32"),
+           ("cais", 1, "float32"), ("cais", 2, "float32"),
+           ("cais", 2, "bfloat16")]
+# f32 TP loss against the one-device f32 loss: the same f32 math summed in
+# another order (ring partial sums, the kernel's k order, cuBLAS's)
+F32_LOSS_RTOL = 1e-4
+# bf16 TP loss against the one-device bf16 loss: both round every
+# activation to bf16 (2^-9 relative), at different points (the ring adds
+# partial sums in bf16; cuBLAS rounds once); the mean over 8192 tokens
+# averages the per-token differences
+BF16_LOSS_RTOL = 1e-2
+# f32 final hidden states, TP against one device (as LOGIT_TOL)
+HIDDEN_TOL = dict(rtol=1e-4, atol=1e-4)
 REQUESTS, PROMPT_MIN, PROMPT_MAX, MAX_NEW = 4, 600, 700, 16
 PREFILL_CHUNK, BLOCK_SIZE = 128, 16
 # phase 4: f32 CPU vs card, logits |Δ| <= atol + rtol·|cpu| (summation order
@@ -110,6 +146,26 @@ def tpu_case(BH: int, S: int, d: int, dtype, seed: int):
     pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(BH, S)
     return dict(q=mk(), k=mk(), v=mk(), q_positions=pos.contiguous(),
                 kv_positions=pos.contiguous(), window=0)
+
+
+def get_tp_cfg():
+    from repro_torch.configs import get_arch
+
+    return get_arch(TP_ARCH)
+
+
+def tp_core_case(cfg, B: int, dtype, seed: int):
+    """The attention core as a rank of phase 6 calls it: TP_SEQ causal
+    positions, H/TP_WORLD query heads over Hkv/TP_WORLD kv heads."""
+    g = torch.Generator().manual_seed(seed)
+    H, Hkv = cfg.num_heads // TP_WORLD, cfg.num_kv_heads // TP_WORLD
+    dh = cfg.resolved_head_dim
+    mk = lambda h: torch.randn(B, TP_SEQ, h, dh, generator=g).to("cuda",
+                                                                 dtype)
+    pos = torch.arange(TP_SEQ, dtype=torch.int32,
+                       device="cuda").expand(B, TP_SEQ).contiguous()
+    return dict(q=mk(H), k=mk(Hkv), v=mk(Hkv), q_positions=pos,
+                kv_positions=pos, window=0)
 
 
 def bound(case, ref) -> tuple:
@@ -184,10 +240,102 @@ def phase_kernels(cfg, fa, ref) -> list:
         rows.append(check_kernel_case("prefill_chunk", serving_case(
             cfg, PREFILL_CHUNK, q0=[640, 0, 0, 512], ctx=[700, 128, 0, 640],
             dtype=dtype, seed=2), fa, ref))
+        # the attention-core node of phase 6: the gathered sequence with
+        # this rank's heads (16/4 q heads, 8/4 kv heads), per microbatch
+        rows.append(check_kernel_case("tp_core", tp_core_case(
+            get_tp_cfg(), TP_BATCH // 2, dtype, seed=3), fa, ref))
         for BH, S, d in ((8, 512, 128), (16, 2048, 128)):
             rows.append(check_kernel_case(
                 f"tpu_{BH}x{S}x{d}", tpu_case(BH, S, d, dtype, seed=S + d),
                 fa, ref))
+    return rows
+
+
+def tp_matmul_shapes(cfg, itemsize: int) -> list:
+    """(M, K, N) of every matmul call of phase 6 on one rank in a type of
+    ``itemsize`` bytes, by the schedules' own arithmetic: barrier GEMMs over
+    the gathered sequence; cais ring steps of B·S_loc/c rows on the gather
+    side (c as the cais planner picks it) and of B·S_loc/2 on the
+    bidirectional reduce side; one S_loc slice a hop in overlap_asym.
+    Phase 6 checks that its calls were all among these."""
+    from repro_torch.core import primitives as prim
+    from repro_torch.core.backends import CAISBackend
+
+    n, d, dh = TP_WORLD, cfg.d_model, cfg.resolved_head_dim
+    fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // n
+    ff = cfg.d_ff // n
+    s_loc = TP_SEQ // n
+    shapes = set()
+    for mb in (1, 2):
+        b = TP_BATCH // mb
+        c = prim._pick_chunks(s_loc, CAISBackend.plan_chunks(
+            b * TP_SEQ * d * itemsize, n))
+        for m_ag, m_rs in ((b * TP_SEQ, b * TP_SEQ),      # barrier
+                           (b * s_loc // c, b * s_loc // 2),   # cais rings
+                           (b * s_loc, b * s_loc)):       # overlap_asym
+            shapes |= {(m_ag, d, fq), (m_ag, d, fkv), (m_ag, d, ff),
+                       (m_rs, fq, d), (m_rs, ff, d)}
+    return sorted(shapes)
+
+
+def matmul_tol(a, b, want, dtype):
+    """What a matmul case must meet, per element: CHECK_TOL plus the
+    difference two f32 summations of the same K products may show in
+    different orders, sqrt(K)·2^-24 of the sum of the products' magnitudes
+    for each (the probabilistic dot-product bound, Higham and Mary 2019),
+    twice. The kernel sums K in its own order and the plain version in
+    cuBLAS's; at K = 2048 with unit normal inputs the partial sums reach
+    about 45, so the orders differ by up to ~5e-4, beyond CHECK_TOL's atol
+    where an output is near 0."""
+    tol = CHECK_TOL[dtype]
+    K = a.shape[1]
+    mag = a.float().abs() @ b.float().abs()
+    return (tol["atol"] + tol["rtol"] * want.float().abs()
+            + 2 * K ** 0.5 * 2.0 ** -24 * mag)
+
+
+def check_matmul_case(name, M, K, N, dtype, mmk, ref) -> dict:
+    g = torch.Generator().manual_seed(M * 7 + K * 3 + N)
+    a = torch.randn(M, K, generator=g).to("cuda", dtype)
+    b = torch.randn(K, N, generator=g).to("cuda", dtype)
+    got = mmk.matmul(a, b)
+    torch.cuda.synchronize()
+    want = ref.matmul_ref(a, b)
+    err = (got.float() - want.float()).abs()
+    tol = CHECK_TOL[dtype]
+    limit = matmul_tol(a, b, want, dtype)
+    ok = bool((err <= limit).all() and torch.isfinite(got).all())
+    worst = float((err / limit).max())
+    ms = cuda_ms(lambda: mmk.matmul(a, b))
+    plain_ms = cuda_ms(lambda: ref.matmul_ref(a, b))
+    library_ms = cuda_ms(lambda: torch.matmul(a, b))
+    es = a.element_size()
+    bytes_ms = (M * K + K * N + M * N) * es / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * M * K * N / PEAK_FLOPS[dtype] * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    row = dict(case=name, dtype=str(dtype).replace("torch.", ""),
+               shape=dict(M=M, K=K, N=N), max_abs_err=float(err.max()),
+               tol=dict(tol, summation="2*sqrt(K)*2^-24*(|a|@|b|)"),
+               worst_err_over_limit=worst, repo_tol=TOL[dtype], ok=ok, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms)
+    log(f"  {name:>10} {row['dtype']:>8} ({M},{K},{N}) "
+        f"err={row['max_abs_err']:.3e} (err/limit {worst:.3f}) "
+        f"{'ok' if ok else 'FAIL'} "
+        f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms cublas={library_ms:.4f}ms "
+        f"bound={bound_ms:.5f}ms ({bound_by})")
+    return row
+
+
+def phase_matmul(mmk, ref) -> list:
+    rows = []
+    jax_sweep = [(128, 128, 128), (256, 512, 128), (64, 384, 96),
+                 (32, 32, 32), (512, 128, 256), (128, 1024, 64)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for M, K, N in jax_sweep:
+            rows.append(check_matmul_case("sweep", M, K, N, dtype, mmk, ref))
+        for M, K, N in tp_matmul_shapes(get_tp_cfg(), dtype.itemsize):
+            rows.append(check_matmul_case("tp", M, K, N, dtype, mmk, ref))
     return rows
 
 
@@ -295,6 +443,174 @@ def phase_serve(cfg, fa):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the tensor-parallel training forward, 4 ranks on the card
+# ---------------------------------------------------------------------------
+
+
+def tp_rank(group, tokens, runs):
+    """One rank of phase 6: LM.loss of every run on this rank's shards, with
+    the kernels' launch counts (set to 0 just before each run), the counts
+    derived from the optimized period graphs, and the overlap_asym
+    executions."""
+    from repro_torch.core import dataflow
+    from repro_torch.core import tp as tp_mod
+    from repro_torch.core.backends import get_backend
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.runtime import Runtime, TPConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_tp_cfg()
+    lm = LM(cfg, Runtime(compute_dtype="float32"), device="cuda", seed=0,
+            group=group)
+    asym = [0]
+    for name in ("barrier", "cais"):
+        be = get_backend(name)
+
+        def counted(*a, _inner=be.overlap_asymmetric, **k):
+            asym[0] += 1
+            return _inner(*a, **k)
+
+        be.overlap_asymmetric = counted
+    calls = {}              # (M, K, N, dtype) of every matmul call
+
+    def shapes(a, b, _inner=ops.matmul, **k):
+        key = (*a.shape, b.shape[1], str(a.dtype).replace("torch.", ""))
+        calls[key] = calls.get(key, 0) + 1
+        return _inner(a, b, **k)
+
+    ops.matmul = shapes
+    tok = torch.from_numpy(tokens).cuda()
+    out = []
+    for mode, mb, dtype in runs:
+        rt = Runtime(compute_dtype=dtype, tp=TPConfig(mode=mode,
+                                                      microbatches=mb))
+        lm.rt = rt
+        torch.cuda.synchronize()
+        mmk.launches = fa.launches = asym[0] = 0
+        calls.clear()
+        t0 = time.monotonic()
+        loss = lm.loss({"tokens": tok, "labels": tok})
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = (mmk.launches, fa.launches, asym[0])
+        tpc = tp_mod.TPContext.from_config(rt.tp, group)
+        base, _ = tp_mod._period_graph(tpc, [lm.blocks[0]], cfg, ("attn",))
+        graph = dataflow.optimize(tp_mod.microbatch_period_graph(base, mb))
+        per_period = tp_mod.matmul_calls(graph, tpc, TP_BATCH // mb, TP_SEQ,
+                                         cfg.d_model, rt.dtype.itemsize)
+        out.append(dict(
+            mode=mode, mb=mb, dtype=dtype, loss=float(loss),
+            finite=bool(torch.isfinite(loss)), wall_s=wall,
+            matmul_launches=launches[0],
+            matmul_derived=per_period * cfg.num_layers,
+            flash_launches=launches[1], flash_derived=mb * cfg.num_layers,
+            overlap_asym=launches[2],
+            call_shapes=sorted(([*k, v] for k, v in calls.items()),
+                               key=lambda r: -r[-1]),
+            overlap_asym_nodes=sum(n.op == "overlap_asym"
+                                   for n in graph.nodes) * cfg.num_layers,
+            wire=f"{group.backend}" + (", staged through the host"
+                                       if group.staged(loss) else "")))
+    # the hidden states themselves, on the run with every schedule in it
+    lm.rt = Runtime(compute_dtype="float32",
+                    tp=TPConfig(mode="cais", microbatches=2))
+    hidden, _ = lm.forward(tok)
+    return out, hidden.cpu().numpy()
+
+
+def phase_tp(mmk, fa) -> dict:
+    import numpy as np
+
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import LM
+    from repro_torch.runtime import Runtime
+
+    cfg = get_tp_cfg()
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (TP_BATCH, TP_SEQ)).astype(np.int64)
+    tok = torch.from_numpy(tokens).cuda()
+    one = LM(cfg, Runtime(compute_dtype="float32"), device="cuda", seed=0)
+    one_hidden = one.forward(tok)[0].cpu().numpy()
+    single = {}
+    for dtype in ("float32", "bfloat16"):
+        one.rt = Runtime(compute_dtype=dtype)
+        t0 = time.monotonic()
+        single[dtype] = float(one.loss({"tokens": tok, "labels": tok}))
+        torch.cuda.synchronize()
+        log(f"  one device {dtype}: loss {single[dtype]:.7f} "
+            f"({time.monotonic() - t0:.2f}s, per-block path)")
+    del one
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()      # each rank counts launches in its own process
+    ranks = run_ranks(tp_rank, TP_WORLD, tokens, TP_RUNS, device="cuda",
+                      timeout=900)
+    wall = time.monotonic() - t0
+    hidden = np.concatenate([h for _, h in ranks], axis=1)
+    ranks = [r for r, _ in ranks]
+    h_err = np.abs(hidden - one_hidden)
+    h_ok = bool((h_err <= HIDDEN_TOL["atol"]
+                 + HIDDEN_TOL["rtol"] * np.abs(one_hidden)).all())
+    log(f"  final hidden states (cais, mb=2, f32), the {TP_WORLD} sequence "
+        f"shards against one device: max|Δ| {h_err.max():.3e} "
+        f"(max|x| {np.abs(one_hidden).max():.3e}) within {HIDDEN_TOL}: "
+        f"{'ok' if h_ok else 'FAIL'}")
+    if not h_ok:
+        raise AssertionError("phase 6: TP hidden states differ from one "
+                             "device")
+    rows, total_mm, total_fa, shapes = [], 0, 0, set()
+    for i, run in enumerate(TP_RUNS):
+        per = [r[i] for r in ranks]
+        head = per[0]
+        ref_loss = single[head["dtype"]]
+        rtol = F32_LOSS_RTOL if head["dtype"] == "float32" else \
+            BF16_LOSS_RTOL
+        rel = abs(head["loss"] - ref_loss) / abs(ref_loss)
+        checks = {
+            "ranks agree": len({p["loss"] for p in per}) == 1,
+            "finite": all(p["finite"] for p in per),
+            f"within {rtol:g} of one device": rel <= rtol,
+            "matmul launches = graph": all(
+                p["matmul_launches"] == p["matmul_derived"] > 0 for p in per),
+            "flash launches = layers x mb": all(
+                p["flash_launches"] == p["flash_derived"] for p in per),
+            "overlap_asym ran": all(
+                p["overlap_asym"] == p["overlap_asym_nodes"]
+                and (p["overlap_asym"] > 0) == (p["mb"] > 1) for p in per),
+        }
+        shapes |= {(M, K, N, dt) for p in per
+                   for M, K, N, dt, _ in p["call_shapes"]}
+        total_mm += sum(p["matmul_launches"] for p in per)
+        total_fa += sum(p["flash_launches"] for p in per)
+        row = dict(head, rel_to_one_device=rel, one_device=ref_loss,
+                   wall_s=[p["wall_s"] for p in per], checks=checks)
+        rows.append(row)
+        log(f"  {run[0]:>7} mb={run[1]} {run[2]:>8}: loss "
+            f"{head['loss']:.7f} (one device {ref_loss:.7f}, rel "
+            f"{rel:.2e}); per rank: matmul {head['matmul_launches']} "
+            f"launches (graph {head['matmul_derived']}), flash "
+            f"{head['flash_launches']}, overlap_asym {head['overlap_asym']}; "
+            f"{max(row['wall_s']):.2f}s; wire: {head['wire']}")
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            raise AssertionError(f"phase 6 {run}: failed {bad}")
+    by = {(r["mode"], r["mb"], r["dtype"]): r["loss"] for r in rows}
+    for mb in (1, 2):
+        d = abs(by[("barrier", mb, "float32")] - by[("cais", mb, "float32")])
+        log(f"  barrier vs cais, mb={mb}, f32: |Δloss| {d:.3e}")
+    log(f"  {TP_WORLD} ranks, {len(TP_RUNS)} runs in {wall:.1f}s (spawn and "
+        "weights included); launches over all ranks and runs: matmul "
+        f"{total_mm}, flash {total_fa}")
+    return dict(runs=rows, single=single, matmul_launches=total_mm,
+                flash_launches=total_fa, wall_s=wall,
+                hidden_max_abs_err=float(h_err.max()),
+                call_shapes=sorted(shapes))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -302,8 +618,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_arch
+    from repro_torch.hw import H100
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import nvcc, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 means full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -316,20 +634,30 @@ def main() -> int:
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    props = torch.cuda.get_device_properties(0)
+    log(f"  properties: {props.total_memory / 1e9:.1f} GB, "
+        f"{props.multi_processor_count} SMs, sm_{props.major}{props.minor}; "
+        f"the planner's H100 spec: {H100.hbm_bytes / 1e9:.0f} GB, "
+        f"{H100.hbm_bw / 1e12:.2f} TB/s, link {H100.ici_bw / 1e9:.0f} GB/s "
+        f"each way, hop {H100.hop_latency * 1e6:.0f} us")
 
-    log("phase 2: build")
+    log("phase 2: build (one nvcc per source, all started together)")
     t = time.monotonic()
-    lib = fa.build()
-    log(f"  {fa.SOURCE.relative_to(ROOT)} -> {lib.name} "
-        f"({time.monotonic() - t:.1f}s)")
-    log(Path(f"{lib}.log").read_text().strip())
+    libs = nvcc.build_all([fa.SOURCE, mmk.SOURCE])
+    log(f"  {len(libs)} kernels built in {time.monotonic() - t:.1f}s")
+    for src, lib in libs.items():
+        log(f"  {src.relative_to(ROOT)} -> {lib.name}")
+        log(Path(f"{lib}.log").read_text().strip())
 
     cfg = get_arch(ARCH)
-    log("phase 3: kernel vs plain version (within CHECK_TOL)")
+    log("phase 3: kernels vs plain versions (within CHECK_TOL)")
     rows = phase_kernels(cfg, fa, ref)
     if not all(r["ok"] for r in rows):
         raise AssertionError("flash_attention disagrees with its plain "
                              "version")
+    mm_rows = phase_matmul(mmk, ref)
+    if not all(r["ok"] for r in mm_rows):
+        raise AssertionError("matmul disagrees with its plain version")
 
     log("phase 4: 2-layer full-width f32, CPU plain vs card kernel")
     phase_reference(cfg)
@@ -337,20 +665,46 @@ def main() -> int:
     log(f"phase 5: serve {ARCH} at full width, bf16 compute, f32 params")
     rep = phase_serve(cfg, fa)
 
-    log("kernel cases " + json.dumps({"flash_attention": rows}))
+    log(f"phase 6: {TP_ARCH} LM.loss at full width, {TP_WORLD} TP ranks on "
+        "one card over gloo")
+    tp = phase_tp(mmk, fa)
+    if tp["matmul_launches"] == 0 or tp["flash_launches"] == 0:
+        raise AssertionError("the tensor-parallel path launched no kernel")
+    checked = {(r["shape"]["M"], r["shape"]["K"], r["shape"]["N"],
+                r["dtype"]) for r in mm_rows}
+    unchecked = [s for s in tp["call_shapes"] if tuple(s) not in checked]
+    if unchecked:
+        raise AssertionError(f"phase 6 called matmul at shapes phase 3 did "
+                             f"not check: {unchecked}")
+    log("  tp " + json.dumps(tp))
+
+    log("kernel cases " + json.dumps({"flash_attention": rows,
+                                      "matmul": mm_rows}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f}s")
-    # the kernel's record reads the serving path's most frequent call: a
-    # decode step in bf16 (every case is on the "kernel cases" line)
+    # flash_attention's record reads the serving path's most frequent call,
+    # a decode step in bf16, with its launches on both paths (phase 5 and
+    # phase 6); matmul's reads the ring step that carries most of phase 6's
+    # GEMM work, the gate/up chunk of the cais schedule, in f32. Every case
+    # is on the "kernel cases" line.
     head = next(r for r in rows if r["case"] == "decode"
                 and r["dtype"] == "bfloat16")
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:86",
-        "launches": rep["launches"], "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"]}]}))
+    d, ff = get_tp_cfg().d_model, get_tp_cfg().d_ff // TP_WORLD
+    mm_head = next(r for r in mm_rows if r["case"] == "tp"
+                   and r["dtype"] == "float32"
+                   and (r["shape"]["K"], r["shape"]["N"]) == (d, ff))
+    record = lambda r: {k: r[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
+    print(json.dumps({"kernels": [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:86",
+         "launches": rep["launches"] + tp["flash_launches"],
+         **record(head)},
+        {"name": "matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:56",
+         "launches": tp["matmul_launches"], **record(mm_head)}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

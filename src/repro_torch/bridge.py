@@ -11,6 +11,10 @@ the ``num_layers % len(layer_pattern)`` trailing blocks in
 ``stack["rem"]``. Period ``p``'s block ``b{i}`` is layer ``p * P + i``, and
 ``rem[j]`` is layer ``n_full * P + j``. Both layouts keep weights as
 ``(d_in, d_out)``, so nothing is transposed.
+
+For a model on a TP ring, :func:`shard_state_dict` keeps rank ``r``'s slice
+of each TP weight, by the specs of the period-graph fragment
+(:func:`repro_torch.core.tp.param_shard_dim`).
 """
 from __future__ import annotations
 
@@ -75,10 +79,33 @@ def state_dict_from_jax(params: Mapping, cfg: ArchConfig
     return {k: _tensor(v) for k, v in flat.items()}
 
 
+def shard_state_dict(sd: Mapping[str, torch.Tensor], cfg: ArchConfig,
+                     rank: int, n: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s state dict on a TP ring of ``n``: each TP weight cut
+    to its contiguous slice along its shard dimension, the rest kept
+    whole."""
+    from repro_torch.core.tp import param_shard_dim
+
+    out = {}
+    for name, t in sd.items():
+        dim = param_shard_dim(name, cfg, n)
+        if dim is not None:
+            if t.shape[dim] % n:
+                raise ValueError(f"{name}: dim {dim} of {tuple(t.shape)} "
+                                 f"does not split over {n} ranks")
+            size = t.shape[dim] // n
+            t = t.narrow(dim, rank * size, size).contiguous()
+        out[name] = t
+    return out
+
+
 def load_jax_params(model: torch.nn.Module, params: Mapping) -> None:
     """Copy ``repro`` parameters (numpy pytree) into the port's ``LM``, in
-    its parameter type and on its device; every key must match."""
+    its parameter type and on its device, sharded for its TP rank; every
+    key must match."""
     sd = state_dict_from_jax(params, model.cfg)
+    if model.tp > 1:
+        sd = shard_state_dict(sd, model.cfg, model.group.rank, model.tp)
     own = model.state_dict()
     missing, extra = own.keys() - sd.keys(), sd.keys() - own.keys()
     if missing or extra:

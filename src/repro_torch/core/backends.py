@@ -1,0 +1,303 @@
+"""CollectiveBackend: the registry-dispatched TP execution API.
+
+Counterpart of ``repro/core/backends.py``. Every collective-fused schedule
+the model path can run — AG→GEMM, GEMM→RS, GEMM→AR, the fused RS+LN+AG
+sub-layer chain and the asymmetric dual-stream overlap — is reached through
+one seam: a :class:`CollectiveBackend` instance looked up by name.
+:mod:`repro_torch.core.tp` and :func:`repro_torch.core.dataflow.execute`
+dispatch through it instead of branching on mode strings.
+
+Built-in backends: ``barrier`` (one monolithic collective around each
+GEMM), ``cais`` (the paper's decomposed ring schedules of
+:mod:`repro_torch.core.primitives`, with the chunking planned per collective
+by :func:`repro_torch.core.coordination.plan` unless
+``CAISConfig.num_chunks`` pins it) and ``auto`` (``explicit = False``: in
+JAX the compiler schedules TP from sharding constraints; its torch
+counterpart, DTensor, is ROADMAP A5, so the port's model path raises for it
+on a group larger than one).
+
+Methods run on one rank with its local shards and take the
+:class:`repro_torch.sharding.TPGroup` where JAX took the axis name. The
+expert all-to-all and the hierarchical (2D-mesh) compositions raise (ROADMAP
+A10, A14); the backward collective ``grad_ag_gemm`` comes with training
+(ROADMAP A8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import lru_cache
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.core import coordination
+from repro_torch.core import primitives as prim
+from repro_torch.core.primitives import CAISConfig
+from repro_torch.hw import H100
+from repro_torch.sharding import TPGroup
+
+
+def _hier_not_ported(*_, **__):
+    raise NotImplementedError("hierarchical (2D-mesh) compositions are not "
+                              "ported yet (ROADMAP A14)")
+
+
+class CollectiveBackend:
+    """Protocol for TP collective-fused execution strategies. Subclasses
+    implement ``ag_gemm_multi``, ``gemm_rs`` and ``overlap_asymmetric``;
+    ``gemm_ar`` and the fused chains compose from them by default."""
+
+    name: str = "abstract"
+    explicit: bool = True
+
+    # -- AG-aligned -------------------------------------------------------
+    def ag_gemm(self, x, w, group: TPGroup, cais: CAISConfig):
+        """(B, S_loc, d) seq-sharded x; (d, F_loc) w -> (B, S, F_loc)."""
+        return self.ag_gemm_multi(x, (w,), group, cais)[0]
+
+    def ag_gemm_multi(self, x, ws: Sequence, group: TPGroup,
+                      cais: CAISConfig) -> Tuple[torch.Tensor, ...]:
+        """One gather shared by several column-sharded weights."""
+        raise NotImplementedError
+
+    # -- RS/AR-aligned ----------------------------------------------------
+    def gemm_rs(self, x, w, group: TPGroup, cais: CAISConfig):
+        """(B, S, d_loc) feat-sharded x; (d_loc, F) w -> (B, S_loc, F)."""
+        raise NotImplementedError
+
+    def gemm_ar(self, x, w, group: TPGroup, cais: CAISConfig):
+        """(B, S, d_loc) x; (d_loc, F) w -> (B, S, F) reduced. Default:
+        AR = RS + AG from the backend's own ``gemm_rs``; a monolithic
+        allreduce where the sequence cannot scatter over the ring."""
+        if int(x.shape[1]) % max(group.size, 1) != 0:
+            return prim.barrier_gemm_ar(x, w, group)
+        return group.all_gather(self.gemm_rs(x, w, group, cais), 1)
+
+    # -- EP ---------------------------------------------------------------
+    def a2a_expert_ffn(self, send, ffn, group: TPGroup, cais: CAISConfig):
+        return prim.a2a_expert_ffn(send, ffn, group, cais)
+
+    # -- fused sub-layer chain -------------------------------------------
+    def fused_rs_ln_ag(self, x, w1, ln_scale, w2, group: TPGroup,
+                       cais: CAISConfig, norm: str = "rmsnorm",
+                       residual=None):
+        """GEMM-RS -> (+res) -> LN -> AG-GEMM. Returns (out, z)."""
+        outs, z = self.fused_rs_ln_ag_multi(x, w1, ln_scale, (w2,), group,
+                                            cais, norm=norm,
+                                            residual=residual)
+        return outs[0], z
+
+    def fused_rs_ln_ag_multi(self, x, w1, ln_scale, ws2: Sequence,
+                             group: TPGroup, cais: CAISConfig,
+                             norm: str = "rmsnorm", residual=None):
+        """GEMM-RS -> (+res) -> LN -> shared-gather AG-GEMM against several
+        weights. Returns (per-weight outputs tuple, z). Composed from the
+        backend's own ``gemm_rs`` / ``ag_gemm_multi``."""
+        from repro_torch.models.layers import apply_norm
+
+        z = self.gemm_rs(x, w1, group, cais)
+        if residual is not None:
+            z = z + residual
+        zn = apply_norm(norm, z, ln_scale)
+        return self.ag_gemm_multi(zn, tuple(ws2), group, cais), z
+
+    def fused_rs_ln(self, x, w1, ln_scale, group: TPGroup, cais: CAISConfig,
+                    norm: str = "rmsnorm", residual=None):
+        """GEMM-RS -> (+res) -> LN with no trailing gather (the MoE router
+        seam). Returns (normed, z)."""
+        from repro_torch.models.layers import apply_norm
+
+        z = self.gemm_rs(x, w1, group, cais)
+        if residual is not None:
+            z = z + residual
+        return apply_norm(norm, z, ln_scale), z
+
+    # -- asymmetric dual-stream overlap ----------------------------------
+    def overlap_asymmetric(self, rs_args, ag_args, group: TPGroup,
+                           cais: CAISConfig):
+        """Independent GEMM-RS + AG-GEMM pair; the AG side's weight may be a
+        tuple. Returns (rs_out, ag_out[s])."""
+        raise NotImplementedError
+
+    # -- hierarchical (2D-mesh) compositions: ROADMAP A14 ------------------
+    hier_ag_gemm_multi = hier_gemm_rs = hier_gemm_ar = _hier_not_ported
+    hier_a2a_expert_ffn = hier_overlap_asymmetric = _hier_not_ported
+
+
+# ---------------------------------------------------------------------------
+# barrier — monolithic collectives around each GEMM
+# ---------------------------------------------------------------------------
+
+
+class BarrierBackend(CollectiveBackend):
+    """Communication-centric baseline: opaque collective phases."""
+
+    name = "barrier"
+
+    def ag_gemm_multi(self, x, ws, group, cais):
+        xg = group.all_gather(x, 1)
+        return tuple(prim.mm(xg, w) for w in ws)
+
+    def gemm_rs(self, x, w, group, cais):
+        return prim.barrier_gemm_rs(x, w, group)
+
+    def gemm_ar(self, x, w, group, cais):
+        return prim.barrier_gemm_ar(x, w, group)
+
+    def overlap_asymmetric(self, rs_args, ag_args, group, cais):
+        x_rs, w_rs = rs_args
+        x_ag, w_ag = ag_args
+        rs_out = prim.barrier_gemm_rs(x_rs, w_rs, group)
+        if isinstance(w_ag, (tuple, list)):
+            return rs_out, self.ag_gemm_multi(x_ag, tuple(w_ag), group, cais)
+        return rs_out, prim.barrier_ag_gemm(x_ag, w_ag, group)
+
+
+# ---------------------------------------------------------------------------
+# cais — decomposed ring schedules with compute-aware chunk planning
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=512)
+def _planned_chunks(payload_bytes: int, ring: int, bidirectional: bool,
+                    hw=None) -> int:
+    """coordination.plan() keyed per (payload, ring, hw); ``hw=None`` →
+    H100."""
+    return coordination.plan(float(payload_bytes), ring,
+                             bidirectional=bidirectional,
+                             hw=hw or H100).num_chunks
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+class CAISBackend(CollectiveBackend):
+    """The paper's technique: permute chains interleaved with partial GEMMs,
+    chunked per collective by the coordination planner unless the caller
+    pins ``CAISConfig.num_chunks``."""
+
+    name = "cais"
+
+    @staticmethod
+    def plan_chunks(payload_bytes: float, ring: int,
+                    bidirectional: bool = True, hw=None) -> int:
+        """The chunking the backend would pick for this collective."""
+        return _planned_chunks(int(payload_bytes), ring, bidirectional, hw)
+
+    @staticmethod
+    def resolve(cais: CAISConfig, gathered_bytes: float,
+                ring: int) -> CAISConfig:
+        """Fill in num_chunks from the α-β plan when the config leaves it
+        open. ``gathered_bytes`` is the full payload the collective moves
+        around the ring."""
+        if cais.num_chunks is not None or ring <= 1:
+            return cais
+        c = _planned_chunks(int(gathered_bytes), ring, cais.bidirectional,
+                            cais.hw)
+        return dataclasses.replace(cais, num_chunks=c)
+
+    @staticmethod
+    def seam_bytes(x, w1) -> int:
+        """The gathered z payload of a fused RS→LN→AG seam: (B, S, d) with
+        S = x.shape[1] (x is full-sequence) and d = w1's columns."""
+        return int(x.shape[0]) * int(x.shape[1]) * int(w1.shape[1]) * \
+            x.element_size()
+
+    def ag_gemm_multi(self, x, ws, group, cais):
+        n = group.size
+        cais = self.resolve(cais, _nbytes(x) * n, n)
+        return prim.ag_gemm_multi(x, tuple(ws), group, cais)
+
+    def gemm_rs(self, x, w, group, cais):
+        return prim.gemm_rs(x, w, group, cais)
+
+    def gemm_ar(self, x, w, group, cais):
+        # a ragged/decode sequence (S % ring != 0) cannot split around the
+        # ring, so this collective falls back to the monolithic allreduce
+        if int(x.shape[1]) % group.size != 0:
+            return prim.barrier_gemm_ar(x, w, group)
+        return prim.gemm_ar(x, w, group, cais)
+
+    def fused_rs_ln_ag(self, x, w1, ln_scale, w2, group, cais,
+                       norm="rmsnorm", residual=None):
+        cais = self.resolve(cais, self.seam_bytes(x, w1), group.size)
+        return prim.fused_rs_ln_ag(x, w1, ln_scale, w2, group, cais,
+                                   norm=norm, residual=residual)
+
+    def fused_rs_ln_ag_multi(self, x, w1, ln_scale, ws2, group, cais,
+                             norm="rmsnorm", residual=None):
+        # the gathered z payload governs both legs; with num_chunks
+        # resolved, the base composition over this backend's gemm_rs /
+        # ag_gemm_multi is the schedule
+        cais = self.resolve(cais, self.seam_bytes(x, w1), group.size)
+        return super().fused_rs_ln_ag_multi(x, w1, ln_scale, tuple(ws2),
+                                            group, cais, norm=norm,
+                                            residual=residual)
+
+    def fused_rs_ln(self, x, w1, ln_scale, group, cais, norm="rmsnorm",
+                    residual=None):
+        cais = self.resolve(cais, self.seam_bytes(x, w1), group.size)
+        return super().fused_rs_ln(x, w1, ln_scale, group, cais, norm=norm,
+                                   residual=residual)
+
+    def overlap_asymmetric(self, rs_args, ag_args, group, cais):
+        # no planning: the lockstep schedule moves one S_loc slice per hop
+        # on each stream — its chunking is structural
+        return prim.overlap_asymmetric(rs_args, ag_args, group, cais)
+
+
+# ---------------------------------------------------------------------------
+# auto — compiler-scheduled reference (DTensor in torch: ROADMAP A5)
+# ---------------------------------------------------------------------------
+
+
+class AutoBackend(BarrierBackend):
+    """``explicit = False``: the model path does not run the explicit
+    schedules for it. Its inherited monolithic methods still execute
+    graphs."""
+
+    name = "auto"
+    explicit = False
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, CollectiveBackend] = {}
+
+
+def register_backend(backend: CollectiveBackend,
+                     name: Optional[str] = None) -> CollectiveBackend:
+    """Register (or replace) a backend under ``name or backend.name``."""
+    key = name or backend.name
+    if not key or key == "abstract":
+        raise ValueError("backend must carry a concrete name")
+    _REGISTRY[key] = backend
+    return backend
+
+
+def unregister_backend(name: str) -> None:
+    _REGISTRY.pop(name, None)
+
+
+def get_backend(name: Union[str, CollectiveBackend]) -> CollectiveBackend:
+    """Resolve a backend by name (instances pass through unchanged)."""
+    if isinstance(name, CollectiveBackend):
+        return name
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown collective backend {name!r}; available: "
+            f"{available_backends()}") from None
+
+
+def available_backends() -> List[str]:
+    return sorted(_REGISTRY)
+
+
+register_backend(BarrierBackend())
+register_backend(CAISBackend())
+register_backend(AutoBackend())

@@ -1,0 +1,656 @@
+"""Graph-level dataflow optimizer (paper §III-C), forward half.
+
+Counterpart of ``repro/core/dataflow.py``: the same IR (``Node``/``Graph``
+over the same op vocabulary, ``VALID_OPS``), the same fusion passes — pass 1
+``fuse_compute_aware``, pass 1b ``fuse_shared_gather``, pass 2
+``fuse_sublayer_chain``, pass 3 ``pair_asymmetric`` (the greedy
+nearest-independent-pair-first policy) — and an executor that runs a graph
+on one rank of a :class:`repro_torch.sharding.TPGroup`, dispatching every
+fused collective op through a :class:`repro_torch.core.backends.
+CollectiveBackend`. The passes are pure Python and copied, so ``optimize``
+gives the same node list as ``repro``'s on the same graph; the module
+docstring of ``repro/core/dataflow.py`` documents each op and pass.
+
+Not here yet: the backward vocabulary (``ADJOINTS``,
+``build_training_graph``, derived weights; ROADMAP A8) and the perfsim
+planner for pass 3 (ROADMAP A13). The expert-routing ops (``route``,
+``unroute``, ``a2a_ffn``) are valid IR but their collective is ROADMAP A10.
+
+Tensor layout conventions per value: ``seq`` (B, S_loc, d)
+sequence-sharded · ``feat`` (B, S, d_loc) feature-sharded · ``full``
+(B, S, d) replicated.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.primitives import CAISConfig, mm
+
+# ---------------------------------------------------------------------------
+# IR
+# ---------------------------------------------------------------------------
+
+#        op            inputs                weights         out layout
+# input                ()                    —               declared
+# gemm_col             (x: full)             w (d, F/n)      feat
+# gemm_row             (x: feat)             w (d/n, F)      partial-full
+# allgather            (x: seq)              —               full
+# reduce_scatter       (x: partial-full)     —               seq
+# allreduce            (x: partial-full)     —               full
+# layernorm            (x: any)              scale (d,)      same
+# add / residual       (a, b) same layout    —               same
+# custom               (any...)              (w...)          fn-defined
+# route                (xn: seq)             (router,)       (send, combine,
+#                                                             aux)
+# unroute              (eout, combine, xn)   —               seq
+# a2a_ffn              (send,)               (expert ws...)  send-shaped
+# --- fused (produced by optimize) ---
+# ag_gemm              (x: seq)              w               feat
+# ag_gemm_multi        (x: seq)              (w...)          feat per weight
+# gemm_rs              (x: feat)             w               seq
+# gemm_ar              (x: feat)             w               full
+# fused_rs_ln_ag       (x: feat[, res:seq])  (w1, scale, w2) feat (+ seq z)
+# fused_rs_ln_ag_multi (x: feat[, res:seq])  (w1, scale, w...) feat per w
+#                                                             (+ seq z)
+# fused_rs_ln          (x: feat[, res:seq])  (w1, scale)     (seq zn, seq z)
+# overlap_asym         (x_rs: feat, x_ag: seq) (w_rs, w_ag...) (seq, feat...)
+# bwd_ag_gemm          (dy: seq)             wT (d, F/n)     (feat dx, full dy)
+# bwd_a2a_ffn          (send, dy) send-shaped (expert ws...)  (d_send, dw...)
+
+VALID_OPS = {
+    "input", "gemm_col", "gemm_row", "allgather", "reduce_scatter",
+    "allreduce", "layernorm", "add", "residual", "custom",
+    "route", "unroute", "a2a_ffn",
+    "ag_gemm", "ag_gemm_multi", "gemm_rs", "gemm_ar", "fused_rs_ln_ag",
+    "fused_rs_ln_ag_multi", "fused_rs_ln", "overlap_asym",
+    "bwd_ag_gemm", "bwd_a2a_ffn",
+}
+
+# local-math ops whose semantics live in the node's `fn`
+_FN_OPS = ("custom", "route", "unroute")
+
+# cotangent-seed inputs of a training graph (``d.<value>``): forward graphs
+# have none, so pass 3 ranks their pairs exactly as ``repro`` does
+_D_PREFIX = "d."
+
+
+
+class GraphError(ValueError):
+    """A malformed dataflow graph: unknown op, cycle, missing producer…
+    Always names the offending node/value."""
+
+
+@dataclass(frozen=True)
+class Node:
+    name: str
+    op: str
+    inputs: Tuple[str, ...] = ()
+    weights: Tuple[str, ...] = ()   # keys into the weights dict
+    outputs: Tuple[str, ...] = ()   # multi-output fused ops; default (name,)
+    fn: Optional[Callable] = None   # local math for fn-carrying ops
+
+    def __post_init__(self):
+        if self.op not in VALID_OPS:
+            raise GraphError(
+                f"node {self.name!r} has unknown dataflow op {self.op!r}; "
+                f"valid ops: {sorted(VALID_OPS)}")
+        if not self.outputs:
+            object.__setattr__(self, "outputs", (self.name,))
+
+
+@dataclass
+class Graph:
+    nodes: List[Node]
+    outputs: Tuple[str, ...]
+    # lazily-built adjacency index shared by node_producing / consumers /
+    # reaches. Passes never mutate a Graph in place (every rewrite builds a
+    # fresh Graph), so the cache stays valid for the instance's lifetime.
+    _idx: Optional[Tuple[Dict[str, Node], Dict[str, List[Node]],
+                         Dict[str, Node]]] = field(
+        default=None, init=False, repr=False, compare=False)
+
+    def _index(self):
+        if self._idx is None:
+            producer: Dict[str, Node] = {}
+            consumers: Dict[str, List[Node]] = {}
+            by_name: Dict[str, Node] = {}
+            for n in self.nodes:
+                by_name[n.name] = n
+                for v in n.outputs:
+                    producer[v] = n
+                for v in n.inputs:
+                    consumers.setdefault(v, []).append(n)
+            self._idx = (producer, consumers, by_name)
+        return self._idx
+
+    def node_producing(self, value: str) -> Optional[Node]:
+        return self._index()[0].get(value)
+
+    def consumers(self, value: str) -> List[Node]:
+        return list(self._index()[1].get(value, ()))
+
+    def reaches(self, src: str, dst: str) -> bool:
+        """Is there a dependency path from node `src` to node `dst`?
+        O(V+E) per query over the shared adjacency index."""
+        _, consumers_of, by_name = self._index()
+        seen, stack = set(), [src]
+        while stack:
+            cur = stack.pop()
+            if cur == dst:
+                return True
+            if cur in seen:
+                continue
+            seen.add(cur)
+            for v in by_name[cur].outputs:
+                stack.extend(c.name for c in consumers_of.get(v, ()))
+        return False
+
+    def validate(self) -> "Graph":
+        """Raise :class:`GraphError` (naming the offender) on missing
+        producers, duplicate producers, unknown graph outputs, or cycles."""
+        _topo(self.nodes, self.outputs)
+        return self
+
+
+# ---------------------------------------------------------------------------
+# Fusion passes
+# ---------------------------------------------------------------------------
+
+
+def _single_consumer(g: Graph, value: str,
+                     allow_output: bool = False) -> Optional[Node]:
+    """The unique consumer of `value`, or None. A value listed in the graph
+    outputs counts as externally consumed unless ``allow_output`` (used when
+    the fused op re-exposes the value, e.g. fused_rs_ln_ag's z output)."""
+    cs = g.consumers(value)
+    if not allow_output and value in g.outputs:
+        return None
+    return cs[0] if len(cs) == 1 else None
+
+
+def fuse_compute_aware(g: Graph) -> Graph:
+    """Pass 1: align collectives with the adjacent GEMM's memory semantics."""
+    nodes = list(g.nodes)
+    changed = True
+    while changed:
+        changed = False
+        for n in nodes:
+            if n.op == "allgather":
+                c = _single_consumer(g, n.name)
+                if c is not None and c.op == "gemm_col":
+                    fused = Node(c.name, "ag_gemm", n.inputs, c.weights)
+                    nodes = [x for x in nodes if x.name not in (n.name, c.name)]
+                    nodes.append(fused)
+                    g = Graph(_topo(nodes, g.outputs), g.outputs)
+                    nodes = list(g.nodes)
+                    changed = True
+                    break
+            if n.op == "gemm_row":
+                c = _single_consumer(g, n.name)
+                if c is not None and c.op in ("reduce_scatter", "allreduce"):
+                    op = "gemm_rs" if c.op == "reduce_scatter" else "gemm_ar"
+                    fused = Node(c.name, op, n.inputs, n.weights)
+                    nodes = [x for x in nodes if x.name not in (n.name, c.name)]
+                    nodes.append(fused)
+                    g = Graph(_topo(nodes, g.outputs), g.outputs)
+                    nodes = list(g.nodes)
+                    changed = True
+                    break
+    return Graph(_topo(nodes, g.outputs), g.outputs)
+
+
+def fuse_shared_gather(g: Graph) -> Graph:
+    """Pass 1b: an ``allgather`` consumed by *several* ``gemm_col`` nodes
+    (fused QKV, gate+up) becomes one ``ag_gemm_multi``: the activation
+    circulates the ring once and every weight consumes each arriving chunk
+    (the multi-weight pull alignment the hand-fused sub-layers used)."""
+    nodes = list(g.nodes)
+    for n in nodes:
+        if n.op != "allgather" or n.name in g.outputs:
+            continue
+        cs = g.consumers(n.name)
+        if len(cs) < 2 or any(c.op != "gemm_col" for c in cs):
+            continue
+        fused = Node("+".join(c.name for c in cs), "ag_gemm_multi",
+                     n.inputs,
+                     tuple(w for c in cs for w in c.weights),
+                     outputs=tuple(c.name for c in cs))
+        drop = {n.name} | {c.name for c in cs}
+        nodes = [x for x in nodes if x.name not in drop] + [fused]
+        return fuse_shared_gather(Graph(_topo(nodes, g.outputs), g.outputs))
+    return g
+
+
+def fuse_sublayer_chain(g: Graph) -> Graph:
+    """Pass 2: gemm_rs → [add|residual] → layernorm → ag_gemm[_multi] ⇒ one
+    pipeline. The post-add value may have *several* consumers (in a
+    whole-block graph it feeds both the next LN and the next residual add;
+    in a period graph the block→block seam looks the same): the fused op
+    re-exposes it, so only the layernorm leg is swallowed.
+
+    MoE variant: when the normed value feeds a ``route`` node instead of a
+    gather (attention-out RS → residual → LN → router), the gather-less
+    prefix fuses into ``fused_rs_ln``, which re-exposes BOTH the normed
+    value (for route/unroute/dense-residual consumers) and z."""
+    nodes = list(g.nodes)
+    for rs in list(nodes):
+        if rs.op != "gemm_rs":
+            continue
+        # rs's value may escape as a graph output — the fused op re-exposes it
+        nxt = _single_consumer(g, rs.name, allow_output=True)
+        residual = None
+        add_node = None
+        if nxt is not None and nxt.op in ("add", "residual"):
+            if rs.name in g.outputs:
+                # the fused op re-exposes only the post-add z — a graph that
+                # also exports the pre-add value must keep the chain unfused
+                continue
+            other = [v for v in nxt.inputs if v != rs.name]
+            residual = other[0] if other else None
+            add_node = nxt
+            # z = rs + residual is re-exposed by the fused op, so it may be a
+            # graph output or feed several consumers — fuse along the (one)
+            # layernorm among them
+            lns = [c for c in g.consumers(nxt.name) if c.op == "layernorm"]
+            nxt = lns[0] if len(lns) == 1 else None
+        if nxt is None or nxt.op != "layernorm":
+            continue
+        ln = nxt
+        ins = rs.inputs + ((residual,) if residual else ())
+        z_name = (add_node or rs).name
+        drop = {rs.name, ln.name} | ({add_node.name} if add_node else set())
+        ag = _single_consumer(g, ln.name)
+        if ag is not None and ag.op in ("ag_gemm", "ag_gemm_multi"):
+            if ag.op == "ag_gemm":
+                fused = Node(ag.name, "fused_rs_ln_ag", ins,
+                             rs.weights + ln.weights + ag.weights,
+                             outputs=(ag.name, z_name))
+            else:
+                fused = Node(ag.name, "fused_rs_ln_ag_multi", ins,
+                             rs.weights + ln.weights + ag.weights,
+                             outputs=ag.outputs + (z_name,))
+            drop.add(ag.name)
+        elif any(c.op == "route" for c in g.consumers(ln.name)):
+            # the normed value feeds an expert router (and usually also the
+            # unroute scatter / a dense-residual MLP) — fuse the RS + add +
+            # norm and re-expose the normed value under its old name
+            fused = Node(ln.name, "fused_rs_ln", ins,
+                         rs.weights + ln.weights,
+                         outputs=(ln.name, z_name))
+        else:
+            continue
+        nodes = [x for x in nodes if x.name not in drop] + [fused]
+        return fuse_sublayer_chain(Graph(_topo(nodes, g.outputs), g.outputs))
+    return Graph(_topo(nodes, g.outputs), g.outputs)
+
+
+def _input_ancestors(g: Graph, nodes: List[Node]) -> Dict[str, frozenset]:
+    """Node name → the set of graph ``input`` nodes it transitively depends
+    on. Two nodes belong to the same microbatch *chain* iff these sets
+    intersect: merged microbatch fragments each hang off their own input
+    (``mb{i}.x``), so cross-chain sets are disjoint while a fork inside one
+    chain shares its input ancestor. ``nodes`` must be in topo order."""
+    anc: Dict[str, frozenset] = {}
+    for n in nodes:
+        if n.op == "input":
+            anc[n.name] = frozenset((n.name,))
+            continue
+        s = frozenset()
+        for v in n.inputs:
+            p = g.node_producing(v)
+            if p is not None:
+                s |= anc[p.name]
+        anc[n.name] = s
+    return anc
+
+
+def asymmetric_candidates(g: Graph) -> List[Tuple[Node, Node]]:
+    """Every legal pass-3 pair of ``g``, ranked nearest-independent-first.
+
+    A candidate is a (gemm_rs, ag_gemm[_multi]) pair with no dependency path
+    either way AND disjoint ``input``-ancestor sets (the chain-id guard: the
+    overlap primitive runs its streams in lockstep, so two collectives fed
+    by the same microbatch's data — dependency-free only because of a fork —
+    must never pair). Ranking: topological distance, ties broken by earliest
+    topo position and then by node names — the greedy pass takes the head of
+    this list.
+
+    Cotangent-seed inputs (``d.*``) of a training graph rank
+    cross-direction pairs first in ``repro``; a forward graph has none, so
+    that key never separates two of its candidates."""
+    nodes = _topo(list(g.nodes), g.outputs)
+    order = {n.name: i for i, n in enumerate(nodes)}
+    chain = _input_ancestors(g, nodes)
+    seeds = frozenset(n.name for n in nodes
+                      if n.op == "input" and n.name.startswith(_D_PREFIX))
+
+    def is_bwd(name: str) -> bool:
+        return bool(chain[name] & seeds)
+
+    cands = []
+    for a in nodes:
+        if a.op != "gemm_rs":
+            continue
+        for b in nodes:
+            if b.op not in ("ag_gemm", "ag_gemm_multi") or b.name == a.name:
+                continue
+            if chain[a.name] & chain[b.name]:
+                continue
+            if g.reaches(a.name, b.name) or g.reaches(b.name, a.name):
+                continue
+            key = (0 if seeds and is_bwd(a.name) != is_bwd(b.name) else 1,
+                   abs(order[a.name] - order[b.name]),
+                   min(order[a.name], order[b.name]), a.name, b.name)
+            cands.append((key, a, b))
+    cands.sort(key=lambda t: t[0])
+    return [(a, b) for _, a, b in cands]
+
+
+def apply_pair(g: Graph, a: Node, b: Node) -> Graph:
+    """Fuse one (gemm_rs, ag_gemm[_multi]) candidate into ``overlap_asym``."""
+    fused = Node(f"{a.name}+{b.name}", "overlap_asym",
+                 a.inputs + b.inputs, a.weights + b.weights,
+                 outputs=(a.name,) + b.outputs)
+    nodes = [x for x in g.nodes if x.name not in (a.name, b.name)]
+    nodes.append(fused)
+    return Graph(_topo(nodes, g.outputs), g.outputs)
+
+
+def pair_asymmetric(g: Graph) -> Graph:
+    """Pass 3: co-schedule independent gemm_rs + ag_gemm[_multi] pairs so
+    their complementary ring directions share the links each step (e.g. one
+    microbatch's FFN-out RS against another's attention-in gather).
+
+    Deterministic, nearest-independent-pair-first: fuse the head of
+    :func:`asymmetric_candidates` and repeat until no independent pair
+    remains, so a merged microbatch/period graph co-schedules the *adjacent*
+    seam rather than an arbitrary first match."""
+    cands = asymmetric_candidates(g)
+    if not cands:
+        return Graph(_topo(list(g.nodes), g.outputs), g.outputs)
+    return pair_asymmetric(apply_pair(g, *cands[0]))
+
+
+def optimize(g: Graph, asymmetric: bool = True, planner=None) -> Graph:
+    """Run passes 1 → 1b → 2 → 3. Pass 3 takes the greedy policy
+    (``planner`` None or ``"greedy"``); the perfsim planner is ROADMAP A13
+    and raises."""
+    if planner not in (None, "greedy"):
+        raise NotImplementedError(f"pass-3 planner {planner!r} is not ported "
+                                  "yet (ROADMAP A13); use 'greedy'")
+    g = fuse_compute_aware(g)
+    g = fuse_shared_gather(g)
+    g = fuse_sublayer_chain(g)
+    if asymmetric:
+        g = pair_asymmetric(g)
+    return g
+
+
+def _topo(nodes: List[Node], outputs) -> List[Node]:
+    """Stable topological order by value availability.
+
+    Raises :class:`GraphError` naming the offending node/value on duplicate
+    producers, unknown graph outputs, inputs with no producer, or cycles."""
+    produced: Dict[str, str] = {}
+    for n in nodes:
+        for v in n.outputs:
+            if v in produced and produced[v] != n.name:
+                raise GraphError(
+                    f"value {v!r} is produced by both node {produced[v]!r} "
+                    f"and node {n.name!r}")
+            produced[v] = n.name
+    for o in outputs:
+        if o not in produced:
+            raise GraphError(
+                f"graph output {o!r} is not produced by any node")
+    avail = set()
+    ordered = [n for n in nodes if n.op == "input"]
+    for n in ordered:
+        avail |= set(n.outputs)
+    pending = [n for n in nodes if n.op != "input"]
+    while pending:
+        ready = [n for n in pending if all(v in avail for v in n.inputs)]
+        if not ready:
+            # stalled — diagnose: a consumed value nobody produces, or a cycle
+            for n in pending:
+                missing = [v for v in n.inputs if v not in produced]
+                if missing:
+                    raise GraphError(
+                        f"node {n.name!r} consumes value {missing[0]!r}, "
+                        f"which no node produces")
+            cyc = ", ".join(sorted(n.name for n in pending))
+            raise GraphError(
+                f"cycle in dataflow graph involving nodes: {cyc}")
+        ready_ids = {id(n) for n in ready}
+        for n in ready:
+            ordered.append(n)
+            avail |= set(n.outputs)
+        pending = [n for n in pending if id(n) not in ready_ids]
+    return ordered
+
+
+# ---------------------------------------------------------------------------
+# Executor
+# ---------------------------------------------------------------------------
+
+
+
+# ---------------------------------------------------------------------------
+# Executor
+# ---------------------------------------------------------------------------
+
+
+def execute(g: Graph, values: Dict[str, torch.Tensor],
+            weights: Dict[str, torch.Tensor], group=None,
+            cais: CAISConfig = CAISConfig(), norm: str = "rmsnorm",
+            backend=None):
+    """Evaluate the graph. With ``group`` (a
+    :class:`repro_torch.sharding.TPGroup`) the values and weights are this
+    rank's local shards per the layout conventions, and every fused
+    collective op dispatches through ``backend`` (an instance or registry
+    name, default ``"cais"``). Without it, collectives degenerate to the
+    identity and plain math (the single-device reference). Every GEMM goes
+    through :func:`repro_torch.kernels.ops.matmul`."""
+    from repro_torch.core.backends import get_backend
+    from repro_torch.models.layers import apply_norm
+
+    env = dict(values)
+    dist = group is not None
+    be = get_backend(backend if backend is not None else "cais")
+
+    def seam(ins, w1, scale):
+        """The single-device reference of a fused RS→(+res)→LN seam."""
+        z = mm(ins[0], w1)
+        if len(ins) > 1:
+            z = z + ins[1]
+        return apply_norm(norm, z, scale), z
+
+    for n in g.nodes:
+        if n.op == "input":
+            continue
+        ins = [env[v] for v in n.inputs]
+        ws = [weights[k] for k in n.weights]
+        if n.op in ("gemm_col", "gemm_row"):
+            env[n.name] = mm(ins[0], ws[0])
+        elif n.op == "allgather":
+            env[n.name] = group.all_gather(ins[0], 1) if dist else ins[0]
+        elif n.op == "reduce_scatter":
+            env[n.name] = group.reduce_scatter(ins[0], 1) if dist else ins[0]
+        elif n.op == "allreduce":
+            env[n.name] = group.all_reduce(ins[0]) if dist else ins[0]
+        elif n.op == "layernorm":
+            env[n.name] = apply_norm(norm, ins[0], ws[0])
+        elif n.op in ("add", "residual"):
+            env[n.name] = ins[0] + ins[1]
+        elif n.op in _FN_OPS:
+            res = n.fn(*ins, *ws)
+            if len(n.outputs) > 1:
+                for name, val in zip(n.outputs, res):
+                    env[name] = val
+            else:
+                env[n.outputs[0]] = res
+        elif n.op == "a2a_ffn":
+            raise NotImplementedError("the expert all-to-all (a2a_ffn) is "
+                                      "not ported yet (ROADMAP A10)")
+        elif n.op == "ag_gemm":
+            env[n.name] = (be.ag_gemm(ins[0], ws[0], group, cais)
+                           if dist else mm(ins[0], ws[0]))
+        elif n.op == "ag_gemm_multi":
+            outs = (be.ag_gemm_multi(ins[0], tuple(ws), group, cais)
+                    if dist else tuple(mm(ins[0], w) for w in ws))
+            for name, val in zip(n.outputs, outs):
+                env[name] = val
+        elif n.op == "gemm_rs":
+            env[n.name] = (be.gemm_rs(ins[0], ws[0], group, cais)
+                           if dist else mm(ins[0], ws[0]))
+        elif n.op == "gemm_ar":
+            env[n.name] = (be.gemm_ar(ins[0], ws[0], group, cais)
+                           if dist else mm(ins[0], ws[0]))
+        elif n.op in ("fused_rs_ln_ag", "fused_rs_ln_ag_multi"):
+            w1, scale, ws2 = ws[0], ws[1], tuple(ws[2:])
+            res = ins[1] if len(ins) > 1 else None
+            if dist and n.op == "fused_rs_ln_ag":
+                out, z = be.fused_rs_ln_ag(ins[0], w1, scale, ws2[0], group,
+                                           cais, norm=norm, residual=res)
+                outs = (out,)
+            elif dist:
+                outs, z = be.fused_rs_ln_ag_multi(ins[0], w1, scale, ws2,
+                                                  group, cais, norm=norm,
+                                                  residual=res)
+            else:
+                zn, z = seam(ins, w1, scale)
+                outs = tuple(mm(zn, w) for w in ws2)
+            for name, val in zip(n.outputs, tuple(outs) + (z,)):
+                env[name] = val
+        elif n.op == "fused_rs_ln":
+            w1, scale = ws
+            res = ins[1] if len(ins) > 1 else None
+            if dist:
+                zn, z = be.fused_rs_ln(ins[0], w1, scale, group, cais,
+                                       norm=norm, residual=res)
+            else:
+                zn, z = seam(ins, w1, scale)
+            env[n.outputs[0]], env[n.outputs[1]] = zn, z
+        elif n.op == "overlap_asym":
+            w_rs, ag_ws = ws[0], tuple(ws[1:])
+            if dist:
+                rs_out, ag_out = be.overlap_asymmetric(
+                    (ins[0], w_rs),
+                    (ins[1], ag_ws if len(ag_ws) > 1 else ag_ws[0]),
+                    group, cais)
+                ag_outs = ag_out if len(ag_ws) > 1 else (ag_out,)
+            else:
+                rs_out = mm(ins[0], w_rs)
+                ag_outs = tuple(mm(ins[1], w) for w in ag_ws)
+            for name, val in zip(n.outputs, (rs_out,) + tuple(ag_outs)):
+                env[name] = val
+        elif n.op in ("bwd_ag_gemm", "bwd_a2a_ffn"):
+            raise NotImplementedError(f"backward op {n.op!r} is not ported "
+                                      "yet (ROADMAP A8)")
+        else:
+            raise ValueError(n.op)
+    return tuple(env[o] for o in g.outputs)
+
+
+
+# ---------------------------------------------------------------------------
+# Canonical sub-layer graphs (paper Fig. 12, L1–L4)
+# ---------------------------------------------------------------------------
+
+
+def sublayer_graph() -> Graph:
+    """[GEMM (row) → RS] → LN → [AG → GEMM (col)] — the L1–L4 shape:
+    e.g. L2 = second FFN layer → LayerNorm → input projection."""
+    return Graph(
+        nodes=[
+            Node("x", "input"),
+            Node("g1", "gemm_row", ("x",), ("w1",)),
+            Node("rs", "reduce_scatter", ("g1",)),
+            Node("ln", "layernorm", ("rs",), ("scale",)),
+            Node("ag", "allgather", ("ln",)),
+            Node("g2", "gemm_col", ("ag",), ("w2",)),
+        ],
+        outputs=("g2",),
+    )
+
+
+def merge_graphs(graphs: Sequence[Graph],
+                 prefixes: Optional[Sequence[str]] = None,
+                 share_weights: bool = False) -> Graph:
+    """Disjoint union of several graphs with value/node renaming — e.g. two
+    microbatches of the same transformer block, or consecutive *different*
+    blocks of a period, so cross-graph passes (``pair_asymmetric``) can
+    co-schedule collectives across them.
+
+    Weight keys are prefixed exactly like values by default, so merging
+    graphs of different blocks cannot silently alias ``wq``/``w_up``/…
+    across blocks. Pass ``share_weights=True`` for the same-params
+    microbatch case: weight keys are left unrenamed and every merged copy
+    reads one shared weights dict. Duplicate prefixes would make the
+    renaming collide (unintended weight-key/value aliasing) and raise
+    :class:`GraphError` up front."""
+    if prefixes is None:
+        prefixes = [f"mb{i}." for i in range(len(graphs))]
+    if len(prefixes) != len(graphs):
+        raise GraphError(
+            f"merge_graphs got {len(graphs)} graphs but "
+            f"{len(prefixes)} prefixes")
+    if len(set(prefixes)) != len(prefixes):
+        dup = sorted(p for p in set(prefixes) if list(prefixes).count(p) > 1)
+        raise GraphError(
+            f"merge_graphs got duplicate prefix {dup[0]!r}: node and weight "
+            f"renaming would collide across the merged graphs")
+    nodes: List[Node] = []
+    outs: List[str] = []
+    for g, p in zip(graphs, prefixes):
+        for n in g.nodes:
+            nodes.append(dataclasses.replace(
+                n, name=p + n.name,
+                inputs=tuple(p + v for v in n.inputs),
+                outputs=tuple(p + v for v in n.outputs),
+                weights=(n.weights if share_weights
+                         else tuple(p + w for w in n.weights))))
+        outs.extend(p + o for o in g.outputs)
+    return Graph(nodes, tuple(outs))
+
+
+def dual_sublayer_graph() -> Graph:
+    """Two independent sub-chains (e.g. two microbatches / fwd+bwd): the
+    optimizer pairs the RS of one with the AG-GEMM of the other."""
+    return Graph(
+        nodes=[
+            Node("xa", "input"),
+            Node("xb", "input"),
+            Node("ga", "gemm_row", ("xa",), ("wa",)),
+            Node("rsa", "reduce_scatter", ("ga",)),
+            Node("agb", "allgather", ("xb",)),
+            Node("gb", "gemm_col", ("agb",), ("wb",)),
+        ],
+        outputs=("rsa", "gb"),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Backward: training graphs (declared adjoints per fused forward op)
+# ---------------------------------------------------------------------------
+#
+# build_training_graph takes a forward graph that has been through passes
+# 1/1b/2 (NOT pass 3 — overlap_asym has no adjoint; the caller runs pass 3
+# on the *merged* result so it can pair forward against backward
+# collectives) and appends adjoint nodes in reverse topological order. The
+# builder works at the fused-op level on purpose: pass 2 re-exposes every
+# activation the adjoints need (z, the normed value is recomputable from z,
+# q/k/v/o/h are plain graph values), whereas differentiating the primitive
+# graph would hang extra non-gemm consumers off every allgather and block
+# passes 1b/2 from fusing the forward at all.
+#
+# Derived weight keys: adjoints reference transposed (and, for shared
+# gathers, concatenated) forward weights as new keys ``"w^T"`` /
+# ``"wa+wb^T"``. These are *local-shard* transforms — the transpose of a
+# column shard IS that device's shard of the row-sharded transpose — so
+# :func:`derived_weights` materializes them inside shard_map from the local
+# forward shards, with no extra mesh arguments.

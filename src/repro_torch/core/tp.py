@@ -1,0 +1,478 @@
+"""Tensor-parallel period execution on a :class:`repro_torch.sharding.TPGroup`.
+
+Counterpart of the dense training-forward part of ``repro/core/tp.py``.
+Every block of a ``cfg.layer_pattern`` period is built into ONE dataflow
+graph (:mod:`repro_torch.core.dataflow`), optimized (passes 1/1b/2/3) and
+executed on this rank, every fused collective dispatched through a
+:class:`repro_torch.core.backends.CollectiveBackend`. With ≥2 blocks pass 2
+fuses the block→block seams; ``num_microbatches`` splits the batch into
+independent chains merged into the same graph, which gives pass 3 the
+cross-chain pairs it turns into ``overlap_asym``.
+
+Each rank holds only its shard of each TP weight (:func:`param_shard_dim`):
+QKV and up/gate by columns, the out and down projections by rows, norms
+replicated; K/V replicate when ``num_kv_heads % tp != 0``. Activations
+between periods are sequence-sharded (B, S/tp, d).
+
+Not here yet: the MoE period (ROADMAP A10), the replicated-activation
+decode/ragged layout (A11), the serving period (A12), the perfsim planner
+(A13) and the graph-built backward (A8: ``graph_backward`` is kept on the
+config and read by nothing until then).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Sequence, Union
+
+import torch
+
+from repro_torch.core import coordination
+from repro_torch.core import dataflow as df
+from repro_torch.core import primitives as prim
+from repro_torch.core.backends import (CAISBackend, CollectiveBackend,
+                                       get_backend)
+from repro_torch.core.primitives import CAISConfig
+from repro_torch.hw import H100, HWSpec
+from repro_torch.sharding import TPGroup
+
+
+@dataclass(frozen=True)
+class TPContext:
+    """Group + collective backend + chunking config for explicit TP.
+
+    ``backend`` may be a registry name or a :class:`CollectiveBackend`
+    instance. ``num_microbatches`` is the period-graph batch split (int, or
+    ``"auto"`` to size it from the α-β model via
+    :func:`repro_torch.core.coordination.plan_microbatches`). ``hw`` is the
+    α-β target the planners read (the H100 by default)."""
+
+    group: TPGroup
+    backend: Union[str, CollectiveBackend] = "cais"
+    cais: CAISConfig = CAISConfig()
+    num_microbatches: Union[int, str] = 1
+    planner: str = "greedy"
+    hw: HWSpec = H100
+    graph_backward: bool = True
+
+    def __post_init__(self):
+        object.__setattr__(self, "backend", get_backend(self.backend))
+        if self.planner != "greedy":
+            raise NotImplementedError(f"planner {self.planner!r} is not "
+                                      "ported yet (ROADMAP A13)")
+        if self.cais.hw is None:
+            object.__setattr__(
+                self, "cais", dataclasses.replace(self.cais, hw=self.hw))
+
+    @classmethod
+    def from_config(cls, tp, group: TPGroup, hw: HWSpec = H100
+                    ) -> "TPContext":
+        """The construction path from :class:`repro_torch.runtime.TPConfig`
+        to an execution context."""
+        return cls(group=group, backend=tp.mode,
+                   cais=CAISConfig(num_chunks=tp.chunks,
+                                   bidirectional=tp.bidirectional),
+                   num_microbatches=tp.microbatches, planner=tp.planner,
+                   hw=hw, graph_backward=tp.graph_backward)
+
+    @property
+    def mode(self) -> str:
+        return self.backend.name
+
+    @property
+    def tp(self) -> int:
+        return self.group.size
+
+    @property
+    def route_ring(self) -> int:
+        """The expert-sharding ring: the whole (flat) TP ring."""
+        return self.tp
+
+
+@dataclass(frozen=True)
+class SPOptions:
+    """Keyword options of the ``sp_*`` entry points (``opts=SPOptions(...)``
+    or the fields as direct keywords). ``prefix_len`` (prefix-LM) and
+    ``seq_sharded=False`` (the decode/ragged layout, ROADMAP A11) are not
+    ported yet and raise; JAX's ``window`` belongs to the per-sub-layer
+    ``sp_attention``, which is not ported."""
+
+    prefix_len: int = 0
+    norm_kind: str = "rmsnorm"
+    seq_sharded: bool = True
+    num_microbatches: Union[int, str, None] = None
+
+
+def _sp_opts(opts: Optional[SPOptions], legacy: dict) -> SPOptions:
+    """Fold direct-keyword options into an :class:`SPOptions`."""
+    opts = opts if opts is not None else SPOptions()
+    if legacy:
+        bad = sorted(set(legacy) - set(SPOptions.__dataclass_fields__))
+        if bad:
+            raise TypeError(f"unknown sp_* option {bad[0]!r}")
+        opts = dataclasses.replace(opts, **legacy)
+    return opts
+
+
+# ---------------------------------------------------------------------------
+# Weight sharding
+# ---------------------------------------------------------------------------
+
+
+def param_shard_dim(name: str, cfg, tp: int) -> Optional[int]:
+    """The dimension along which parameter ``name`` (a key of the port's
+    ``LM`` state dict) is split over a TP ring of ``tp``, or None where it
+    is replicated: the specs of the period-graph fragment, ``(None, M)``
+    columns for wq/wk/wv/w_up/w_gate, ``(M, None)`` rows for wo/w_down."""
+    if tp <= 1 or not name.startswith("blocks."):
+        return None
+    leaf = name.split(".", 2)[2]
+    if leaf in ("mixer.wq", "ffn.w_up", "ffn.w_gate"):
+        return 1
+    if leaf in ("mixer.wk", "mixer.wv"):
+        return 1 if cfg.num_kv_heads % tp == 0 else None
+    if leaf in ("mixer.wo", "ffn.w_down"):
+        return 0
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Block graph fragments
+# ---------------------------------------------------------------------------
+
+
+def _ffn_chain_nodes(src: str, out: str, has_gate: bool, act: str,
+                     tag: str = "", p: str = "") -> list:
+    """AG → GEMM(up[, gate]) → act[(·)] → GEMM(down) → RS nodes from value
+    ``src`` to value ``out``; ``tag`` uniquifies node names inside a larger
+    graph and ``p`` namespaces node names and weight keys."""
+    from repro_torch.models.layers import activation
+
+    ag, up, gate, h, down = (f"{p}agx{tag}", f"{p}up{tag}", f"{p}gate{tag}",
+                             f"{p}h{tag}", f"{p}down{tag}")
+    nodes = [df.Node(ag, "allgather", (src,)),
+             df.Node(up, "gemm_col", (ag,), (p + "w_up",))]
+    if has_gate:
+        nodes.append(df.Node(gate, "gemm_col", (ag,), (p + "w_gate",)))
+        nodes.append(df.Node(h, "custom", (up, gate),
+                             fn=lambda u, g: activation(act, g) * u))
+    else:
+        nodes.append(df.Node(h, "custom", (up,),
+                             fn=lambda u: activation(act, u)))
+    nodes += [df.Node(down, "gemm_row", (h,), (p + "w_down",)),
+              df.Node(out, "reduce_scatter", (down,))]
+    return nodes
+
+
+def _attention_block_nodes(core_fn: Callable, p: str = "",
+                           src: str = "x") -> list:
+    """src → LN1 → AG → QKV → core → out-GEMM → RS → +src residual (value
+    ``{p}r1``)."""
+    return [
+        df.Node(f"{p}ln1", "layernorm", (src,), (f"{p}scale1",)),
+        df.Node(f"{p}agx1", "allgather", (f"{p}ln1",)),
+        df.Node(f"{p}q", "gemm_col", (f"{p}agx1",), (f"{p}wq",)),
+        df.Node(f"{p}k", "gemm_col", (f"{p}agx1",), (f"{p}wk",)),
+        df.Node(f"{p}v", "gemm_col", (f"{p}agx1",), (f"{p}wv",)),
+        df.Node(f"{p}o", "custom", (f"{p}q", f"{p}k", f"{p}v"), fn=core_fn),
+        df.Node(f"{p}proj", "gemm_row", (f"{p}o",), (f"{p}wo",)),
+        df.Node(f"{p}rs1", "reduce_scatter", (f"{p}proj",)),
+        df.Node(f"{p}r1", "residual", (f"{p}rs1", src)),
+    ]
+
+
+def _dense_block_nodes(core_fn: Callable, has_gate: bool, act: str,
+                       p: str = "", src: str = "x"):
+    """One dense block as a graph fragment: returns (nodes, out_value)."""
+    nodes = _attention_block_nodes(core_fn, p, src) + [
+        df.Node(f"{p}ln2", "layernorm", (f"{p}r1",), (f"{p}scale2",)),
+    ] + _ffn_chain_nodes(f"{p}ln2", f"{p}rs2", has_gate, act, tag="2",
+                         p=p) + [
+        df.Node(f"{p}r2", "residual", (f"{p}rs2", f"{p}r1")),
+    ]
+    return nodes, f"{p}r2"
+
+
+def dense_block_graph(core_fn: Callable, has_gate: bool, act: str
+                      ) -> df.Graph:
+    """One Graph for a whole dense transformer block; after ``optimize()``
+    the attention-out RS, residual, LN2 and FFN-in gather are one
+    ``fused_rs_ln_ag[_multi]`` (pass 2)."""
+    nodes, out = _dense_block_nodes(core_fn, has_gate, act)
+    return df.Graph([df.Node("x", "input")] + nodes, outputs=(out,))
+
+
+def dense_period_graph(core_fns: Sequence[Callable], has_gate: bool,
+                       act: str) -> df.Graph:
+    """One Graph for a PERIOD of dense blocks (one core_fn per block),
+    chained through per-block ``b{i}.`` namespaces, so pass 2 also fuses
+    the block→block seams."""
+    nodes = [df.Node("x", "input")]
+    src = "x"
+    for i, core_fn in enumerate(core_fns):
+        ns, src = _dense_block_nodes(core_fn, has_gate, act, p=f"b{i}.",
+                                     src=src)
+        nodes += ns
+    return df.Graph(nodes, outputs=(src,))
+
+
+def _attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
+                       ) -> Callable:
+    """The local attention math (rope, KV head slicing, the flash core,
+    head reshape) as the closure of a ``custom`` node. q/k/v arrive
+    gathered over the full sequence with this rank's heads; with replicated
+    KV the rank slices the kv heads its q heads use (head sharding is
+    contiguous)."""
+    from repro_torch.models.attention import attention_core
+    from repro_torch.models.layers import apply_rope
+
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    kv_sharded = Hkv % tp == 0
+
+    def core(q, k, v):
+        B_, S = q.shape[0], q.shape[1]
+        H_loc = max(H // tp, 1)
+        Hkv_loc = max(Hkv // tp, 1) if kv_sharded else Hkv
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=q.device).expand(B_, S).contiguous()
+        q = apply_rope(q.reshape(B_, S, H_loc, dh), pos, cfg.rope_theta)
+        k = apply_rope(k.reshape(B_, S, Hkv_loc, dh), pos, cfg.rope_theta)
+        v = v.reshape(B_, S, Hkv_loc, dh)
+        if not kv_sharded:
+            g = H // Hkv                    # q heads per kv head
+            need = max(H_loc // g, 1)
+            start = (rank * H_loc) // g
+            k = k[:, :, start:start + need].contiguous()
+            v = v[:, :, start:start + need].contiguous()
+        o = attention_core(q, k, v, q_positions=pos, kv_positions=pos,
+                           causal=True, window=window)
+        return o.reshape(B_, S, H_loc * dh)
+
+    return core
+
+
+def _block_graph_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
+                          src: str, dtype=torch.float32):
+    """One dense block (a :class:`repro_torch.models.transformer.Block`
+    holding this rank's shards) as a period-graph fragment: nodes chained
+    from value ``src``, every node name and weight key namespaced
+    ``b{idx}.``. Returns (nodes, out_value, weights)."""
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE period graphs are not ported yet "
+                                  "(ROADMAP A10)")
+    p = f"b{idx}."
+    m, f = params.mixer, params.ffn
+    window = cfg.window if kind == "swa" else 0
+    core = _attention_core_fn(cfg, tpc.tp, window=window,
+                              rank=tpc.group.rank)
+    weights = {
+        p + "scale1": params.norm1.scale.to(dtype),
+        p + "wq": m.wq.to(dtype), p + "wk": m.wk.to(dtype),
+        p + "wv": m.wv.to(dtype), p + "wo": m.wo.to(dtype),
+        p + "scale2": params.norm2.scale.to(dtype),
+        p + "w_up": f.w_up.to(dtype), p + "w_gate": f.w_gate.to(dtype),
+        p + "w_down": f.w_down.to(dtype),
+    }
+    nodes, out = _dense_block_nodes(core, True, cfg.act, p=p, src=src)
+    return nodes, out, weights
+
+
+def _period_graph(tpc: TPContext, params_seq, cfg, kinds: Sequence[str],
+                  dtype=torch.float32):
+    """The single-chain period graph :func:`sp_period` executes: every block
+    chained through per-block ``b{i}.`` namespaces from input ``x``.
+    Returns (graph, weights dict)."""
+    nodes = [df.Node("x", "input")]
+    weights: Dict[str, torch.Tensor] = {}
+    src = "x"
+    for i, (params, kind) in enumerate(zip(params_seq, kinds)):
+        ns, src, w = _block_graph_fragment(tpc, params, cfg, kind, i, src,
+                                           dtype=dtype)
+        nodes += ns
+        weights.update(w)
+    return df.Graph(nodes, outputs=(src,)), weights
+
+
+def microbatch_period_graph(base: df.Graph, num_microbatches: int
+                            ) -> df.Graph:
+    """``num_microbatches`` copies of a single-chain period graph merged
+    into ONE graph (``mb{i}.``-prefixed values, SHARED weight keys);
+    ``num_microbatches=1`` returns ``base`` unchanged."""
+    if num_microbatches <= 1:
+        return base
+    return df.merge_graphs([base] * num_microbatches, share_weights=True)
+
+
+def resolve_microbatches(tpc: TPContext, x: torch.Tensor,
+                         requested: Union[int, str, None] = None,
+                         moe: bool = False) -> int:
+    """The effective period-graph batch split for this rank's activation
+    ``x`` ((B, S/tp, d), sequence-sharded). ``requested=None`` defers to
+    ``tpc.num_microbatches``; ``"auto"`` asks
+    :func:`repro_torch.core.coordination.plan_microbatches` with the batch
+    and the full gathered-activation payload. The result is clamped to the
+    largest value that divides the batch (1 = unsplit); ``"auto"`` never
+    splits an MoE period."""
+    req = tpc.num_microbatches if requested is None else requested
+    b_loc = max(int(x.shape[0]), 1)
+    if req == "auto":
+        if moe:
+            return 1
+        payload = b_loc * int(x.shape[1]) * tpc.tp * int(x.shape[2]) * \
+            x.element_size()
+        mb = coordination.plan_microbatches(
+            b_loc, float(payload), tpc.tp,
+            bidirectional=tpc.cais.bidirectional, hw=tpc.hw)
+    else:
+        mb = int(req)
+    mb = max(1, min(mb, b_loc))
+    while b_loc % mb:
+        mb -= 1
+    return mb
+
+
+def _core_comp_hints(cfg, kinds: Sequence[str], batch: int, seq: int
+                     ) -> Dict[str, float]:
+    """Planner ``comp_hints`` of a single-chain period graph: the FLOPs of
+    each attention core (``b{i}.o``), which the lowering cannot read off
+    GEMM weight shapes. Read by the perfsim planner (ROADMAP A13)."""
+    from repro_torch.models.counting import attention_core_flops
+
+    flops = attention_core_flops(cfg, batch, seq)
+    return {f"b{i}.o": flops for i in range(len(kinds))}
+
+
+def _plan_period(tpc: TPContext, base: df.Graph, weights, x,
+                 requested: Union[int, str, None], moe: bool,
+                 comp_hints: Optional[Dict[str, float]] = None):
+    """The (num_microbatches, pass-3 planner) decision for one period graph:
+    the greedy policy's α-β split and nearest-first pairing (planner
+    None)."""
+    return resolve_microbatches(tpc, x, requested, moe), None
+
+
+def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
+              kinds: Sequence[str], *, opts: Optional[SPOptions] = None,
+              **kw):
+    """A whole ``layer_pattern`` period — every block in ``kinds`` with this
+    rank's shards from ``params_seq`` — built as ONE dataflow graph,
+    optimized, and executed on this rank.
+
+    ``num_microbatches`` (default: the :class:`TPContext` knob) splits the
+    batch into that many independent chains merged into the same graph with
+    shared weights; the outputs are concatenated back. x: (B, S/tp, d)
+    sequence-sharded. Returns (period output (B, S/tp, d), aux loss), the
+    aux loss 0 for dense periods."""
+    o = _sp_opts(opts, kw)
+    if not o.seq_sharded:
+        raise NotImplementedError("the replicated-activation decode/ragged "
+                                  "layout is not ported yet (ROADMAP A11)")
+    if o.prefix_len:
+        raise NotImplementedError("prefix-LM attention is not ported yet "
+                                  "(VLM family, ROADMAP A15)")
+    base, weights = _period_graph(tpc, params_seq, cfg, kinds,
+                                  dtype=x.dtype)
+    hints = _core_comp_hints(cfg, kinds, int(x.shape[0]),
+                             int(x.shape[1]) * tpc.tp)
+    mb, planner = _plan_period(tpc, base, weights, x, o.num_microbatches,
+                               moe=False, comp_hints=hints)
+    graph = df.optimize(microbatch_period_graph(base, mb), planner=planner)
+    if mb == 1:
+        values = {"x": x}
+    else:
+        values = {f"mb{i}.x": xi
+                  for i, xi in enumerate(torch.chunk(x, mb, dim=0))}
+    res = df.execute(graph, values, weights, group=tpc.group, cais=tpc.cais,
+                     norm=o.norm_kind, backend=tpc.backend)
+    out = res[0] if mb == 1 else torch.cat(res, dim=0)
+    return out, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def sp_block(tpc: TPContext, x: torch.Tensor, params, cfg,
+             kind: str = "attn", *, opts: Optional[SPOptions] = None, **kw):
+    """A whole pre-norm block as a single-block period (:func:`sp_period`).
+    Returns (block output, aux loss)."""
+    return sp_period(tpc, x, (params,), cfg, (kind,),
+                     opts=_sp_opts(opts, kw))
+
+
+def sp_moe_ffn(*_, **__):
+    raise NotImplementedError("the MoE FFN over the TP ring is not ported "
+                              "yet (ROADMAP A10)")
+
+
+def sp_serve_period(*_, **__):
+    raise NotImplementedError("serving over a TP ring is not ported yet "
+                              "(ROADMAP A12)")
+
+
+def tp_applicable(cfg, kind: str, tp: int,
+                  route_ring: Optional[int] = None) -> bool:
+    """Whether the explicit-backend path takes this sub-layer: Q-head and
+    feature divisibility (KV heads may replicate)."""
+    if kind in ("attn", "swa"):
+        return cfg.num_heads % tp == 0 and cfg.norm == "rmsnorm"
+    if kind == "ffn":
+        return cfg.moe is None and cfg.d_ff > 0 and cfg.d_ff % tp == 0 \
+            and cfg.norm == "rmsnorm"
+    if kind == "moe":
+        ring = tp if route_ring is None else route_ring
+        return cfg.moe is not None and cfg.norm == "rmsnorm" and \
+            cfg.moe.num_experts % ring == 0
+    return False
+
+
+# ---------------------------------------------------------------------------
+# Matmul calls a period graph makes
+# ---------------------------------------------------------------------------
+
+
+def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
+                 d_model: int, itemsize: int) -> int:
+    """The matmul-kernel calls one rank makes executing the optimized
+    dense period ``graph``, derived from its nodes alone: ``batch`` is each
+    chain's batch, ``seq`` the full sequence, so every gathered activation
+    is (batch, seq, d_model) of ``itemsize`` bytes. ``barrier`` issues one
+    GEMM per weight; ``cais`` one per weight per micro-chunk per ring step on
+    the gather side and one per hop (two per hop bidirectionally) on the
+    reduce side."""
+    n = tpc.tp
+    s_loc = seq // n
+    if n == 1 or tpc.mode == "barrier":
+        def ag(k):
+            return k
+
+        def rs():
+            return 1
+    elif isinstance(tpc.backend, CAISBackend):
+        c = tpc.cais.num_chunks
+        if c is None:
+            c = CAISBackend.plan_chunks(batch * seq * d_model * itemsize, n,
+                                        tpc.cais.bidirectional, tpc.cais.hw)
+        c = prim._pick_chunks(s_loc, c)
+
+        def ag(k):
+            return n * c * k
+
+        def rs():
+            two = tpc.cais.bidirectional and n % 2 == 0 and s_loc % 2 == 0
+            return 2 * n if two else n
+    else:
+        raise ValueError(f"no call count for backend {tpc.mode!r}")
+    calls = 0
+    for node in graph.nodes:
+        k = len(node.weights)
+        if node.op in ("gemm_col", "gemm_row"):
+            calls += 1
+        elif node.op in ("ag_gemm", "ag_gemm_multi"):
+            calls += ag(k)
+        elif node.op in ("gemm_rs", "fused_rs_ln"):
+            calls += rs()
+        elif node.op in ("fused_rs_ln_ag", "fused_rs_ln_ag_multi"):
+            calls += rs() + ag(k - 2)
+        elif node.op == "overlap_asym":
+            calls += (1 + k - 1) if tpc.mode == "barrier" or n == 1 \
+                else n + n * (k - 1)
+        elif node.op == "gemm_ar":
+            calls += rs() if tpc.mode == "cais" else 1
+    return calls

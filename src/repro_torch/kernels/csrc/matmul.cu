@@ -1,0 +1,143 @@
+// Tiled matrix product for NVIDIA Hopper (sm_90a), bound to Python through a
+// plain C interface (ctypes; see repro_torch/kernels/matmul.py).
+//
+// Replaces: src/repro/kernels/matmul.py `_matmul_kernel` (the Pallas TPU
+// kernel): c (M, N) = a (M, K) @ b (K, N), every product and sum in f32, the
+// f32 accumulator written once in the output type at the end of the K loop.
+// On the port's tensor-parallel path it is every GEMM a ring schedule issues
+// (src/repro_torch/core/primitives.py): one call per arriving activation
+// chunk, per rotating-accumulator hop, and per barrier GEMM.
+//
+// Layout: a, b, c row-major and contiguous. Types: a and b both f32 or both
+// bf16; c f32 or bf16. bf16 inputs are widened to f32 as they land in shared
+// memory. No tensor cores and no TF32, so the f32 case is full f32 (FFMA).
+// Any M, N, K >= 1: the loads of the ragged edge tiles are guarded and
+// zero-filled, the stores guarded; the TPU kernel instead clipped its block
+// sizes to divisors of the shape.
+//
+// What bounds it on an H100, and what this simple design does about it: at
+// the ring's shapes (M = B * S_loc / chunks rows, K and N 256..8192) a
+// product does 2MNK operations on (MK + KN) + MN elements, far above the
+// card's ~295 operations per byte, so it is bound by operations. This
+// design computes on the f32 CUDA cores (67 TF/s, not the 989 TF/s of bf16
+// wgmma): a CTA of 256 threads holds a 64 x 64 tile of c, each thread a
+// 4 x 4 register tile at stride 16 (conflict-free shared-memory reads,
+// coalesced stores), over K in steps of 16 staged through shared memory.
+// Loads are not double-buffered. A TMA + wgmma pipeline is the later change
+// that moves the bound.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kBM = 64;         // rows of c per CTA
+constexpr int kBN = 64;         // columns of c per CTA
+constexpr int kBK = 16;         // depth of one shared-memory stage
+constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kPad = 4;         // keeps the transposed a-tile stores apart
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(kThreads)
+    matmul_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
+                  TOut* __restrict__ c, int M, int N, int K) {
+  __shared__ float As[kBK][kBM + kPad];   // a tile, transposed: As[k][m]
+  __shared__ float Bs[kBK][kBN + kPad];   // b tile: Bs[k][n]
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int m0 = blockIdx.y * kBM;
+  const int n0 = blockIdx.x * kBN;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    // each thread stages 4 elements of each tile (64 * 16 = 4 * 256)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int e = tid + r * kThreads;
+      const int am = e / kBK, ak = e % kBK;
+      const int gm = m0 + am, gk = k0 + ak;
+      As[ak][am] = (gm < M && gk < K) ? to_f32(a[(size_t)gm * K + gk]) : 0.f;
+      const int bk = e / kBN, bn = e % kBN;
+      const int gkb = k0 + bk, gn = n0 + bn;
+      Bs[bk][bn] = (gkb < K && gn < N) ? to_f32(b[(size_t)gkb * N + gn]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float ar[4], br[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ar[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) br[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty + 16 * i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + 16 * j;
+      if (col < N) store(&c[(size_t)row * N + col], acc[i][j]);
+    }
+  }
+}
+
+template <typename TIn, typename TOut>
+cudaError_t launch(const void* a, const void* b, void* c, int M, int N, int K,
+                   cudaStream_t stream) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  matmul_kernel<TIn, TOut><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TIn*>(a), static_cast<const TIn*>(b),
+      static_cast<TOut*>(c), M, N, K);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// in_dtype, out_dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t
+// (0 = launched).
+int matmul_fwd(const void* a, const void* b, void* c, int M, int N, int K,
+               int in_dtype, int out_dtype, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || (M + kBM - 1) / kBM > 65535 ||
+      (in_dtype != 0 && in_dtype != 1) || (out_dtype != 0 && out_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_dtype == 0)
+    return out_dtype == 0
+               ? (int)launch<float, float>(a, b, c, M, N, K, st)
+               : (int)launch<float, __nv_bfloat16>(a, b, c, M, N, K, st);
+  return out_dtype == 0
+             ? (int)launch<__nv_bfloat16, float>(a, b, c, M, N, K, st)
+             : (int)launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, M, N, K, st);
+}
+
+const char* matmul_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,11 +1,11 @@
 """Hopper flash attention: build, bind and launch ``csrc/flash_attention.cu``.
 
 The CUDA source is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface on first use (never at import), into
-``_build/`` beside this file, keyed by a hash of the source and the flags;
-``ctypes`` loads it. :func:`flash_attention` checks its inputs, allocates the
-output, launches on PyTorch's current stream and raises on any CUDA error the
-launch returns. ``launches`` counts the launches made.
+library with a plain C interface on first use (never at import; see
+:mod:`repro_torch.kernels.nvcc`); ``ctypes`` loads it.
+:func:`flash_attention` checks its inputs, allocates the output, launches on
+PyTorch's current stream and raises on any CUDA error the launch returns.
+``launches`` counts the launches made.
 
 Replaces ``repro/kernels/flash_attention.py::_flash_kernel``; the note at the
 top of the CUDA source says what bounds it and what the design does about it.
@@ -13,19 +13,15 @@ top of the CUDA source says what bounds it and what the design does about it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import nvcc
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -33,38 +29,10 @@ launches = 0        # kernel launches since the counter was last set to 0
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
-                           f"{SOURCE.name}")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def _library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libflash_attention_{digest}.so"
-
-
 def build() -> Path:
-    """Compile the kernel unless this source's library already exists.
-    Returns the library path; ``<path>.log`` holds nvcc's ``-Xptxas -v``
-    report (registers, shared memory, spills)."""
-    lib = _library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    Path(f"{lib}.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)     # atomic: concurrent builders never see half a file
-    return lib
+    """Compile the kernel unless this source's library already exists (see
+    :func:`repro_torch.kernels.nvcc.build`)."""
+    return nvcc.build(SOURCE)
 
 
 def _load() -> ctypes.CDLL:

@@ -12,7 +12,25 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import ref
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """a (M,K) @ b (K,N) -> (M,N) with an f32 accumulator, in ``out_dtype``
+    (default a's type). Both devices take only 2-D contiguous operands, so
+    the CPU tests hold callers to the kernel's layout."""
+    if a.dim() != 2 or b.dim() != 2 or not (a.is_contiguous()
+                                             and b.is_contiguous()):
+        raise ValueError("matmul takes 2-D contiguous operands; got "
+                         f"{tuple(a.shape)} {tuple(a.stride())} @ "
+                         f"{tuple(b.shape)} {tuple(b.stride())}")
+    if a.device.type == "cuda":
+        return _mm.matmul(a, b, out_dtype=out_dtype)
+    if a.device.type == "cpu":
+        return ref.matmul_ref(a, b, out_dtype)
+    raise ValueError(f"no matmul for device {a.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the port's kernels: the CPU path of
 :mod:`repro_torch.kernels.ops` and what the CUDA kernels are held against.
 
-Counterpart of ``repro/kernels/ref.py``, with one deliberate difference: the
-JAX oracle ``flash_attention_ref`` masks causally bottom-right
+Counterpart of ``repro/kernels/ref.py``, with one deliberate difference in
+attention: the JAX oracle ``flash_attention_ref`` masks causally bottom-right
 (``tril(k=Skv-Sq)``) while its Pallas kernel masks top-left; the two agree
 only for Sq == Skv. Here every mask comes from absolute positions, as the
 model's ``attention_core`` takes it, so the (BH, S, d) form below is the
@@ -16,6 +16,14 @@ from typing import Optional
 import torch
 
 NEG_INF = -2.3819763e38   # finite, as in the model: masked weights are exact 0
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """a (M,K) @ b (K,N) with f32 products and sums, cast to ``out_dtype``
+    (default a's type)."""
+    out_dtype = a.dtype if out_dtype is None else out_dtype
+    return (a.float() @ b.float()).to(out_dtype)
 
 
 def visible(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,

@@ -1,5 +1,5 @@
-"""GQA/MQA/sliding-window attention against paged KV pools — the serving
-path of ``repro/models/attention.py``.
+"""GQA/MQA/sliding-window attention: the whole-sequence forward and the
+paged serving path of ``repro/models/attention.py``.
 
 The attention core dispatches through :mod:`repro_torch.kernels.ops`: the
 Hopper flash-attention kernel for CUDA tensors, its plain PyTorch version for
@@ -103,19 +103,23 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 class Attention(nn.Module):
-    """GQA/MQA projections: wq (d, H·dh), wk/wv (d, Hkv·dh), wo (H·dh, d)."""
+    """GQA/MQA projections: wq (d, H·dh), wk/wv (d, Hkv·dh), wo (H·dh, d).
+    On a TP ring of ``tp`` ranks the module holds one rank's shards: wq and
+    wk/wv by columns (wk/wv whole when ``Hkv % tp != 0``), wo by rows
+    (:func:`repro_torch.core.tp.param_shard_dim`)."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, tp: int = 1):
         super().__init__()
         d, H = cfg.d_model, cfg.num_heads
         Hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+        kv_tp = tp if Hkv % tp == 0 else 1
         mk = lambda *s: nn.Parameter(
             torch.empty(s, dtype=dtype, device=device), requires_grad=False)
-        self.wq = mk(d, H * dh)
-        self.wk = mk(d, Hkv * dh)
-        self.wv = mk(d, Hkv * dh)
-        self.wo = mk(H * dh, d)
+        self.wq = mk(d, H * dh // tp)
+        self.wk = mk(d, Hkv * dh // kv_tp)
+        self.wv = mk(d, Hkv * dh // kv_tp)
+        self.wo = mk(H * dh // tp, d)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
@@ -132,6 +136,25 @@ def _project_qkv(params: Attention, x: torch.Tensor, cfg: ArchConfig,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attention_forward(params: Attention, x: torch.Tensor, cfg: ArchConfig,
+                      *, window: int = 0, prefix_len: int = 0,
+                      positions: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Training / prefill forward over a whole sequence, no cache.
+    x: (B, S, d); positions default to 0..S-1."""
+    if prefix_len:
+        raise NotImplementedError("prefix-LM attention is not ported yet "
+                                  "(VLM family, ROADMAP A15)")
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        positions = positions.expand(B, S).contiguous()
+    q, k, v = _project_qkv(params, x, cfg, positions, x.dtype)
+    o = attention_core(q, k, v, q_positions=positions,
+                       kv_positions=positions, causal=True, window=window)
+    return o.reshape(B, S, -1) @ params.wo.to(x.dtype)
 
 
 def attention_paged(params: Attention, x: torch.Tensor, pool: Pool,

@@ -34,10 +34,12 @@ def _dense_only(cfg: ArchConfig) -> None:
                                   "yet")
 
 
-def init_ffn(cfg: ArchConfig, dtype: torch.dtype,
-             device: torch.device) -> MLP:
+def init_ffn(cfg: ArchConfig, dtype: torch.dtype, device: torch.device,
+             tp: int = 1) -> MLP:
+    """The FFN parameters; on a TP ring of ``tp`` ranks one rank's shards
+    (w_up/w_gate by columns, w_down by rows)."""
     _dense_only(cfg)
-    return MLP(cfg.d_model, cfg.d_ff, dtype, device)
+    return MLP(cfg.d_model, cfg.d_ff // tp, dtype, device)
 
 
 def mlp_forward(params: MLP, x: torch.Tensor, act: str) -> torch.Tensor:

@@ -1,25 +1,36 @@
-"""Decoder-only LM assembled from an ArchConfig: the paged serving path of
-``repro/models/transformer.py``.
+"""Decoder-only LM assembled from an ArchConfig: the training forward and
+loss, and the paged serving path, of ``repro/models/transformer.py``.
 
 JAX scans the stack over pattern periods with parameters stacked per
 period; here the blocks are an ``nn.ModuleList`` in layer order and the
-stack is a Python loop (``repro_torch.bridge`` maps the stacked JAX layout
-onto it). On one device there is no TP context, so ``stack_step`` runs the
-per-block branch of JAX's ``_blocks_step`` for every layer. ``Block`` and
-``MLP`` construction take the place of ``init_block`` / ``init_mlp``.
+stack is a Python loop over periods (``repro_torch.bridge`` maps the stacked
+JAX layout onto it). ``Block`` and ``MLP`` construction take the place of
+``init_block`` / ``init_mlp``.
+
+On a TP ring (``LM(..., group=...)`` with more than one rank and an
+explicit backend in ``rt.tp.mode``) each rank holds its shards of the TP
+weights, the embedded activation is cut to this rank's sequence shard, every
+period runs as one dataflow graph (:func:`repro_torch.core.tp.sp_period`)
+and stays sequence-sharded between periods, and the loss's (sum, count) is
+all-reduced over the ring. On one device there is no TP context and every
+block takes the per-block path, as in JAX. Serving (``serve_step``) runs on
+one device only.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tp as tp_mod
+from repro_torch.core.backends import get_backend
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.layers import Norm, embed_init_, softcap
 from repro_torch.runtime import Runtime, resolve_device
+from repro_torch.sharding import TPGroup
 
 # ---------------------------------------------------------------------------
 # Blocks
@@ -35,22 +46,114 @@ class Block(nn.Module):
     ``kind`` is "attn" or "swa" (sliding window ``cfg.window``)."""
 
     def __init__(self, kind: str, cfg: ArchConfig, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, tp: int = 1):
         super().__init__()
         if kind not in ("attn", "swa"):
             raise NotImplementedError(f"{kind!r} blocks are not ported yet")
         self.kind = kind
         self.norm1 = Norm(cfg.norm, cfg.d_model, dtype, device)
-        self.mixer = attn.Attention(cfg, dtype, device)
+        self.mixer = attn.Attention(cfg, dtype, device, tp)
         self.norm2 = self.ffn = None
         if _has_ffn(cfg):
             self.norm2 = Norm(cfg.norm, cfg.d_model, dtype, device)
-            self.ffn = ffn_mod.init_ffn(cfg, dtype, device)
+            self.ffn = ffn_mod.init_ffn(cfg, dtype, device, tp)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.mixer.reset_parameters(generator)
         if self.ffn is not None:
             self.ffn.reset_parameters(generator)
+
+
+def _tp_context(rt: Runtime, group: Optional[TPGroup]
+                ) -> Optional[tp_mod.TPContext]:
+    """The TP execution context for ``group``, through the one
+    ``TPConfig → TPContext.from_config`` path; None on one device. The
+    ``auto`` backend (the compiler-scheduled reference in JAX; DTensor in
+    torch, ROADMAP A5) raises on a larger group instead of quietly computing
+    unsharded."""
+    if group is None or group.size <= 1:
+        return None
+    if not get_backend(rt.tp.mode).explicit:
+        raise NotImplementedError(
+            f"tp mode {rt.tp.mode!r} leaves scheduling to the framework; its "
+            "torch counterpart (DTensor) is not ported yet (ROADMAP A5): use "
+            "'barrier' or 'cais' on a TP group")
+    if not rt.tp.sequence_parallel:
+        raise NotImplementedError("TP without sequence parallelism is not "
+                                  "ported yet (ROADMAP A11)")
+    return tp_mod.TPContext.from_config(rt.tp, group)
+
+
+def _whole_block_applicable(cfg: ArchConfig, kind: str, tp: int,
+                            route_ring: Optional[int] = None) -> bool:
+    """Can this block run as ONE dataflow graph (attention AND FFN side
+    both explicit-TP-applicable)?"""
+    return (kind in ("attn", "swa") and tp_mod.tp_applicable(cfg, kind, tp)
+            and _has_ffn(cfg)
+            and (tp_mod.tp_applicable(cfg, "moe", tp, route_ring)
+                 or tp_mod.tp_applicable(cfg, "ffn", tp)))
+
+
+def block_forward(kind: str, params: Block, x: torch.Tensor,
+                  cfg: ArchConfig, tpc: Optional[tp_mod.TPContext] = None,
+                  prefix_len: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm residual block. Returns (x, aux_loss). On a TP ring the
+    whole block runs as one dataflow graph (``sp_block``) on this rank's
+    sequence shard; the per-sub-layer TP graphs JAX falls back to for a
+    block that is only partly TP-applicable are not ported."""
+    if tpc is not None:
+        if not _whole_block_applicable(cfg, kind, tpc.tp, tpc.route_ring):
+            raise NotImplementedError(
+                f"{cfg.name}: a {kind!r} block that is not whole-block "
+                f"TP-applicable at tp={tpc.tp} is not ported yet")
+        return tp_mod.sp_block(tpc, x, params, cfg, kind,
+                               prefix_len=prefix_len, norm_kind=cfg.norm)
+    window = cfg.window if kind == "swa" else 0
+    x = x + attn.attention_forward(params.mixer, params.norm1(x), cfg,
+                                   window=window, prefix_len=prefix_len)
+    if _has_ffn(cfg):
+        x = x + ffn_mod.ffn_forward(params.ffn, params.norm2(x), cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _blocks_forward(kinds: Sequence[str], blocks: Sequence[Block],
+                    x: torch.Tensor, cfg: ArchConfig,
+                    tpc: Optional[tp_mod.TPContext] = None,
+                    prefix_len: int = 0):
+    """Run consecutive blocks: on a TP ring, when every block is
+    whole-block TP-applicable, as ONE period-level dataflow graph
+    (``sp_period``); otherwise block by block."""
+    if (tpc is not None and len(blocks) > 0
+            and all(_whole_block_applicable(cfg, k, tpc.tp, tpc.route_ring)
+                    for k in kinds)):
+        return tp_mod.sp_period(tpc, x, list(blocks), cfg, kinds,
+                                prefix_len=prefix_len, norm_kind=cfg.norm)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, blk in zip(kinds, blocks):
+        x, a = block_forward(kind, blk, x, cfg, tpc, prefix_len)
+        aux = aux + a
+    return x, aux
+
+
+def stack_forward(blocks: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig,
+                  tpc: Optional[tp_mod.TPContext] = None,
+                  prefix_len: int = 0):
+    """The whole stack, one ``layer_pattern`` period at a time (JAX's
+    ``lax.scan`` over stacked periods), then the remainder layers."""
+    pattern = tuple(cfg.layer_pattern)
+    P = len(pattern)
+    n_full = cfg.num_layers // P
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in range(n_full):
+        x, a = _blocks_forward(pattern, blocks[p * P:(p + 1) * P], x, cfg,
+                               tpc, prefix_len)
+        aux = aux + a
+    rem = cfg.layer_kinds()[n_full * P:]
+    if rem:
+        x, a = _blocks_forward(rem, blocks[n_full * P:], x, cfg, tpc,
+                               prefix_len)
+        aux = aux + a
+    return x, aux
 
 
 def block_step(params: Block, x: torch.Tensor, pool: attn.Pool,
@@ -87,8 +190,46 @@ def init_stack_pools(cfg: ArchConfig, num_blocks: int, block_size: int,
 
 
 # ---------------------------------------------------------------------------
+# LM head / loss
+# ---------------------------------------------------------------------------
+
+
+def chunked_ce_loss(x: torch.Tensor, embed_or_head: torch.Tensor,
+                    labels: torch.Tensor, mask: torch.Tensor,
+                    cfg: ArchConfig, rt: Runtime, tied: bool,
+                    group: Optional[TPGroup] = None) -> torch.Tensor:
+    """Mean cross-entropy with logits computed per sequence chunk (bounds
+    the (B, chunk, V) logits). x: (B, S, d) — on a TP ring this rank's
+    sequence shard, with the matching slices of ``labels`` and ``mask``;
+    the (sum, count) pair is then all-reduced over ``group``."""
+    B, S, _ = x.shape
+    chunk = min(rt.loss_chunk, S)
+    while S % chunk:
+        chunk //= 2
+    w = embed_or_head.T if tied else embed_or_head    # (d, V)
+    w = w.to(x.dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, chunk):
+        logits = softcap((x[:, s0:s0 + chunk] @ w).float(),
+                         cfg.logits_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        yc = labels[:, s0:s0 + chunk].long()
+        gold = torch.gather(logits, -1, yc[..., None])[..., 0]
+        mc = mask[:, s0:s0 + chunk].float()
+        tot = tot + ((lse - gold) * mc).sum()
+        cnt = cnt + mc.sum()
+    if group is not None and group.size > 1:
+        tot, cnt = group.all_reduce(torch.stack([tot, cnt]))
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+# ---------------------------------------------------------------------------
 # LM — the top-level decoder-only model
 # ---------------------------------------------------------------------------
+
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 class LM(nn.Module):
@@ -98,25 +239,44 @@ class LM(nn.Module):
     ``rt.param_dtype``; activations run in ``rt.compute_dtype``. With
     ``seed`` set, the weights are drawn from a ``torch.Generator`` on that
     device; with ``seed=None`` they are left uninitialised, for a caller
-    that loads a state dict (``repro_torch.bridge``)."""
+    that loads a state dict (``repro_torch.bridge``). With a ``group`` of
+    more than one rank the model holds this rank's shards of the TP weights
+    (the same weights as the one-device model from the same seed)."""
 
     def __init__(self, cfg: ArchConfig, rt: Runtime = Runtime(), *,
-                 device=None, seed: Optional[int] = 0):
+                 device=None, seed: Optional[int] = 0,
+                 group: Optional[TPGroup] = None):
         super().__init__()
         device = resolve_device(device)
-        self.cfg, self.rt = cfg, rt
+        self.cfg, self.rt, self.group = cfg, rt, group
+        tp = self.tp
         dtype = rt.pdtype
         param = lambda *s: nn.Parameter(
             torch.empty(s, dtype=dtype, device=device), requires_grad=False)
         self.embed = param(cfg.vocab_size, cfg.d_model)
         self.blocks = nn.ModuleList(
-            Block(kind, cfg, dtype, device) for kind in cfg.layer_kinds())
+            Block(kind, cfg, dtype, device, tp) for kind in cfg.layer_kinds())
         self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
         self.lm_head = None if cfg.tie_embeddings \
             else param(cfg.d_model, cfg.vocab_size)
-        if seed is not None:
+        if seed is None:
+            return
+        if tp == 1:
             self.reset_parameters(
                 torch.Generator(device=device).manual_seed(seed))
+            return
+        # the same weights as the one-device model from this seed: draw them
+        # whole, keep this rank's shards
+        from repro_torch.bridge import shard_state_dict
+
+        full = LM(cfg, rt, device=device, seed=seed)
+        self.load_state_dict(shard_state_dict(full.state_dict(), cfg,
+                                              group.rank, tp))
+
+    @property
+    def tp(self) -> int:
+        """The TP ring size this model's weights are sharded over."""
+        return 1 if self.group is None else self.group.size
 
     @property
     def device(self) -> torch.device:
@@ -131,6 +291,51 @@ class LM(nn.Module):
 
     def _embed(self, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return self.embed[tokens.long()].to(dtype)
+
+    def _head(self) -> Tuple[torch.Tensor, bool]:
+        tied = self.cfg.tie_embeddings
+        return (self.embed if tied else self.lm_head), tied
+
+    # ----- training forward -----
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Hidden states after the final norm, and the aux loss. tokens:
+        (B, S) int, the whole sequence on every rank; on a TP ring the
+        result is this rank's sequence shard (B, S/tp, d)."""
+        tpc = _tp_context(self.rt, self.group)
+        x = self._embed(tokens, self.rt.dtype)
+        if tpc is not None:
+            x = x[:, self._seq_shard(x.shape[1])].contiguous()
+        x, aux = stack_forward(self.blocks, x, self.cfg, tpc)
+        return self.final_norm(x), aux
+
+    def _seq_shard(self, S: int) -> slice:
+        if S % self.tp:
+            raise NotImplementedError(
+                f"sequence length {S} does not split over {self.tp} ranks: "
+                "the ragged layout is not ported yet (ROADMAP A11)")
+        s = S // self.tp
+        return slice(self.group.rank * s, (self.group.rank + 1) * s)
+
+    @torch.no_grad()
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy (+ the weighted aux loss) of
+        ``batch`` ({"tokens", "labels"[, "mask"]}, each (B, S)). The same
+        value on every rank of a TP ring."""
+        tokens, labels = batch["tokens"], batch["labels"]
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32,
+                              device=labels.device)
+        x, aux = self.forward(tokens)
+        if self.tp > 1:
+            sl = self._seq_shard(labels.shape[1])
+            labels, mask = labels[:, sl], mask[:, sl]
+        head, tied = self._head()
+        ce = chunked_ce_loss(x, head, labels, mask, self.cfg, self.rt, tied,
+                             self.group)
+        return ce + AUX_LOSS_WEIGHT * aux
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         head = self.embed.T if self.lm_head is None else self.lm_head
@@ -148,6 +353,9 @@ class LM(nn.Module):
         tokens: (B, S_step) int (0 at padding positions). Returns the
         per-row logits at each row's last valid position, (B, 1, V) f32,
         and the pools (updated in place)."""
+        if self.tp > 1:
+            raise NotImplementedError("serving over a TP ring is not ported "
+                                      "yet (ROADMAP A12)")
         x = self._embed(tokens, self.rt.dtype)
         x, pools = stack_step(self.blocks, x, pools, view, self.cfg)
         B = x.shape[0]

@@ -1,15 +1,16 @@
-"""Runtime (non-architecture) knobs: the compute and parameter dtypes; plus
-the device rule every entry point follows.
+"""Runtime (non-architecture) knobs: the compute and parameter dtypes, the
+tensor-parallel config, the loss chunk; plus the device rule every entry
+point follows.
 
 Counterpart of ``repro/runtime.py`` without its deprecated flat-name shims.
-The tensor-parallel config (``TPConfig``) arrives with the TP slice that
-reads it (ROADMAP A4-A7); the memory and optimizer knobs (remat, loss
-chunking, cache layout, ZeRO) with the slices that read them.
-``runtime_for`` is the counterpart of ``repro/launch/specs.py::runtime_for``.
+The memory and optimizer knobs (remat, cache layout, ZeRO) arrive with the
+slices that read them. ``runtime_for`` is the counterpart of
+``repro/launch/specs.py::runtime_for``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional, Union
 
 import torch
 
@@ -19,11 +20,45 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
+class TPConfig:
+    """Every tensor-parallel decision in one place (``Runtime.tp``); the
+    fields and defaults of ``repro.runtime.TPConfig``.
+
+    ``mode`` is a :mod:`repro_torch.core.backends` registry name (``auto``,
+    the compiler-scheduled reference, is DTensor in torch: ROADMAP A5, and
+    the model path raises for it on a group larger than one);
+    ``chunks=None`` lets the cais backend plan the ring chunking per
+    collective; ``microbatches`` is the period-graph batch split (int, or
+    ``"auto"``); ``planner`` drives pass 3 (only ``"greedy"`` is ported:
+    ``"perfsim"`` is ROADMAP A13 and raises); ``sequence_parallel=False``
+    (replicated activations) is ROADMAP A11; ``graph_backward`` is read by
+    the training slice (ROADMAP A8)."""
+
+    mode: str = "auto"                  # any repro_torch.core.backends name
+    sequence_parallel: bool = True      # SP-TP layout (paper's primary)
+    chunks: Optional[int] = None        # ring chunks; None = planner-chosen
+    bidirectional: bool = True          # asymmetric/bidirectional overlap
+    microbatches: Union[int, str] = 1   # period-graph batch split
+    planner: str = "greedy"             # pass-3 planner
+    graph_backward: bool = True         # period grads via the graph VJP
+
+    def __post_init__(self):
+        if self.planner != "greedy":
+            raise NotImplementedError(f"planner {self.planner!r} is not "
+                                      "ported yet (ROADMAP A13)")
+
+
+@dataclass(frozen=True)
 class Runtime:
     # numerics: params are stored in param_dtype and cast to compute_dtype
     # at their use sites
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    # distribution: all tensor-parallel knobs
+    tp: TPConfig = field(default_factory=TPConfig)
+    # the cross-entropy runs over sequence chunks of this length (bounds the
+    # (B, chunk, vocab) logits)
+    loss_chunk: int = 512
 
     @property
     def dtype(self) -> torch.dtype:
@@ -34,7 +69,7 @@ class Runtime:
         return DTYPES[self.param_dtype]
 
 
-SMOKE = Runtime(compute_dtype="float32")
+SMOKE = Runtime(compute_dtype="float32", loss_chunk=64)
 
 
 def runtime_for(cfg: ArchConfig) -> Runtime:

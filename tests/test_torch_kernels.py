@@ -1,9 +1,10 @@
-"""The plain PyTorch version of the flash-attention kernel against the JAX
-package on the CPU: against the Pallas kernel in interpret mode (as
+"""The plain PyTorch versions of the port's kernels against the JAX package
+on the CPU. Flash attention: against the Pallas kernel in interpret mode (as
 tests/test_kernels.py runs it) where Sq == Skv, and against the model's
 ``attention_core`` for position masks with Sq != Skv, GQA, a window and −1
-positions. Tolerances are tests/test_kernels.py's TOL. Also: on the CPU the
-dispatch takes the plain version and never the kernel."""
+positions. Matmul: against the Pallas kernel in interpret mode at
+tests/test_kernels.py's shapes. Tolerances are tests/test_kernels.py's TOL.
+Also: on the CPU the dispatch takes the plain version and never a kernel."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels import ops as jops  # noqa: E402
 from repro.models.attention import attention_core  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-4),
@@ -84,3 +86,32 @@ def test_cpu_dispatch_never_reaches_the_kernel():
         fa.flash_attention(*map(torch.from_numpy, (q, k, v)),
                            q_positions=torch.from_numpy(qpos),
                            kv_positions=torch.from_numpy(kpos))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [
+    (128, 128, 128), (256, 512, 128), (64, 384, 96), (32, 32, 32),
+    (512, 128, 256), (128, 1024, 64),
+])
+def test_matmul_plain_matches_pallas_kernel(M, K, N, dtype):
+    a, b = rand(M * K, M, K), rand(K * N + 1, K, N)
+    want = jops.matmul(jnp.asarray(a, dtype), jnp.asarray(b, dtype))
+    got = ops.matmul(torch.from_numpy(a).to(TDT[dtype]),
+                     torch.from_numpy(b).to(TDT[dtype]))
+    assert got.dtype == TDT[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL[dtype])
+
+
+def test_matmul_out_dtype_and_dispatch():
+    a, b = rand(1, 5, 7), rand(2, 7, 3)
+    ta, tb = torch.from_numpy(a).bfloat16(), torch.from_numpy(b).bfloat16()
+    before = mm.launches
+    got = ops.matmul(ta, tb, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and mm.launches == before
+    want = ta.float().numpy() @ tb.float().numpy()
+    np.testing.assert_allclose(got.numpy(), want, **TOL["float32"])
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.matmul(ta.T, tb[:5])        # the kernel's layout, on every device
+    with pytest.raises(ValueError, match="CUDA"):
+        mm.matmul(ta, tb)

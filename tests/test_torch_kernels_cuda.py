@@ -1,6 +1,6 @@
-"""The Hopper flash-attention kernel against its plain PyTorch version, on
-the card. Every test here needs an NVIDIA GPU with nvcc; on a machine
-without one they skip. Run them there with
+"""The Hopper kernels (flash attention, matmul) against their plain PyTorch
+versions, on the card. Every test here needs an NVIDIA GPU with nvcc; on a
+machine without one they skip. Run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -9,6 +9,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 # the kernel and its plain version both compute in f32 from the same inputs:
@@ -106,3 +107,64 @@ def test_ops_dispatch_counts_launches_and_rejects(dev):
         ops.flash_attention(q.half(), k.half(), v.half(), q_positions=qpos,
                             kv_positions=kpos)
     assert fa.launches == before + 1
+
+
+# tests/test_kernels.py's matmul sweep, and the ring-step shapes of the
+# tensor-parallel internlm2-1.8b run in chip_smoke.py (B 2, S 4096, 4 ranks)
+MATMUL_SHAPES = [(128, 128, 128), (256, 512, 128), (64, 384, 96),
+                 (32, 32, 32), (512, 128, 256), (128, 1024, 64),
+                 (512, 2048, 2048), (512, 2048, 256), (1024, 512, 2048),
+                 (1024, 2048, 2048), (1, 7, 5), (65, 33, 130)]
+
+
+def assert_matmul_close(got, want, a, b):
+    """TOL of the output type plus twice the probabilistic bound on one f32
+    summation of the K products, sqrt(K)·2^-24·(|a| @ |b|): the kernel and
+    the plain version sum in different orders (chip_smoke.py
+    ``matmul_tol``)."""
+    tol = TOL[got.dtype]
+    mag = a.float().abs() @ b.float().abs()
+    limit = (tol["atol"] + tol["rtol"] * want.float().abs()
+             + 2 * a.shape[1] ** 0.5 * 2.0 ** -24 * mag)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= limit).all()), \
+        f"max |err| {float(err.max()):.3e}, worst err/limit " \
+        f"{float((err / limit).max()):.3f}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)
+def test_matmul_kernel_matches_plain(dev, M, K, N, dtype):
+    g = torch.Generator(device="cpu").manual_seed(M * K + N)
+    a = torch.randn(M, K, generator=g).to(dev, dtype)
+    b = torch.randn(K, N, generator=g).to(dev, dtype)
+    got = mm.matmul(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert_matmul_close(got, ref.matmul_ref(a, b), a, b)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_matmul_out_dtype(dev, out_dtype):
+    g = torch.Generator(device="cpu").manual_seed(5)
+    a = torch.randn(96, 200, generator=g).to(dev, torch.bfloat16)
+    b = torch.randn(200, 72, generator=g).to(dev, torch.bfloat16)
+    got = mm.matmul(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype
+    assert_matmul_close(got, ref.matmul_ref(a, b, out_dtype), a, b)
+
+
+def test_matmul_dispatch_counts_launches_and_rejects(dev):
+    a = torch.randn(64, 32, device=dev)
+    b = torch.randn(32, 16, device=dev)
+    before = mm.launches
+    ops.matmul(a, b)
+    assert mm.launches == before + 1
+    with pytest.raises(ValueError):      # not contiguous: raise, no fallback
+        ops.matmul(a.T.contiguous().T, b)
+    with pytest.raises(TypeError):
+        ops.matmul(a.half(), b.half())
+    with pytest.raises(TypeError):
+        mm.matmul(a, b.bfloat16())
+    assert mm.launches == before + 1
