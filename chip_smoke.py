@@ -39,6 +39,22 @@ Phases (any failure exits non-zero):
      flash launches one per layer per microbatch, every matmul call shape
      must be among those phase 3 checked, and a 2-microbatch run must
      execute ``overlap_asym``.
+  7. minicpm3-4b (MLA) at full width cut to 2 layers, f32: ``LM.prefill``
+     and three ``LM.decode_step`` calls on the CPU (plain versions) and on
+     the card (the kernels) must give logits within ``LOGIT_TOL``, and the
+     dense engine identical greedy tokens;
+  8. minicpm3-4b at full width and depth (62 layers, bf16 compute, f32
+     params, random weights from seed 0) served through
+     ``repro_torch.launch.serve``, which routes MLA to the dense engine: 4
+     requests of 1024 prompt tokens, 16 new tokens each; the launch
+     counters are set to 0 just before and read just after: matmul_rmsnorm
+     must have run twice a layer (the query and KV latent norms) in every
+     prefill and decode call, flash attention once a layer in the prefill,
+     and every call shape of both must be among those phase 3 checked.
+Phase 3 also holds matmul_rmsnorm against its plain version at the TPU
+kernel's test shapes, at every shape phase 8 calls (b a column slice of
+``wkv_a`` for the KV latent) and at N 8192, and flash attention at the MLA
+prefill's call (dh 96, dv 64).
 The line before the last is the kernels' JSON record; the last line is the
 device JSON. Imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -90,6 +106,13 @@ PREFILL_CHUNK, BLOCK_SIZE = 128, 16
 # phase 4: f32 CPU vs card, logits |Δ| <= atol + rtol·|cpu| (summation order
 # differs between the CPU and the card; both are full f32)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+# phases 7 and 8: minicpm3-4b (MLA) through the dense engine
+MLA_ARCH, MLA_REQUESTS, MLA_PROMPT, MLA_MAX_NEW = "minicpm3-4b", 4, 1024, 16
+# matmul_rmsnorm's check, per element of out = z·(1 + scale)/rms(z) with
+# z = a @ b: CHECK_TOL on out, plus matmul_tol on z (the two f32 summation
+# orders of z) carried through the norm, i.e. scaled by |1 + scale[n]| /
+# rms(z[m]); the two rms differ by far less, as each averages N errors
+MLN_EPS = 1e-6
 
 
 def log(msg: str) -> None:
@@ -168,23 +191,44 @@ def tp_core_case(cfg, B: int, dtype, seed: int):
                 kv_positions=pos, window=0)
 
 
+def get_mla_cfg():
+    from repro_torch.configs import get_arch
+
+    return get_arch(MLA_ARCH)
+
+
+def mla_core_case(cfg, dtype, seed: int):
+    """The attention core of an MLA prefill layer in phase 8: MLA_REQUESTS
+    prompts of MLA_PROMPT causal positions, H query = kv heads, q/k head dim
+    nope + rope (96), v head dim 64."""
+    m = cfg.mla
+    g = torch.Generator().manual_seed(seed)
+    B, S, H = MLA_REQUESTS, MLA_PROMPT, cfg.num_heads
+    mk = lambda d: torch.randn(B, S, H, d, generator=g).to("cuda", dtype)
+    dh = m.qk_nope_head_dim + m.qk_rope_head_dim
+    pos = torch.arange(S, dtype=torch.int32,
+                       device="cuda").expand(B, S).contiguous()
+    return dict(q=mk(dh), k=mk(dh), v=mk(m.v_head_dim), q_positions=pos,
+                kv_positions=pos, window=0)
+
+
 def bound(case, ref) -> tuple:
     """Times (ms) the bytes and the operations of this call need at the
     card's peaks: bytes / HBM rate, operations / peak rate of the type; the
     least time the card could take is the larger. Counts what these inputs
     need: q, out, positions, and the K/V rows some query of the batch row
-    may see; 4·dh operations per visible (query head, key) pair."""
+    may see; 2·(dh + dv) operations per visible (query head, key) pair."""
     q, k = case["q"], case["k"]
     B, Sq, H, dh = q.shape
-    Hkv = k.shape[2]
+    Hkv, dv = k.shape[2], case["v"].shape[3]
     vis = ref.visible(case["q_positions"], case["kv_positions"],
                       causal=True, window=case["window"])
     es = q.element_size()
     keys = int(vis.any(dim=1).sum())
-    nbytes = (2 * q.numel() * es + 2 * keys * Hkv * dh * es
+    nbytes = (B * Sq * H * (dh + dv) * es + keys * Hkv * (dh + dv) * es
               + 4 * (case["q_positions"].numel()
                      + case["kv_positions"].numel()))
-    ops = 4 * dh * H * int(vis.sum())
+    ops = 2 * (dh + dv) * H * int(vis.sum())
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[q.dtype] * 1e3
 
 
@@ -216,7 +260,8 @@ def check_kernel_case(name: str, case, fa, ref) -> dict:
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     row = dict(case=name, dtype=str(q.dtype).replace("torch.", ""),
                shape=dict(B=q.shape[0], Sq=q.shape[1], Skv=k.shape[1],
-                          H=q.shape[2], Hkv=k.shape[2], dh=q.shape[3]),
+                          H=q.shape[2], Hkv=k.shape[2], dh=q.shape[3],
+                          dv=v.shape[3]),
                max_abs_err=float(err.max()), tol=tol, repo_tol=TOL[q.dtype],
                ok=ok, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
@@ -248,6 +293,9 @@ def phase_kernels(cfg, fa, ref) -> list:
             rows.append(check_kernel_case(
                 f"tpu_{BH}x{S}x{d}", tpu_case(BH, S, d, dtype, seed=S + d),
                 fa, ref))
+        # the MLA prefill core of phase 8: dh 96, dv 64 (v zero-padded)
+        rows.append(check_kernel_case("mla_prefill", mla_core_case(
+            get_mla_cfg(), dtype, seed=4), fa, ref))
     return rows
 
 
@@ -336,6 +384,81 @@ def phase_matmul(mmk, ref) -> list:
             rows.append(check_matmul_case("sweep", M, K, N, dtype, mmk, ref))
         for M, K, N in tp_matmul_shapes(get_tp_cfg(), dtype.itemsize):
             rows.append(check_matmul_case("tp", M, K, N, dtype, mmk, ref))
+    return rows
+
+
+def mla_norm_shapes(cfg) -> list:
+    """(M, K, N, ldb) of every matmul_rmsnorm call of phase 8, by the MLA
+    code's own arithmetic: the query latent rmsnorm(x @ wq_a) and the KV
+    latent rmsnorm(x @ wkv_a[:, :kv_rank]) (row stride kv_rank + rope), on
+    the B·S rows of the prefill and the B rows of a decode step."""
+    m, d = cfg.mla, cfg.d_model
+    return [(M, d, n, ldb)
+            for M in (MLA_REQUESTS * MLA_PROMPT, MLA_REQUESTS)
+            for n, ldb in ((m.q_lora_rank, m.q_lora_rank),
+                           (m.kv_lora_rank,
+                            m.kv_lora_rank + m.qk_rope_head_dim))]
+
+
+def check_mln_case(name, M, K, N, ldb, dtype, mln, ref) -> dict:
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(M * 7 + K * 3 + N + ldb)
+    a = torch.randn(M, K, generator=g).to("cuda", dtype)
+    b = torch.randn(K, ldb, generator=g).to("cuda", dtype)[:, :N]
+    scale = (0.1 * torch.randn(N, generator=g)).cuda()
+    got = mln.matmul_rmsnorm(a, b, scale, eps=MLN_EPS)
+    torch.cuda.synchronize()
+    want = ref.matmul_rmsnorm_ref(a, b, scale, MLN_EPS)
+    z = ref.matmul_ref(a, b.contiguous(), torch.float32)
+    rms = torch.sqrt(z.square().mean(-1, keepdim=True) + MLN_EPS)
+    tol = CHECK_TOL[dtype]
+    limit = (tol["atol"] + tol["rtol"] * want.float().abs()
+             + matmul_tol(a, b, z, dtype) * (1 + scale).abs() / rms)
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= limit).all() and torch.isfinite(got).all())
+    worst = float((err / limit).max())
+    ms = cuda_ms(lambda: mln.matmul_rmsnorm(a, b, scale, eps=MLN_EPS))
+    plain_ms = cuda_ms(lambda: ref.matmul_rmsnorm_ref(a, b, scale, MLN_EPS))
+    # the library yardstick is TWO calls: cuBLAS, then PyTorch's rms_norm
+    # (whose weight is 1 + scale), with z through device memory between them
+    w1 = (1 + scale).to(dtype)
+    library_ms = cuda_ms(lambda: F.rms_norm(torch.matmul(a, b), (N,), w1,
+                                            MLN_EPS))
+    es = a.element_size()
+    bytes_ms = ((M * K + K * N + M * N) * es + 4 * N) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * M * K * N / PEAK_FLOPS[dtype] * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    row = dict(case=name, dtype=str(dtype).replace("torch.", ""),
+               shape=dict(M=M, K=K, N=N, ldb=ldb),
+               block_rows=mln.block_rows(M, N), max_abs_err=float(err.max()),
+               tol=dict(tol, z="matmul_tol * |1 + scale| / rms(z)"),
+               worst_err_over_limit=worst, repo_tol=TOL[dtype], ok=ok, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library="torch.matmul + F.rms_norm (two calls)",
+               bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms,
+               ops_ms=ops_ms)
+    log(f"  {name:>10} {row['dtype']:>8} ({M},{K},{N}) ldb {ldb} BM "
+        f"{row['block_rows']} err={row['max_abs_err']:.3e} (err/limit "
+        f"{worst:.3f}) {'ok' if ok else 'FAIL'} kernel={ms:.4f}ms "
+        f"plain={plain_ms:.4f}ms matmul+rms_norm={library_ms:.4f}ms "
+        f"bound={bound_ms:.5f}ms ({bound_by})")
+    return row
+
+
+def phase_matmul_rmsnorm(mln, ref) -> list:
+    rows = []
+    # tests/test_kernels.py's sweep and its model-norm case
+    jax_sweep = [(128, 256, 128), (64, 512, 384), (256, 128, 64),
+                 (32, 64, 48)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for M, K, N in jax_sweep:
+            rows.append(check_mln_case("sweep", M, K, N, N, dtype, mln, ref))
+        for M, K, N, ldb in mla_norm_shapes(get_mla_cfg()):
+            rows.append(check_mln_case("mla", M, K, N, ldb, dtype, mln, ref))
+        # the row width the TPU kernel's docstring sizes for (N 8192)
+        rows.append(check_mln_case("wide", 128, 2048, 8192, 8192, dtype,
+                                   mln, ref))
     return rows
 
 
@@ -611,6 +734,139 @@ def phase_tp(mmk, fa) -> dict:
                 call_shapes=sorted(shapes))
 
 
+# ---------------------------------------------------------------------------
+# phase 7: MLA at reduced depth, f32, CPU plain versions vs the card's kernels
+# ---------------------------------------------------------------------------
+
+
+def prefill_decode(lm, tokens, steps: int = 3):
+    """LM.prefill of ``tokens`` then ``steps`` decode steps of fixed
+    tokens; returns every step's logits on the CPU."""
+    dev = lm.device
+    B, S = tokens.shape
+    logits, caches = lm.prefill(tokens.to(dev), s_max=S + steps)
+    out = [logits.cpu()]
+    for t in range(steps):
+        tok = torch.full((B, 1), 7 + t, dtype=torch.int32, device=dev)
+        idx = torch.full((B,), S + t, dtype=torch.int32, device=dev)
+        logits, caches = lm.decode_step(tok, caches, idx)
+        out.append(logits.cpu())
+    return out
+
+
+def phase_mla_reference(cfg_full):
+    import numpy as np
+
+    from repro_torch.models import LM
+    from repro_torch.runtime import SMOKE
+    from repro_torch.serve import Engine, Request, ServeConfig
+
+    cfg = cfg_full.scaled(num_layers=2)
+    cpu = LM(cfg, SMOKE, device="cpu", seed=0)
+    gpu = LM(cfg, SMOKE, device="cuda", seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 96)
+                                           ).astype(np.int32))
+    want, got = prefill_decode(cpu, tokens), prefill_decode(gpu, tokens)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **LOGIT_TOL)
+    sc = ServeConfig(max_batch=2, s_max=100)
+    out = []
+    for lm, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        reqs = [Request(rid=i, prompt=p.numpy(), max_new_tokens=4)
+                for i, p in enumerate(tokens)]
+        eng = Engine(lm, cfg, SMOKE, sc, device=dev)
+        eng.run(reqs, seed=0)
+        if eng.paged:
+            raise AssertionError("MLA did not take the dense engine")
+        out.append([r.out_tokens for r in reqs])
+    if out[0] != out[1]:
+        raise AssertionError(f"greedy tokens differ: cpu {out[0]} card "
+                             f"{out[1]}")
+    log(f"  2-layer f32: prefill + 3 decode logits max|Δ| {err:.3e} within "
+        f"{LOGIT_TOL}; dense-engine greedy tokens identical {out[1]}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 8: serve minicpm3-4b at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def phase_mla_serve(cfg, fa, mln, mmk):
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    calls = {"matmul_rmsnorm": {}, "flash_attention": {}}
+    dt = lambda t: str(t.dtype).replace("torch.", "")
+    norm, core = ops.matmul_rmsnorm, ops.flash_attention
+
+    def norm_shapes(a, b, scale, **k):
+        key = (*a.shape, b.shape[1], b.stride(0), dt(a))
+        calls["matmul_rmsnorm"][key] = calls["matmul_rmsnorm"].get(key, 0) + 1
+        return norm(a, b, scale, **k)
+
+    def core_shapes(q, k, v, **kw):
+        key = (*q.shape, k.shape[1], k.shape[2], v.shape[3], dt(q))
+        calls["flash_attention"][key] = \
+            calls["flash_attention"].get(key, 0) + 1
+        return core(q, k, v, **kw)
+
+    ops.matmul_rmsnorm, ops.flash_attention = norm_shapes, core_shapes
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = mln.launches = mmk.launches = 0  # the main path only
+        t0 = time.monotonic()
+        eng, reqs = serve.main([
+            "--arch", MLA_ARCH, "--device", "cuda", "--requests",
+            str(MLA_REQUESTS), "--prompt-len", str(MLA_PROMPT),
+            "--prompt-len-min", str(MLA_PROMPT), "--max-new",
+            str(MLA_MAX_NEW), "--seed", "0"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(matmul_rmsnorm=mln.launches,
+                        flash_attention=fa.launches, matmul=mmk.launches)
+    finally:
+        ops.matmul_rmsnorm, ops.flash_attention = norm, core
+    if not all(r.done and len(r.out_tokens) == MLA_MAX_NEW for r in reqs):
+        raise AssertionError("a request did not finish")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens):
+        raise AssertionError("a token outside the vocabulary")
+    # equal prompt lengths and max_batch = MLA_REQUESTS: one static batch,
+    # one prefill, then a decode step for every token after the first
+    prefills, decodes = 1, MLA_MAX_NEW - 1
+    if eng.steps != prefills + decodes:
+        raise AssertionError(f"{eng.steps} model calls, expected "
+                             f"{prefills} prefill + {decodes} decode")
+    # _mla_q and _mla_latents: one matmul_rmsnorm call each per layer per
+    # forward; the prefill computes its cached latents once (mla_prefill)
+    norms = cfg.num_layers * 2 * (prefills + decodes)
+    cores = cfg.num_layers * prefills     # the absorbed decode has no core
+    if launches["matmul_rmsnorm"] != norms or norms == 0:
+        raise AssertionError(f"matmul_rmsnorm launched "
+                             f"{launches['matmul_rmsnorm']} times, expected "
+                             f"{cfg.num_layers} layers x 2 x "
+                             f"{prefills + decodes} calls = {norms}")
+    if launches["flash_attention"] != cores:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times, "
+                             f"expected {cores}")
+    rep = dict(eng.last_report)
+    rep.update(steps=eng.steps, launches=launches, wall_s=wall,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               prompt_lens=[len(r.prompt) for r in reqs],
+               params=cfg.param_count(),
+               call_shapes={n: sorted([*k, v] for k, v in c.items())
+                            for n, c in calls.items()})
+    log(f"  served {len(reqs)} requests in {eng.steps} model calls "
+        f"({prefills} prefill + {decodes} decode); launches "
+        f"{json.dumps(launches)}")
+    log("  latency " + json.dumps(rep))
+    return rep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -621,6 +877,7 @@ def main() -> int:
     from repro_torch.hw import H100
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import matmul_rmsnorm as mln
     from repro_torch.kernels import nvcc, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 means full f32
@@ -643,7 +900,7 @@ def main() -> int:
 
     log("phase 2: build (one nvcc per source, all started together)")
     t = time.monotonic()
-    libs = nvcc.build_all([fa.SOURCE, mmk.SOURCE])
+    libs = nvcc.build_all([fa.SOURCE, mmk.SOURCE, mln.SOURCE])
     log(f"  {len(libs)} kernels built in {time.monotonic() - t:.1f}s")
     for src, lib in libs.items():
         log(f"  {src.relative_to(ROOT)} -> {lib.name}")
@@ -658,6 +915,10 @@ def main() -> int:
     mm_rows = phase_matmul(mmk, ref)
     if not all(r["ok"] for r in mm_rows):
         raise AssertionError("matmul disagrees with its plain version")
+    mln_rows = phase_matmul_rmsnorm(mln, ref)
+    if not all(r["ok"] for r in mln_rows):
+        raise AssertionError("matmul_rmsnorm disagrees with its plain "
+                             "version")
 
     log("phase 4: 2-layer full-width f32, CPU plain vs card kernel")
     phase_reference(cfg)
@@ -678,20 +939,49 @@ def main() -> int:
                              f"not check: {unchecked}")
     log("  tp " + json.dumps(tp))
 
+    mla_cfg = get_mla_cfg()
+    log(f"phase 7: {MLA_ARCH} 2-layer full-width f32, CPU plain vs card "
+        "kernels (prefill, decode, dense engine)")
+    phase_mla_reference(mla_cfg)
+
+    log(f"phase 8: serve {MLA_ARCH} at full width and depth, bf16 compute, "
+        "f32 params, through the dense engine")
+    mla = phase_mla_serve(mla_cfg, fa, mln, mmk)
+    checked = {"matmul_rmsnorm": {
+        (r["shape"]["M"], r["shape"]["K"], r["shape"]["N"],
+         r["shape"]["ldb"], r["dtype"]) for r in mln_rows},
+        "flash_attention": {
+        (r["shape"]["B"], r["shape"]["Sq"], r["shape"]["H"],
+         r["shape"]["dh"], r["shape"]["Skv"], r["shape"]["Hkv"],
+         r["shape"]["dv"], r["dtype"]) for r in rows}}
+    unchecked = [(n, s) for n, shapes in mla["call_shapes"].items()
+                 for s in shapes if tuple(s[:-1]) not in checked[n]]
+    if unchecked:
+        raise AssertionError(f"phase 8 called kernels at shapes phase 3 did "
+                             f"not check: {unchecked}")
+
     log("kernel cases " + json.dumps({"flash_attention": rows,
-                                      "matmul": mm_rows}))
+                                      "matmul": mm_rows,
+                                      "matmul_rmsnorm": mln_rows}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f}s")
-    # flash_attention's record reads the serving path's most frequent call,
-    # a decode step in bf16, with its launches on both paths (phase 5 and
-    # phase 6); matmul's reads the ring step that carries most of phase 6's
-    # GEMM work, the gate/up chunk of the cais schedule, in f32. Every case
-    # is on the "kernel cases" line.
+    # flash_attention's record reads the paged serving path's most frequent
+    # call, a decode step in bf16, with its launches on every path (phases
+    # 5, 6 and 8); matmul's reads the ring step that carries most of phase
+    # 6's GEMM work, the gate/up chunk of the cais schedule, in f32;
+    # matmul_rmsnorm's reads phase 8's most frequent call, the query latent
+    # of a decode step (M = 4, N = 768) in bf16. Every case is on the
+    # "kernel cases" line.
     head = next(r for r in rows if r["case"] == "decode"
                 and r["dtype"] == "bfloat16")
     d, ff = get_tp_cfg().d_model, get_tp_cfg().d_ff // TP_WORLD
     mm_head = next(r for r in mm_rows if r["case"] == "tp"
                    and r["dtype"] == "float32"
                    and (r["shape"]["K"], r["shape"]["N"]) == (d, ff))
+    q_rank = mla_cfg.mla.q_lora_rank
+    mln_head = next(r for r in mln_rows if r["case"] == "mla"
+                    and r["dtype"] == "bfloat16"
+                    and (r["shape"]["M"], r["shape"]["N"])
+                    == (MLA_REQUESTS, q_rank))
     record = lambda r: {k: r[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")}
@@ -699,12 +989,18 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:86",
-         "launches": rep["launches"] + tp["flash_launches"],
+         "launches": rep["launches"] + tp["flash_launches"]
+         + mla["launches"]["flash_attention"],
          **record(head)},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:56",
-         "launches": tp["matmul_launches"], **record(mm_head)}]}))
+         "launches": tp["matmul_launches"], **record(mm_head)},
+        {"name": "matmul_rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/matmul_rmsnorm.cu",
+         "replaces": "src/repro/kernels/matmul_ln.py:55",
+         "launches": mla["launches"]["matmul_rmsnorm"],
+         **record(mln_head)}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

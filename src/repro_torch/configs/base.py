@@ -1,9 +1,9 @@
 """Architecture configuration: the port's copy of ``repro/configs/base.py``.
 
-Only what the dense attention-only archs need is here; the family
-sub-configs (MLA, SSM, RG-LRU, enc-dec, VLM) arrive with the slices that
-port those families. ``moe`` is kept as a field so the FFN can refuse an
-MoE config by name.
+Only what the ported archs need is here: the dense attention archs and MLA
+(minicpm3-4b); the other family sub-configs (SSM, RG-LRU, enc-dec, VLM)
+arrive with the slices that port those families. ``moe`` is kept as a field
+so the FFN can refuse an MoE config by name.
 """
 from __future__ import annotations
 
@@ -11,10 +11,24 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-# Block kinds usable in `layer_pattern` (the port serves "attn" and "swa"):
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2 / MiniCPM3 style)."""
+
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
+
+
+# Block kinds usable in `layer_pattern`:
 #   "attn" — full causal GQA/MQA attention
 #   "swa"  — sliding-window attention (window = cfg.window)
-BLOCK_KINDS = ("attn", "swa")
+#   "mla"  — multi-head latent attention (cfg.mla)
+BLOCK_KINDS = ("attn", "swa", "mla")
 
 
 @dataclass(frozen=True)
@@ -34,6 +48,7 @@ class ArchConfig:
     layer_pattern: Tuple[str, ...] = ("attn",)
     window: int = 0  # sliding window for "swa" blocks
 
+    mla: Optional[MLAConfig] = None
     moe: Optional[object] = None  # MoE is not ported yet (ROADMAP A10)
 
     norm: str = "rmsnorm"  # gemma-style rmsnorm (the only kind ported)
@@ -56,14 +71,32 @@ class ArchConfig:
                 raise ValueError(f"block kind {k!r} is not ported yet")
         return kinds
 
+    def _mixer_param_count(self, kind: str) -> int:
+        """Parameters of one block's mixer, by the shapes the model builds."""
+        d, H = self.d_model, self.num_heads
+        if kind == "mla":
+            m = self.mla
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            return (d * m.q_lora_rank + m.q_lora_rank           # wq_a, q_norm
+                    + m.q_lora_rank * H * qk                    # wq_b
+                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)  # wkv_a
+                    + m.kv_lora_rank                            # kv_norm
+                    + m.kv_lora_rank * H * (m.qk_nope_head_dim
+                                            + m.v_head_dim)     # wk_b, wv_b
+                    + H * m.v_head_dim * d)                     # wo
+        dh = self.resolved_head_dim
+        return d * dh * (2 * H + 2 * self.num_kv_heads)         # wq wk wv wo
+
     def param_count(self) -> int:
-        """Parameters of the dense decoder: embedding (+ untied head),
-        per-layer norms, attention and MLP, final norm."""
-        d, dh = self.d_model, self.resolved_head_dim
-        attn = d * dh * (2 * self.num_heads + 2 * self.num_kv_heads)
+        """Parameters of the decoder: embedding (+ untied head), per-layer
+        norms, mixer and gated MLP, final norm (``repro``'s count of the
+        same init shapes)."""
+        d = self.d_model
         mlp = 3 * d * self.d_ff  # gated: w_up, w_gate, w_down
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return embed + self.num_layers * (attn + mlp + 2 * d) + d
+        blocks = sum(self._mixer_param_count(k) + mlp + 2 * d
+                     for k in self.layer_kinds())
+        return embed + blocks + d
 
     def scaled(self, **overrides) -> "ArchConfig":
         return dataclasses.replace(self, **overrides)
@@ -71,7 +104,7 @@ class ArchConfig:
     def smoke(self) -> "ArchConfig":
         """Reduced config of the same family for CPU smoke tests (the same
         reduction as ``repro``'s, so the two packages build equal shapes)."""
-        return self.scaled(
+        kw = dict(
             num_layers=max(2, len(self.layer_pattern)),
             d_model=64,
             num_heads=4,
@@ -82,3 +115,8 @@ class ArchConfig:
             vocab_size=256,
             window=min(self.window, 8) if self.window else 0,
         )
+        if self.mla:
+            kw["mla"] = MLAConfig(
+                q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=8,
+                qk_rope_head_dim=8, v_head_dim=8)
+        return self.scaled(**kw)

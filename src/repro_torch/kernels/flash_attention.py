@@ -50,8 +50,10 @@ def _load() -> ctypes.CDLL:
 
 
 def _check(q, k, v, q_positions, kv_positions) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("expected q (B,Sq,H,dh) and k, v (B,Skv,Hkv,dh); got "
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3] or not 1 <= v.shape[3] <= k.shape[3]:
+        raise ValueError("expected q (B,Sq,H,dh), k (B,Skv,Hkv,dh) and v "
+                         "(B,Skv,Hkv,dv) with dv <= dh; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, Sq, H, dh = q.shape
@@ -83,15 +85,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_positions: torch.Tensor, kv_positions: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the kernel: q (B,Sq,H,dh), k/v (B,Skv,Hkv,dh) on one CUDA
-    device, int32 positions (−1 = masked key). Returns (B,Sq,H,dh) in q's
-    type; a row with no visible key holds zeros."""
+    """Launch the kernel: q (B,Sq,H,dh), k (B,Skv,Hkv,dh), v (B,Skv,Hkv,dv)
+    with dv <= dh on one CUDA device, int32 positions (−1 = masked key).
+    Returns (B,Sq,H,dv) in q's type; a row with no visible key holds zeros.
+
+    The kernel takes v at the head dim of q and k: a narrower v (MLA's
+    value dim 64 under a query/key dim 96) is zero-padded to dh, and the
+    zero columns give zero output columns, which are cut off again (the
+    result is then a view with row stride dh)."""
     global launches
     _check(q, k, v, q_positions, kv_positions)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     B, Sq, H, dh = q.shape
     _, Skv, Hkv, _ = k.shape
+    dv = v.shape[3]
+    if dv < dh:
+        v = torch.nn.functional.pad(v, (0, dh - dv))
     scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
     out = torch.empty_like(q)
     lib = _load()
@@ -105,4 +115,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error_string(err).decode())
     launches += 1
-    return out
+    return out if dv == dh else out[..., :dv]

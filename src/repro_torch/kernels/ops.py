@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import matmul_rmsnorm as _mln
 from repro_torch.kernels import ref
 
 
@@ -33,12 +34,28 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     raise ValueError(f"no matmul for device {a.device}")
 
 
+def matmul_rmsnorm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor, *,
+                   eps: float = 1e-6,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """rmsnorm(a (M,K) @ b (K,N)) * (1 + scale) -> (M,N) in ``out_dtype``
+    (default a's type), the norm over each whole f32 row of a @ b. Both
+    devices take the kernel's layouts only (a contiguous; b with unit column
+    stride and row stride >= N, so a column slice of a weight passes as it
+    is)."""
+    _mln.check_layout(a, b, scale)
+    if a.device.type == "cuda":
+        return _mln.matmul_rmsnorm(a, b, scale, eps=eps, out_dtype=out_dtype)
+    if a.device.type == "cpu":
+        return ref.matmul_rmsnorm_ref(a, b, scale, eps, out_dtype)
+    raise ValueError(f"no matmul_rmsnorm for device {a.device}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_positions: torch.Tensor, kv_positions: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q kᵀ·scale) v under the position mask; q (B,Sq,H,dh),
-    k/v (B,Skv,Hkv,dh)."""
+    k (B,Skv,Hkv,dh), v (B,Skv,Hkv,dv) with dv <= dh -> (B,Sq,H,dv)."""
     kw = dict(q_positions=q_positions, kv_positions=kv_positions,
               causal=causal, window=window, scale=scale)
     if q.device.type == "cuda":

@@ -26,6 +26,19 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor,
     return (a.float() @ b.float()).to(out_dtype)
 
 
+def matmul_rmsnorm_ref(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
+                       eps: float = 1e-6,
+                       out_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """rmsnorm(a (M,K) @ b (K,N)) * (1 + scale), eps 1e-6: f32 products and
+    sums, the norm of the f32 accumulator in f32, cast to ``out_dtype``
+    (default a's type)."""
+    out_dtype = a.dtype if out_dtype is None else out_dtype
+    z = a.float() @ b.float()
+    var = z.square().mean(-1, keepdim=True)
+    return (z * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(out_dtype)
+
+
 def visible(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
             causal: bool = True, window: int = 0) -> torch.Tensor:
     """(B, Sq, Skv) bool: which keys each query may see."""

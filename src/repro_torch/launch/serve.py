@@ -1,8 +1,12 @@
 """Serving launcher: requests through the paged continuous-batching Engine
-on one device. Counterpart of ``repro/launch/serve.py``.
+(which falls back to the dense engine for archs outside the paged path,
+such as minicpm3-4b's MLA) or, with ``--engine dense``, the static-batch
+DenseEngine, on one device. Counterpart of ``repro/launch/serve.py``.
 
     python -m repro_torch.launch.serve --arch gemma3-1b
+    python -m repro_torch.launch.serve --arch minicpm3-4b
     python -m repro_torch.launch.serve --smoke --device cpu
+    python -m repro_torch.launch.serve --arch minicpm3-4b --smoke --device cpu
     python -m repro_torch.launch.serve --load poisson --rate 16 \
         --report reports/serve_latency.json
 
@@ -10,7 +14,7 @@ The flags are ``repro``'s, plus ``--device`` (default ``cuda``: the launcher
 fails where there is no card unless told ``--device cpu``) and the serving
 shape: ``--prompt-len-min`` (prompt lengths drawn from
 [min, ``--prompt-len``]), ``--prefill-chunk`` and ``--block-size``. Only
-``--mesh none`` and ``--engine paged`` are ported.
+``--mesh none`` is ported.
 """
 from __future__ import annotations
 
@@ -18,15 +22,15 @@ import argparse
 import dataclasses
 import json
 import os
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
 from repro_torch.configs import get_arch
 from repro_torch.models import build_model
 from repro_torch.runtime import runtime_for
-from repro_torch.serve import (Engine, LoadSpec, Request, ServeConfig,
-                               format_report, generate)
+from repro_torch.serve import (DenseEngine, Engine, LoadSpec, Request,
+                               ServeConfig, format_report, generate)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -55,15 +59,13 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: Optional[List[str]] = None) -> Tuple[Engine, List[Request]]:
+def main(argv: Optional[List[str]] = None
+         ) -> Tuple[Union[Engine, DenseEngine], List[Request]]:
     args = parser().parse_args(argv)
     if args.mesh != "none":
         raise NotImplementedError(
             f"--mesh {args.mesh}: tensor-parallel serving is not ported yet "
             "(ROADMAP A4-A7)")
-    if args.engine != "paged":
-        raise NotImplementedError("--engine dense is not ported yet")
-
     cfg = get_arch(args.arch)
     rt = runtime_for(cfg)
     if args.smoke:
@@ -79,7 +81,8 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Engine, List[Request]]:
                      s_max=args.prompt_len + args.max_new,
                      block_size=args.block_size,
                      prefill_chunk=args.prefill_chunk)
-    eng = Engine(model, cfg, rt, sc, device=args.device)
+    cls = Engine if args.engine == "paged" else DenseEngine
+    eng = cls(model, cfg, rt, sc, device=args.device)
 
     if args.load == "none":
         rng = np.random.default_rng(1)
@@ -103,7 +106,8 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Engine, List[Request]]:
     eng.run(reqs, seed=args.seed)
     for r in reqs:
         print(f"request {r.rid}: {r.out_tokens}")
-    print(f"[{args.engine} {eng.device}] {format_report(eng.last_report)}")
+    kind = "paged" if getattr(eng, "paged", False) else "dense"
+    print(f"[{kind} {eng.device}] {format_report(eng.last_report)}")
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as fh:

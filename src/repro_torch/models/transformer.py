@@ -1,5 +1,6 @@
 """Decoder-only LM assembled from an ArchConfig: the training forward and
-loss, and the paged serving path, of ``repro/models/transformer.py``.
+loss, prefill/decode over dense caches, and the paged serving path, of
+``repro/models/transformer.py``.
 
 JAX scans the stack over pattern periods with parameters stacked per
 period; here the blocks are an ``nn.ModuleList`` in layer order and the
@@ -13,8 +14,10 @@ weights, the embedded activation is cut to this rank's sequence shard, every
 period runs as one dataflow graph (:func:`repro_torch.core.tp.sp_period`)
 and stays sequence-sharded between periods, and the loss's (sum, count) is
 all-reduced over the ring. On one device there is no TP context and every
-block takes the per-block path, as in JAX. Serving (``serve_step``) runs on
-one device only.
+block takes the per-block path, as in JAX. Serving (``prefill`` /
+``decode_step`` over dense caches, ``serve_step`` over paged pools) runs on
+one device only; MLA blocks run on one device only (JAX's mixer never
+shards MLA) and have no paged path (their cache is a latent, not K/V).
 """
 from __future__ import annotations
 
@@ -43,16 +46,18 @@ def _has_ffn(cfg: ArchConfig) -> bool:
 
 class Block(nn.Module):
     """Pre-norm residual block: norm1 → mixer → (+x) → norm2 → ffn → (+x);
-    ``kind`` is "attn" or "swa" (sliding window ``cfg.window``)."""
+    ``kind`` is "attn", "swa" (sliding window ``cfg.window``) or "mla"
+    (whole on every rank: MLA is never sharded)."""
 
     def __init__(self, kind: str, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, tp: int = 1):
         super().__init__()
-        if kind not in ("attn", "swa"):
+        if kind not in ("attn", "swa", "mla"):
             raise NotImplementedError(f"{kind!r} blocks are not ported yet")
         self.kind = kind
         self.norm1 = Norm(cfg.norm, cfg.d_model, dtype, device)
-        self.mixer = attn.Attention(cfg, dtype, device, tp)
+        self.mixer = attn.MLA(cfg, dtype, device) if kind == "mla" \
+            else attn.Attention(cfg, dtype, device, tp)
         self.norm2 = self.ffn = None
         if _has_ffn(cfg):
             self.norm2 = Norm(cfg.norm, cfg.d_model, dtype, device)
@@ -108,12 +113,29 @@ def block_forward(kind: str, params: Block, x: torch.Tensor,
                 f"TP-applicable at tp={tpc.tp} is not ported yet")
         return tp_mod.sp_block(tpc, x, params, cfg, kind,
                                prefix_len=prefix_len, norm_kind=cfg.norm)
-    window = cfg.window if kind == "swa" else 0
-    x = x + attn.attention_forward(params.mixer, params.norm1(x), cfg,
-                                   window=window, prefix_len=prefix_len)
+    x = x + _mixer_forward(kind, params.mixer, params.norm1(x), cfg,
+                           prefix_len)
+    x = _ffn_residual(params, x, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _mixer_forward(kind: str, mixer, h: torch.Tensor, cfg: ArchConfig,
+                   prefix_len: int = 0) -> torch.Tensor:
+    if kind == "mla":
+        return attn.mla_forward(mixer, h, cfg)
+    return attn.attention_forward(mixer, h, cfg, window=_window(kind, cfg),
+                                  prefix_len=prefix_len)
+
+
+def _window(kind: str, cfg: ArchConfig) -> int:
+    return cfg.window if kind == "swa" else 0
+
+
+def _ffn_residual(params: Block, x: torch.Tensor,
+                  cfg: ArchConfig) -> torch.Tensor:
     if _has_ffn(cfg):
         x = x + ffn_mod.ffn_forward(params.ffn, params.norm2(x), cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x
 
 
 def _blocks_forward(kinds: Sequence[str], blocks: Sequence[Block],
@@ -156,19 +178,97 @@ def stack_forward(blocks: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig,
     return x, aux
 
 
+# ----- prefill / decode over dense caches -----------------------------------
+
+
+def block_prefill(params: Block, x: torch.Tensor, cfg: ArchConfig,
+                  s_max: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, attn.Cache]:
+    """Pre-norm residual block over the prompt; returns (x, the layer's
+    decode cache)."""
+    h = params.norm1(x)
+    if params.kind == "mla":
+        mixed, cache = attn.mla_prefill(params.mixer, h, cfg, s_max=s_max)
+    else:
+        mixed, cache = attn.attention_prefill(
+            params.mixer, h, cfg, window=_window(params.kind, cfg),
+            s_max=s_max)
+    return _ffn_residual(params, x + mixed, cfg), cache
+
+
+def block_decode(params: Block, x: torch.Tensor, cache: attn.Cache,
+                 idx: torch.Tensor, cfg: ArchConfig
+                 ) -> Tuple[torch.Tensor, attn.Cache]:
+    """One decode step of one block; ``cache`` is updated in place."""
+    h = params.norm1(x)
+    if params.kind == "mla":
+        mixed, cache = attn.mla_decode(params.mixer, h, cache, idx, cfg)
+    else:
+        mixed, cache = attn.attention_decode(
+            params.mixer, h, cache, idx, cfg,
+            window=_window(params.kind, cfg))
+    return _ffn_residual(params, x + mixed, cfg), cache
+
+
+def init_block_cache(kind: str, cfg: ArchConfig, batch: int, s_max: int,
+                     dtype: torch.dtype, device: torch.device) -> attn.Cache:
+    if kind == "attn":
+        return attn.init_dense_cache(cfg, batch, s_max, dtype, device)
+    if kind == "swa":
+        return attn.init_swa_cache(cfg, batch, cfg.window, dtype, device)
+    if kind == "mla":
+        return attn.init_mla_cache(cfg, batch, s_max, dtype, device)
+    raise NotImplementedError(f"{kind!r} caches are not ported yet")
+
+
+def stack_prefill(blocks: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig,
+                  s_max: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, List[attn.Cache]]:
+    """The whole stack over the prompt, layer by layer; returns (x, one
+    cache per layer in layer order)."""
+    caches = []
+    for blk in blocks:
+        x, c = block_prefill(blk, x, cfg, s_max)
+        caches.append(c)
+    return x, caches
+
+
+def stack_decode(blocks: nn.ModuleList, x: torch.Tensor,
+                 caches: List[attn.Cache], idx: torch.Tensor, cfg: ArchConfig
+                 ) -> Tuple[torch.Tensor, List[attn.Cache]]:
+    """One decode step through the whole stack; ``caches[i]`` belongs to
+    layer ``i`` (updated in place)."""
+    for blk, c in zip(blocks, caches):
+        x, _ = block_decode(blk, x, c, idx, cfg)
+    return x, caches
+
+
+def init_stack_cache(cfg: ArchConfig, batch: int, s_max: int,
+                     dtype: torch.dtype, device: torch.device
+                     ) -> List[attn.Cache]:
+    """Empty decode caches for the whole stack, one per layer in layer
+    order."""
+    return [init_block_cache(kind, cfg, batch, s_max, dtype, device)
+            for kind in cfg.layer_kinds()]
+
+
+# ----- paged serving ---------------------------------------------------------
+
+
 def block_step(params: Block, x: torch.Tensor, pool: attn.Pool,
                view: attn.KVView, cfg: ArchConfig
                ) -> Tuple[torch.Tensor, attn.Pool]:
     """One block of a mixed prefill/decode serving step against its paged
-    KV pool (updated in place). Returns (x, pool)."""
-    window = cfg.window if params.kind == "swa" else 0
+    KV pool (updated in place). Returns (x, pool). Attention blocks only:
+    an MLA layer caches a latent, which the pools do not hold (JAX's
+    ``paged_supported`` gate)."""
+    if params.kind not in ("attn", "swa"):
+        raise NotImplementedError(f"{params.kind!r} blocks have no paged "
+                                  "path; serve them through the dense engine")
     h = params.norm1(x)
     mixed, pool = attn.attention_paged(params.mixer, h, pool, view, cfg,
-                                       window=window)
-    x = x + mixed
-    if _has_ffn(cfg):
-        x = x + ffn_mod.ffn_forward(params.ffn, params.norm2(x), cfg)
-    return x, pool
+                                       window=_window(params.kind, cfg))
+    return _ffn_residual(params, x + mixed, cfg), pool
 
 
 def stack_step(blocks: nn.ModuleList, x: torch.Tensor,
@@ -233,7 +333,7 @@ AUX_LOSS_WEIGHT = 0.01
 
 
 class LM(nn.Module):
-    """Decoder-only language model (dense attention archs).
+    """Decoder-only language model (dense attention and MLA archs).
 
     Parameters live on ``device`` (CUDA unless the caller names another) in
     ``rt.param_dtype``; activations run in ``rt.compute_dtype``. With
@@ -341,6 +441,43 @@ class LM(nn.Module):
         head = self.embed.T if self.lm_head is None else self.lm_head
         return softcap((x @ head.to(x.dtype)).float(), self.cfg.logits_softcap)
 
+    # ----- serving over dense caches -----
+    def _one_device(self, what: str) -> None:
+        if self.tp > 1:
+            raise NotImplementedError(f"{what} over a TP ring is not ported "
+                                      "yet (ROADMAP A11, A12)")
+
+    def init_cache(self, batch: int, s_max: int) -> List[attn.Cache]:
+        return init_stack_cache(self.cfg, batch, s_max, self.rt.dtype,
+                                self.device)
+
+    @torch.no_grad()
+    def prefill(self, tokens, s_max: Optional[int] = None
+                ) -> Tuple[torch.Tensor, List[attn.Cache]]:
+        """The prompt through the stack. ``tokens``: (B, S) int, or a batch
+        dict with a "tokens" entry. Returns the last position's logits,
+        (B, 1, V) f32, and the per-layer caches of ``s_max`` slots (default
+        S)."""
+        self._one_device("prefill")
+        if isinstance(tokens, dict):
+            tokens = tokens["tokens"]
+        x = self._embed(tokens, self.rt.dtype)
+        x, caches = stack_prefill(self.blocks, x, self.cfg,
+                                  s_max or tokens.shape[1])
+        return self.logits(self.final_norm(x[:, -1:])), caches
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, caches: List[attn.Cache],
+                    idx: torch.Tensor
+                    ) -> Tuple[torch.Tensor, List[attn.Cache]]:
+        """token: (B, 1) int; idx: (B,) int32 positions of the new tokens.
+        Returns the logits (B, 1, V) f32 and the caches (updated in
+        place)."""
+        self._one_device("decode")
+        x = self._embed(token, self.rt.dtype)
+        x, caches = stack_decode(self.blocks, x, caches, idx, self.cfg)
+        return self.logits(self.final_norm(x)), caches
+
     # ----- paged serving (docs/serving.md) -----
     def init_pools(self, num_blocks: int, block_size: int) -> List[attn.Pool]:
         return init_stack_pools(self.cfg, num_blocks, block_size,
@@ -353,9 +490,11 @@ class LM(nn.Module):
         tokens: (B, S_step) int (0 at padding positions). Returns the
         per-row logits at each row's last valid position, (B, 1, V) f32,
         and the pools (updated in place)."""
-        if self.tp > 1:
-            raise NotImplementedError("serving over a TP ring is not ported "
-                                      "yet (ROADMAP A12)")
+        self._one_device("paged serving")
+        if any(b.kind not in ("attn", "swa") for b in self.blocks):
+            raise NotImplementedError(
+                f"{self.cfg.name}: only attention blocks have a paged path; "
+                "serve the others through the dense engine")
         x = self._embed(tokens, self.rt.dtype)
         x, pools = stack_step(self.blocks, x, pools, view, self.cfg)
         B = x.shape[0]

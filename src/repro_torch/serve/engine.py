@@ -1,5 +1,7 @@
-"""Paged-KV continuous-batching serving engine — the port of
-``repro/serve/engine.py``'s ``Engine`` on one device.
+"""Serving engines of ``repro/serve/engine.py`` on one device: the paged-KV
+continuous-batching ``Engine`` and the static-batch ``DenseEngine``, which
+``Engine`` falls back to for archs outside the paged path (MLA), as JAX's
+does.
 
 A :class:`repro_torch.serve.kv.BlockAllocator` owns fixed-size KV blocks
 with prefix reuse, a :class:`repro_torch.serve.scheduler.Scheduler` builds
@@ -13,9 +15,9 @@ Sampling is replayable: greedy at temperature 0; otherwise each token is
 drawn with a ``torch.Generator`` seeded from (seed, rid, token_index) alone,
 so a request's tokens do not depend on what it was batched with.
 
-Not in this slice: the dense static-batch engine, archs outside the paged
-path, and tensor-parallel serving over a mesh (ROADMAP A4-A7); the engine
-raises for each.
+Not ported: tensor-parallel serving over a mesh (ROADMAP A4-A7) and the
+prefix/extras inputs of the enc-dec and VLM families; the engines raise for
+a mesh.
 """
 from __future__ import annotations
 
@@ -84,31 +86,41 @@ def paged_supported(model, cfg: Optional[ArchConfig]) -> bool:
     return all(k in ("attn", "swa") for k in cfg.layer_kinds())
 
 
+def _one_device(model, mesh, device) -> torch.device:
+    """The device an engine runs on; raises for a mesh, or for a model that
+    lies elsewhere."""
+    device = resolve_device(device)
+    if mesh is not None:
+        raise NotImplementedError(
+            "serving over a mesh (tensor parallelism) is not ported yet "
+            "(ROADMAP A4-A7); the port serves on one device")
+    if model.device.type != device.type:
+        raise ValueError(f"model lies on {model.device}, engine runs on "
+                         f"{device}")
+    return device
+
+
 class Engine:
     """Paged-KV continuous-batching engine on one device (CUDA unless the
-    caller passes ``device="cpu"``; the model must lie there)."""
+    caller passes ``device="cpu"``; the model must lie there). Falls back
+    to :class:`DenseEngine` for archs outside the paged path."""
 
     def __init__(self, model, cfg: ArchConfig, rt: Runtime,
                  serve_cfg: Optional[ServeConfig] = None, *, mesh=None,
                  device=None):
-        self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving over a mesh (tensor parallelism) is not ported yet "
-                "(ROADMAP A4-A7); the port serves on one device")
-        if not paged_supported(model, cfg):
-            raise NotImplementedError(
-                f"arch {cfg.name!r} is outside the paged path; the dense "
-                "engine and other mixers are not ported yet")
-        if model.device.type != self.device.type:
-            raise ValueError(f"model lies on {model.device}, engine runs on "
-                             f"{self.device}")
+        self.device = _one_device(model, mesh, device)
         self.model = model
         self.cfg = cfg
         self.rt = rt
         self.sc = serve_cfg if serve_cfg is not None else ServeConfig()
         self.last_report: Dict[str, float] = {}
-        self.steps = 0                  # serve_step calls in the last run
+        self.steps = 0                  # model calls in the last run
+        self.paged = paged_supported(model, cfg)
+        self._dense: Optional[DenseEngine] = None
+        if not self.paged:
+            self._dense = DenseEngine(model, cfg, rt, self.sc,
+                                      device=self.device)
+            return
         sc = self.sc
         self.max_active = sc.max_active or sc.max_batch
         self.table_width = max(-(-sc.s_max // sc.block_size), 1)
@@ -140,6 +152,11 @@ class Engine:
     # ----- main loop -----
     def run(self, requests: List[Request],
             seed: Optional[int] = None) -> List[Request]:
+        if self._dense is not None:
+            self._dense.run(requests, seed)
+            self.steps = self._dense.steps
+            self.last_report = self._dense.last_report
+            return requests
         seed = 0 if seed is None else int(seed)
         sc = self.sc
         for r in requests:
@@ -195,3 +212,96 @@ class Engine:
         self.last_report["prefix_hits"] = float(alloc.prefix_hits)
         self.last_report["steps"] = float(self.steps)
         return requests
+
+
+class DenseEngine:
+    """The static-batch engine: dense ``(B, s_max)`` caches, one batch per
+    same-length prompt group (left-padded, as JAX's), one ``LM.prefill``
+    and then ``LM.decode_step`` calls until every request of the batch has
+    its tokens. ``steps`` counts the prefill and decode calls of the last
+    run."""
+
+    def __init__(self, model, cfg: ArchConfig, rt: Runtime,
+                 serve_cfg: Optional[ServeConfig] = None, *, mesh=None,
+                 device=None):
+        self.device = _one_device(model, mesh, device)
+        self.model = model
+        self.cfg = cfg
+        self.rt = rt
+        self.sc = serve_cfg if serve_cfg is not None else ServeConfig()
+        self.last_report: Dict[str, float] = {}
+        self.steps = 0
+
+    def _pack(self, requests: List[Request]):
+        """Right-align prompts into one (B, S) batch (pad token 0)."""
+        S = max(len(r.prompt) for r in requests)
+        toks = np.zeros((len(requests), S), np.int32)
+        for i, r in enumerate(requests):
+            toks[i, S - len(r.prompt):] = r.prompt        # left-pad
+        return torch.from_numpy(toks).to(self.device), S
+
+    def run(self, requests: List[Request],
+            seed: Optional[int] = None) -> List[Request]:
+        seed = 0 if seed is None else int(seed)
+        for r in requests:
+            r.seed = seed
+            need = len(r.prompt) + r.max_new_tokens - 1
+            if need > self.sc.s_max:
+                raise ValueError(
+                    f"request {r.rid}: prompt+max_new needs {need} cache "
+                    f"slots, the cache holds {self.sc.s_max} (raise s_max)")
+        # group by prompt length: one prefill per group keeps positions
+        # exact. A static batch cannot start until every member has arrived.
+        by_len: Dict[int, List[Request]] = {}
+        for r in requests:
+            by_len.setdefault(len(r.prompt), []).append(r)
+        self.steps = 0
+        t0 = time.monotonic()
+        for _, group in sorted(by_len.items()):
+            for i in range(0, len(group), self.sc.max_batch):
+                chunk = group[i:i + self.sc.max_batch]
+                wait = max(r.arrival_time for r in chunk) \
+                    - (time.monotonic() - t0)
+                if wait > 0:
+                    time.sleep(wait)
+                self._run_batch(chunk, seed, t0)
+        makespan = time.monotonic() - t0
+        from repro_torch.serve.loadgen import latency_report
+        self.last_report = latency_report(requests, makespan, n_devices=1,
+                                          seed=seed)
+        self.last_report["steps"] = float(self.steps)
+        return requests
+
+    def _run_batch(self, requests: List[Request], seed: int, t0: float):
+        toks, S = self._pack(requests)
+        logits, caches = self.model.prefill(toks, s_max=self.sc.s_max)
+        self.steps += 1
+        idx = torch.full((len(requests),), S, dtype=torch.int32,
+                         device=self.device)
+        tok = self._sample(logits, requests, seed)
+        for t in range(max(r.max_new_tokens for r in requests)):
+            t_now = time.monotonic() - t0
+            for i, r in enumerate(requests):
+                if not r.done and len(r.out_tokens) < r.max_new_tokens:
+                    r.out_tokens.append(int(tok[i]))
+                    if r.t_first_token is None:
+                        r.t_first_token = t_now
+                    r.token_times.append(t_now)
+                    if len(r.out_tokens) >= r.max_new_tokens:
+                        r.done = True
+            if all(r.done for r in requests):
+                break
+            token = torch.from_numpy(tok[:, None]).to(self.device)
+            logits, caches = self.model.decode_step(token, caches, idx + t)
+            self.steps += 1
+            tok = self._sample(logits, requests, seed)
+        for r in requests:
+            r.done = True
+
+    @staticmethod
+    def _sample(logits: torch.Tensor, requests: List[Request],
+                seed: int) -> np.ndarray:
+        rows = logits[:, -1].cpu().numpy()
+        return np.asarray([_sample_token(rows[i], seed, r.rid,
+                                         len(r.out_tokens), r.temperature)
+                           for i, r in enumerate(requests)], np.int32)

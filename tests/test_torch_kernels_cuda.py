@@ -1,5 +1,5 @@
-"""The Hopper kernels (flash attention, matmul) against their plain PyTorch
-versions, on the card. Every test here needs an NVIDIA GPU with nvcc; on a
+"""The Hopper kernels (flash attention, matmul, matmul_rmsnorm) against
+their plain PyTorch versions, on the card. Every test here needs an NVIDIA GPU with nvcc; on a
 machine without one they skip. Run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -10,6 +10,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import matmul as mm  # noqa: E402
+from repro_torch.kernels import matmul_rmsnorm as mln  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 # the kernel and its plain version both compute in f32 from the same inputs:
@@ -168,3 +169,105 @@ def test_matmul_dispatch_counts_launches_and_rejects(dev):
     with pytest.raises(TypeError):
         mm.matmul(a, b.bfloat16())
     assert mm.launches == before + 1
+
+
+# flash attention with a value head dim below the query/key dim: MLA's
+# prefill core (dh 96 = 64 + 32, dv 64), and a ragged small case
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,dh,dv", [(2, 70, 3, 96, 64),
+                                         (1, 33, 2, 36, 8)])
+def test_flash_value_dim_below_head_dim(dev, B, S, H, dh, dv, dtype):
+    g = torch.Generator(device="cpu").manual_seed(S + dv)
+    q, k = (torch.randn(B, S, H, dh, generator=g).to(dev, dtype)
+            for _ in range(2))
+    v = torch.randn(B, S, H, dv, generator=g).to(dev, dtype)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    kw = dict(q_positions=pos.contiguous(), kv_positions=pos.contiguous(),
+              causal=True)
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.shape == (B, S, H, dv)
+    torch.testing.assert_close(got.float(),
+                               ref.attention_ref(q, k, v, **kw).float(),
+                               **TOL[dtype])
+
+
+# matmul_rmsnorm (M, K, N, ldb): tests/test_kernels.py's sweep and its
+# model-norm case, the MLA latent norms of minicpm3-4b as chip_smoke.py
+# serves it (prefill M 4096 and decode M 4; the KV latent's b a column
+# slice of wkv_a, row stride 288), the TPU kernel's N 8192, ragged edges
+MLN_SHAPES = [(128, 256, 128, 128), (64, 512, 384, 384), (256, 128, 64, 64),
+              (32, 64, 48, 48), (4096, 2560, 768, 768),
+              (4096, 2560, 256, 288), (4, 2560, 768, 768),
+              (4, 2560, 256, 288), (128, 2048, 8192, 8192), (1, 7, 5, 9),
+              (65, 33, 130, 130), (300, 100, mln.MAX_N, mln.MAX_N)]
+
+
+def mln_case(dev, M, K, N, ldb, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(M + K + N + seed)
+    a = torch.randn(M, K, generator=g).to(dev, dtype)
+    b = torch.randn(K, ldb, generator=g).to(dev, dtype)[:, :N]
+    scale = (0.1 * torch.randn(N, generator=g)).to(dev)
+    return a, b, scale
+
+
+def assert_mln_close(got, want, a, b, scale):
+    """TOL of the output type on out, plus the matmul check's bound on
+    z = a @ b carried through the norm: scaled by |1 + scale| / rms(z)
+    (chip_smoke.py ``check_mln_case``)."""
+    tol = TOL[got.dtype]
+    z = ref.matmul_ref(a, b.contiguous(), torch.float32)
+    rms = torch.sqrt(z.square().mean(-1, keepdim=True) + 1e-6)
+    mag = a.float().abs() @ b.float().abs()
+    ztol = (TOL[a.dtype]["atol"] + TOL[a.dtype]["rtol"] * z.abs()
+            + 2 * a.shape[1] ** 0.5 * 2.0 ** -24 * mag)
+    limit = (tol["atol"] + tol["rtol"] * want.float().abs()
+             + ztol * (1 + scale.float()).abs() / rms)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= limit).all()), \
+        f"max |err| {float(err.max()):.3e}, worst err/limit " \
+        f"{float((err / limit).max()):.3f}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,ldb", MLN_SHAPES)
+def test_matmul_rmsnorm_kernel_matches_plain(dev, M, K, N, ldb, dtype):
+    a, b, scale = mln_case(dev, M, K, N, ldb, dtype)
+    got = mln.matmul_rmsnorm(a, b, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.isfinite(got).all()
+    assert_mln_close(got, ref.matmul_rmsnorm_ref(a, b, scale), a, b, scale)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+def test_matmul_rmsnorm_out_dtype_and_scale_type(dev, in_dtype, out_dtype):
+    a, b, scale = mln_case(dev, 96, 200, 72, 80, in_dtype, seed=5)
+    for sc in (scale, scale.to(in_dtype)):
+        got = mln.matmul_rmsnorm(a, b, sc, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype
+        assert_mln_close(got, ref.matmul_rmsnorm_ref(a, b, sc,
+                                                     out_dtype=out_dtype),
+                         a, b, sc)
+
+
+def test_matmul_rmsnorm_dispatch_counts_launches_and_rejects(dev):
+    a, b, scale = mln_case(dev, 64, 32, 16, 24, torch.float32)
+    before = mln.launches
+    ops.matmul_rmsnorm(a, b, scale)
+    assert mln.launches == before + 1
+    with pytest.raises(ValueError):      # b column-major: raise, no fallback
+        ops.matmul_rmsnorm(a, b.T.contiguous().T, scale)
+    with pytest.raises(ValueError):      # a not contiguous
+        ops.matmul_rmsnorm(a.T.contiguous().T, b, scale)
+    with pytest.raises(TypeError):
+        ops.matmul_rmsnorm(a.half(), b.half(), scale)
+    with pytest.raises(ValueError, match=str(mln.MAX_N)):
+        w = torch.zeros(32, mln.MAX_N + 1, device=dev)
+        ops.matmul_rmsnorm(a, w, torch.zeros(mln.MAX_N + 1, device=dev))
+    with pytest.raises(ValueError):      # scale on another device
+        mln.matmul_rmsnorm(a, b, scale.cpu())
+    assert mln.launches == before + 1
