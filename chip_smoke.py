@@ -6,14 +6,24 @@ Phases (any failure exits non-zero):
   1. the card: ``nvidia-smi`` name and power limit, torch's CUDA device and
      its properties beside the H100 spec the planner uses;
   2. build every CUDA kernel from ``src/`` with nvcc, one nvcc per source,
-     all started together;
+     all started together; print each library's count of wgmma (``HGMMA``)
+     and TMA load (``UTMALDG``) instructions by ``cuobjdump -sass``, and
+     fail if the matmul or the matmul_rmsnorm library lacks either;
   3. each kernel against its plain PyTorch version on the card, in bf16 and
      f32: flash attention at the shapes the serving path and the
      tensor-parallel path give it and at the TPU kernel's own (BH, S, d)
      case; matmul at the TPU kernel's test shapes and at the shapes the
      ring schedules of phase 6 give it; the kernel's time beside the plain
      version's, one PyTorch library call's, and the least time the card
-     could take;
+     could take, each timed by CUDA events around 20 calls launched from
+     Python (``ms``, ``plain_ms``, ``library_ms``: what a caller that
+     launches eagerly waits, the host's launch cost included); the matmul
+     and matmul_rmsnorm rows also time all three as a CUDA graph of 20
+     calls replayed between two events (``graph_ms``, ``plain_graph_ms``,
+     ``library_graph_ms``: the device's time alone), and name the variant
+     their ``plan`` chose (``wgmma``, ``splitk`` or ``ffma``), its tile, the
+     rate reached (TF/s or GB/s, by what bounds the call) and the share of
+     the bound, both by ``ms`` and by ``graph_ms``;
   4. gemma3-1b at full width cut to 2 layers (one sliding-window, one
      global), f32: the engine on the CPU
      (plain attention) and on the card (the kernel) must give identical
@@ -35,10 +45,11 @@ Phases (any failure exits non-zero):
      loss, the bf16 loss within ``BF16_LOSS_RTOL`` of the one-device bf16
      loss, and the f32 final hidden states of the cais 2-microbatch run
      within ``HIDDEN_TOL`` of one device's; every rank's matmul launches
-     must equal the count derived from its optimized period graphs, its
-     flash launches one per layer per microbatch, every matmul call shape
-     must be among those phase 3 checked, and a 2-microbatch run must
-     execute ``overlap_asym``.
+     must equal the count derived from its optimized period graphs, all of
+     them through the wgmma variant in the bf16 run and the FFMA kernel in
+     f32, its flash launches one per layer per microbatch, every matmul
+     call shape must be among those phase 3 checked, and a 2-microbatch run
+     must execute ``overlap_asym``.
   7. minicpm3-4b (MLA) at full width cut to 2 layers, f32: ``LM.prefill``
      and three ``LM.decode_step`` calls on the CPU (plain versions) and on
      the card (the kernels) must give logits within ``LOGIT_TOL``, and the
@@ -49,8 +60,10 @@ Phases (any failure exits non-zero):
      requests of 1024 prompt tokens, 16 new tokens each; the launch
      counters are set to 0 just before and read just after: matmul_rmsnorm
      must have run twice a layer (the query and KV latent norms) in every
-     prefill and decode call, flash attention once a layer in the prefill,
-     and every call shape of both must be among those phase 3 checked.
+     prefill and decode call, the prefill's through the wgmma variant and
+     every decode step's through split-K, flash attention once a layer in
+     the prefill, and every call shape of both must be among those phase 3
+     checked.
 Phase 3 also holds matmul_rmsnorm against its plain version at the TPU
 kernel's test shapes, at every shape phase 8 calls (b a column slice of
 ``wkv_a`` for the KV latent) and at N 8192, and flash attention at the MLA
@@ -65,6 +78,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -120,7 +134,9 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
+    """Mean time of one call, by CUDA events around ``iters`` calls
+    launched from Python back to back: the device time, or the host's time
+    to launch the call where that is longer."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -132,6 +148,74 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call: ``iters`` calls captured in one CUDA
+    graph (after ``warmup`` calls on the capturing stream), the graph
+    replayed between two CUDA events. The replay launches no Python, so a
+    call of a few microseconds is timed on the device and not by the host
+    code around it (that is :func:`cuda_ms`)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def timings(kernel, plain, library) -> dict:
+    """The kernel's, the plain version's and the library call's times,
+    launched from Python (:func:`cuda_ms`) and replayed as a graph
+    (:func:`graph_ms`)."""
+    return dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                library_ms=cuda_ms(library), graph_ms=graph_ms(kernel),
+                plain_graph_ms=graph_ms(plain),
+                library_graph_ms=graph_ms(library))
+
+
+def achieved(bytes_ms: float, ops_ms: float, bound_by: str, ms: float,
+             dtype, graph: Optional[float] = None) -> dict:
+    """The rate the call reached in ``ms`` in the unit of what bounds it
+    (GB/s of HBM or TF/s of the type's peak) and its share of that bound;
+    with ``graph`` (the call's graph time), the share by that time too."""
+    if bound_by == "bytes":
+        rate = dict(value=HBM_BYTES_PER_S * bytes_ms / ms / 1e9, unit="GB/s")
+    else:
+        rate = dict(value=PEAK_FLOPS[dtype] * ops_ms / ms / 1e12,
+                    unit="TF/s")
+    row = dict(achieved=rate, bound_share=max(bytes_ms, ops_ms) / ms)
+    if graph is not None:
+        row.update(graph_bound_share=max(bytes_ms, ops_ms) / graph)
+    return row
+
+
+def sass_census(lib: Path) -> dict:
+    """Count the wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions
+    in a built library's SASS, by ``cuobjdump -sass``."""
+    import os
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
+                           "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    return {op: sum(op in line for line in sass.splitlines())
+            for op in ("HGMMA", "UTMALDG")}
 
 
 # ---------------------------------------------------------------------------
@@ -265,10 +349,12 @@ def check_kernel_case(name: str, case, fa, ref) -> dict:
                max_abs_err=float(err.max()), tol=tol, repo_tol=TOL[q.dtype],
                ok=ok, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms)
+               bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
+               **achieved(bytes_ms, ops_ms, bound_by, ms, q.dtype))
     log(f"  {name:>14} {row['dtype']:>8} err={row['max_abs_err']:.3e} "
         f"{'ok' if ok else 'FAIL'} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-        f"sdpa={library_ms:.4f}ms bound={bound_ms:.5f}ms ({bound_by})")
+        f"sdpa={library_ms:.4f}ms bound={bound_ms:.5f}ms ({bound_by}, "
+        f"{row['bound_share']:.1%})")
     return row
 
 
@@ -354,24 +440,32 @@ def check_matmul_case(name, M, K, N, dtype, mmk, ref) -> dict:
     limit = matmul_tol(a, b, want, dtype)
     ok = bool((err <= limit).all() and torch.isfinite(got).all())
     worst = float((err / limit).max())
-    ms = cuda_ms(lambda: mmk.matmul(a, b))
-    plain_ms = cuda_ms(lambda: ref.matmul_ref(a, b))
-    library_ms = cuda_ms(lambda: torch.matmul(a, b))
+    p = mmk.plan(M, N, K, N, dtype)
+    t = timings(lambda: mmk.matmul(a, b), lambda: ref.matmul_ref(a, b),
+                lambda: torch.matmul(a, b))
+    ms = t["ms"]
     es = a.element_size()
     bytes_ms = (M * K + K * N + M * N) * es / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * M * K * N / PEAK_FLOPS[dtype] * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     row = dict(case=name, dtype=str(dtype).replace("torch.", ""),
-               shape=dict(M=M, K=K, N=N), max_abs_err=float(err.max()),
+               shape=dict(M=M, K=K, N=N), variant=p.variant,
+               tile=[p.bm, p.bn], ctas=p.ctas, max_abs_err=float(err.max()),
                tol=dict(tol, summation="2*sqrt(K)*2^-24*(|a|@|b|)"),
-               worst_err_over_limit=worst, repo_tol=TOL[dtype], ok=ok, ms=ms,
-               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms)
-    log(f"  {name:>10} {row['dtype']:>8} ({M},{K},{N}) "
-        f"err={row['max_abs_err']:.3e} (err/limit {worst:.3f}) "
-        f"{'ok' if ok else 'FAIL'} "
-        f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms cublas={library_ms:.4f}ms "
-        f"bound={bound_ms:.5f}ms ({bound_by})")
+               worst_err_over_limit=worst, repo_tol=TOL[dtype], ok=ok, **t,
+               bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms,
+               ops_ms=ops_ms, **achieved(bytes_ms, ops_ms, bound_by, ms,
+                                         dtype, t["graph_ms"]))
+    log(f"  {name:>10} {row['dtype']:>8} ({M},{K},{N}) {p.variant} "
+        f"{p.bm}x{p.bn} err={row['max_abs_err']:.3e} (err/limit "
+        f"{worst:.3f}) {'ok' if ok else 'FAIL'} kernel={ms:.4f}ms "
+        f"plain={t['plain_ms']:.4f}ms cublas={t['library_ms']:.4f}ms "
+        f"(graph: kernel={t['graph_ms']:.4f}ms "
+        f"plain={t['plain_graph_ms']:.4f}ms "
+        f"cublas={t['library_graph_ms']:.4f}ms) bound={bound_ms:.5f}ms "
+        f"({bound_by}) {row['achieved']['value']:.1f} "
+        f"{row['achieved']['unit']} ({row['bound_share']:.1%} of the bound; "
+        f"graph {row['graph_bound_share']:.1%})")
     return row
 
 
@@ -418,31 +512,41 @@ def check_mln_case(name, M, K, N, ldb, dtype, mln, ref) -> dict:
     err = (got.float() - want.float()).abs()
     ok = bool((err <= limit).all() and torch.isfinite(got).all())
     worst = float((err / limit).max())
-    ms = cuda_ms(lambda: mln.matmul_rmsnorm(a, b, scale, eps=MLN_EPS))
-    plain_ms = cuda_ms(lambda: ref.matmul_rmsnorm_ref(a, b, scale, MLN_EPS))
+    p = mln.plan(M, N, K, ldb, dtype)
     # the library yardstick is TWO calls: cuBLAS, then PyTorch's rms_norm
     # (whose weight is 1 + scale), with z through device memory between them
     w1 = (1 + scale).to(dtype)
-    library_ms = cuda_ms(lambda: F.rms_norm(torch.matmul(a, b), (N,), w1,
-                                            MLN_EPS))
+    t = timings(lambda: mln.matmul_rmsnorm(a, b, scale, eps=MLN_EPS),
+                lambda: ref.matmul_rmsnorm_ref(a, b, scale, MLN_EPS),
+                lambda: F.rms_norm(torch.matmul(a, b), (N,), w1, MLN_EPS))
+    ms = t["ms"]
     es = a.element_size()
     bytes_ms = ((M * K + K * N + M * N) * es + 4 * N) / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * M * K * N / PEAK_FLOPS[dtype] * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     row = dict(case=name, dtype=str(dtype).replace("torch.", ""),
-               shape=dict(M=M, K=K, N=N, ldb=ldb),
-               block_rows=mln.block_rows(M, N), max_abs_err=float(err.max()),
+               shape=dict(M=M, K=K, N=N, ldb=ldb), variant=p.variant,
+               tile=[p.bm, p.bn], cluster=p.cluster, splits=(
+                   p.grid[1] if p.variant == "splitk" else 1), ctas=p.ctas,
+               max_abs_err=float(err.max()),
                tol=dict(tol, z="matmul_tol * |1 + scale| / rms(z)"),
-               worst_err_over_limit=worst, repo_tol=TOL[dtype], ok=ok, ms=ms,
-               plain_ms=plain_ms, library_ms=library_ms,
+               worst_err_over_limit=worst, repo_tol=TOL[dtype], ok=ok, **t,
                library="torch.matmul + F.rms_norm (two calls)",
                bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms,
-               ops_ms=ops_ms)
-    log(f"  {name:>10} {row['dtype']:>8} ({M},{K},{N}) ldb {ldb} BM "
-        f"{row['block_rows']} err={row['max_abs_err']:.3e} (err/limit "
+               ops_ms=ops_ms, **achieved(bytes_ms, ops_ms, bound_by, ms,
+                                         dtype, t["graph_ms"]))
+    log(f"  {name:>10} {row['dtype']:>8} ({M},{K},{N}) ldb {ldb} "
+        f"{p.variant} {p.bm}x{p.bn} cluster {p.cluster} splits "
+        f"{row['splits']} err={row['max_abs_err']:.3e} (err/limit "
         f"{worst:.3f}) {'ok' if ok else 'FAIL'} kernel={ms:.4f}ms "
-        f"plain={plain_ms:.4f}ms matmul+rms_norm={library_ms:.4f}ms "
-        f"bound={bound_ms:.5f}ms ({bound_by})")
+        f"plain={t['plain_ms']:.4f}ms "
+        f"matmul+rms_norm={t['library_ms']:.4f}ms (graph: "
+        f"kernel={t['graph_ms']:.4f}ms plain={t['plain_graph_ms']:.4f}ms "
+        f"matmul+rms_norm={t['library_graph_ms']:.4f}ms) "
+        f"bound={bound_ms:.5f}ms ({bound_by}) "
+        f"{row['achieved']['value']:.1f} {row['achieved']['unit']} "
+        f"({row['bound_share']:.1%} of the bound; graph "
+        f"{row['graph_bound_share']:.1%})")
     return row
 
 
@@ -614,6 +718,7 @@ def tp_rank(group, tokens, runs):
         lm.rt = rt
         torch.cuda.synchronize()
         mmk.launches = fa.launches = asym[0] = 0
+        mmk.launches_by_variant = dict.fromkeys(mmk.VARIANTS, 0)
         calls.clear()
         t0 = time.monotonic()
         loss = lm.loss({"tokens": tok, "labels": tok})
@@ -629,6 +734,7 @@ def tp_rank(group, tokens, runs):
             mode=mode, mb=mb, dtype=dtype, loss=float(loss),
             finite=bool(torch.isfinite(loss)), wall_s=wall,
             matmul_launches=launches[0],
+            matmul_variants=dict(mmk.launches_by_variant),
             matmul_derived=per_period * cfg.num_layers,
             flash_launches=launches[1], flash_derived=mb * cfg.num_layers,
             overlap_asym=launches[2],
@@ -701,6 +807,12 @@ def phase_tp(mmk, fa) -> dict:
                 p["matmul_launches"] == p["matmul_derived"] > 0 for p in per),
             "flash launches = layers x mb": all(
                 p["flash_launches"] == p["flash_derived"] for p in per),
+            # bf16 ring GEMMs all take the wgmma mainloop, f32 the FFMA
+            # kernel (no TF32)
+            "matmul variants": all(p["matmul_variants"] == (
+                dict(wgmma=p["matmul_launches"], ffma=0)
+                if p["dtype"] == "bfloat16" else
+                dict(wgmma=0, ffma=p["matmul_launches"])) for p in per),
             "overlap_asym ran": all(
                 p["overlap_asym"] == p["overlap_asym_nodes"]
                 and (p["overlap_asym"] > 0) == (p["mb"] > 1) for p in per),
@@ -715,7 +827,8 @@ def phase_tp(mmk, fa) -> dict:
         log(f"  {run[0]:>7} mb={run[1]} {run[2]:>8}: loss "
             f"{head['loss']:.7f} (one device {ref_loss:.7f}, rel "
             f"{rel:.2e}); per rank: matmul {head['matmul_launches']} "
-            f"launches (graph {head['matmul_derived']}), flash "
+            f"launches (graph {head['matmul_derived']}; "
+            f"{json.dumps(head['matmul_variants'])}), flash "
             f"{head['flash_launches']}, overlap_asym {head['overlap_asym']}; "
             f"{max(row['wall_s']):.2f}s; wire: {head['wire']}")
         bad = [k for k, v in checks.items() if not v]
@@ -818,6 +931,7 @@ def phase_mla_serve(cfg, fa, mln, mmk):
     try:
         torch.cuda.reset_peak_memory_stats()
         fa.launches = mln.launches = mmk.launches = 0  # the main path only
+        mln.launches_by_variant = dict.fromkeys(mln.VARIANTS, 0)
         t0 = time.monotonic()
         eng, reqs = serve.main([
             "--arch", MLA_ARCH, "--device", "cuda", "--requests",
@@ -828,6 +942,7 @@ def phase_mla_serve(cfg, fa, mln, mmk):
         wall = time.monotonic() - t0
         launches = dict(matmul_rmsnorm=mln.launches,
                         flash_attention=fa.launches, matmul=mmk.launches)
+        variants = dict(mln.launches_by_variant)
     finally:
         ops.matmul_rmsnorm, ops.flash_attention = norm, core
     if not all(r.done and len(r.out_tokens) == MLA_MAX_NEW for r in reqs):
@@ -849,12 +964,20 @@ def phase_mla_serve(cfg, fa, mln, mmk):
                              f"{launches['matmul_rmsnorm']} times, expected "
                              f"{cfg.num_layers} layers x 2 x "
                              f"{prefills + decodes} calls = {norms}")
+    # the prefill's norms (M = 4 x 1024 rows, bf16) on the wgmma mainloop,
+    # every decode step's (M = 4) on split-K
+    want = dict(splitk=cfg.num_layers * 2 * decodes,
+                wgmma=cfg.num_layers * 2 * prefills, ffma=0)
+    if variants != want:
+        raise AssertionError(f"matmul_rmsnorm variants {variants}, "
+                             f"expected {want}")
     if launches["flash_attention"] != cores:
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']} times, "
                              f"expected {cores}")
     rep = dict(eng.last_report)
     rep.update(steps=eng.steps, launches=launches, wall_s=wall,
+               matmul_rmsnorm_variants=variants,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                prompt_lens=[len(r.prompt) for r in reqs],
                params=cfg.param_count(),
@@ -862,7 +985,8 @@ def phase_mla_serve(cfg, fa, mln, mmk):
                             for n, c in calls.items()})
     log(f"  served {len(reqs)} requests in {eng.steps} model calls "
         f"({prefills} prefill + {decodes} decode); launches "
-        f"{json.dumps(launches)}")
+        f"{json.dumps(launches)}; matmul_rmsnorm by variant "
+        f"{json.dumps(variants)}")
     log("  latency " + json.dumps(rep))
     return rep
 
@@ -902,9 +1026,16 @@ def main() -> int:
     t = time.monotonic()
     libs = nvcc.build_all([fa.SOURCE, mmk.SOURCE, mln.SOURCE])
     log(f"  {len(libs)} kernels built in {time.monotonic() - t:.1f}s")
+    census = {}
     for src, lib in libs.items():
         log(f"  {src.relative_to(ROOT)} -> {lib.name}")
         log(Path(f"{lib}.log").read_text().strip())
+        census[src.stem] = sass_census(lib)
+        log(f"  SASS {src.stem}: " + json.dumps(census[src.stem]))
+    for name in (mmk.SOURCE.stem, mln.SOURCE.stem):
+        if not all(census[name].values()):
+            raise AssertionError(f"{name}: no wgmma or no TMA load in its "
+                                 f"SASS: {census[name]}")
 
     cfg = get_arch(ARCH)
     log("phase 3: kernels vs plain versions (within CHECK_TOL)")
@@ -967,16 +1098,26 @@ def main() -> int:
     # flash_attention's record reads the paged serving path's most frequent
     # call, a decode step in bf16, with its launches on every path (phases
     # 5, 6 and 8); matmul's reads the ring step that carries most of phase
-    # 6's GEMM work, the gate/up chunk of the cais schedule, in f32;
+    # 6's GEMM work, the gate/up chunk of the cais schedule, in f32 (the
+    # FFMA kernel: f32 runs are four of phase 6's five; the same step in
+    # bf16, the wgmma variant, is printed on the line before it);
     # matmul_rmsnorm's reads phase 8's most frequent call, the query latent
-    # of a decode step (M = 4, N = 768) in bf16. Every case is on the
-    # "kernel cases" line.
+    # of a decode step (M = 4, N = 768) in bf16 (split-K). Every case is on
+    # the "kernel cases" line. ms, plain_ms and library_ms are the times of
+    # calls launched from Python.
     head = next(r for r in rows if r["case"] == "decode"
                 and r["dtype"] == "bfloat16")
     d, ff = get_tp_cfg().d_model, get_tp_cfg().d_ff // TP_WORLD
+    bf16_cais = next(r for r in tp["runs"] if r["dtype"] == "bfloat16")
+    m_step = next(M for M, K, N, _, _ in bf16_cais["call_shapes"]
+                  if (K, N) == (d, ff))
     mm_head = next(r for r in mm_rows if r["case"] == "tp"
                    and r["dtype"] == "float32"
                    and (r["shape"]["K"], r["shape"]["N"]) == (d, ff))
+    mm_bf16 = next(r for r in mm_rows if r["case"] == "tp"
+                   and r["dtype"] == "bfloat16"
+                   and (r["shape"]["M"], r["shape"]["K"], r["shape"]["N"])
+                   == (m_step, d, ff))
     q_rank = mla_cfg.mla.q_lora_rank
     mln_head = next(r for r in mln_rows if r["case"] == "mla"
                     and r["dtype"] == "bfloat16"
@@ -985,6 +1126,10 @@ def main() -> int:
     record = lambda r: {k: r[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")}
+    log("matmul bf16 gate/up step (wgmma) " + json.dumps(dict(
+        shape=mm_bf16["shape"], **record(mm_bf16), **{
+            k: mm_bf16[k] for k in ("graph_ms", "plain_graph_ms",
+                                    "library_graph_ms")})))
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

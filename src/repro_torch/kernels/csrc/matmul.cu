@@ -1,5 +1,5 @@
-// Tiled matrix product for NVIDIA Hopper (sm_90a), bound to Python through a
-// plain C interface (ctypes; see repro_torch/kernels/matmul.py).
+// Matrix product for NVIDIA Hopper (sm_90a), bound to Python through a plain
+// C interface (ctypes; see repro_torch/kernels/matmul.py).
 //
 // Replaces: src/repro/kernels/matmul.py `_matmul_kernel` (the Pallas TPU
 // kernel): c (M, N) = a (M, K) @ b (K, N), every product and sum in f32, the
@@ -9,26 +9,36 @@
 // chunk, per rotating-accumulator hop, and per barrier GEMM.
 //
 // Layout: a, b, c row-major and contiguous. Types: a and b both f32 or both
-// bf16; c f32 or bf16. bf16 inputs are widened to f32 as they land in shared
-// memory. No tensor cores and no TF32, so the f32 case is full f32 (FFMA).
-// Any M, N, K >= 1: the loads of the ragged edge tiles are guarded and
-// zero-filled, the stores guarded; the TPU kernel instead clipped its block
-// sizes to divisors of the shape.
+// bf16; c f32 or bf16. Any M, N, K >= 1.
 //
-// What bounds it on an H100, and what this simple design does about it: at
-// the ring's shapes (M = B * S_loc / chunks rows, K and N 256..8192) a
-// product does 2MNK operations on (MK + KN) + MN elements, far above the
-// card's ~295 operations per byte, so it is bound by operations. This
-// design computes on the f32 CUDA cores (67 TF/s, not the 989 TF/s of bf16
-// wgmma): a CTA of 256 threads holds a 64 x 64 tile of c, each thread a
-// 4 x 4 register tile at stride 16 (conflict-free shared-memory reads,
-// coalesced stores), over K in steps of 16 staged through shared memory.
-// Loads are not double-buffered. A TMA + wgmma pipeline is the later change
-// that moves the bound.
+// What bounds it on an H100: at the ring's shapes (M = B * S_loc / chunks
+// rows, K and N 256..8192) a product does 2MNK operations on (MK + KN) + MN
+// elements, far above the card's ~295 operations per byte, so it is bound
+// by operations. Two variants, one launch a call; the wrapper's `plan`
+// picks one:
+//
+// 1. wgmma (bf16 with K % 8 == 0 and N % 8 == 0, 16-byte aligned bases):
+//    the shared Hopper mainloop (hopper_gemm.cuh: TMA into a 4-stage
+//    swizzled ring, one producer warp, one or two consumer warpgroups on
+//    wgmma at the tensor cores' 989 TF/s) with a plain epilogue that stores
+//    each f32 fragment pair in the output type. The wrapper tiles by shape
+//    (BM 64 or 128, BN 64, 128 or 256) so that the ring's shapes fill the
+//    132 SMs.
+// 2. ffma (f32, which must not use TF32 since parity needs rtol 2e-5; and
+//    any bf16 layout TMA cannot take): the f32 CUDA cores (67 TF/s). A CTA
+//    of 256 threads holds a 64 x 64 tile of c, each thread a 4 x 4 register
+//    tile at stride 16 (conflict-free shared-memory reads, coalesced
+//    stores), over K in steps of 16 staged through shared memory; bf16 is
+//    widened to f32 as it lands. The loads of the ragged edge tiles are
+//    guarded and zero-filled, the stores guarded; the TPU kernel instead
+//    clipped its block sizes to divisors of the shape.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -38,14 +48,9 @@ constexpr int kBK = 16;         // depth of one shared-memory stage
 constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kPad = 4;         // keeps the transposed a-tile stores apart
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using hopper::store;
+using hopper::store2;
+using hopper::to_f32;
 
 template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(kThreads)
@@ -106,8 +111,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename TIn, typename TOut>
-cudaError_t launch(const void* a, const void* b, void* c, int M, int N, int K,
-                   cudaStream_t stream) {
+cudaError_t launch_ffma(const void* a, const void* b, void* c, int M, int N,
+                        int K, cudaStream_t stream) {
+  if ((M + kBM - 1) / kBM > 65535) return cudaErrorInvalidValue;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   matmul_kernel<TIn, TOut><<<grid, kThreads, 0, stream>>>(
       static_cast<const TIn*>(a), static_cast<const TIn*>(b),
@@ -115,25 +121,74 @@ cudaError_t launch(const void* a, const void* b, void* c, int M, int N, int K,
   return cudaGetLastError();
 }
 
+// wgmma's epilogue: each thread stores its fragment pairs as they are.
+template <typename TOut>
+struct StoreEpilogue {
+  TOut* c;
+  int M, N;
+
+  __device__ void idle() const {}
+
+  template <int R>
+  __device__ void consume(float (&d)[R], hopper::Frag f, int m0, int n0,
+                          float*) const {
+    const int r0 = m0 + f.row0, r1 = r0 + 8;
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i) {
+      const int col = n0 + f.col0 + 8 * i;
+      if (col >= N) continue;     // N % 8 == 0: a pair is in or out whole
+      if (r0 < M) store2(&c[(size_t)r0 * N + col], d[4 * i], d[4 * i + 1]);
+      if (r1 < M)
+        store2(&c[(size_t)r1 * N + col], d[4 * i + 2], d[4 * i + 3]);
+    }
+  }
+};
+
+template <typename TOut>
+cudaError_t launch_wgmma(const void* a, const void* b, void* c, int M, int N,
+                         int K, int bm, int bn, cudaStream_t stream) {
+  if (N % 8 != 0 || (M + bm - 1) / bm > 65535) return cudaErrorInvalidValue;
+  const StoreEpilogue<TOut> ep{static_cast<TOut*>(c), M, N};
+  return hopper::launch_tiled(bm, bn, a, b, M, N, K, N, 1, ep, stream);
+}
+
+template <typename TIn, typename TOut>
+cudaError_t dispatch(int variant, const void* a, const void* b, void* c,
+                     int M, int N, int K, int bm, int bn,
+                     cudaStream_t stream) {
+  if (variant == 0) return launch_ffma<TIn, TOut>(a, b, c, M, N, K, stream);
+  if constexpr (sizeof(TIn) == 2)
+    if (variant == 1)
+      return launch_wgmma<TOut>(a, b, c, M, N, K, bm, bn, stream);
+  return cudaErrorInvalidValue;        // wgmma here is bf16 only
+}
+
 }  // namespace
 
 extern "C" {
 
-// in_dtype, out_dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t
-// (0 = launched).
+// variant: 0 = ffma (64 x 64 tiles), 1 = wgmma (bm 64 or 128 rows and bn 64,
+// 128 or 256 columns a CTA; bf16 only). in_dtype, out_dtype: 0 = float32,
+// 1 = bfloat16. Returns a cudaError_t (0 = launched).
 int matmul_fwd(const void* a, const void* b, void* c, int M, int N, int K,
-               int in_dtype, int out_dtype, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || (M + kBM - 1) / kBM > 65535 ||
-      (in_dtype != 0 && in_dtype != 1) || (out_dtype != 0 && out_dtype != 1))
+               int variant, int bm, int bn, int in_dtype, int out_dtype,
+               void* stream) {
+  if (M < 1 || N < 1 || K < 1 || (in_dtype != 0 && in_dtype != 1) ||
+      (out_dtype != 0 && out_dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_dtype == 0)
     return out_dtype == 0
-               ? (int)launch<float, float>(a, b, c, M, N, K, st)
-               : (int)launch<float, __nv_bfloat16>(a, b, c, M, N, K, st);
+               ? (int)dispatch<float, float>(variant, a, b, c, M, N, K, bm,
+                                             bn, st)
+               : (int)dispatch<float, __nv_bfloat16>(variant, a, b, c, M, N,
+                                                     K, bm, bn, st);
   return out_dtype == 0
-             ? (int)launch<__nv_bfloat16, float>(a, b, c, M, N, K, st)
-             : (int)launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, M, N, K, st);
+             ? (int)dispatch<__nv_bfloat16, float>(variant, a, b, c, M, N, K,
+                                                   bm, bn, st)
+             : (int)dispatch<__nv_bfloat16, __nv_bfloat16>(variant, a, b, c,
+                                                           M, N, K, bm, bn,
+                                                           st);
 }
 
 const char* matmul_error_string(int err) {

@@ -2,8 +2,12 @@
 
 Built like the flash-attention kernel (:mod:`repro_torch.kernels.nvcc`:
 nvcc for ``sm_90a`` on first use, ``ctypes``). :func:`matmul` checks its
-inputs, allocates the output, launches on PyTorch's current stream and raises
-on any CUDA error the launch returns. ``launches`` counts the launches made.
+inputs, takes the variant and tile :func:`plan` names (``wgmma``: the shared
+TMA + wgmma bf16 mainloop; ``ffma``: f32 on the CUDA cores, and bf16
+layouts TMA cannot take), allocates the output, launches once on PyTorch's
+current stream and raises on any CUDA error the launch returns.
+``launches`` counts the launches made, ``launches_by_variant`` the same by
+variant.
 
 Replaces ``repro/kernels/matmul.py::_matmul_kernel``; the note at the top of
 the CUDA source says what bounds it and what the design does about it.
@@ -11,19 +15,56 @@ the CUDA source says what bounds it and what the design does about it.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import hopper, nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "matmul.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {"wgmma": 1, "ffma": 0}   # name -> the source's variant number
+_FFMA_TILE = 64                  # the FFMA kernel's 64 x 64 output tile
 _MAX_ROWS = 65535 * 64          # the grid's y extent times the CTA's rows
 
 launches = 0        # kernel launches since the counter was last set to 0
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 _lib: Optional[ctypes.CDLL] = None
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One call's kernel: the variant, its output tile (BM x BN), its grid
+    (CTAs along N, along M) and a CTA's dynamic shared memory in bytes."""
+    variant: str
+    bm: int
+    bn: int
+    grid: Tuple[int, int]
+    smem: int
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, N: int, K: int, ldb: int, dtype: torch.dtype, *,
+         aligned: bool = True) -> Plan:
+    """The variant and tile of a (M, K) @ (K, N) call, b at row stride
+    ``ldb`` (N for the contiguous b this kernel takes), inputs of ``dtype``,
+    ``aligned`` if both bases lie on 16 bytes. bf16 in a layout TMA takes
+    runs the wgmma mainloop, tiled by :func:`hopper.pick_tile` to fill the
+    SMs; f32 (no TF32: parity needs full f32) and any other bf16 layout run
+    the FFMA kernel."""
+    if dtype == torch.bfloat16 and hopper.tma_ok(K, ldb, aligned):
+        bm, bn = hopper.pick_tile(M, N)
+        return Plan("wgmma", bm, bn, (hopper.cdiv(N, bn), hopper.cdiv(M, bm)),
+                    hopper.smem_bytes(bm, bn))
+    t = _FFMA_TILE
+    return Plan("ffma", t, t, (hopper.cdiv(N, t), hopper.cdiv(M, t)), 0)
 
 
 def build() -> Path:
@@ -36,7 +77,7 @@ def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.matmul_fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+        lib.matmul_fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                                    + [ctypes.c_void_p])
         lib.matmul_fwd.restype = ctypes.c_int
         lib.matmul_error_string.argtypes = [ctypes.c_int]
@@ -67,20 +108,26 @@ def _check(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> None:
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Launch the kernel: a (M, K) @ b (K, N) -> (M, N) in ``out_dtype``
-    (default a's type), all arithmetic in f32."""
+    (default a's type), products in the input type, sums in f32."""
     global launches
     out_dtype = a.dtype if out_dtype is None else out_dtype
     _check(a, b, out_dtype)
+    if a.device.index != torch.cuda.current_device():
+        with torch.cuda.device(a.device):
+            return matmul(a, b, out_dtype=out_dtype)
     M, K = a.shape
     N = b.shape[1]
+    p = plan(M, N, K, N, a.dtype,
+             aligned=a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     lib = _load()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.matmul_fwd(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N,
-                             K, _DTYPES[a.dtype], _DTYPES[out_dtype], stream)
+    err = lib.matmul_fwd(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+                         VARIANTS[p.variant], p.bm, p.bn, _DTYPES[a.dtype],
+                         _DTYPES[out_dtype],
+                         torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError("matmul launch failed: "
+        raise RuntimeError(f"matmul launch failed ({p}): "
                            + lib.matmul_error_string(err).decode())
     launches += 1
+    launches_by_variant[p.variant] += 1
     return out

@@ -2,21 +2,26 @@
 plain C interface, for ``ctypes``.
 
 Each source compiles for ``sm_90a`` into ``_build/`` beside this file, on
-first use and never at import, keyed by a hash of the source and the flags,
-so an edited source is rebuilt and an unchanged one is not. ``build_all``
-starts one ``nvcc`` per source at once and waits for all of them.
+first use and never at import, keyed by a hash of the source, of every local
+header it includes (``#include "..."`` beside it, followed recursively) and
+of the flags, so an edited source or header is rebuilt and an unchanged one
+is not. ``build_all`` starts one ``nvcc`` per source at once and waits for
+all of them. The TMA descriptors need no link flag: the sources look
+``cuTensorMapEncodeTiled`` up at run time (``cudaGetDriverEntryPoint``).
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -28,10 +33,27 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def includes(source: Path) -> List[Path]:
+    """The local headers ``source`` includes, directly or through another
+    header, in the order first met."""
+    found: List[Path] = []
+    todo = [source]
+    while todo:
+        cur = todo.pop()
+        for name in _INCLUDE.findall(cur.read_text()):
+            header = cur.parent / name
+            if header.exists() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    h = hashlib.sha256(source.read_bytes())
+    for header in includes(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def _start(source: Path) -> Optional[subprocess.Popen]:

@@ -271,3 +271,108 @@ def test_matmul_rmsnorm_dispatch_counts_launches_and_rejects(dev):
     with pytest.raises(ValueError):      # scale on another device
         mln.matmul_rmsnorm(a, b, scale.cpu())
     assert mln.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# the variants at their edges: which one a call takes (by launches_by_variant)
+# and that it agrees with the plain version. K 200 is not a multiple of the
+# 64-deep wgmma stage nor of the 16-row split-K lanes.
+# ---------------------------------------------------------------------------
+
+VARIANT_ROWS = [1, 4, 15, 16, 17, 63, 64, 65, 4096]
+# (N, ldb): a narrow row, the MLA KV latent's column slice (ldb 288), the
+# query latent, the widest row a cluster holds, and a row beyond it
+VARIANT_COLS = [(48, 48), (256, 288), (768, 768), (2048, 2048),
+                (8192, 8192)]
+
+
+def expected_mln_variant(M, N, ldb, dtype):
+    """What the plan must pick for 16-byte aligned rows: split-K for decode
+    rows (at most 64 column blocks of 128 bf16 or 64 f32 columns), wgmma for
+    bf16 rows one cluster holds, FFMA for the rest."""
+    block = 128 if dtype == torch.bfloat16 else 64
+    if M <= 16 and N % 8 == 0 and ldb % 8 == 0 and N <= 64 * block:
+        return "splitk"
+    if dtype == torch.bfloat16 and N <= 2048 and ldb % 8 == 0:
+        return "wgmma"
+    return "ffma"
+
+
+def variant_delta(mod, fn):
+    before = dict(mod.launches_by_variant)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in mod.launches_by_variant.items()
+                 if v != before[k]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,ldb", VARIANT_COLS)
+@pytest.mark.parametrize("M", VARIANT_ROWS)
+def test_matmul_rmsnorm_variants(dev, M, N, ldb, dtype):
+    a, b, scale = mln_case(dev, M, 200, N, ldb, dtype, seed=7)
+    want_variant = expected_mln_variant(M, N, ldb, dtype)
+    assert mln.plan(M, N, 200, ldb, dtype).variant == want_variant
+    got, delta = variant_delta(
+        mln, lambda: mln.matmul_rmsnorm(a, b, scale))
+    assert delta == {want_variant: 1}
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.isfinite(got).all()
+    assert_mln_close(got, ref.matmul_rmsnorm_ref(a, b, scale), a, b, scale)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N,ldb,variant", [
+    (4, 768, 768, "splitk"), (4, 256, 288, "splitk"),
+    (600, 768, 768, "wgmma"), (600, 256, 288, "wgmma"),
+    (4, 64, 65, "ffma"), (40, 64, 65, "ffma")])
+def test_matmul_rmsnorm_variant_out_types_and_unaligned_ldb(
+        dev, M, N, ldb, variant, out_dtype):
+    """Both output types through each bf16 variant; an odd ldb (rows not on
+    16 bytes) takes the FFMA kernel, for decode rows as for many."""
+    a, b, scale = mln_case(dev, M, 520, N, ldb, torch.bfloat16, seed=9)
+    got, delta = variant_delta(mln, lambda: mln.matmul_rmsnorm(
+        a, b, scale, out_dtype=out_dtype))
+    assert delta == {variant: 1} and got.dtype == out_dtype
+    assert_mln_close(got, ref.matmul_rmsnorm_ref(a, b, scale,
+                                                 out_dtype=out_dtype),
+                     a, b, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_rmsnorm_splitk_deterministic_and_tickets_reset(dev, dtype):
+    """The split-K reduction sums in a fixed order whichever CTA arrives
+    last: two calls give the same bits, and the tickets are 0 again after
+    each launch (no zeroing launch between calls)."""
+    a, b, scale = mln_case(dev, 4, 2560, 256, 288, dtype, seed=11)
+    first = mln.matmul_rmsnorm(a, b, scale)
+    for _ in range(3):
+        again = mln.matmul_rmsnorm(a, b, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+    for t in mln._tickets.values():
+        assert int(t.count_nonzero()) == 0
+
+
+def expected_mm_variant(K, N, dtype):
+    return ("wgmma" if dtype == torch.bfloat16 and K % 8 == 0
+            and N % 8 == 0 else "ffma")
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [
+    (1, 200, 48), (17, 200, 256), (64, 200, 2048), (65, 520, 256),
+    (4096, 200, 2048), (300, 33, 256), (70, 200, 50), (512, 2048, 256),
+    (1024, 2048, 2048)])
+def test_matmul_variants(dev, M, K, N, dtype, out_dtype):
+    g = torch.Generator(device="cpu").manual_seed(M + K + N)
+    a = torch.randn(M, K, generator=g).to(dev, dtype)
+    b = torch.randn(K, N, generator=g).to(dev, dtype)
+    want_variant = expected_mm_variant(K, N, dtype)
+    assert mm.plan(M, N, K, N, dtype).variant == want_variant
+    got, delta = variant_delta(
+        mm, lambda: mm.matmul(a, b, out_dtype=out_dtype))
+    assert delta == {want_variant: 1}
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert_matmul_close(got, ref.matmul_ref(a, b, out_dtype), a, b)

@@ -148,14 +148,20 @@ def test_matmul_rmsnorm_cpu_dispatch_and_kernel_refusals():
     with pytest.raises(ValueError, match="scale"):
         ops.matmul_rmsnorm(a, w, scale[:9])
     assert mln.launches == before
-    # rows per CTA: the most the accumulator allows, shrunk for small M and
-    # for idle SMs; N beyond the kernel's row limit raises, naming it
-    assert mln.block_rows(4096, 768) == 16 and mln.block_rows(4, 768) == 4
-    assert mln.block_rows(128, 8192) == 4
+    # the plan: decode rows split K over the SMs, bf16 prefill rows take
+    # wgmma in a cluster, the rest (f32 here, N 8192) the FFMA kernel, whose
+    # rows per CTA are the most the accumulator allows, shrunk for small M
+    # and for idle SMs; N beyond its row limit raises, naming it
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert mln.plan(4, 768, 2560, 768, bf16).variant == "splitk"
+    assert mln.plan(4096, 768, 2560, 768, bf16).variant == "wgmma"
+    assert (mln.plan(4096, 768, 2560, 768, f32).variant,
+            mln.plan(4096, 768, 2560, 768, f32).bm) == ("ffma", 16)
+    assert mln.plan(128, 8192, 2048, 8192, bf16).bm == 4
     assert mln.smem_bytes(4, mln.MAX_N) <= 232448 < mln.smem_bytes(
         4, mln.MAX_N + 1)
     with pytest.raises(ValueError, match=str(mln.MAX_N)):
-        mln.block_rows(8, mln.MAX_N + 1)
+        mln.plan(17, mln.MAX_N + 1, 8, mln.MAX_N + 1, f32)
 
 
 # ---------------------------------------------------------------------------
