@@ -8,7 +8,7 @@ Phases (any failure exits non-zero):
   2. build every CUDA kernel from ``src/`` with nvcc, one nvcc per source,
      all started together; print each library's count of wgmma (``HGMMA``)
      and TMA load (``UTMALDG``) instructions by ``cuobjdump -sass``, and
-     fail if the matmul or the matmul_rmsnorm library lacks either;
+     fail if any of the three libraries lacks either;
   3. each kernel against its plain PyTorch version on the card, in bf16 and
      f32: flash attention at the shapes the serving path and the
      tensor-parallel path give it and at the TPU kernel's own (BH, S, d)
@@ -17,13 +17,14 @@ Phases (any failure exits non-zero):
      version's, one PyTorch library call's, and the least time the card
      could take, each timed by CUDA events around 20 calls launched from
      Python (``ms``, ``plain_ms``, ``library_ms``: what a caller that
-     launches eagerly waits, the host's launch cost included); the matmul
-     and matmul_rmsnorm rows also time all three as a CUDA graph of 20
-     calls replayed between two events (``graph_ms``, ``plain_graph_ms``,
-     ``library_graph_ms``: the device's time alone), and name the variant
-     their ``plan`` chose (``wgmma``, ``splitk`` or ``ffma``), its tile, the
-     rate reached (TF/s or GB/s, by what bounds the call) and the share of
-     the bound, both by ``ms`` and by ``graph_ms``;
+     launches eagerly waits, the host's launch cost included); every row
+     also times all three as a CUDA graph of 20 calls replayed between two
+     events (``graph_ms``, ``plain_graph_ms``, ``library_graph_ms``: the
+     device's time alone), and names the variant its ``plan`` chose
+     (flash: ``wgmma``, ``splitkv`` or ``ffma``; the GEMMs: ``wgmma``,
+     ``splitk`` or ``ffma``), its tile, the rate reached (TF/s or GB/s, by
+     what bounds the call) and the share of the bound, both by ``ms`` and
+     by ``graph_ms``;
   4. gemma3-1b at full width cut to 2 layers (one sliding-window, one
      global), f32: the engine on the CPU
      (plain attention) and on the card (the kernel) must give identical
@@ -32,7 +33,9 @@ Phases (any failure exits non-zero):
      weights from seed 0) served through ``repro_torch.launch.serve``: 4
      requests of 600-700 prompt tokens, 16 new tokens each; every kernel
      launch counter is set to 0 just before and read just after, and the
-     flash-attention kernel must have run once per layer per step;
+     flash-attention kernel must have run once per layer per step, every
+     prefill chunk through the wgmma variant and every decode step through
+     split-KV, at call shapes phase 3 checked;
   6. the tensor-parallel training forward: internlm2-1.8b at full width and
      depth (24 layers), batch 2 of 4096 tokens from a numpy seed, random
      weights from seed 0, ``LM.loss`` on one device (the per-block path)
@@ -47,7 +50,8 @@ Phases (any failure exits non-zero):
      within ``HIDDEN_TOL`` of one device's; every rank's matmul launches
      must equal the count derived from its optimized period graphs, all of
      them through the wgmma variant in the bf16 run and the FFMA kernel in
-     f32, its flash launches one per layer per microbatch, every matmul
+     f32, its flash launches one per layer per microbatch (wgmma in bf16,
+     ffma in f32), every matmul
      call shape must be among those phase 3 checked, and a 2-microbatch run
      must execute ``overlap_asym``.
   7. minicpm3-4b (MLA) at full width cut to 2 layers, f32: ``LM.prefill``
@@ -62,8 +66,8 @@ Phases (any failure exits non-zero):
      must have run twice a layer (the query and KV latent norms) in every
      prefill and decode call, the prefill's through the wgmma variant and
      every decode step's through split-K, flash attention once a layer in
-     the prefill, and every call shape of both must be among those phase 3
-     checked.
+     the prefill through the wgmma variant, and every call shape of both
+     must be among those phase 3 checked.
 Phase 3 also holds matmul_rmsnorm against its plain version at the TPU
 kernel's test shapes, at every shape phase 8 calls (b a column slice of
 ``wkv_a`` for the KV latent) and at N 8192, and flash attention at the MLA
@@ -98,6 +102,12 @@ TOL = {torch.float32: dict(rtol=2e-5, atol=2e-4),
 # one rounding of the output (one bf16 step is at most |x|/128)
 CHECK_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-4),
              torch.bfloat16: dict(rtol=1 / 128, atol=2e-3)}
+# flash attention's wgmma variant rounds each probability p to bf16 before
+# p @ v, as JAX's model does (p.astype(v.dtype)); the plain version keeps p
+# in f32. A rounding moves p by at most 2^-8 p, so an output element by at
+# most 2^-8 sum_j p_j |v_j| / l: this bound, computed by the plain version
+# on |v|, is added to CHECK_TOL on the wgmma rows only
+P_ROUNDING = 2.0 ** -8
 
 ARCH = "gemma3-1b"
 # phase 6: the tensor-parallel training forward (train_4k's length)
@@ -223,6 +233,12 @@ def sass_census(lib: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def serving_skv() -> int:
+    """The keys attention_paged gathers in phase 5: the engine's block
+    table width (s_max = prompt + new tokens, in blocks) times the block."""
+    return -(-(PROMPT_MAX + MAX_NEW) // BLOCK_SIZE) * BLOCK_SIZE
+
+
 def serving_case(cfg, Sq: int, q0, ctx, dtype, seed: int):
     """Attention inputs as attention_paged gives them during phase 5: batch
     REQUESTS, the gathered context of the engine's block tables (Skv), the
@@ -230,7 +246,7 @@ def serving_case(cfg, Sq: int, q0, ctx, dtype, seed: int):
     positions q0[b].. (−1 past its context), keys 0..ctx[b]-1 (−1 after);
     ctx 0 is a padding row."""
     B = REQUESTS
-    Skv = -(-(PROMPT_MAX + MAX_NEW) // BLOCK_SIZE) * BLOCK_SIZE
+    Skv = serving_skv()
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     g = torch.Generator().manual_seed(seed)
     mk = lambda *s: torch.randn(*s, generator=g).to("cuda", dtype)
@@ -316,11 +332,17 @@ def bound(case, ref) -> tuple:
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[q.dtype] * 1e3
 
 
+def flash_plan(fa, q, k, v):
+    return fa.plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                   k.shape[2], q.shape[3], v.shape[3], q.dtype)
+
+
 def check_kernel_case(name: str, case, fa, ref) -> dict:
     import torch.nn.functional as F
 
     kw = {n: case[n] for n in ("q_positions", "kv_positions", "window")}
     q, k, v = case["q"], case["k"], case["v"]
+    p = flash_plan(fa, q, k, v)
     got = fa.flash_attention(q, k, v, causal=True, **kw)
     torch.cuda.synchronize()
     want = ref.attention_ref(q, k, v, causal=True, **kw)
@@ -328,33 +350,50 @@ def check_kernel_case(name: str, case, fa, ref) -> dict:
     g, w = got[keep].float(), want[keep].float()
     err = (g - w).abs()
     tol = CHECK_TOL[q.dtype]
-    ok = bool((err <= tol["atol"] + tol["rtol"] * w.abs()).all())
+    check = tol["atol"] + tol["rtol"] * w.abs()
+    limit = check
+    if p.variant == "wgmma":
+        limit = check + P_ROUNDING * ref.attention_ref(
+            q, k, v.abs(), causal=True, **kw)[keep].float()
+    ok = bool((err <= limit).all())
     if not torch.isfinite(got).all() or got[~keep].any():
         ok = False
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, **kw))
-    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True, **kw),
-                       iters=5)
     # the library yardstick: SDPA with the same boolean mask, GQA inside
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     mask = ref.visible(case["q_positions"], case["kv_positions"], causal=True,
                        window=case["window"])[:, None]
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    t = timings(lambda: fa.flash_attention(q, k, v, causal=True, **kw),
+                lambda: ref.attention_ref(q, k, v, causal=True, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    ms = t["ms"]
     bytes_ms, ops_ms = bound(case, ref)
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     row = dict(case=name, dtype=str(q.dtype).replace("torch.", ""),
                shape=dict(B=q.shape[0], Sq=q.shape[1], Skv=k.shape[1],
                           H=q.shape[2], Hkv=k.shape[2], dh=q.shape[3],
                           dv=v.shape[3]),
-               max_abs_err=float(err.max()), tol=tol, repo_tol=TOL[q.dtype],
-               ok=ok, ms=ms,
-               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               variant=p.variant, tile=list(p.tile), splits=p.splits,
+               ctas=p.ctas, max_abs_err=float(err.max()),
+               tol=dict(tol, p_rounding=(
+                   "2^-8 * attention_ref(q, k, |v|)"
+                   if p.variant == "wgmma" else None)),
+               worst_err_over_limit=float((err / limit).max()),
+               worst_err_over_check_tol=float((err / check).max()),
+               repo_tol=TOL[q.dtype], ok=ok, **t, bound_ms=bound_ms,
                bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
-               **achieved(bytes_ms, ops_ms, bound_by, ms, q.dtype))
-    log(f"  {name:>14} {row['dtype']:>8} err={row['max_abs_err']:.3e} "
-        f"{'ok' if ok else 'FAIL'} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-        f"sdpa={library_ms:.4f}ms bound={bound_ms:.5f}ms ({bound_by}, "
-        f"{row['bound_share']:.1%})")
+               **achieved(bytes_ms, ops_ms, bound_by, ms, q.dtype,
+                          t["graph_ms"]))
+    log(f"  {name:>14} {row['dtype']:>8} {p.variant} {p.tile[0]}x"
+        f"{p.tile[1]} splits {p.splits} err={row['max_abs_err']:.3e} "
+        f"(err/limit {row['worst_err_over_limit']:.3f}, err/CHECK_TOL "
+        f"{row['worst_err_over_check_tol']:.3f}) {'ok' if ok else 'FAIL'} "
+        f"kernel={ms:.4f}ms plain={t['plain_ms']:.4f}ms "
+        f"sdpa={t['library_ms']:.4f}ms (graph: kernel={t['graph_ms']:.4f}ms "
+        f"plain={t['plain_graph_ms']:.4f}ms "
+        f"sdpa={t['library_graph_ms']:.4f}ms) bound={bound_ms:.5f}ms "
+        f"({bound_by}, {row['bound_share']:.1%}; graph "
+        f"{row['graph_bound_share']:.1%})")
     return row
 
 
@@ -379,7 +418,7 @@ def phase_kernels(cfg, fa, ref) -> list:
             rows.append(check_kernel_case(
                 f"tpu_{BH}x{S}x{d}", tpu_case(BH, S, d, dtype, seed=S + d),
                 fa, ref))
-        # the MLA prefill core of phase 8: dh 96, dv 64 (v zero-padded)
+        # the MLA prefill core of phase 8: dh 96, dv 64
         rows.append(check_kernel_case("mla_prefill", mla_core_case(
             get_mla_cfg(), dtype, seed=4), fa, ref))
     return rows
@@ -637,20 +676,45 @@ def phase_reference(cfg_full):
 # ---------------------------------------------------------------------------
 
 
+def record_calls(ops, calls: dict):
+    """Wrap ``ops.flash_attention`` so that each call's shape key (B, Sq, H,
+    dh, Skv, Hkv, dv, dtype) is counted in ``calls``; returns the original
+    to put back."""
+    core = ops.flash_attention
+
+    def core_shapes(q, k, v, **kw):
+        key = (*q.shape, k.shape[1], k.shape[2], v.shape[3],
+               str(q.dtype).replace("torch.", ""))
+        calls[key] = calls.get(key, 0) + 1
+        return core(q, k, v, **kw)
+
+    ops.flash_attention = core_shapes
+    return core
+
+
 def phase_serve(cfg, fa):
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0                                # count the main path only
-    t0 = time.monotonic()
-    eng, reqs = serve.main([
-        "--arch", ARCH, "--device", "cuda", "--requests", str(REQUESTS),
-        "--prompt-len", str(PROMPT_MAX), "--prompt-len-min", str(PROMPT_MIN),
-        "--max-new", str(MAX_NEW), "--prefill-chunk", str(PREFILL_CHUNK),
-        "--block-size", str(BLOCK_SIZE), "--seed", "0"])
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = fa.launches
+    calls = {}
+    core = record_calls(ops, calls)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = 0                            # count the main path only
+        fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+        t0 = time.monotonic()
+        eng, reqs = serve.main([
+            "--arch", ARCH, "--device", "cuda", "--requests", str(REQUESTS),
+            "--prompt-len", str(PROMPT_MAX), "--prompt-len-min",
+            str(PROMPT_MIN), "--max-new", str(MAX_NEW), "--prefill-chunk",
+            str(PREFILL_CHUNK), "--block-size", str(BLOCK_SIZE), "--seed",
+            "0"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = fa.launches
+        variants = dict(fa.launches_by_variant)
+    finally:
+        ops.flash_attention = core
     if not all(r.done and len(r.out_tokens) == MAX_NEW for r in reqs):
         raise AssertionError("a request did not finish")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens):
@@ -659,13 +723,25 @@ def phase_serve(cfg, fa):
         raise AssertionError(f"flash_attention launched {launches} times, "
                              f"expected {eng.steps} steps x "
                              f"{cfg.num_layers} layers")
+    # a step whose rows all decode (Sq 1: G query rows a kv head) runs
+    # split-KV; a step with a prefill chunk in it runs the wgmma variant
+    G = cfg.num_heads // cfg.num_kv_heads
+    decode = sum(n for key, n in calls.items()
+                 if key[1] * G <= fa.SPLIT_MAX_ROWS)
+    want = dict(splitkv=decode, wgmma=launches - decode, ffma=0)
+    if variants != want or decode == 0 or decode == launches:
+        raise AssertionError(f"flash_attention variants {variants}, "
+                             f"expected {want}")
     rep = dict(eng.last_report)
-    rep.update(steps=eng.steps, launches=launches, wall_s=wall,
+    rep.update(steps=eng.steps, launches=launches, flash_variants=variants,
+               wall_s=wall,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                prompt_lens=[len(r.prompt) for r in reqs],
-               params=cfg.param_count())
+               params=cfg.param_count(),
+               call_shapes=sorted([*k, v] for k, v in calls.items()))
     log(f"  served {len(reqs)} requests in {eng.steps} steps; "
-        f"launches {launches} = {eng.steps} x {cfg.num_layers}")
+        f"launches {launches} = {eng.steps} x {cfg.num_layers}; flash by "
+        f"variant {json.dumps(variants)}")
     log("  latency " + json.dumps(rep))
     return rep
 
@@ -719,6 +795,7 @@ def tp_rank(group, tokens, runs):
         torch.cuda.synchronize()
         mmk.launches = fa.launches = asym[0] = 0
         mmk.launches_by_variant = dict.fromkeys(mmk.VARIANTS, 0)
+        fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
         calls.clear()
         t0 = time.monotonic()
         loss = lm.loss({"tokens": tok, "labels": tok})
@@ -737,6 +814,7 @@ def tp_rank(group, tokens, runs):
             matmul_variants=dict(mmk.launches_by_variant),
             matmul_derived=per_period * cfg.num_layers,
             flash_launches=launches[1], flash_derived=mb * cfg.num_layers,
+            flash_variants=dict(fa.launches_by_variant),
             overlap_asym=launches[2],
             call_shapes=sorted(([*k, v] for k, v in calls.items()),
                                key=lambda r: -r[-1]),
@@ -807,6 +885,13 @@ def phase_tp(mmk, fa) -> dict:
                 p["matmul_launches"] == p["matmul_derived"] > 0 for p in per),
             "flash launches = layers x mb": all(
                 p["flash_launches"] == p["flash_derived"] for p in per),
+            # the bf16 attention core takes the wgmma forward, f32 the FFMA
+            # kernel (no TF32)
+            "flash variants": all(p["flash_variants"] == dict(
+                splitkv=0,
+                wgmma=p["flash_launches"] if p["dtype"] == "bfloat16" else 0,
+                ffma=p["flash_launches"] if p["dtype"] == "float32" else 0)
+                for p in per),
             # bf16 ring GEMMs all take the wgmma mainloop, f32 the FFMA
             # kernel (no TF32)
             "matmul variants": all(p["matmul_variants"] == (
@@ -829,7 +914,9 @@ def phase_tp(mmk, fa) -> dict:
             f"{rel:.2e}); per rank: matmul {head['matmul_launches']} "
             f"launches (graph {head['matmul_derived']}; "
             f"{json.dumps(head['matmul_variants'])}), flash "
-            f"{head['flash_launches']}, overlap_asym {head['overlap_asym']}; "
+            f"{head['flash_launches']} "
+            f"{json.dumps(head['flash_variants'])}, overlap_asym "
+            f"{head['overlap_asym']}; "
             f"{max(row['wall_s']):.2f}s; wire: {head['wire']}")
         bad = [k for k, v in checks.items() if not v]
         if bad:
@@ -913,25 +1000,21 @@ def phase_mla_serve(cfg, fa, mln, mmk):
     from repro_torch.launch import serve
 
     calls = {"matmul_rmsnorm": {}, "flash_attention": {}}
-    dt = lambda t: str(t.dtype).replace("torch.", "")
-    norm, core = ops.matmul_rmsnorm, ops.flash_attention
+    norm = ops.matmul_rmsnorm
 
     def norm_shapes(a, b, scale, **k):
-        key = (*a.shape, b.shape[1], b.stride(0), dt(a))
+        key = (*a.shape, b.shape[1], b.stride(0),
+               str(a.dtype).replace("torch.", ""))
         calls["matmul_rmsnorm"][key] = calls["matmul_rmsnorm"].get(key, 0) + 1
         return norm(a, b, scale, **k)
 
-    def core_shapes(q, k, v, **kw):
-        key = (*q.shape, k.shape[1], k.shape[2], v.shape[3], dt(q))
-        calls["flash_attention"][key] = \
-            calls["flash_attention"].get(key, 0) + 1
-        return core(q, k, v, **kw)
-
-    ops.matmul_rmsnorm, ops.flash_attention = norm_shapes, core_shapes
+    ops.matmul_rmsnorm = norm_shapes
+    core = record_calls(ops, calls["flash_attention"])
     try:
         torch.cuda.reset_peak_memory_stats()
         fa.launches = mln.launches = mmk.launches = 0  # the main path only
         mln.launches_by_variant = dict.fromkeys(mln.VARIANTS, 0)
+        fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
         t0 = time.monotonic()
         eng, reqs = serve.main([
             "--arch", MLA_ARCH, "--device", "cuda", "--requests",
@@ -943,6 +1026,7 @@ def phase_mla_serve(cfg, fa, mln, mmk):
         launches = dict(matmul_rmsnorm=mln.launches,
                         flash_attention=fa.launches, matmul=mmk.launches)
         variants = dict(mln.launches_by_variant)
+        fa_variants = dict(fa.launches_by_variant)
     finally:
         ops.matmul_rmsnorm, ops.flash_attention = norm, core
     if not all(r.done and len(r.out_tokens) == MLA_MAX_NEW for r in reqs):
@@ -975,9 +1059,13 @@ def phase_mla_serve(cfg, fa, mln, mmk):
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']} times, "
                              f"expected {cores}")
+    # the bf16 prefill cores (dh 96, dv 64) on the wgmma forward
+    if fa_variants != dict(splitkv=0, wgmma=cores, ffma=0):
+        raise AssertionError(f"flash_attention variants {fa_variants}, "
+                             f"expected {cores} wgmma")
     rep = dict(eng.last_report)
     rep.update(steps=eng.steps, launches=launches, wall_s=wall,
-               matmul_rmsnorm_variants=variants,
+               matmul_rmsnorm_variants=variants, flash_variants=fa_variants,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                prompt_lens=[len(r.prompt) for r in reqs],
                params=cfg.param_count(),
@@ -986,7 +1074,7 @@ def phase_mla_serve(cfg, fa, mln, mmk):
     log(f"  served {len(reqs)} requests in {eng.steps} model calls "
         f"({prefills} prefill + {decodes} decode); launches "
         f"{json.dumps(launches)}; matmul_rmsnorm by variant "
-        f"{json.dumps(variants)}")
+        f"{json.dumps(variants)}; flash by variant {json.dumps(fa_variants)}")
     log("  latency " + json.dumps(rep))
     return rep
 
@@ -1032,7 +1120,7 @@ def main() -> int:
         log(Path(f"{lib}.log").read_text().strip())
         census[src.stem] = sass_census(lib)
         log(f"  SASS {src.stem}: " + json.dumps(census[src.stem]))
-    for name in (mmk.SOURCE.stem, mln.SOURCE.stem):
+    for name in (fa.SOURCE.stem, mmk.SOURCE.stem, mln.SOURCE.stem):
         if not all(census[name].values()):
             raise AssertionError(f"{name}: no wgmma or no TMA load in its "
                                  f"SASS: {census[name]}")
@@ -1056,6 +1144,14 @@ def main() -> int:
 
     log(f"phase 5: serve {ARCH} at full width, bf16 compute, f32 params")
     rep = phase_serve(cfg, fa)
+    checked_fa = {(r["shape"]["B"], r["shape"]["Sq"], r["shape"]["H"],
+                   r["shape"]["dh"], r["shape"]["Skv"], r["shape"]["Hkv"],
+                   r["shape"]["dv"], r["dtype"]) for r in rows}
+    unchecked = [s for s in rep["call_shapes"]
+                 if tuple(s[:-1]) not in checked_fa]
+    if unchecked:
+        raise AssertionError(f"phase 5 called flash_attention at shapes "
+                             f"phase 3 did not check: {unchecked}")
 
     log(f"phase 6: {TP_ARCH} LM.loss at full width, {TP_WORLD} TP ranks on "
         "one card over gloo")
@@ -1081,10 +1177,7 @@ def main() -> int:
     checked = {"matmul_rmsnorm": {
         (r["shape"]["M"], r["shape"]["K"], r["shape"]["N"],
          r["shape"]["ldb"], r["dtype"]) for r in mln_rows},
-        "flash_attention": {
-        (r["shape"]["B"], r["shape"]["Sq"], r["shape"]["H"],
-         r["shape"]["dh"], r["shape"]["Skv"], r["shape"]["Hkv"],
-         r["shape"]["dv"], r["dtype"]) for r in rows}}
+        "flash_attention": checked_fa}
     unchecked = [(n, s) for n, shapes in mla["call_shapes"].items()
                  for s in shapes if tuple(s[:-1]) not in checked[n]]
     if unchecked:

@@ -1,8 +1,10 @@
 // A bf16 GEMM mainloop for NVIDIA Hopper (sm_90a), shared by matmul.cu and
 // matmul_rmsnorm.cu: TMA loads into a ring of swizzled shared-memory stages,
 // wgmma.mma_async into f32 register accumulators, and an epilogue that the
-// including kernel supplies. Raw PTX throughout (no CUTLASS), so a source
-// that includes it builds in seconds.
+// including kernel supplies. flash_attention.cu builds its own forward from
+// the device primitives here (barriers, 2-D and 4-D TMA maps and loads,
+// descriptors, wgmma fences, setmaxnreg, the last-CTA ticket). Raw PTX
+// throughout (no CUTLASS), so a source that includes it builds in seconds.
 //
 // Operands as the port holds them, nothing copied or transposed per call:
 //   a (M, K) row-major, so K-major for wgmma;
@@ -113,6 +115,28 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A 4-D bf16 tensor map: dims[0] contiguous, the byte strides of dims 1-3,
+// read in boxes of box[0] x .. x box[3] with the 128-byte swizzle;
+// out-of-range elements load as zero. A box never crosses an outer
+// dimension, so a (rows of one head) box stops at the end of its sequence.
+inline cudaError_t make_map_4d(CUtensorMap* map, const void* base,
+                               const uint64_t (&dims)[4],
+                               const uint64_t (&strides)[3],
+                               const uint32_t (&box)[4]) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(base), d, st, bx, estr,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // What TMA takes: a 16-byte aligned base and row strides of 16-byte
 // multiples.
 inline bool tma_ok(const void* p, long row_elems) {
@@ -162,6 +186,33 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// The "last CTA to arrive" step of a reduction across CTAs: after every
+// thread's writes, one thread releases them (fence.acq_rel.gpu) and draws a
+// ticket; the CTA that draws the last of `count` acquires everyone's writes
+// (the caller resets the ticket to 0 once it is done). Returns whether this
+// CTA was last; `last` is one int of shared memory.
+__device__ __forceinline__ bool last_to_arrive(int* ticket, int count,
+                                               int* last) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+    *last = atomicAdd(ticket, 1) == count - 1;
+    if (*last) asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  }
+  __syncthreads();
+  return *last;
 }
 
 // A wgmma shared-memory descriptor with the 128-byte swizzle (layout type

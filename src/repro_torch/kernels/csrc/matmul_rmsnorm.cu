@@ -82,6 +82,7 @@ constexpr int kTileElems = 4096;  // BM * BN: 256 threads x 4 x 4 outputs
 constexpr int kPad = 4;           // keeps the transposed a-tile stores apart
 constexpr int kMaxSmem = 232448;  // 227 KB: the most a CTA may opt in to
 
+using hopper::last_to_arrive;
 using hopper::store;
 using hopper::store2;
 using hopper::to_f32;
@@ -273,22 +274,6 @@ template <typename TIn, int MT>
 size_t splitk_smem(int kslice) {
   return sizeof(float) * ((size_t)MT * kslice +
                           (size_t)(kSkThreads / 32) * MT * splitk_cols<TIn>());
-}
-
-// The "last CTA to arrive" step: after every thread's writes, one thread
-// releases them (fence.acq_rel.gpu) and draws a ticket; the CTA that draws
-// the last of `count` acquires everyone's writes (and resets the ticket to
-// 0 once it is done, off this path). Returns whether this CTA was last.
-__device__ __forceinline__ bool last_to_arrive(int* ticket, int count,
-                                               int* last) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
-    *last = atomicAdd(ticket, 1) == count - 1;
-    if (*last) asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
-  }
-  __syncthreads();
-  return *last;
 }
 
 // Grid (ceil(N / BN), S); work = [S][M][N] partials and [nb][M] row sums of

@@ -72,6 +72,67 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, Sq, H, dv).to(q.dtype)
 
 
+def splitkv_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                     kchunk: int, causal: bool = True, window: int = 0,
+                     scale: Optional[float] = None):
+    """The split-KV kernel's first step, plainly: for each range of
+    ``kchunk`` keys, each query row's running max m (of the scaled scores;
+    −inf where the range holds no visible key), sum l = Σ exp(s − m) and
+    acc = Σ exp(s − m) v, all f32. Returns (m, l, acc) stacked over the
+    ranges: (n, B, Sq, H), (n, B, Sq, H), (n, B, Sq, H, dv)."""
+    B, Sq, H, dh = q.shape
+    _, Skv, Hkv, dv = v.shape
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
+    qg = q.float().reshape(B, Sq, Hkv, G, dh)
+    ok = visible(q_positions, kv_positions, causal=causal, window=window)
+    ms, ls, accs = [], [], []
+    for k0 in range(0, Skv, kchunk):
+        ks = slice(k0, k0 + kchunk)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k[:, ks].float()) * scale
+        vis = ok[:, :, None, None, ks]
+        s = s.masked_fill(~vis, -math.inf)
+        m = s.amax(-1)
+        # no visible key: m = −inf and every weight 0, never exp(−inf + inf)
+        p = torch.where(vis, torch.exp(s - m.clamp_min(NEG_INF)[..., None]),
+                        torch.zeros(()))
+        ms.append(m.reshape(B, Sq, H))
+        ls.append(p.sum(-1).reshape(B, Sq, H))
+        accs.append(torch.einsum("bqhgk,bkhd->bqhgd", p,
+                                 v[:, ks].float()).reshape(B, Sq, H, dv))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def splitkv_merge(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The split-KV kernel's merge, plainly: with M the max of the ranges'
+    m, weights w = exp(m − M) (0 for a range with no visible key), O = Σ w
+    acc / Σ w l, or zeros for a row with no visible key at all; in
+    ``dtype``."""
+    M = m.amax(0)
+    w = torch.where(m == -math.inf, torch.zeros(()),
+                    torch.exp(m - M.clamp_min(NEG_INF)))
+    L = (w * l).sum(0)
+    o = (w[..., None] * acc).sum(0)
+    inv = torch.where(L > 0, 1.0 / L.clamp_min(1e-30), torch.zeros(()))
+    return (o * inv[..., None]).to(dtype)
+
+
+def attention_splitkv_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, q_positions: torch.Tensor,
+                          kv_positions: torch.Tensor, kchunk: int,
+                          causal: bool = True, window: int = 0,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`attention_ref` computed as the split-KV kernel orders it:
+    partials over key ranges of ``kchunk``, then the merge. The CPU tests
+    hold it against :func:`attention_ref` and the Pallas kernel."""
+    m, l, acc = splitkv_partials(q, k, v, q_positions=q_positions,
+                                 kv_positions=kv_positions, kchunk=kchunk,
+                                 causal=causal, window=window, scale=scale)
+    return splitkv_merge(m, l, acc, q.dtype)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True,
                         scale: Optional[float] = None) -> torch.Tensor:

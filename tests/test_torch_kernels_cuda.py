@@ -18,6 +18,11 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 # output (one bf16 step is at most |x|/128)
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-4),
        torch.bfloat16: dict(rtol=1 / 128, atol=2e-3)}
+# flash attention's wgmma variant rounds each probability to bf16 before
+# p @ v (as JAX's model does): at most 2^-8 p, so an output element moves by
+# at most 2^-8 sum_j p_j |v_j| / l, added to TOL on that variant only
+# (chip_smoke.py ``P_ROUNDING``)
+P_ROUNDING = 2.0 ** -8
 
 pytestmark = pytest.mark.cuda
 
@@ -45,10 +50,31 @@ def paged_case(dev, dtype, *, B, Sq, Skv, H, Hkv, dh, ctx, q0, seed=0):
     return q, k, v, qpos.to(dev), kpos.to(dev)
 
 
-def assert_rows_close(got, want, qpos, dtype):
-    keep = qpos >= 0
-    torch.testing.assert_close(got[keep].float(), want[keep].float(),
-                               **TOL[dtype])
+def flash_variant(q, k, v):
+    return fa.plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                   k.shape[2], q.shape[3], v.shape[3], q.dtype).variant
+
+
+def assert_flash_close(got, q, k, v, kw):
+    """The kernel against attention_ref: TOL of the type, plus the bf16
+    rounding of p on the wgmma variant; a row with no visible key (a padding
+    query under the causal mask) exactly zeros."""
+    want = ref.attention_ref(q, k, v, **kw).float()
+    tol = TOL[q.dtype]
+    limit = tol["atol"] + tol["rtol"] * want.abs()
+    if flash_variant(q, k, v) == "wgmma":
+        limit = limit + P_ROUNDING * ref.attention_ref(q, k, v.abs(),
+                                                       **kw).float()
+    err = (got.float() - want).abs()
+    assert bool((err <= limit).all()), \
+        f"max |err| {float(err.max()):.3e}, worst err/limit " \
+        f"{float((err / limit).max()):.3f}"
+    assert torch.isfinite(got).all()
+    seen = ref.visible(kw["q_positions"], kw["kv_positions"],
+                       causal=kw.get("causal", True),
+                       window=kw.get("window", 0)).any(-1)
+    assert not (~seen).all()
+    assert torch.count_nonzero(got[~seen]) == 0   # no visible key: zeros
 
 
 CASES = {
@@ -74,9 +100,7 @@ def test_kernel_matches_plain_on_paged_inputs(dev, case, window, dtype):
     kw = dict(q_positions=qpos, kv_positions=kpos, causal=True, window=window)
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert_rows_close(got, ref.attention_ref(q, k, v, **kw), qpos, dtype)
-    pad = qpos < 0
-    assert torch.count_nonzero(got[pad]) == 0   # no visible key: zeros
+    assert_flash_close(got, q, k, v, kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -88,12 +112,12 @@ def test_kernel_tpu_case(dev, BH, S, d, dtype, causal):
     q, k, v = (torch.randn(BH, S, d, generator=g).to(dev, dtype)
                for _ in range(3))
     pos = torch.arange(S, dtype=torch.int32, device=dev).expand(BH, S)
-    got = fa.flash_attention(q[:, :, None], k[:, :, None], v[:, :, None],
-                             q_positions=pos.contiguous(),
-                             kv_positions=pos.contiguous(), causal=causal)
-    want = ref.flash_attention_ref(q, k, v, causal=causal)
-    torch.testing.assert_close(got[:, :, 0].float(), want.float(),
-                               **TOL[dtype])
+    kw = dict(q_positions=pos.contiguous(), kv_positions=pos.contiguous(),
+              causal=causal)
+    q4, k4, v4 = q[:, :, None], k[:, :, None], v[:, :, None]
+    got = fa.flash_attention(q4, k4, v4, **kw)
+    torch.cuda.synchronize()
+    assert_flash_close(got, q4, k4, v4, kw)
 
 
 def test_ops_dispatch_counts_launches_and_rejects(dev):
@@ -188,9 +212,7 @@ def test_flash_value_dim_below_head_dim(dev, B, S, H, dh, dv, dtype):
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.launches == before + 1 and got.shape == (B, S, H, dv)
-    torch.testing.assert_close(got.float(),
-                               ref.attention_ref(q, k, v, **kw).float(),
-                               **TOL[dtype])
+    assert_flash_close(got, q, k, v, kw)
 
 
 # matmul_rmsnorm (M, K, N, ldb): tests/test_kernels.py's sweep and its
@@ -376,3 +398,166 @@ def test_matmul_variants(dev, M, K, N, dtype, out_dtype):
     assert delta == {want_variant: 1}
     assert got.dtype == out_dtype and got.shape == (M, N)
     assert_matmul_close(got, ref.matmul_ref(a, b, out_dtype), a, b)
+
+
+# ---------------------------------------------------------------------------
+# flash attention's variants: which one a call takes (launches_by_variant)
+# and that it agrees with the plain version at its edges
+# ---------------------------------------------------------------------------
+
+def flash_case(dev, dtype, *, B, Sq, Skv, H, Hkv, dh, dv, q0=None,
+               pad_rows=0, seed=0):
+    """Rows at positions q0[b]..q0[b]+Sq-1 (default: the last Sq of Skv
+    keys), the last ``pad_rows`` rows of each batch row −1 (padding)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dev, dtype)
+    q, k, v = mk(B, Sq, H, dh), mk(B, Skv, Hkv, dh), mk(B, Skv, Hkv, dv)
+    q0 = [Skv - Sq] * B if q0 is None else q0
+    qpos = torch.stack([torch.arange(q0[b], q0[b] + Sq) for b in range(B)])
+    if pad_rows:
+        qpos[:, Sq - pad_rows:] = -1
+    kpos = torch.arange(Skv).expand(B, Skv)
+    return (q, k, v, qpos.to(torch.int32).contiguous().to(dev),
+            kpos.to(torch.int32).contiguous().to(dev))
+
+
+def flash_delta(fn):
+    before = dict(fa.launches_by_variant)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in fa.launches_by_variant.items()
+                 if n != before[k]}
+
+
+# (dh, dv) pairs the wgmma variant is built for, with Sq and Skv not
+# multiples of the tiles (128 rows; 64 or 128 keys) and padding rows
+WGMMA_CASES = [
+    dict(B=2, Sq=130, Skv=333, H=4, Hkv=1, dh=256, dv=256, pad_rows=5),
+    dict(B=1, Sq=200, Skv=200, H=4, Hkv=2, dh=128, dv=128, pad_rows=0),
+    dict(B=3, Sq=70, Skv=150, H=5, Hkv=5, dh=96, dv=64, pad_rows=9),
+    dict(B=1, Sq=17, Skv=17, H=2, Hkv=1, dh=128, dv=128, pad_rows=1),
+]
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
+                                           (False, 0)])
+@pytest.mark.parametrize("case", range(len(WGMMA_CASES)))
+def test_flash_wgmma_variant(dev, case, causal, window):
+    c = WGMMA_CASES[case]
+    q, k, v, qpos, kpos = flash_case(dev, torch.bfloat16, **c, seed=case)
+    kw = dict(q_positions=qpos, kv_positions=kpos, causal=causal,
+              window=window)
+    assert flash_variant(q, k, v) == "wgmma"
+    got, delta = flash_delta(lambda: fa.flash_attention(q, k, v, **kw))
+    assert delta == {"wgmma": 1} and got.shape == (*q.shape[:3], c["dv"])
+    assert got.is_contiguous()              # v at dv: no pad, no slice
+    assert_flash_close(got, q, k, v, kw)
+
+
+# decode rows: gemma3-1b's (4 query heads on 1 kv head, dh 256) past the
+# window with a padding row; GQA 2 at dh 128 with dv 64; 16 rows (Sq 4 x
+# G 4); a context of one range (no merge)
+SPLITKV_CASES = [
+    dict(B=4, Sq=1, Skv=720, H=4, Hkv=1, dh=256, dv=256,
+         ctx=[700, 650, 0, 601], q0=[699, 649, 0, 600]),
+    dict(B=3, Sq=1, Skv=1000, H=4, Hkv=2, dh=128, dv=64,
+         ctx=[1000, 37, 999], q0=[999, 36, 998]),
+    dict(B=2, Sq=4, Skv=300, H=8, Hkv=2, dh=64, dv=64,
+         ctx=[300, 100], q0=[296, 96]),
+    dict(B=2, Sq=1, Skv=32, H=4, Hkv=1, dh=128, dv=128,
+         ctx=[32, 12], q0=[31, 11]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 64, 5])
+@pytest.mark.parametrize("case", range(len(SPLITKV_CASES)))
+def test_flash_splitkv_variant(dev, case, window, dtype):
+    c = dict(SPLITKV_CASES[case])
+    dv = c.pop("dv")
+    q, k, v, qpos, kpos = paged_case(dev, dtype, **c, seed=case)
+    v = v[..., :dv].contiguous()
+    kw = dict(q_positions=qpos, kv_positions=kpos, causal=True, window=window)
+    assert flash_variant(q, k, v) == "splitkv"
+    got, delta = flash_delta(lambda: fa.flash_attention(q, k, v, **kw))
+    assert delta == {"splitkv": 1} and got.shape == (*q.shape[:3], dv)
+    assert_flash_close(got, q, k, v, kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_splitkv_deterministic_and_tickets_reset(dev, dtype):
+    """Empty splits (the window of 40 leaves most of 720 keys' ranges with
+    no visible key) and a padding row: the merge runs in split order
+    whichever CTA arrives last, so calls give the same bits, and every
+    ticket is 0 again after each launch."""
+    c = dict(SPLITKV_CASES[0])
+    c.pop("dv")
+    q, k, v, qpos, kpos = paged_case(dev, dtype, **c, seed=11)
+    kw = dict(q_positions=qpos, kv_positions=kpos, causal=True, window=40)
+    p = fa.plan(4, 1, 720, 4, 1, 256, 256, dtype)
+    assert p.splits > 1 and p.workspace > 0
+    first = fa.flash_attention(q, k, v, **kw)
+    for _ in range(3):
+        again = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+        for t in fa._tickets.values():
+            assert int(t.count_nonzero()) == 0
+    assert_flash_close(first, q, k, v, kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_ffma_variant(dev, dtype):
+    """What the FFMA kernel takes: f32 prefill, dh 36, dh 320 (> 256), bases
+    off 16 bytes (bf16 on 8), an (dh, dv) pair wgmma is not built for; v
+    narrower than dh is padded there and the output is a view."""
+    shapes = [dict(B=2, Sq=70, Skv=90, H=4, Hkv=2, dh=36, dv=36),
+              dict(B=1, Sq=40, Skv=64, H=2, Hkv=1, dh=320, dv=320),
+              dict(B=2, Sq=3, Skv=64, H=2, Hkv=1, dh=320, dv=256),
+              dict(B=2, Sq=50, Skv=50, H=2, Hkv=2, dh=64, dv=32)]
+    if dtype == torch.float32:
+        shapes.append(dict(B=1, Sq=300, Skv=300, H=4, Hkv=2, dh=128,
+                           dv=128))
+    for i, c in enumerate(shapes):
+        q, k, v, qpos, kpos = flash_case(dev, dtype, **c, seed=i)
+        kw = dict(q_positions=qpos, kv_positions=kpos, causal=True)
+        assert flash_variant(q, k, v) == "ffma"
+        got, delta = flash_delta(lambda: fa.flash_attention(q, k, v, **kw))
+        assert delta == {"ffma": 1} and got.shape[-1] == c["dv"]
+        assert_flash_close(got, q, k, v, kw)
+    if dtype == torch.bfloat16:
+        # a contiguous view whose base lies 8 bytes past 16
+        q, k, v, qpos, kpos = flash_case(dev, dtype, B=1, Sq=1, Skv=64, H=4,
+                                         Hkv=1, dh=256, dv=256)
+        flat = torch.empty(q.numel() + 4, dtype=dtype, device=dev)
+        qo = flat[4:].view(q.shape)
+        qo.copy_(q)
+        assert qo.data_ptr() % 16 == 8
+        kw = dict(q_positions=qpos, kv_positions=kpos, causal=True)
+        got, delta = flash_delta(lambda: fa.flash_attention(qo, k, v, **kw))
+        assert delta == {"ffma": 1}
+        assert_flash_close(got, q, k, v, kw)
+
+
+def test_flash_launches_by_variant(dev):
+    """One launch a call, counted under the planned variant and in
+    ``launches``; a refused call counts nothing."""
+    bf = torch.bfloat16
+    calls = [(dict(B=1, Sq=1, Skv=100, H=4, Hkv=1, dh=128, dv=128), bf,
+              "splitkv"),
+             (dict(B=1, Sq=64, Skv=100, H=4, Hkv=1, dh=128, dv=128), bf,
+              "wgmma"),
+             (dict(B=1, Sq=64, Skv=100, H=4, Hkv=1, dh=128, dv=128),
+              torch.float32, "ffma")]
+    before, total = dict(fa.launches_by_variant), fa.launches
+    for c, dtype, _ in calls:
+        q, k, v, qpos, kpos = flash_case(dev, dtype, **c)
+        fa.flash_attention(q, k, v, q_positions=qpos, kv_positions=kpos)
+    torch.cuda.synchronize()
+    assert fa.launches == total + len(calls)
+    assert {k: n - before[k] for k, n in fa.launches_by_variant.items()} == \
+        dict(splitkv=1, wgmma=1, ffma=1)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :, :, :8].contiguous(), v,
+                           q_positions=qpos, kv_positions=kpos)
+    assert fa.launches == total + len(calls)
