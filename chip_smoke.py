@@ -12,10 +12,13 @@ Phases (any failure exits non-zero):
   3. each kernel against its plain PyTorch version on the card, in bf16 and
      f32: flash attention at the shapes the serving path and the
      tensor-parallel path give it and at the TPU kernel's own (BH, S, d)
-     case; matmul at the TPU kernel's test shapes and at the shapes the
-     ring schedules of phase 6 give it; the kernel's time beside the plain
-     version's, one PyTorch library call's, and the least time the card
-     could take, each timed by CUDA events around 20 calls launched from
+     case; matmul at the TPU kernel's test shapes, at the shapes the
+     ring schedules of phase 6 give it, and at every shape phase 9's
+     backward gives it with a transposed operand, in its layout (``nt``:
+     dx = dy·wᵀ, ``tn``: dw = xᵀ·dy; the kernel, the plain version and
+     cuBLAS all take the same strided views); the kernel's time beside the
+     plain version's, one PyTorch library call's, and the least time the
+     card could take, each timed by CUDA events around 20 calls launched from
      Python (``ms``, ``plain_ms``, ``library_ms``: what a caller that
      launches eagerly waits, the host's launch cost included); every row
      also times all three as a CUDA graph of 20 calls replayed between two
@@ -67,7 +70,30 @@ Phases (any failure exits non-zero):
      prefill and decode call, the prefill's through the wgmma variant and
      every decode step's through split-K, flash attention once a layer in
      the prefill through the wgmma variant, and every call shape of both
-     must be among those phase 3 checked.
+     must be among those phase 3 checked;
+  9. one training step of internlm2-1.8b at full width and depth: batch 2 of
+     4096 tokens (train_4k's length, its global batch of 256 cut to 2) from
+     ``data.pipeline.make_batch``, seed 0, random weights from seed 0,
+     AdamW at a constant lr ``TRAIN_LR``. First the one-device step (f32,
+     remat on, the per-block path), whose loss, grad norm, gradients, m, v
+     and updated parameters are kept in files on the host while the card is
+     freed; then one spawn of 4 gloo ranks sharing the card runs the step
+     through ``train.step.make_train_step`` (LM.loss, each period's
+     graph-built backward, the ring's grad sums, AdamW) for ``barrier`` with
+     1 microbatch and ``cais`` with 2, in f32, and ``cais`` with 2 in bf16.
+     Each run's loss must lie within 1e-4 (f32) or ``BF16_LOSS_RTOL`` (bf16)
+     of one device's; in f32 the grad norm within ``TRAIN_RTOL``, every
+     gradient, m and v within ``TRAIN_RTOL`` times the one-device tensor's
+     max, and every parameter within the first-step bound (2 lr where the
+     one-device gradient lies within its bound of zero, where Adam's sign
+     may differ; 1e-3 lr elsewhere; plus 1e-6 |p|); every rank's matmul and
+     flash launches must equal the counts derived from the optimized
+     forward and training graphs, the transposed layouts must run on wgmma
+     in bf16 and FFMA in f32, overlap_asym must execute as the graphs say,
+     with a backward node paired with a forward one at 2 microbatches, and
+     every matmul call shape and layout must be among those phase 3
+     checked. Step times are printed with the note that gloo stages every
+     hop through the host.
 Phase 3 also holds matmul_rmsnorm against its plain version at the TPU
 kernel's test shapes, at every shape phase 8 calls (b a column slice of
 ``wkv_a`` for the KV latent) and at N 8192, and flash attention at the MLA
@@ -125,6 +151,18 @@ F32_LOSS_RTOL = 1e-4
 BF16_LOSS_RTOL = 1e-2
 # f32 final hidden states, TP against one device (as LOGIT_TOL)
 HIDDEN_TOL = dict(rtol=1e-4, atol=1e-4)
+# phase 9: one training step on the ring against one device, AdamW at a
+# constant lr (the launcher's cosine schedule gives lr 0 at step 0, which
+# would compare nothing)
+TRAIN_RUNS = [("barrier", 1, "float32"), ("cais", 2, "float32"),
+              ("cais", 2, "bfloat16")]
+TRAIN_LR = 1e-4
+# AdamW's eps and clip norm (its defaults), named for the parameter bound
+TRAIN_EPS, TRAIN_CLIP = 1e-8, 1.0
+# f32 gradients, m and v against one device: |Δ| <= TRAIN_RTOL·max|ref| of
+# each tensor (the same f32 math summed in other orders: ring partial sums,
+# the kernels' k order, cuBLAS's), and the grad norm within TRAIN_RTOL
+TRAIN_RTOL = 1e-4
 REQUESTS, PROMPT_MIN, PROMPT_MAX, MAX_NEW = 4, 600, 700, 16
 PREFILL_CHUNK, BLOCK_SIZE = 128, 16
 # phase 4: f32 CPU vs card, logits |Δ| <= atol + rtol·|cpu| (summation order
@@ -467,10 +505,20 @@ def matmul_tol(a, b, want, dtype):
             + 2 * K ** 0.5 * 2.0 ** -24 * mag)
 
 
-def check_matmul_case(name, M, K, N, dtype, mmk, ref) -> dict:
+def check_matmul_case(name, M, K, N, dtype, mmk, ref,
+                      layout: str = "nn") -> dict:
+    """One matmul case; ``layout`` "t" stores that operand transposed, as
+    the backward passes it (aᵀ's storage (K, M), bᵀ's (N, K)), and the
+    kernel, the plain version and cuBLAS all take the same strided views."""
     g = torch.Generator().manual_seed(M * 7 + K * 3 + N)
     a = torch.randn(M, K, generator=g).to("cuda", dtype)
     b = torch.randn(K, N, generator=g).to("cuda", dtype)
+    if layout[0] == "t":
+        a = a.T.contiguous().T
+    if layout[1] == "t":
+        b = b.T.contiguous().T
+    if mmk.layout(a, b) != layout:
+        raise AssertionError(f"({M},{K},{N}) is not laid out {layout}")
     got = mmk.matmul(a, b)
     torch.cuda.synchronize()
     want = ref.matmul_ref(a, b)
@@ -479,7 +527,8 @@ def check_matmul_case(name, M, K, N, dtype, mmk, ref) -> dict:
     limit = matmul_tol(a, b, want, dtype)
     ok = bool((err <= limit).all() and torch.isfinite(got).all())
     worst = float((err / limit).max())
-    p = mmk.plan(M, N, K, N, dtype)
+    p = mmk.plan(M, N, K, b.stride(1) if layout[1] == "t" else N, dtype,
+                 layout=layout, lda=a.stride(1) if layout[0] == "t" else K)
     t = timings(lambda: mmk.matmul(a, b), lambda: ref.matmul_ref(a, b),
                 lambda: torch.matmul(a, b))
     ms = t["ms"]
@@ -488,15 +537,15 @@ def check_matmul_case(name, M, K, N, dtype, mmk, ref) -> dict:
     ops_ms = 2 * M * K * N / PEAK_FLOPS[dtype] * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     row = dict(case=name, dtype=str(dtype).replace("torch.", ""),
-               shape=dict(M=M, K=K, N=N), variant=p.variant,
+               shape=dict(M=M, K=K, N=N), layout=layout, variant=p.variant,
                tile=[p.bm, p.bn], ctas=p.ctas, max_abs_err=float(err.max()),
                tol=dict(tol, summation="2*sqrt(K)*2^-24*(|a|@|b|)"),
                worst_err_over_limit=worst, repo_tol=TOL[dtype], ok=ok, **t,
                bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms,
                ops_ms=ops_ms, **achieved(bytes_ms, ops_ms, bound_by, ms,
                                          dtype, t["graph_ms"]))
-    log(f"  {name:>10} {row['dtype']:>8} ({M},{K},{N}) {p.variant} "
-        f"{p.bm}x{p.bn} err={row['max_abs_err']:.3e} (err/limit "
+    log(f"  {name:>10} {row['dtype']:>8} ({M},{K},{N}) {layout} "
+        f"{p.variant} {p.bm}x{p.bn} err={row['max_abs_err']:.3e} (err/limit "
         f"{worst:.3f}) {'ok' if ok else 'FAIL'} kernel={ms:.4f}ms "
         f"plain={t['plain_ms']:.4f}ms cublas={t['library_ms']:.4f}ms "
         f"(graph: kernel={t['graph_ms']:.4f}ms "
@@ -517,7 +566,43 @@ def phase_matmul(mmk, ref) -> list:
             rows.append(check_matmul_case("sweep", M, K, N, dtype, mmk, ref))
         for M, K, N in tp_matmul_shapes(get_tp_cfg(), dtype.itemsize):
             rows.append(check_matmul_case("tp", M, K, N, dtype, mmk, ref))
+        # phase 9's backward: dx through wᵀ (nt), dw = xᵀ·dy (tn)
+        for M, K, N, lay in train_matmul_shapes(get_tp_cfg()):
+            rows.append(check_matmul_case("train", M, K, N, dtype, mmk, ref,
+                                          layout=lay))
     return rows
+
+
+def train_matmul_shapes(cfg, world: int = TP_WORLD, batch: int = TP_BATCH,
+                        seq: int = TP_SEQ, runs=None) -> list:
+    """(M, K, N, layout) of every matmul call with a transposed operand that
+    phase 9's backward makes on one rank, by the training graph's own
+    arithmetic (its forward calls are ``tp_matmul_shapes``'): per chain of
+    b = batch / mb rows of the full sequence, the grad all-gathers through
+    w_down^T and wo^T (nt, b·S rows), the weight grads xᵀ·dy over the folded
+    b·S rows (tn), and the grad reduce-scatters through the concatenated
+    transposed up+gate and q+k+v weights (nt: b·S rows under barrier, b·S_loc
+    / 2 a hop on the bidirectional cais ring, b·S_loc paired in
+    overlap_asym)."""
+    runs = TRAIN_RUNS if runs is None else runs
+    n, d, dh = world, cfg.d_model, cfg.resolved_head_dim
+    kv_tp = n if cfg.num_kv_heads % n == 0 else 1
+    fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // kv_tp
+    ff, s_loc = cfg.d_ff // n, seq // n
+    shapes = set()
+    for mode, mb, _ in runs:
+        b = batch // mb
+        rows = b * seq
+        shapes |= {(rows, d, ff, "nt"), (rows, d, fq, "nt"),
+                   (ff, rows, d, "tn"), (d, rows, ff, "tn"),
+                   (fq, rows, d, "tn"), (d, rows, fq, "tn"),
+                   (d, rows, fkv, "tn")}
+        m_rs = rows if mode == "barrier" else b * s_loc // 2
+        ks = (2 * ff, fq + 2 * fkv)
+        shapes |= {(m_rs, k, d, "nt") for k in ks}
+        if mb > 1:
+            shapes |= {(b * s_loc, k, d, "nt") for k in ks}
+    return sorted(shapes)
 
 
 def mla_norm_shapes(cfg) -> list:
@@ -794,7 +879,7 @@ def tp_rank(group, tokens, runs):
         lm.rt = rt
         torch.cuda.synchronize()
         mmk.launches = fa.launches = asym[0] = 0
-        mmk.launches_by_variant = dict.fromkeys(mmk.VARIANTS, 0)
+        mmk.launches_by_variant = dict.fromkeys(mmk.COUNTERS, 0)
         fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
         calls.clear()
         t0 = time.monotonic()
@@ -811,7 +896,7 @@ def tp_rank(group, tokens, runs):
             mode=mode, mb=mb, dtype=dtype, loss=float(loss),
             finite=bool(torch.isfinite(loss)), wall_s=wall,
             matmul_launches=launches[0],
-            matmul_variants=dict(mmk.launches_by_variant),
+            matmul_variants=mmk.variant_totals(),
             matmul_derived=per_period * cfg.num_layers,
             flash_launches=launches[1], flash_derived=mb * cfg.num_layers,
             flash_variants=dict(fa.launches_by_variant),
@@ -1079,6 +1164,427 @@ def phase_mla_serve(cfg, fa, mln, mmk):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# phase 9: one training step on a flat TP ring of 4 ranks against one device
+# ---------------------------------------------------------------------------
+
+
+class RefStore:
+    """The one-device step's gradients, AdamW ``m`` and ``v`` and updated
+    parameters, in four flat f32 files in a temporary directory (the
+    memory-mapped page cache, shared with the rank processes, which read
+    only their shards). Picklable: the ranks open the files by name."""
+
+    QUANTITIES = ("grad", "m", "v", "param")
+
+    def __init__(self, shapes: dict, root: str):
+        self.shapes = dict(shapes)
+        self.offsets, n = {}, 0
+        for name, shape in self.shapes.items():
+            self.offsets[name] = n
+            n += int(torch.Size(shape).numel())
+        self.numel, self.root = n, root
+
+    def path(self, q: str) -> str:
+        return str(Path(self.root) / f"{q}.f32")
+
+    def create(self) -> None:
+        for q in self.QUANTITIES:
+            with open(self.path(q), "wb") as f:
+                f.truncate(4 * self.numel)
+
+    def _flat(self, q: str) -> torch.Tensor:
+        return torch.from_file(self.path(q), shared=True, size=self.numel,
+                               dtype=torch.float32)
+
+    def write(self, q: str, tensors: dict) -> None:
+        flat = self._flat(q)
+        for name, t in tensors.items():
+            o = self.offsets[name]
+            flat[o:o + t.numel()].copy_(t.detach().reshape(-1).float())
+        del flat
+
+    def read(self, q: str, name: str) -> torch.Tensor:
+        o = self.offsets[name]
+        return self._flat(q)[o:o + torch.Size(self.shapes[name]).numel()] \
+            .view(self.shapes[name])
+
+
+def train_batch():
+    """Phase 9's batch: step 0 of ``data.pipeline.make_batch`` at train_4k's
+    length, its global batch of 256 cut to TP_BATCH."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+
+    shape = ShapeConfig("train_4k", TP_SEQ, TP_BATCH, "train")
+    return make_batch(get_tp_cfg(), shape, 0, DataConfig(SEED))
+
+
+def _on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def _sync(device) -> None:
+    if _on_card(device):
+        torch.cuda.synchronize()
+
+
+def _peak_start(device) -> None:
+    if _on_card(device):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(device) -> Optional[float]:
+    return torch.cuda.max_memory_allocated() / 2**30 \
+        if _on_card(device) else None
+
+
+def train_reference(batch, root: str, cfg, device="cuda") -> tuple:
+    """The one-device step, f32, remat on, the per-block path: its loss,
+    grad norm, time and peak memory, the one-device bf16 loss (forward
+    only), and a :class:`RefStore` of its gradients, m, v and parameters.
+    Frees the card before it returns."""
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw, constant_schedule
+    from repro_torch.runtime import Runtime
+    from repro_torch.train.step import init_state, make_train_step
+
+    rt = Runtime(compute_dtype="float32")
+    lm = LM(cfg, rt, device=device, seed=SEED)
+    tok = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    with torch.no_grad():
+        lm.rt = Runtime(compute_dtype="bfloat16")
+        loss_bf16 = float(lm.loss(tok))
+        lm.rt = rt
+    opt = adamw(constant_schedule(TRAIN_LR), eps=TRAIN_EPS,
+                clip_norm=TRAIN_CLIP)
+    state = init_state(lm, opt)
+    step = make_train_step(lm, opt, rt)
+    _peak_start(device)
+    t0 = time.monotonic()
+    state, metrics = step(state, batch)
+    _sync(device)
+    step_s = time.monotonic() - t0
+    peak = _peak_gib(device)
+    params = dict(lm.named_parameters())
+    store = RefStore({k: tuple(p.shape) for k, p in params.items()}, root)
+    store.create()
+    t0 = time.monotonic()
+    grads = {k: p.grad for k, p in params.items()}
+    store.write("grad", grads)
+    store.write("m", state["opt"]["m"])
+    store.write("v", state["opt"]["v"])
+    store.write("param", params)
+    maxabs = {q: {k: float(t.abs().max()) for k, t in src.items()}
+              for q, src in (("grad", grads), ("m", state["opt"]["m"]),
+                             ("v", state["opt"]["v"]))}
+    write_s = time.monotonic() - t0
+    ref = dict(loss=float(metrics["loss"]),
+               grad_norm=float(metrics["grad_norm"]), loss_bf16=loss_bf16,
+               step_s=step_s, peak_gib=peak, write_s=write_s, maxabs=maxabs,
+               store_gb=4 * 4 * store.numel / 1e9)
+    del lm, state, step, opt, params, grads, metrics, tok
+    if _on_card(device):
+        torch.cuda.empty_cache()
+    return ref, store
+
+
+def _ref_shard(store, q: str, name: str, r: int, n: int, cfg):
+    """Rank ``r``'s shard of the one-device tensor ``name`` of quantity
+    ``q``, flat and contiguous on the host."""
+    from repro_torch.core.tp import param_shard_dim
+
+    want = store.read(q, name)
+    dim = param_shard_dim(name, cfg, n)
+    if dim is not None:
+        size = want.shape[dim] // n
+        want = want.narrow(dim, r * size, size)
+    return want.contiguous().reshape(-1)
+
+
+CHUNK = 1 << 24     # elements a comparison moves to the card at a time
+
+
+def param_limit(g_ref, p_ref, delta):
+    """The first AdamW step's bound on |Δp|, per element, from the bound
+    ``delta`` on the clipped gradient's error. The step moves p by
+    lr·(u + wd·p) with u = ĝ / (|ĝ| + eps) (m̂ = ĝ, v̂ = ĝ² at step 1), so u
+    is a sign where |ĝ| >> eps, and linear in ĝ where |ĝ| is near eps: where
+    |ĝ_ref| <= delta the sign may differ (|Δu| <= 2); elsewhere |Δu| <=
+    delta·eps / (|ĝ_ref| − delta + eps)², u's steepest slope on
+    [|ĝ_ref| − delta, |ĝ_ref| + delta]; plus 1e-3 lr and 1e-6 |p_ref| for
+    f32 rounding. ``g_ref`` is the clipped one-device gradient ĝ_ref."""
+    a = g_ref.abs()
+    du = torch.where(a <= delta, torch.full_like(a, 2.0),
+                     (delta * TRAIN_EPS / (a - delta + TRAIN_EPS) ** 2)
+                     .clamp(max=2.0))
+    tight = 1e-3 * TRAIN_LR + 1e-6 * p_ref.abs()
+    return TRAIN_LR * du + tight, tight, a <= delta
+
+
+def train_errors(lm, state, store, ref, r: int, n: int, cfg) -> tuple:
+    """This rank's f32 gradients, m, v and parameters against the one-device
+    step's shards, CHUNK elements at a time (the card holds four ranks'
+    models and states): per parameter (max|Δ|, bound) for grad, m and v,
+    (max|Δ|, max err/limit) for the parameter (:func:`param_limit`, from
+    the gradient bound times the one-device clip scale), and the count of
+    parameter elements past the tight bound where the sign may differ."""
+    errs, at_sign = {}, 0
+    clip = min(1.0, TRAIN_CLIP / ref["grad_norm"])
+    for k, p in lm.named_parameters():
+        mine = {"grad": p.grad, "m": state["opt"]["m"][k],
+                "v": state["opt"]["v"][k], "param": p.detach()}
+        want = {q: _ref_shard(store, q, k, r, n, cfg) for q in mine}
+        mine = {q: t.reshape(-1) for q, t in mine.items()}
+        bound = {q: TRAIN_RTOL * ref["maxabs"][q][k]
+                 for q in ("grad", "m", "v")}
+        worst = dict.fromkeys(("grad", "m", "v", "param", "ratio"), 0.0)
+        for lo in range(0, mine["grad"].numel(), CHUNK):
+            sl = slice(lo, lo + CHUNK)
+            w = {q: t[sl].to(p.device) for q, t in want.items()}
+            for q in ("grad", "m", "v"):
+                worst[q] = max(worst[q], float(
+                    (mine[q][sl].float() - w[q]).abs().max()))
+            limit, tight, near = param_limit(w["grad"] * clip, w["param"],
+                                             bound["grad"] * clip)
+            perr = (mine["param"][sl] - w["param"]).abs()
+            worst["param"] = max(worst["param"], float(perr.max()))
+            worst["ratio"] = max(worst["ratio"], float((perr / limit).max()))
+            at_sign += int((near & (perr > tight)).sum())
+            del w, near, tight, limit, perr
+        errs[k] = dict(grad=(worst["grad"], bound["grad"]),
+                       m=(worst["m"], bound["m"]), v=(worst["v"], bound["v"]),
+                       param=(worst["param"], worst["ratio"]))
+    return errs, at_sign
+
+
+def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
+    """One rank of phase 9: for each (mode, microbatches, dtype) run, one
+    train step (LM.loss, its graph-built backward, the ring's grad sums,
+    AdamW) from the same initial shards, with the kernels' launches (set to
+    0 just before the step) against the counts derived from the optimized
+    forward and training graphs, every matmul call's shape and layout, and
+    in f32 this rank's gradients, m, v and parameters against the one-device
+    step's shards."""
+    from repro_torch.core import dataflow
+    from repro_torch.core import tp as tp_mod
+    from repro_torch.core.backends import get_backend
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw, constant_schedule
+    from repro_torch.runtime import Runtime, TPConfig
+    from repro_torch.train.step import init_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, r = group.size, group.rank
+    B, S = batch["tokens"].shape
+    lm = LM(cfg, Runtime(compute_dtype="float32"), device=device, seed=SEED,
+            group=group)
+    if _on_card(device):
+        torch.cuda.empty_cache()      # the whole model drawn for the shards
+    init = {k: p.detach().to("cpu", copy=True)
+            for k, p in lm.named_parameters()}
+    asym = [0]
+    for name in ("barrier", "cais"):
+        be = get_backend(name)
+
+        def counted(*a, _inner=be.overlap_asymmetric, **k):
+            asym[0] += 1
+            return _inner(*a, **k)
+
+        be.overlap_asymmetric = counted
+    calls = {}
+
+    def shapes(a, b, _inner=ops.matmul, **k):
+        key = (*a.shape, b.shape[1], str(a.dtype).replace("torch.", ""),
+               mmk.layout(a, b))
+        calls[key] = calls.get(key, 0) + 1
+        return _inner(a, b, **k)
+
+    ops.matmul = shapes
+    out = []
+    for mode, mb, dtype in runs:
+        rt = Runtime(compute_dtype=dtype, tp=TPConfig(mode=mode,
+                                                      microbatches=mb))
+        lm.rt = rt
+        with torch.no_grad():
+            for k, p in lm.named_parameters():
+                p.copy_(init[k])
+        opt = adamw(constant_schedule(TRAIN_LR), eps=TRAIN_EPS,
+                    clip_norm=TRAIN_CLIP)
+        state = init_state(lm, opt)
+        step = make_train_step(lm, opt, rt)
+        _peak_start(device)
+        mmk.launches = fa.launches = asym[0] = 0
+        mmk.launches_by_variant = dict.fromkeys(mmk.COUNTERS, 0)
+        fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+        calls.clear()
+        t0 = time.monotonic()
+        state, metrics = step(state, batch)
+        _sync(device)
+        wall = time.monotonic() - t0
+        launches = (mmk.launches, fa.launches, asym[0])
+        layouts = dict(mmk.launches_by_variant)
+        peak = _peak_gib(device)
+        tpc = tp_mod.TPContext.from_config(rt.tp, group)
+        base, _ = tp_mod._period_graph(tpc, [lm.blocks[0]], cfg, ("attn",))
+        merged = tp_mod.microbatch_period_graph(base, mb)
+        fwd = dataflow.optimize(merged)
+        _, bwd = tp_mod.training_graph(merged, cfg.norm)
+        per = sum(tp_mod.matmul_calls(g, tpc, B // mb, S, cfg.d_model,
+                                      rt.dtype.itemsize)
+                  for g in (fwd, bwd))
+        fper = sum(tp_mod.flash_calls(g) for g in (fwd, bwd))
+        pairs = [nd.name for g in (fwd, bwd) for nd in g.nodes
+                 if nd.op == "overlap_asym"]
+        cross = tp_mod.cross_direction_pairs(merged, bwd)
+        row = dict(
+            mode=mode, mb=mb, dtype=dtype, loss=float(metrics["loss"]),
+            grad_norm=float(metrics["grad_norm"]), wall_s=wall,
+            peak_gib=peak, matmul_launches=launches[0],
+            matmul_derived=per * cfg.num_layers, matmul_layouts=layouts,
+            matmul_variants=mmk.variant_totals(layouts),
+            flash_launches=launches[1],
+            flash_derived=fper * cfg.num_layers,
+            flash_variants=dict(fa.launches_by_variant),
+            overlap_asym=launches[2],
+            overlap_asym_nodes=len(pairs) * cfg.num_layers,
+            cross_direction_pairs=cross,
+            call_shapes=sorted([*k, v] for k, v in calls.items()),
+            wire=group.backend + (", staged through the host"
+                                  if group.staged(metrics["grad_norm"])
+                                  else ""))
+        if dtype == "float32":
+            if _on_card(device):
+                torch.cuda.empty_cache()
+            errs, at_sign = train_errors(lm, state, store, ref, r, n, cfg)
+            row.update(errs=errs, params_at_sign_bound=at_sign)
+        out.append(row)
+        del state, opt, step, metrics
+        for p in lm.parameters():
+            p.grad = None
+        if _on_card(device):
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_train() -> dict:
+    import gc
+    import tempfile
+
+    from repro_torch.launch.ranks import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch, cfg = train_batch(), get_tp_cfg()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ref_") as root:
+        import shutil
+
+        free = shutil.disk_usage(root).free
+        need = 16 * cfg.param_count()
+        if free < need + 2**30:
+            raise AssertionError(f"phase 9 keeps the one-device reference "
+                                 f"on the host: {need / 1e9:.1f} GB under "
+                                 f"{root}, which has {free / 1e9:.1f} GB")
+        ref, store = train_reference(batch, root, cfg)
+        log(f"  one device f32 (remat, per-block path): loss "
+            f"{ref['loss']:.7f}, grad norm {ref['grad_norm']:.7f}, step "
+            f"{ref['step_s']:.2f}s, peak {ref['peak_gib']} GiB; bf16 "
+            f"loss (forward) {ref['loss_bf16']:.7f}; reference kept on the "
+            f"host: {ref['store_gb']:.1f} GB in {ref['write_s']:.1f}s")
+        t0 = time.monotonic()
+        ranks = run_ranks(train_rank, TP_WORLD, batch, TRAIN_RUNS, store, ref,
+                          cfg, device="cuda", timeout=1200)
+        wall = time.monotonic() - t0
+    rows, total_mm, total_fa, shapes, failed = [], 0, 0, set(), []
+    for i, run in enumerate(TRAIN_RUNS):
+        per = [rk[i] for rk in ranks]
+        head = per[0]
+        f32 = head["dtype"] == "float32"
+        ref_loss = ref["loss"] if f32 else ref["loss_bf16"]
+        rtol = F32_LOSS_RTOL if f32 else BF16_LOSS_RTOL
+        rel = abs(head["loss"] - ref_loss) / abs(ref_loss)
+        gn_rel = abs(head["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        checks = {
+            "ranks agree": len({p["loss"] for p in per}) == 1
+            and len({p["grad_norm"] for p in per}) == 1,
+            f"loss within {rtol:g} of one device": rel <= rtol,
+            "matmul launches = graphs": all(
+                p["matmul_launches"] == p["matmul_derived"] > 0 for p in per),
+            "flash launches = forward + recompute": all(
+                p["flash_launches"] == p["flash_derived"] > 0 for p in per),
+            "flash variants": all(p["flash_variants"] == dict(
+                splitkv=0, wgmma=p["flash_launches"] if not f32 else 0,
+                ffma=p["flash_launches"] if f32 else 0) for p in per),
+            "matmul variants": all(p["matmul_variants"] == (
+                dict(wgmma=0, ffma=p["matmul_launches"]) if f32 else
+                dict(wgmma=p["matmul_launches"], ffma=0)) for p in per),
+            "transposed layouts launched": all(
+                p["matmul_layouts"][f"{v}.{lay}"] > 0
+                for p in per for lay in ("nt", "tn")
+                for v in (("ffma",) if f32 else ("wgmma",))),
+            "overlap_asym executed as the graphs say": all(
+                p["overlap_asym"] == p["overlap_asym_nodes"] for p in per),
+            "a backward node paired with a forward one": (
+                all(p["cross_direction_pairs"] for p in per)
+                if head["mb"] > 1 else True),
+        }
+        if f32:
+            checks[f"grad norm within {TRAIN_RTOL:g}"] = gn_rel <= TRAIN_RTOL
+            for q in ("grad", "m", "v"):
+                checks[f"every {q} within {TRAIN_RTOL:g} max|ref|"] = all(
+                    e[q][0] <= e[q][1] for p in per
+                    for e in p["errs"].values())
+            checks["params within the first-step bound"] = all(
+                e["param"][1] <= 1.0 for p in per
+                for e in p["errs"].values())
+        shapes |= {tuple(c[:5]) for p in per for c in p["call_shapes"]}
+        total_mm += sum(p["matmul_launches"] for p in per)
+        total_fa += sum(p["flash_launches"] for p in per)
+        worst = {}
+        if f32:
+            for q in ("grad", "m", "v"):
+                worst[q] = max(e[q][0] / e[q][1] for p in per
+                               for e in p["errs"].values())
+            worst["param_err_over_limit"] = max(
+                e["param"][1] for p in per for e in p["errs"].values())
+        row = dict({k: v for k, v in head.items()
+                    if k not in ("errs", "call_shapes")},
+                   rel_to_one_device=rel, grad_norm_rel=gn_rel,
+                   one_device=ref_loss, worst_over_bound=worst,
+                   params_at_sign_bound=[p.get("params_at_sign_bound")
+                                         for p in per],
+                   wall_s=[p["wall_s"] for p in per],
+                   peak_gib=[p["peak_gib"] for p in per], checks=checks)
+        rows.append(row)
+        log(f"  {run[0]:>7} mb={run[1]} {run[2]:>8}: loss "
+            f"{head['loss']:.7f} (one device {ref_loss:.7f}, rel "
+            f"{rel:.2e}), grad norm {head['grad_norm']:.7f} (rel "
+            f"{gn_rel:.2e}); worst err/bound {json.dumps(worst)}; "
+            f"elements at the sign bound {row['params_at_sign_bound']}; per "
+            f"rank: matmul {head['matmul_launches']} (graphs "
+            f"{head['matmul_derived']}; {json.dumps(head['matmul_layouts'])})"
+            f", flash {head['flash_launches']} (graphs "
+            f"{head['flash_derived']}), overlap_asym {head['overlap_asym']} "
+            f"({len(head['cross_direction_pairs'])} cross-direction nodes a "
+            f"period); step {max(row['wall_s']):.2f}s; peak "
+            f"{row['peak_gib']} GiB by rank; wire: {head['wire']}")
+        failed += [(run, k) for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 9: failed {failed}")
+    log(f"  {TP_WORLD} ranks, {len(TRAIN_RUNS)} steps in {wall:.1f}s (spawn "
+        "and weights included; gloo stages every hop through the host, so "
+        "these are not TP speeds); launches over all ranks and runs: "
+        f"matmul {total_mm}, flash {total_fa}")
+    return dict(runs=rows, reference={k: v for k, v in ref.items()
+                                      if k != "maxabs"},
+                matmul_launches=total_mm, flash_launches=total_fa,
+                wall_s=wall, call_shapes=sorted(shapes))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -1159,7 +1665,7 @@ def main() -> int:
     if tp["matmul_launches"] == 0 or tp["flash_launches"] == 0:
         raise AssertionError("the tensor-parallel path launched no kernel")
     checked = {(r["shape"]["M"], r["shape"]["K"], r["shape"]["N"],
-                r["dtype"]) for r in mm_rows}
+                r["dtype"]) for r in mm_rows if r["layout"] == "nn"}
     unchecked = [s for s in tp["call_shapes"] if tuple(s) not in checked]
     if unchecked:
         raise AssertionError(f"phase 6 called matmul at shapes phase 3 did "
@@ -1183,6 +1689,18 @@ def main() -> int:
     if unchecked:
         raise AssertionError(f"phase 8 called kernels at shapes phase 3 did "
                              f"not check: {unchecked}")
+
+    log(f"phase 9: one {TP_ARCH} training step at full width and depth, "
+        f"{TP_WORLD} TP ranks on one card over gloo, against one device")
+    log("  " + smi)
+    train = phase_train()
+    checked = {(r["shape"]["M"], r["shape"]["K"], r["shape"]["N"],
+                r["dtype"], r["layout"]) for r in mm_rows}
+    unchecked = [s for s in train["call_shapes"] if tuple(s) not in checked]
+    if unchecked:
+        raise AssertionError(f"phase 9 called matmul at shapes phase 3 did "
+                             f"not check: {unchecked}")
+    log("  train " + json.dumps(train))
 
     log("kernel cases " + json.dumps({"flash_attention": rows,
                                       "matmul": mm_rows,
@@ -1228,12 +1746,13 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:86",
          "launches": rep["launches"] + tp["flash_launches"]
-         + mla["launches"]["flash_attention"],
+         + mla["launches"]["flash_attention"] + train["flash_launches"],
          **record(head)},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:56",
-         "launches": tp["matmul_launches"], **record(mm_head)},
+         "launches": tp["matmul_launches"] + train["matmul_launches"],
+         **record(mm_head)},
         {"name": "matmul_rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul_rmsnorm.cu",
          "replaces": "src/repro/kernels/matmul_ln.py:55",

@@ -3,7 +3,10 @@
 Only what the ported archs need is here: the dense attention archs and MLA
 (minicpm3-4b); the other family sub-configs (SSM, RG-LRU, enc-dec, VLM)
 arrive with the slices that port those families. ``moe`` is kept as a field
-so the FFN can refuse an MoE config by name.
+so the FFN can refuse an MoE config by name. Not here yet (ROADMAP A15):
+``num_prefix_tokens``, ``vision_width`` and ``sub_quadratic``. Every field
+the two packages share is equal for every ported arch, full and smoke
+(``tests/test_torch_train.py``). ``ShapeConfig`` and ``SHAPES`` are copies.
 """
 from __future__ import annotations
 
@@ -56,6 +59,8 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     tie_embeddings: bool = True
     logits_softcap: float = 0.0
+    # optimizer default (the huge MoE archs use adafactor, not ported yet)
+    optimizer: str = "adamw"
 
     # ----- derived -----
     @property
@@ -120,3 +125,26 @@ class ArchConfig:
                 q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=8,
                 qk_rope_head_dim=8, v_head_dim=8)
         return self.scaled(**kw)
+
+
+# ---------------------------------------------------------------------------
+# ShapeConfig: the assigned input-shape set
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}

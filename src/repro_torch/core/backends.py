@@ -18,9 +18,9 @@ on a group larger than one).
 
 Methods run on one rank with its local shards and take the
 :class:`repro_torch.sharding.TPGroup` where JAX took the axis name. The
-expert all-to-all and the hierarchical (2D-mesh) compositions raise (ROADMAP
-A10, A14); the backward collective ``grad_ag_gemm`` comes with training
-(ROADMAP A8).
+backward collective ``grad_ag_gemm`` (the ``bwd_ag_gemm`` IR op of a
+training graph) is here; the expert all-to-all and its adjoint and the
+hierarchical (2D-mesh) compositions raise (ROADMAP A10, A14).
 """
 from __future__ import annotations
 
@@ -119,9 +119,25 @@ class CollectiveBackend:
         tuple. Returns (rs_out, ag_out[s])."""
         raise NotImplementedError
 
+    # -- backward collectives (training graphs) ----------------------------
+    def grad_ag_gemm(self, d, wT, group: TPGroup, cais: CAISConfig):
+        """Adjoint of ``gemm_rs`` (the ``bwd_ag_gemm`` IR op): all-gather the
+        seq-sharded output cotangent ``d`` (B, S_loc, F) and GEMM it with
+        the transposed local weight shard ``wT`` (F, d_loc), a view.
+        Returns ``(d @ wT gathered, d gathered)``: the second feeds the
+        weight-gradient GEMM, so the gather runs once. Default: one
+        monolithic all-gather (the barrier schedule)."""
+        g = group.all_gather(d, 1)
+        return prim.mm(g, wT), g
+
+    def grad_a2a_expert_ffn(self, *_, **__):
+        raise NotImplementedError("the expert all-to-all's adjoint is not "
+                                  "ported yet (ROADMAP A10)")
+
     # -- hierarchical (2D-mesh) compositions: ROADMAP A14 ------------------
     hier_ag_gemm_multi = hier_gemm_rs = hier_gemm_ar = _hier_not_ported
     hier_a2a_expert_ffn = hier_overlap_asymmetric = _hier_not_ported
+    hier_grad_ag_gemm = _hier_not_ported
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +261,15 @@ class CAISBackend(CollectiveBackend):
         # no planning: the lockstep schedule moves one S_loc slice per hop
         # on each stream — its chunking is structural
         return prim.overlap_asymmetric(rs_args, ag_args, group, cais)
+
+    def grad_ag_gemm(self, d, wT, group, cais):
+        # decomposed bidirectional ring gather of the cotangent, then the
+        # GEMM against the transposed shard: the grad-side mirror of the
+        # forward pull alignment
+        n = group.size
+        cais = self.resolve(cais, _nbytes(d) * n, n)
+        g = prim.ring_all_gather(d, group, cais)
+        return prim.mm(g, wT), g
 
 
 # ---------------------------------------------------------------------------

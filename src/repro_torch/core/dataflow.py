@@ -1,4 +1,4 @@
-"""Graph-level dataflow optimizer (paper §III-C), forward half.
+"""Graph-level dataflow optimizer (paper §III-C) and graph-built backward.
 
 Counterpart of ``repro/core/dataflow.py``: the same IR (``Node``/``Graph``
 over the same op vocabulary, ``VALID_OPS``), the same fusion passes — pass 1
@@ -11,10 +11,18 @@ CollectiveBackend`. The passes are pure Python and copied, so ``optimize``
 gives the same node list as ``repro``'s on the same graph; the module
 docstring of ``repro/core/dataflow.py`` documents each op and pass.
 
-Not here yet: the backward vocabulary (``ADJOINTS``,
-``build_training_graph``, derived weights; ROADMAP A8) and the perfsim
-planner for pass 3 (ROADMAP A13). The expert-routing ops (``route``,
-``unroute``, ``a2a_ffn``) are valid IR but their collective is ROADMAP A10.
+The backward vocabulary is here too and copied the same way:
+``ADJOINTS``, ``build_training_graph`` (every branch, MoE and
+``gemm_ar``/``gemm_col`` included), so its node lists equal ``repro``'s, and
+the derived weights (``"w^T"``, ``"a+b^T"``) as views of the local shards.
+The adjoints' local math differentiates the node's fn with
+``torch.autograd.grad``; every GEMM of the backward goes through
+:func:`repro_torch.core.primitives.mm` with the transposed operands read
+where they lie (``_dw`` is ``mm(actᵀ, gout)``, ``_gemm_t`` ``mm(gy, wᵀ)``).
+
+Not here yet: the perfsim planner for pass 3 (ROADMAP A13). The
+expert-routing ops (``route``, ``unroute``, ``a2a_ffn``) and their adjoint
+``bwd_a2a_ffn`` are valid IR but their collective is ROADMAP A10.
 
 Tensor layout conventions per value: ``seq`` (B, S_loc, d)
 sequence-sharded · ``feat`` (B, S, d_loc) feature-sharded · ``full``
@@ -70,13 +78,38 @@ VALID_OPS = {
     "bwd_ag_gemm", "bwd_a2a_ffn",
 }
 
+# The declared adjoint vocabulary, as ``repro``'s: each forward op the
+# model's graph functions can leave in a period graph after passes 1/1b/2
+# maps to the IR ops its adjoint emits (``repro/core/dataflow.py``
+# documents each entry). Raw collectives and pass-3 ``overlap_asym`` have
+# none.
+ADJOINTS = {
+    "input": (),
+    "add": (), "residual": (),              # gradient fan-out, no new nodes
+    "layernorm": ("custom",),               # norm VJP (local math)
+    "custom": ("custom",),                  # VJP of the node's fn
+    "route": ("custom",),                   # VJP of the routing closure
+    "unroute": ("custom",),                 # the route adjoint's dual
+    "a2a_ffn": ("bwd_a2a_ffn",),            # reverse expert all-to-all
+    "ag_gemm": ("custom", "gemm_rs", "allgather"),
+    "ag_gemm_multi": ("custom", "gemm_rs", "allgather"),
+    "gemm_rs": ("bwd_ag_gemm", "custom"),
+    "gemm_ar": ("custom",),                 # replicated out: local dx/dw
+    "gemm_col": ("gemm_ar", "custom"),      # grad allreduce through w^T
+    "fused_rs_ln_ag": ("custom", "gemm_rs", "bwd_ag_gemm", "allgather"),
+    "fused_rs_ln_ag_multi": ("custom", "gemm_rs", "bwd_ag_gemm",
+                             "allgather"),
+    "fused_rs_ln": ("custom", "bwd_ag_gemm"),
+}
+
 # local-math ops whose semantics live in the node's `fn`
 _FN_OPS = ("custom", "route", "unroute")
 
-# cotangent-seed inputs of a training graph (``d.<value>``): forward graphs
-# have none, so pass 3 ranks their pairs exactly as ``repro`` does
+# cotangent-seed inputs of a training graph (``d.<value>``) and per-use
+# weight-gradient values (``dw.<adjoint>.<weight>``); pass 3 ranks a
+# training graph's cross-direction pairs first, as ``repro`` does
 _D_PREFIX = "d."
-
+_DW_PREFIX = "dw."
 
 
 class GraphError(ValueError):
@@ -438,12 +471,6 @@ def _topo(nodes: List[Node], outputs) -> List[Node]:
 # ---------------------------------------------------------------------------
 
 
-
-# ---------------------------------------------------------------------------
-# Executor
-# ---------------------------------------------------------------------------
-
-
 def execute(g: Graph, values: Dict[str, torch.Tensor],
             weights: Dict[str, torch.Tensor], group=None,
             cais: CAISConfig = CAISConfig(), norm: str = "rmsnorm",
@@ -548,9 +575,17 @@ def execute(g: Graph, values: Dict[str, torch.Tensor],
                 ag_outs = tuple(mm(ins[1], w) for w in ag_ws)
             for name, val in zip(n.outputs, (rs_out,) + tuple(ag_outs)):
                 env[name] = val
-        elif n.op in ("bwd_ag_gemm", "bwd_a2a_ffn"):
-            raise NotImplementedError(f"backward op {n.op!r} is not ported "
-                                      "yet (ROADMAP A8)")
+        elif n.op == "bwd_ag_gemm":
+            # adjoint of gemm_rs: gather the seq-sharded cotangent, GEMM with
+            # the transposed weight; the gathered cotangent is re-exposed for
+            # the weight-gradient GEMM (outputs (d_x, dy_full))
+            dx_, dyf = (be.grad_ag_gemm(ins[0], ws[0], group, cais)
+                        if dist else (mm(ins[0], ws[0]), ins[0]))
+            env[n.outputs[0]], env[n.outputs[1]] = dx_, dyf
+        elif n.op == "bwd_a2a_ffn":
+            raise NotImplementedError("the expert all-to-all's adjoint "
+                                      "(bwd_a2a_ffn) is not ported yet "
+                                      "(ROADMAP A10)")
         else:
             raise ValueError(n.op)
     return tuple(env[o] for o in g.outputs)
@@ -654,3 +689,423 @@ def dual_sublayer_graph() -> Graph:
 # column shard IS that device's shard of the row-sharded transpose — so
 # :func:`derived_weights` materializes them inside shard_map from the local
 # forward shards, with no extra mesh arguments.
+
+
+def grad_input_name(value: str) -> str:
+    """Name of the ``input`` node seeding the cotangent of forward output
+    ``value`` in a training graph."""
+    return _D_PREFIX + value
+
+
+def supports_backward(g: Graph) -> bool:
+    """True iff every node's op has a declared adjoint (:data:`ADJOINTS`):
+    the dense vocabulary, MoE routing and ``gemm_ar``/``gemm_col``. Raw
+    collectives and pass-3 ``overlap_asym`` have none."""
+    return all(n.op in ADJOINTS for n in g.nodes)
+
+
+@dataclass(frozen=True)
+class TrainingGraph:
+    """A forward graph with its graph-built backward appended.
+
+    ``graph.outputs`` = the input cotangents (one per forward ``input``
+    node that gradients reach, in forward declaration order) followed by
+    every per-use weight-gradient value. ``dweights`` groups the latter by
+    forward weight key: shared-weight chains (microbatch copies of one
+    block) each contribute one value per use, and the caller sums each
+    group (then all-reduces replicated-weight grads over the ring)."""
+    graph: Graph
+    grad_inputs: Tuple[str, ...]          # cotangent seeds ("d." + output)
+    dx: Dict[str, str]                    # fwd input value -> grad value
+    dweights: Dict[str, Tuple[str, ...]]  # weight key -> grad values (sum)
+
+
+def _leaf(t: torch.Tensor) -> torch.Tensor:
+    """A fresh autograd leaf holding ``t``'s values (floating tensors)."""
+    return t.detach().requires_grad_(t.is_floating_point())
+
+
+def _norm_vjp(norm: str) -> Callable:
+    def vjp_fn(x, gy, scale):
+        from repro_torch.models.layers import apply_norm
+        with torch.enable_grad():
+            xx, ss = _leaf(x), _leaf(scale)
+            return torch.autograd.grad(apply_norm(norm, xx, ss), (xx, ss),
+                                       gy)     # (d_x, d_scale)
+    return vjp_fn
+
+
+def _norm_fwd(norm: str) -> Callable:
+    def fwd_fn(x, scale):
+        from repro_torch.models.layers import apply_norm
+        return apply_norm(norm, x, scale)
+    return fwd_fn
+
+
+def _fn_vjp(fn: Callable, k_in: int, k_w: int,
+            mask: Tuple[bool, ...]) -> Callable:
+    """Adjoint of a ``custom`` node's fn. Called as
+    ``vjp(*fwd_inputs, *present_cotangents, *fwd_weights)`` (the executor's
+    ``fn(*ins, *ws)`` convention); absent cotangents (outputs no gradient
+    reaches) are zero-filled against the recomputed primals, and an input
+    the fn does not reach gets a zero gradient, as ``jax.vjp`` gives."""
+    def vjp_fn(*args):
+        cots = args[k_in:len(args) - k_w] if k_w else args[k_in:]
+        ws = args[len(args) - k_w:] if k_w else ()
+        with torch.enable_grad():
+            prim = tuple(_leaf(t) for t in args[:k_in] + tuple(ws))
+            outs = fn(*prim)
+            outs = (outs,) if len(mask) == 1 else tuple(outs)
+            it = iter(cots)
+            cot = tuple(next(it) if m else torch.zeros_like(o)
+                        for m, o in zip(mask, outs))
+            pairs = [(o, c) for o, c in zip(outs, cot) if o.requires_grad]
+            diff = [t for t in prim if t.requires_grad]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], diff, [c for _, c in pairs],
+                allow_unused=True) if pairs and diff else ())
+        grads = tuple(
+            (next(got, None) if t.requires_grad else None) for t in prim)
+        grads = tuple(torch.zeros_like(t) if g is None else g
+                      for g, t in zip(grads, prim))
+        return grads if len(grads) > 1 else grads[0]
+    vjp_fn.wrapped = fn       # what the adjoint recomputes (launch counts)
+    return vjp_fn
+
+
+def _concat_last(*gs):
+    return torch.cat(gs, dim=-1)
+
+
+def _dw(act, gout):
+    """Per-use weight gradient: contract activation (B, S, in) against the
+    output cotangent (B, S, out) over batch×seq → (in, out), as one
+    ``mm(actᵀ, gout)`` over the folded B·S rows (actᵀ read where it lies)."""
+    a = act.reshape(-1, act.shape[-1])
+    if not a.is_contiguous():
+        a = a.contiguous()
+    g = gout.reshape(-1, gout.shape[-1])
+    if not g.is_contiguous():
+        g = g.contiguous()
+    return mm(a.T, g)
+
+
+def _gemm_t(gy, wT):
+    """dx leg of a plain GEMM adjoint: cotangent @ transposed weight."""
+    return mm(gy, wT)
+
+
+def build_training_graph(g: Graph, norm: str = "rmsnorm") -> TrainingGraph:
+    """Append the graph-built backward to forward graph ``g`` (which must be
+    post-pass-1/1b/2 and pre-pass-3; see the section comment above).
+
+    Every forward output gets a cotangent seed ``input`` node
+    (:func:`grad_input_name`); adjoints are emitted per the declared
+    :data:`ADJOINTS` vocabulary in reverse topo order, accumulating fan-out
+    gradients through ``add`` nodes. The result is ONE graph containing
+    both directions — run :func:`optimize` on it so pass 3 can pair a
+    backward grad reduce-scatter against an independent chain's forward
+    gather (the fwd/bwd cross-chain ``overlap_asym`` the paper targets)."""
+    bad = sorted({n.op for n in g.nodes if n.op not in ADJOINTS})
+    if bad:
+        raise GraphError(
+            f"no declared adjoint for op {bad[0]!r}; gate on "
+            f"supports_backward()")
+    fwd = _topo(list(g.nodes), g.outputs)
+    nodes: List[Node] = list(fwd)
+    contrib: Dict[str, List[str]] = {}
+    dweights: Dict[str, List[str]] = {}
+    grad_inputs = tuple(grad_input_name(o) for o in g.outputs)
+    for o, gi in zip(g.outputs, grad_inputs):
+        nodes.append(Node(gi, "input"))
+        contrib.setdefault(o, []).append(gi)
+
+    def finalize(v: str) -> Optional[str]:
+        # sum the contributions to d(v); None if no gradient reaches v
+        parts = contrib.get(v)
+        if not parts:
+            return None
+        acc = parts[0]
+        for i, p in enumerate(parts[1:]):
+            nm = f"dsum{i}.{v}"
+            nodes.append(Node(nm, "add", (acc, p)))
+            acc = nm
+        return acc
+
+    def take(v: str, grad: str) -> None:
+        contrib.setdefault(v, []).append(grad)
+
+    def add_dw(w: str, grad: str) -> None:
+        dweights.setdefault(w, []).append(grad)
+
+    def grad_rs(n: Node, gys: List[str], an: str, xn: str) -> str:
+        # shared d(gathered-input) leg of ag_gemm[_multi] and the fused ops:
+        # concat the per-weight cotangents and reduce-scatter them through
+        # the transposed (concatenated) weight — the grad reduce-scatter
+        if len(gys) > 1:
+            cat = f"dcat.{n.name}"
+            nodes.append(Node(f"adj.cat.{n.name}", "custom", tuple(gys),
+                              outputs=(cat,), fn=_concat_last))
+        else:
+            cat = gys[0]
+        out = f"d.{xn}@{an}"
+        nodes.append(Node(out, "gemm_rs", (cat,),
+                          ("+".join(n.weights[-len(gys):]) + "^T",)))
+        return out
+
+    dx: Dict[str, str] = {}
+    for n in reversed(fwd):
+        an = f"adj.{n.name}"
+        if n.op == "input":
+            dxv = finalize(n.name)
+            if dxv is not None:
+                dx[n.name] = dxv
+        elif n.op in ("add", "residual"):
+            gy = finalize(n.name)
+            if gy is not None:
+                for v in n.inputs:
+                    take(v, gy)
+        elif n.op == "layernorm":
+            gy = finalize(n.name)
+            if gy is None:
+                continue
+            xin, scale = n.inputs[0], n.weights[0]
+            nodes.append(Node(
+                an, "custom", (xin, gy), (scale,),
+                outputs=(f"d.{xin}@{an}", f"{_DW_PREFIX}{an}.{scale}"),
+                fn=_norm_vjp(norm)))
+            take(xin, f"d.{xin}@{an}")
+            add_dw(scale, f"{_DW_PREFIX}{an}.{scale}")
+        elif n.op in _FN_OPS:
+            # custom, route, unroute: the VJP of the node's local fn. For
+            # route the output triple is (send, combine, aux) — the aux
+            # load-balance statistic is a first-class graph output, so its
+            # cotangent (seeded from d.<aux>) rides the same VJP into the
+            # router-logit gradients.
+            gys = [finalize(v) for v in n.outputs]
+            if all(q is None for q in gys):
+                continue
+            have = tuple(q for q in gys if q is not None)
+            mask = tuple(q is not None for q in gys)
+            outs = (tuple(f"d.{v}@{an}" for v in n.inputs)
+                    + tuple(f"{_DW_PREFIX}{an}.{w}" for w in n.weights))
+            nodes.append(Node(
+                an, "custom", n.inputs + have, n.weights, outputs=outs,
+                fn=_fn_vjp(n.fn, len(n.inputs), len(n.weights), mask)))
+            for v in n.inputs:
+                take(v, f"d.{v}@{an}")
+            for w in n.weights:
+                add_dw(w, f"{_DW_PREFIX}{an}.{w}")
+        elif n.op == "a2a_ffn":
+            gy = finalize(n.name)
+            if gy is None:
+                continue
+            sn = n.inputs[0]
+            dsend = f"d.{sn}@{an}"
+            dw_names = tuple(f"{_DW_PREFIX}{an}.{w}" for w in n.weights)
+            nodes.append(Node(an, "bwd_a2a_ffn", (sn, gy), n.weights,
+                              outputs=(dsend,) + dw_names, fn=n.fn))
+            take(sn, dsend)
+            for w, dwn in zip(n.weights, dw_names):
+                add_dw(w, dwn)
+        elif n.op in ("ag_gemm", "ag_gemm_multi"):
+            gys = [finalize(v) for v in n.outputs]
+            if all(q is None for q in gys):
+                continue
+            if any(q is None for q in gys):
+                raise GraphError(
+                    f"partial cotangents for shared gather {n.name!r}: "
+                    f"every output of an ag_gemm_multi must be consumed")
+            xn = n.inputs[0]
+            take(xn, grad_rs(n, gys, an, xn))
+            # weight grads re-gather the seq-sharded input (Megatron-style
+            # recompute of the gathered activation — a raw IR allgather so
+            # the planner sees and costs it)
+            xg = f"xg.{n.name}"
+            nodes.append(Node(xg, "allgather", (xn,)))
+            for w, gy in zip(n.weights, gys):
+                nodes.append(Node(f"adj.dw.{n.name}.{w}", "custom",
+                                  (xg, gy),
+                                  outputs=(f"{_DW_PREFIX}{an}.{w}",),
+                                  fn=_dw))
+                add_dw(w, f"{_DW_PREFIX}{an}.{w}")
+        elif n.op == "gemm_rs":
+            gy = finalize(n.name)
+            if gy is None:
+                continue
+            hin, w1 = n.inputs[0], n.weights[0]
+            dh, dyf = f"d.{hin}@{an}", f"dfull.{n.name}"
+            nodes.append(Node(an, "bwd_ag_gemm", (gy,), (w1 + "^T",),
+                              outputs=(dh, dyf)))
+            take(hin, dh)
+            nodes.append(Node(f"adj.dw.{n.name}.{w1}", "custom",
+                              (hin, dyf),
+                              outputs=(f"{_DW_PREFIX}{an}.{w1}",), fn=_dw))
+            add_dw(w1, f"{_DW_PREFIX}{an}.{w1}")
+        elif n.op == "gemm_ar":
+            # y = psum(x_feat @ w_row) is replicated, so the adjoint is
+            # purely local: dx = dy @ w^T lands feature-sharded, dw is the
+            # local row-shard's contraction — no collective either way
+            # (decode/ragged S, incl. S=1: nothing here depends on S).
+            gy = finalize(n.name)
+            if gy is None:
+                continue
+            hin, w1 = n.inputs[0], n.weights[0]
+            dh = f"d.{hin}@{an}"
+            nodes.append(Node(an, "custom", (gy,), (w1 + "^T",),
+                              outputs=(dh,), fn=_gemm_t))
+            take(hin, dh)
+            nodes.append(Node(f"adj.dw.{n.name}.{w1}", "custom",
+                              (hin, gy),
+                              outputs=(f"{_DW_PREFIX}{an}.{w1}",), fn=_dw))
+            add_dw(w1, f"{_DW_PREFIX}{an}.{w1}")
+        elif n.op == "gemm_col":
+            # sequence-parallel-off layout: x is replicated, y = x @ w_col
+            # is feature-sharded. dx needs the cross-shard sum — emitted as
+            # a backward ``gemm_ar`` (grad allreduce through w^T, dispatched
+            # via the backend); dw is local per column shard.
+            gy = finalize(n.name)
+            if gy is None:
+                continue
+            xin, w1 = n.inputs[0], n.weights[0]
+            dxv = f"d.{xin}@{an}"
+            nodes.append(Node(dxv, "gemm_ar", (gy,), (w1 + "^T",)))
+            take(xin, dxv)
+            nodes.append(Node(f"adj.dw.{n.name}.{w1}", "custom",
+                              (xin, gy),
+                              outputs=(f"{_DW_PREFIX}{an}.{w1}",), fn=_dw))
+            add_dw(w1, f"{_DW_PREFIX}{an}.{w1}")
+        elif n.op in ("fused_rs_ln_ag", "fused_rs_ln_ag_multi"):
+            gs, z = n.outputs[:-1], n.outputs[-1]
+            gys = [finalize(v) for v in gs]
+            dz_ext = finalize(z)
+            if all(q is None for q in gys) and dz_ext is None:
+                continue
+            if any(q is None for q in gys):
+                raise GraphError(
+                    f"partial cotangents for fused seam {n.name!r}: every "
+                    f"gather output must be consumed")
+            hin = n.inputs[0]
+            res = n.inputs[1] if len(n.inputs) > 1 else None
+            w1, scale = n.weights[0], n.weights[1]
+            # d(zn): the grad reduce-scatter through the w2 leg
+            dzn = grad_rs(n, gys, an, f"zn.{n.name}")
+            # norm VJP: d(z) from d(zn) (needs z, re-exposed by pass 2)
+            dz_n, dscale = f"dznorm.{n.name}", f"{_DW_PREFIX}{an}.{scale}"
+            nodes.append(Node(f"adj.ln.{n.name}", "custom", (z, dzn),
+                              (scale,), outputs=(dz_n, dscale),
+                              fn=_norm_vjp(norm)))
+            add_dw(scale, dscale)
+            if dz_ext is not None:
+                dz = f"dz.{n.name}"
+                nodes.append(Node(dz, "add", (dz_n, dz_ext)))
+            else:
+                dz = dz_n
+            if res is not None:
+                take(res, dz)
+            # grad all-gather back through the RS leg
+            dh, dyf = f"d.{hin}@{an}", f"dfull.{n.name}"
+            nodes.append(Node(an, "bwd_ag_gemm", (dz,), (w1 + "^T",),
+                              outputs=(dh, dyf)))
+            take(hin, dh)
+            nodes.append(Node(f"adj.dw.{n.name}.{w1}", "custom",
+                              (hin, dyf),
+                              outputs=(f"{_DW_PREFIX}{an}.{w1}",), fn=_dw))
+            add_dw(w1, f"{_DW_PREFIX}{an}.{w1}")
+            # w2 grads: recompute zn from the re-exposed z, re-gather it
+            znr, zg = f"znr.{n.name}", f"zg.{n.name}"
+            nodes.append(Node(znr, "custom", (z,), (scale,),
+                              fn=_norm_fwd(norm)))
+            nodes.append(Node(zg, "allgather", (znr,)))
+            for w, gy in zip(n.weights[2:], gys):
+                nodes.append(Node(f"adj.dw.{n.name}.{w}", "custom",
+                                  (zg, gy),
+                                  outputs=(f"{_DW_PREFIX}{an}.{w}",),
+                                  fn=_dw))
+                add_dw(w, f"{_DW_PREFIX}{an}.{w}")
+        elif n.op == "fused_rs_ln":
+            # the MoE router seam (no trailing gather): outputs (zn, z).
+            # d(zn) arrives from the route/unroute/dense-residual adjoints,
+            # d(z) from the next block's residual skip; norm VJP joins them
+            # and the RS leg's adjoint (bwd_ag_gemm) carries dz back.
+            znv, z = n.outputs
+            dzn = finalize(znv)
+            dz_ext = finalize(z)
+            if dzn is None and dz_ext is None:
+                continue
+            hin = n.inputs[0]
+            res = n.inputs[1] if len(n.inputs) > 1 else None
+            w1, scale = n.weights[0], n.weights[1]
+            if dzn is not None:
+                dz_n = f"dznorm.{n.name}"
+                dscale = f"{_DW_PREFIX}{an}.{scale}"
+                nodes.append(Node(f"adj.ln.{n.name}", "custom", (z, dzn),
+                                  (scale,), outputs=(dz_n, dscale),
+                                  fn=_norm_vjp(norm)))
+                add_dw(scale, dscale)
+                if dz_ext is not None:
+                    dz = f"dz.{n.name}"
+                    nodes.append(Node(dz, "add", (dz_n, dz_ext)))
+                else:
+                    dz = dz_n
+            else:
+                dz = dz_ext
+            if res is not None:
+                take(res, dz)
+            dh, dyf = f"d.{hin}@{an}", f"dfull.{n.name}"
+            nodes.append(Node(an, "bwd_ag_gemm", (dz,), (w1 + "^T",),
+                              outputs=(dh, dyf)))
+            take(hin, dh)
+            nodes.append(Node(f"adj.dw.{n.name}.{w1}", "custom",
+                              (hin, dyf),
+                              outputs=(f"{_DW_PREFIX}{an}.{w1}",), fn=_dw))
+            add_dw(w1, f"{_DW_PREFIX}{an}.{w1}")
+        else:  # pragma: no cover — ADJOINTS gate above is exhaustive
+            raise GraphError(f"unhandled adjoint for op {n.op!r}")
+
+    fwd_inputs = [n.name for n in fwd if n.op == "input"]
+    dx_outs = tuple(dx[v] for v in fwd_inputs if v in dx)
+    dw_outs = tuple(v for vals in dweights.values() for v in vals)
+    tg = Graph(nodes, dx_outs + dw_outs).validate()
+    return TrainingGraph(tg, grad_inputs, dx,
+                         {k: tuple(v) for k, v in dweights.items()})
+
+
+def derived_weight_keys(g: Graph) -> List[str]:
+    """The transposed/concatenated weight keys (suffix ``"^T"``) a training
+    graph references beyond the forward weights, in first-use order."""
+    seen, out = set(), []
+    for n in g.nodes:
+        for w in n.weights:
+            if w.endswith("^T") and w not in seen:
+                seen.add(w)
+                out.append(w)
+    return out
+
+
+def derived_weights(g: Graph, weights: Dict) -> Dict:
+    """Extend ``weights`` with the derived keys of ``g``: ``"w^T"`` is the
+    transpose of this rank's shard ``weights["w"]``, a view; ``"a+b^T"``
+    concatenates the named shards along their last axis first (the
+    shared-gather layout), then transposes the result (a view of the
+    concatenation). Local transforms only: the transpose of a column shard
+    IS this rank's shard of the row-sharded transpose."""
+    out = dict(weights)
+    for key in derived_weight_keys(g):
+        parts = key[:-2].split("+")
+        w = (out[parts[0]] if len(parts) == 1 else
+             torch.cat([out[p] for p in parts], dim=-1))
+        out[key] = w.T
+    return out
+
+
+def derived_weight_shapes(g: Graph, shapes: Dict) -> Dict:
+    """Shape-level twin of :func:`derived_weights` for the planner: maps the
+    derived keys to (out, in)-transposed / concat-then-transposed shapes."""
+    out = dict(shapes)
+    for key in derived_weight_keys(g):
+        parts = key[:-2].split("+")
+        d = out[parts[0]][0]
+        f = sum(out[p][-1] for p in parts)
+        out[key] = (f, d)
+    return out

@@ -64,9 +64,14 @@ def _ring_perms(n: int, direction: int) -> Sequence[Tuple[int, int]]:
 
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., K) @ (K, N) through the matmul kernel: the leading dims fold
-    into the kernel's rows (a non-contiguous slice is copied once here)."""
+    into the kernel's rows (a non-contiguous slice is copied once here). A
+    2-D ``x`` that is the transpose of a contiguous tensor (the backward's
+    xᵀ), and a ``w`` that is one (the backward's wᵀ), pass as they lie."""
     K, N = w.shape
-    out = ops.matmul(x.reshape(-1, K).contiguous(), w)
+    a = x.reshape(-1, K)
+    if not (a.is_contiguous() or (x.dim() == 2 and a.T.is_contiguous())):
+        a = a.contiguous()
+    out = ops.matmul(a, w)
     return out.reshape(*x.shape[:-1], N)
 
 

@@ -14,10 +14,20 @@ QKV and up/gate by columns, the out and down projections by rows, norms
 replicated; K/V replicate when ``num_kv_heads % tp != 0``. Activations
 between periods are sequence-sharded (B, S/tp, d).
 
+The backward of a period is graph-built, as ``repro``'s ``jax.custom_vjp``
+under ``TPConfig(graph_backward=True)``: :class:`_PeriodFunction` saves only
+(x, weights); its backward builds the training graph of the pass-2-fused
+period (:func:`repro_torch.core.dataflow.build_training_graph`), runs pass 3
+on the merged forward+backward graph (so one chain's backward grad
+reduce-scatter may pair with another chain's forward gather), executes it
+on this rank, sums each weight's per-use grads and all-reduces those of the
+weights the ring replicates.
+
 Not here yet: the MoE period (ROADMAP A10), the replicated-activation
 decode/ragged layout (A11), the serving period (A12), the perfsim planner
-(A13) and the graph-built backward (A8: ``graph_backward`` is kept on the
-config and read by nothing until then).
+(A13), and ``graph_backward=False`` on a ring (A15: JAX falls back to
+autodiff of the executed forward, through its collectives; the port has no
+autodiff through the ring collectives).
 """
 from __future__ import annotations
 
@@ -229,7 +239,7 @@ def _attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     kv_sharded = Hkv % tp == 0
 
-    def core(q, k, v):
+    def core(q, k, v):        # one flash_attention call (core.flash_calls)
         B_, S = q.shape[0], q.shape[1]
         H_loc = max(H // tp, 1)
         Hkv_loc = max(Hkv // tp, 1) if kv_sharded else Hkv
@@ -248,6 +258,7 @@ def _attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
                            causal=True, window=window)
         return o.reshape(B_, S, H_loc * dh)
 
+    core.flash_calls = 1
     return core
 
 
@@ -275,6 +286,24 @@ def _block_graph_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
     }
     nodes, out = _dense_block_nodes(core, True, cfg.act, p=p, src=src)
     return nodes, out, weights
+
+
+# a period-graph weight key's leaf -> the Block parameter it holds
+_WEIGHT_PARAMS = {"scale1": "norm1.scale", "scale2": "norm2.scale",
+                  "wq": "mixer.wq", "wk": "mixer.wk", "wv": "mixer.wv",
+                  "wo": "mixer.wo", "w_up": "ffn.w_up",
+                  "w_gate": "ffn.w_gate", "w_down": "ffn.w_down"}
+
+
+def replicated_weights(weights, cfg, tp: int) -> frozenset:
+    """The keys of a period graph's ``weights`` that every rank of a ring of
+    ``tp`` holds whole (:func:`param_shard_dim` None: the norm scales, and
+    wk/wv when ``num_kv_heads % tp != 0``): their gradients are partial sums
+    over the ring's sequence shards."""
+    return frozenset(
+        k for k in weights
+        if param_shard_dim("blocks.0." + _WEIGHT_PARAMS[k.split(".", 1)[1]],
+                           cfg, tp) is None)
 
 
 def _period_graph(tpc: TPContext, params_seq, cfg, kinds: Sequence[str],
@@ -351,6 +380,83 @@ def _plan_period(tpc: TPContext, base: df.Graph, weights, x,
     return resolve_microbatches(tpc, x, requested, moe), None
 
 
+def training_graph(merged: df.Graph, norm: str = "rmsnorm",
+                   planner=None):
+    """The backward of a (microbatch-merged) period graph: the training
+    graph of its pass-2-fused form, and that graph optimized (pass 3 pairs
+    across directions). Returns (TrainingGraph, optimized graph)."""
+    g2 = df.fuse_sublayer_chain(df.fuse_shared_gather(
+        df.fuse_compute_aware(merged)))
+    tg = df.build_training_graph(g2, norm=norm)
+    return tg, df.optimize(tg.graph, planner=planner)
+
+
+@dataclass
+class _Period:
+    """One period's forward and graph-built backward on this rank."""
+    tpc: TPContext
+    merged: df.Graph        # the microbatch-merged graph before optimize
+    graph: df.Graph         # the optimized forward
+    names: Sequence[str]    # weight keys, in the order of the weight args
+    replicated: frozenset   # keys whose grads are all-reduced over the ring
+    mb: int
+    norm: str
+    planner: Optional[str] = None
+
+    def chains(self):
+        return ["x"] if self.mb == 1 else [f"mb{i}.x" for i in range(self.mb)]
+
+    def forward(self, x: torch.Tensor, ws) -> torch.Tensor:
+        values = dict(zip(self.chains(), torch.chunk(x, self.mb, dim=0)))
+        res = df.execute(self.graph, values, dict(zip(self.names, ws)),
+                         group=self.tpc.group, cais=self.tpc.cais,
+                         norm=self.norm, backend=self.tpc.backend)
+        return res[0] if self.mb == 1 else torch.cat(res, dim=0)
+
+    def backward(self, x: torch.Tensor, ws, gy: torch.Tensor):
+        """(dx, per-weight grads in the weights' types) for output cotangent
+        ``gy``: the training graph executed on this rank."""
+        tg, bwd = training_graph(self.merged, self.norm, self.planner)
+        wmap = df.derived_weights(bwd, dict(zip(self.names, ws)))
+        chains = self.chains()
+        vals = dict(zip(chains, torch.chunk(x, self.mb, dim=0)))
+        vals.update(zip(tg.grad_inputs, (
+            g.contiguous() for g in torch.chunk(gy, self.mb, dim=0))))
+        res = df.execute(bwd, vals, wmap, group=self.tpc.group,
+                         cais=self.tpc.cais, norm=self.norm,
+                         backend=self.tpc.backend)
+        got = dict(zip(bwd.outputs, res))
+        dx = torch.cat([got[tg.dx[c]] for c in chains], dim=0)
+        dws = []
+        for k, w in zip(self.names, ws):
+            parts = [got[v] for v in tg.dweights.get(k, ())]
+            dw = parts[0] if parts else torch.zeros_like(w)
+            for p_ in parts[1:]:
+                dw = dw + p_
+            if k in self.replicated:
+                dw = self.tpc.group.all_reduce(dw)
+            dws.append(dw.to(w.dtype))
+        return dx.to(x.dtype), dws
+
+
+class _PeriodFunction(torch.autograd.Function):
+    """The counterpart of ``repro``'s ``jax.custom_vjp`` around a period:
+    the forward executes the optimized period graph and saves (x, weights)
+    only; the backward is :meth:`_Period.backward`."""
+
+    @staticmethod
+    def forward(ctx, period: _Period, x, *ws):
+        ctx.period = period
+        ctx.save_for_backward(x, *ws)
+        return period.forward(x, ws)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, *ws = ctx.saved_tensors
+        dx, dws = ctx.period.backward(x, ws, gy)
+        return (None, dx, *dws)
+
+
 def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
               kinds: Sequence[str], *, opts: Optional[SPOptions] = None,
               **kw):
@@ -362,7 +468,11 @@ def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     batch into that many independent chains merged into the same graph with
     shared weights; the outputs are concatenated back. x: (B, S/tp, d)
     sequence-sharded. Returns (period output (B, S/tp, d), aux loss), the
-    aux loss 0 for dense periods."""
+    aux loss 0 for dense periods.
+
+    Where autograd records (x or a weight requires grad), the period runs
+    as :class:`_PeriodFunction`, whose backward is graph-built
+    (``tpc.graph_backward``, the default; ``False`` raises, ROADMAP A15)."""
     o = _sp_opts(opts, kw)
     if not o.seq_sharded:
         raise NotImplementedError("the replicated-activation decode/ragged "
@@ -376,16 +486,21 @@ def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
                              int(x.shape[1]) * tpc.tp)
     mb, planner = _plan_period(tpc, base, weights, x, o.num_microbatches,
                                moe=False, comp_hints=hints)
-    graph = df.optimize(microbatch_period_graph(base, mb), planner=planner)
-    if mb == 1:
-        values = {"x": x}
-    else:
-        values = {f"mb{i}.x": xi
-                  for i, xi in enumerate(torch.chunk(x, mb, dim=0))}
-    res = df.execute(graph, values, weights, group=tpc.group, cais=tpc.cais,
-                     norm=o.norm_kind, backend=tpc.backend)
-    out = res[0] if mb == 1 else torch.cat(res, dim=0)
-    return out, torch.zeros((), dtype=torch.float32, device=x.device)
+    merged = microbatch_period_graph(base, mb)
+    period = _Period(tpc, merged, df.optimize(merged, planner=planner),
+                     list(weights), replicated_weights(weights, cfg, tpc.tp),
+                     mb, o.norm_kind, planner)
+    ws = tuple(weights.values())
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x,) + ws)):
+        return period.forward(x, ws), aux
+    if not tpc.graph_backward:
+        raise NotImplementedError(
+            "TPConfig(graph_backward=False) on a TP ring needs autodiff "
+            "through the ring collectives, which the port does not have "
+            "yet (ROADMAP A15); use the graph-built backward")
+    return _PeriodFunction.apply(period, x, *ws), aux
 
 
 def sp_block(tpc: TPContext, x: torch.Tensor, params, cfg,
@@ -430,7 +545,9 @@ def tp_applicable(cfg, kind: str, tp: int,
 def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
                  d_model: int, itemsize: int) -> int:
     """The matmul-kernel calls one rank makes executing the optimized
-    dense period ``graph``, derived from its nodes alone: ``batch`` is each
+    dense period ``graph``, a forward or a training graph (its backward
+    ops, the ``_dw``/``_gemm_t`` customs and ``gemm_rs`` over derived
+    weights included), derived from its nodes alone: ``batch`` is each
     chain's batch, ``seq`` the full sequence, so every gathered activation
     is (batch, seq, d_model) of ``itemsize`` bytes. ``barrier`` issues one
     GEMM per weight; ``cais`` one per weight per micro-chunk per ring step on
@@ -462,8 +579,10 @@ def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
     calls = 0
     for node in graph.nodes:
         k = len(node.weights)
-        if node.op in ("gemm_col", "gemm_row"):
-            calls += 1
+        if node.op in ("gemm_col", "gemm_row", "bwd_ag_gemm"):
+            calls += 1      # bwd_ag_gemm: one GEMM over the gathered grad
+        elif node.op == "custom" and node.fn in (df._dw, df._gemm_t):
+            calls += 1      # a weight gradient, or a dx through wᵀ
         elif node.op in ("ag_gemm", "ag_gemm_multi"):
             calls += ag(k)
         elif node.op in ("gemm_rs", "fused_rs_ln"):
@@ -476,3 +595,25 @@ def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
         elif node.op == "gemm_ar":
             calls += rs() if tpc.mode == "cais" else 1
     return calls
+
+
+def flash_calls(graph: df.Graph) -> int:
+    """The flash-attention calls one rank makes executing ``graph``: one per
+    attention-core node, and in a training graph one more per core adjoint,
+    whose VJP runs the core forward again (its backward is torch math)."""
+    n = 0
+    for node in graph.nodes:
+        fn = node.fn
+        n += getattr(fn, "flash_calls", 0)
+        n += getattr(getattr(fn, "wrapped", None), "flash_calls", 0)
+    return n
+
+
+def cross_direction_pairs(merged: df.Graph, graph: df.Graph) -> list:
+    """The ``overlap_asym`` nodes of ``graph``, a period's optimized training
+    graph, that pair a backward collective with a forward one (``merged`` is
+    the period's forward before fusion: the fused forward ops re-expose its
+    value names, and every backward value is new)."""
+    fwd = {v for nd in merged.nodes for v in nd.outputs}
+    return [nd.name for nd in graph.nodes if nd.op == "overlap_asym"
+            and (nd.outputs[0] in fwd) != (nd.outputs[1] in fwd)]

@@ -1,0 +1,56 @@
+"""Deterministic synthetic token pipeline: a copy of
+``repro/data/pipeline.py``, which is numpy only, so the port draws the same
+tokens for the same (seed, step).
+
+Batches are generated from a PRNG keyed on (seed, step): any step's batch is
+reproducible without replaying the stream. Each process may materialize only
+its slice of the global batch (``host_slice``). The encoder and prefix-image
+inputs of the enc-dec and VLM families arrive with those families (ROADMAP
+A15).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    seed: int = 0
+    # synthetic "documents": zipf-ish token marginals + shift labels
+    zipf_alpha: float = 1.1
+
+
+def _tokens_for_step(cfg: ArchConfig, batch: int, seq: int, seed: int,
+                     step: int, zipf_alpha: float) -> np.ndarray:
+    rng = np.random.default_rng(np.random.PCG64(seed * 1_000_003 + step))
+    # zipf marginal bounded to vocab
+    ranks = rng.zipf(zipf_alpha, size=(batch, seq + 1)).astype(np.int64)
+    return (ranks % cfg.vocab_size).astype(np.int32)
+
+
+def make_batch(cfg: ArchConfig, shape: ShapeConfig, step: int,
+               data: Optional[DataConfig] = None,
+               host_slice: Optional[slice] = None) -> Dict[str, np.ndarray]:
+    """One global (or host-sliced) training batch for (arch, shape, step)."""
+    data = data if data is not None else DataConfig()
+    b, s = shape.global_batch, shape.seq_len
+    toks = _tokens_for_step(cfg, b, s, data.seed, step, data.zipf_alpha)
+    if host_slice is not None:
+        toks = toks[host_slice]
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def iterate(cfg: ArchConfig, shape: ShapeConfig, start_step: int = 0,
+            data: Optional[DataConfig] = None,
+            host_slice: Optional[slice] = None
+            ) -> Iterator[Dict[str, np.ndarray]]:
+    data = data if data is not None else DataConfig()
+    step = start_step
+    while True:
+        yield make_batch(cfg, shape, step, data, host_slice)
+        step += 1

@@ -6,14 +6,21 @@
 // descriptors, wgmma fences, setmaxnreg, the last-CTA ticket). Raw PTX
 // throughout (no CUTLASS), so a source that includes it builds in seconds.
 //
-// Operands as the port holds them, nothing copied or transposed per call:
-//   a (M, K) row-major, so K-major for wgmma;
+// Operands as the port holds them, nothing copied or transposed per call.
+// Each operand comes in one of two layouts, a template flag of the kernel:
+//   a (M, K) row-major, so K-major for wgmma (TA false); or aᵀ, the
+//   transpose of a row-major (K, M) storage at row stride lda, so M-major
+//   ("MN-major", TA true): the backward's xᵀ of dw = xᵀ·dy;
 //   b (K, N) with row stride ldb (a column slice of a wider weight passes as
-//   it lies), so N-major ("MN-major"): wgmma reads a transposed B from
-//   shared memory for 16-bit types (imm-trans-b = 1).
+//   it lies), so N-major (TB false); or bᵀ, the transpose of a row-major
+//   (N, K) storage at row stride ldb, so K-major (TB true): the backward's
+//   wᵀ of dx = dy·wᵀ.
+// wgmma reads an MN-major A or B from shared memory for 16-bit types
+// (imm-trans-a / imm-trans-b = 1), so the four layouts differ only in the
+// TMA boxes, the shared-memory descriptors and those two immediates.
 // TMA asks for a 16-byte aligned base and row strides that are multiples of
-// 16 bytes (K % 8 == 0 and ldb % 8 == 0 in bf16); the wrappers route any
-// other layout to the FFMA kernels. Ragged edges (M, N, K not multiples of
+// 16 bytes (lda % 8 == 0 and ldb % 8 == 0 in bf16, lda = K for a row-major
+// a); the wrappers route any other layout to the FFMA kernels. Ragged edges (M, N, K not multiples of
 // the tile) are TMA's zero fill: out-of-range rows, columns and depths load
 // as 0, add nothing to the sums, and are not stored.
 //
@@ -21,7 +28,9 @@
 //   - warpgroups 0 .. BM/64-1 consume: each owns 64 rows of the tile and
 //     runs m64nBNk16 wgmma (bf16 x bf16 -> f32), four per 64-deep stage;
 //   - the last warpgroup produces: one thread starts the TMA loads of a
-//     (a 64 x BM box) and of b (BN/64 boxes of 64 x 64) into stage s and
+//     (K-major: one 64 x BM box; M-major: BM/64 boxes of 64 x 64) and of b
+//     (N-major: BN/64 boxes of 64 x 64; K-major: one 64 x BN box) into
+//     stage s and
 //     arms full[s] with the bytes to expect; consumers release a stage on
 //     empty[s] once the wgmma that read it has retired (wait_group 1, so
 //     the next stage's products are in flight meanwhile);
@@ -216,9 +225,10 @@ __device__ __forceinline__ bool last_to_arrive(int* ticket, int count,
 }
 
 // A wgmma shared-memory descriptor with the 128-byte swizzle (layout type
-// 1). Offsets in bytes. K-major a: SBO = 1024 (the next 8 rows), LBO unused
-// (16). N-major b: SBO = 1024 (the next 8 rows of K), LBO = the next
-// 64-column box.
+// 1). Offsets in bytes. K-major (a, or a transposed b): SBO = 1024 (the next
+// 8 rows of M or N), LBO unused (16). MN-major (b, or a transposed a): SBO =
+// 1024 (the next 8 rows of K), LBO = the next 64-column box of N (an A tile
+// of 64 rows is one box, so there LBO is never read).
 __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
                                                uint32_t sbo) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
@@ -280,13 +290,15 @@ __device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
   return v;
 }
 
-// m64nNk16, bf16 x bf16 -> f32, a K-major and b N-major from shared memory,
-// accumulating into d (scale-d 1; the caller zeroes d first).
+// m64nNk16, bf16 x bf16 -> f32, a and b from shared memory, accumulating
+// into d (scale-d 1; the caller zeroes d first). TA and TB are the PTX
+// imm-trans-a and imm-trans-b: 1 reads that operand MN-major.
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<64> {
+  template <int TA, int TB>
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
                                              uint64_t db) {
     asm volatile(
@@ -296,7 +308,7 @@ struct Wgmma<64> {
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -305,12 +317,13 @@ struct Wgmma<64> {
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 };
 
 template <>
 struct Wgmma<128> {
+  template <int TA, int TB>
   static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
                                              uint64_t db) {
     asm volatile(
@@ -324,7 +337,7 @@ struct Wgmma<128> {
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -341,12 +354,13 @@ struct Wgmma<128> {
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 };
 
 template <>
 struct Wgmma<256> {
+  template <int TA, int TB>
   static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da,
                                              uint64_t db) {
     asm volatile(
@@ -368,7 +382,7 @@ struct Wgmma<256> {
       "%104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119,"
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -401,7 +415,7 @@ struct Wgmma<256> {
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 };
 
@@ -424,7 +438,7 @@ struct Frag {
 // in every consumer thread once its accumulators are final; `idle()` runs in
 // every producer thread once its loads are started (a cluster epilogue
 // matches its barriers there). row_ss is BM floats of shared memory.
-template <int BM, int BN, class Epilogue>
+template <int BM, int BN, bool TA, bool TB, class Epilogue>
 __global__ void __launch_bounds__((BM / 64 + 1) * 128, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_b, int K,
@@ -471,11 +485,22 @@ __global__ void __launch_bounds__((BM / 64 + 1) * 128, 1)
       for (int kt = 0; kt < k_tiles; ++kt) {
         mbar_wait(&empty[s], phase ^ 1);
         mbar_expect_tx(&full[s], kTx);
-        tma_load_2d(sa + s * kStageA, &map_a, &full[s], kt * kBK, m0);
+        if constexpr (TA) {
 #pragma unroll
-        for (int c = 0; c < BN / 64; ++c)
-          tma_load_2d(sb + s * kStageB + c * 64 * kBK, &map_b, &full[s],
-                      n0 + 64 * c, kt * kBK);
+          for (int c = 0; c < BM / 64; ++c)
+            tma_load_2d(sa + s * kStageA + c * 64 * kBK, &map_a, &full[s],
+                        m0 + 64 * c, kt * kBK);
+        } else {
+          tma_load_2d(sa + s * kStageA, &map_a, &full[s], kt * kBK, m0);
+        }
+        if constexpr (TB) {
+          tma_load_2d(sb + s * kStageB, &map_b, &full[s], kt * kBK, n0);
+        } else {
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c)
+            tma_load_2d(sb + s * kStageB + c * 64 * kBK, &map_b, &full[s],
+                        n0 + 64 * c, kt * kBK);
+        }
         if (++s == kStages) {
           s = 0;
           phase ^= 1;
@@ -500,12 +525,16 @@ __global__ void __launch_bounds__((BM / 64 + 1) * 128, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        // a: 16 deeper is 32 bytes along the swizzled row; b: 16 rows of
-        // 128 bytes further
-        const uint64_t da = sw128_desc(a_tile + kk * 16, 16, 1024);
-        const uint64_t db = sw128_desc(b_tile + kk * 16 * 64, 64 * kBK * 2,
-                                       1024);
-        Wgmma<BN>::mma(d, da, db);
+        // K-major: 16 deeper is 32 bytes along the swizzled row; MN-major:
+        // 16 rows of 128 bytes further (a warpgroup's 64 rows of an M-major
+        // a are one 64 x 64 box, at the same offset as 64 K-major rows)
+        const uint64_t da =
+            TA ? sw128_desc(a_tile + kk * 16 * 64, 64 * kBK * 2, 1024)
+               : sw128_desc(a_tile + kk * 16, 16, 1024);
+        const uint64_t db =
+            TB ? sw128_desc(b_tile + kk * 16, 16, 1024)
+               : sw128_desc(b_tile + kk * 16 * 64, 64 * kBK * 2, 1024);
+        Wgmma<BN>::template mma<TA ? 1 : 0, TB ? 0 : 1>(d, da, db);
       }
       wgmma_commit();
       wgmma_wait<1>();                 // the previous stage's wgmma retired
@@ -527,22 +556,26 @@ __global__ void __launch_bounds__((BM / 64 + 1) * 128, 1)
 }
 
 // Launch gemm_kernel on a grid of ceil(N / BN) x ceil(M / BM) CTAs, in
-// clusters of `cluster` CTAs along N (1: no cluster).
-template <int BM, int BN, class Epilogue>
+// clusters of `cluster` CTAs along N (1: no cluster). lda and ldb are the row
+// strides of a's and b's storage: (M, K) at lda = K, or (K, M) at lda >= M
+// when TA; (K, N) at ldb >= N, or (N, K) at ldb >= K when TB.
+template <int BM, int BN, bool TA, bool TB, class Epilogue>
 cudaError_t launch_gemm(const void* a, const void* b, int M, int N, int K,
-                        int ldb, int cluster, const Epilogue& ep,
+                        int lda, int ldb, int cluster, const Epilogue& ep,
                         cudaStream_t stream) {
-  if (!tma_ok(a, K) || !tma_ok(b, ldb) || cluster < 1 ||
+  if (!tma_ok(a, lda) || !tma_ok(b, ldb) || cluster < 1 ||
       cluster > kMaxCluster)
     return cudaErrorInvalidValue;
   const int grid_n = (N + BN - 1) / BN;
   if (grid_n % cluster != 0) return cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
-  cudaError_t err = make_map(&map_a, a, K, M, K, kBK, BM);
+  cudaError_t err = TA ? make_map(&map_a, a, M, K, lda, 64, kBK)
+                       : make_map(&map_a, a, K, M, lda, kBK, BM);
   if (err != cudaSuccess) return err;
-  err = make_map(&map_b, b, N, K, ldb, 64, kBK);
+  err = TB ? make_map(&map_b, b, K, N, ldb, kBK, BN)
+           : make_map(&map_b, b, N, K, ldb, 64, kBK);
   if (err != cudaSuccess) return err;
-  auto kernel = gemm_kernel<BM, BN, Epilogue>;
+  auto kernel = gemm_kernel<BM, BN, TA, TB, Epilogue>;
   constexpr int smem = smem_bytes(BM, BN);
   static bool attr_set = false;        // once per instantiation
   if (!attr_set) {
@@ -568,15 +601,16 @@ cudaError_t launch_gemm(const void* a, const void* b, int M, int N, int K,
   return cudaGetLastError();
 }
 
-// Dispatch a runtime (BM, BN) to its instantiation.
-template <class Epilogue>
-cudaError_t launch_tiled(int bm, int bn, const void* a, const void* b, int M,
-                         int N, int K, int ldb, int cluster,
-                         const Epilogue& ep, cudaStream_t stream) {
-#define HOPPER_TILE(BM_, BN_)                                               \
-  if (bm == BM_ && bn == BN_)                                               \
-    return launch_gemm<BM_, BN_, Epilogue>(a, b, M, N, K, ldb, cluster, ep, \
-                                           stream);
+// Dispatch a runtime (BM, BN) to its instantiation, in the layout TA, TB.
+template <bool TA, bool TB, class Epilogue>
+cudaError_t launch_tiled_layout(int bm, int bn, const void* a, const void* b,
+                                int M, int N, int K, int lda, int ldb,
+                                int cluster, const Epilogue& ep,
+                                cudaStream_t stream) {
+#define HOPPER_TILE(BM_, BN_)                                              \
+  if (bm == BM_ && bn == BN_)                                              \
+    return launch_gemm<BM_, BN_, TA, TB, Epilogue>(a, b, M, N, K, lda, ldb, \
+                                                   cluster, ep, stream);
   HOPPER_TILE(64, 64)
   HOPPER_TILE(64, 128)
   HOPPER_TILE(64, 256)
@@ -585,6 +619,15 @@ cudaError_t launch_tiled(int bm, int bn, const void* a, const void* b, int M,
   HOPPER_TILE(128, 256)
 #undef HOPPER_TILE
   return cudaErrorInvalidValue;
+}
+
+// The row-major a (M, K) and N-major b of matmul_rmsnorm.
+template <class Epilogue>
+cudaError_t launch_tiled(int bm, int bn, const void* a, const void* b, int M,
+                         int N, int K, int ldb, int cluster,
+                         const Epilogue& ep, cudaStream_t stream) {
+  return launch_tiled_layout<false, false>(bm, bn, a, b, M, N, K, K, ldb,
+                                           cluster, ep, stream);
 }
 
 }  // namespace hopper

@@ -8,7 +8,12 @@
 // (src/repro_torch/core/primitives.py): one call per arriving activation
 // chunk, per rotating-accumulator hop, and per barrier GEMM.
 //
-// Layout: a, b, c row-major and contiguous. Types: a and b both f32 or both
+// Layout: c row-major and contiguous. a is row-major (M, K), or (layout
+// flag ta) the transpose of a row-major (K, M) storage at row stride lda,
+// as the backward's xᵀ of dw = xᵀ·dy; b is row-major (K, N), or (tb) the
+// transpose of a row-major (N, K) storage at row stride ldb, as the
+// backward's wᵀ of dx = dy·wᵀ. A transposed operand is read where it lies:
+// nothing is copied or transposed per call. Types: a and b both f32 or both
 // bf16; c f32 or bf16. Any M, N, K >= 1.
 //
 // What bounds it on an H100: at the ring's shapes (M = B * S_loc / chunks
@@ -17,7 +22,8 @@
 // by operations. Two variants, one launch a call; the wrapper's `plan`
 // picks one:
 //
-// 1. wgmma (bf16 with K % 8 == 0 and N % 8 == 0, 16-byte aligned bases):
+// 1. wgmma (bf16 with row strides lda, ldb % 8 == 0 and N % 8 == 0,
+//    16-byte aligned bases; every layout):
 //    the shared Hopper mainloop (hopper_gemm.cuh: TMA into a 4-stage
 //    swizzled ring, one producer warp, one or two consumer warpgroups on
 //    wgmma at the tensor cores' 989 TF/s) with a plain epilogue that stores
@@ -29,7 +35,9 @@
 //    of 256 threads holds a 64 x 64 tile of c, each thread a 4 x 4 register
 //    tile at stride 16 (conflict-free shared-memory reads, coalesced
 //    stores), over K in steps of 16 staged through shared memory; bf16 is
-//    widened to f32 as it lands. The loads of the ragged edge tiles are
+//    widened to f32 as it lands. Each tile is staged with neighbouring
+//    threads on neighbouring addresses of its storage, along K for a
+//    row-major a and a transposed b, along M or N otherwise. The loads of the ragged edge tiles are
 //    guarded and zero-filled, the stores guarded; the TPU kernel instead
 //    clipped its block sizes to divisors of the shape.
 
@@ -52,10 +60,13 @@ using hopper::store;
 using hopper::store2;
 using hopper::to_f32;
 
-template <typename TIn, typename TOut>
+// TA, TB: a and b stored transposed (a layout of the template, so the
+// row-major case compiles to the same staging as before the layouts).
+template <typename TIn, typename TOut, bool TA, bool TB>
 __global__ void __launch_bounds__(kThreads)
     matmul_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
-                  TOut* __restrict__ c, int M, int N, int K) {
+                  TOut* __restrict__ c, int M, int N, int K, int lda,
+                  int ldb) {
   __shared__ float As[kBK][kBM + kPad];   // a tile, transposed: As[k][m]
   __shared__ float Bs[kBK][kBN + kPad];   // b tile: Bs[k][n]
   const int tid = threadIdx.x;
@@ -75,12 +86,18 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int e = tid + r * kThreads;
-      const int am = e / kBK, ak = e % kBK;
+      const int am = TA ? e % kBM : e / kBK, ak = TA ? e / kBM : e % kBK;
       const int gm = m0 + am, gk = k0 + ak;
-      As[ak][am] = (gm < M && gk < K) ? to_f32(a[(size_t)gm * K + gk]) : 0.f;
-      const int bk = e / kBN, bn = e % kBN;
+      As[ak][am] = (gm < M && gk < K)
+                       ? to_f32(TA ? a[(size_t)gk * lda + gm]
+                                   : a[(size_t)gm * lda + gk])
+                       : 0.f;
+      const int bk = TB ? e % kBK : e / kBN, bn = TB ? e / kBK : e % kBN;
       const int gkb = k0 + bk, gn = n0 + bn;
-      Bs[bk][bn] = (gkb < K && gn < N) ? to_f32(b[(size_t)gkb * N + gn]) : 0.f;
+      Bs[bk][bn] = (gkb < K && gn < N)
+                       ? to_f32(TB ? b[(size_t)gn * ldb + gkb]
+                                   : b[(size_t)gkb * ldb + gn])
+                       : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -112,12 +129,25 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename TIn, typename TOut>
 cudaError_t launch_ffma(const void* a, const void* b, void* c, int M, int N,
-                        int K, cudaStream_t stream) {
+                        int K, int lda, int ldb, int ta, int tb,
+                        cudaStream_t stream) {
   if ((M + kBM - 1) / kBM > 65535) return cudaErrorInvalidValue;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  matmul_kernel<TIn, TOut><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TIn*>(a), static_cast<const TIn*>(b),
-      static_cast<TOut*>(c), M, N, K);
+  const TIn* pa = static_cast<const TIn*>(a);
+  const TIn* pb = static_cast<const TIn*>(b);
+  TOut* pc = static_cast<TOut*>(c);
+  if (ta && tb)
+    matmul_kernel<TIn, TOut, true, true>
+        <<<grid, kThreads, 0, stream>>>(pa, pb, pc, M, N, K, lda, ldb);
+  else if (ta)
+    matmul_kernel<TIn, TOut, true, false>
+        <<<grid, kThreads, 0, stream>>>(pa, pb, pc, M, N, K, lda, ldb);
+  else if (tb)
+    matmul_kernel<TIn, TOut, false, true>
+        <<<grid, kThreads, 0, stream>>>(pa, pb, pc, M, N, K, lda, ldb);
+  else
+    matmul_kernel<TIn, TOut, false, false>
+        <<<grid, kThreads, 0, stream>>>(pa, pb, pc, M, N, K, lda, ldb);
   return cudaGetLastError();
 }
 
@@ -146,20 +176,33 @@ struct StoreEpilogue {
 
 template <typename TOut>
 cudaError_t launch_wgmma(const void* a, const void* b, void* c, int M, int N,
-                         int K, int bm, int bn, cudaStream_t stream) {
+                         int K, int lda, int ldb, int ta, int tb, int bm,
+                         int bn, cudaStream_t stream) {
   if (N % 8 != 0 || (M + bm - 1) / bm > 65535) return cudaErrorInvalidValue;
   const StoreEpilogue<TOut> ep{static_cast<TOut*>(c), M, N};
-  return hopper::launch_tiled(bm, bn, a, b, M, N, K, N, 1, ep, stream);
+  if (ta && tb)
+    return hopper::launch_tiled_layout<true, true>(bm, bn, a, b, M, N, K, lda,
+                                                   ldb, 1, ep, stream);
+  if (ta)
+    return hopper::launch_tiled_layout<true, false>(bm, bn, a, b, M, N, K,
+                                                    lda, ldb, 1, ep, stream);
+  if (tb)
+    return hopper::launch_tiled_layout<false, true>(bm, bn, a, b, M, N, K,
+                                                    lda, ldb, 1, ep, stream);
+  return hopper::launch_tiled_layout<false, false>(bm, bn, a, b, M, N, K, lda,
+                                                   ldb, 1, ep, stream);
 }
 
 template <typename TIn, typename TOut>
 cudaError_t dispatch(int variant, const void* a, const void* b, void* c,
-                     int M, int N, int K, int bm, int bn,
-                     cudaStream_t stream) {
-  if (variant == 0) return launch_ffma<TIn, TOut>(a, b, c, M, N, K, stream);
+                     int M, int N, int K, int lda, int ldb, int ta, int tb,
+                     int bm, int bn, cudaStream_t stream) {
+  if (variant == 0)
+    return launch_ffma<TIn, TOut>(a, b, c, M, N, K, lda, ldb, ta, tb, stream);
   if constexpr (sizeof(TIn) == 2)
     if (variant == 1)
-      return launch_wgmma<TOut>(a, b, c, M, N, K, bm, bn, stream);
+      return launch_wgmma<TOut>(a, b, c, M, N, K, lda, ldb, ta, tb, bm, bn,
+                                stream);
   return cudaErrorInvalidValue;        // wgmma here is bf16 only
 }
 
@@ -168,27 +211,31 @@ cudaError_t dispatch(int variant, const void* a, const void* b, void* c,
 extern "C" {
 
 // variant: 0 = ffma (64 x 64 tiles), 1 = wgmma (bm 64 or 128 rows and bn 64,
-// 128 or 256 columns a CTA; bf16 only). in_dtype, out_dtype: 0 = float32,
+// 128 or 256 columns a CTA; bf16 only). ta, tb: 1 where a, b is the
+// transpose of its row-major storage; lda, ldb: the storages' row strides
+// (lda = K, ldb >= N when not transposed). in_dtype, out_dtype: 0 = float32,
 // 1 = bfloat16. Returns a cudaError_t (0 = launched).
 int matmul_fwd(const void* a, const void* b, void* c, int M, int N, int K,
-               int variant, int bm, int bn, int in_dtype, int out_dtype,
-               void* stream) {
+               int lda, int ldb, int ta, int tb, int variant, int bm, int bn,
+               int in_dtype, int out_dtype, void* stream) {
   if (M < 1 || N < 1 || K < 1 || (in_dtype != 0 && in_dtype != 1) ||
-      (out_dtype != 0 && out_dtype != 1))
+      (out_dtype != 0 && out_dtype != 1) || lda < (ta ? M : K) ||
+      ldb < (tb ? K : N))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_dtype == 0)
     return out_dtype == 0
-               ? (int)dispatch<float, float>(variant, a, b, c, M, N, K, bm,
-                                             bn, st)
+               ? (int)dispatch<float, float>(variant, a, b, c, M, N, K, lda,
+                                             ldb, ta, tb, bm, bn, st)
                : (int)dispatch<float, __nv_bfloat16>(variant, a, b, c, M, N,
-                                                     K, bm, bn, st);
+                                                     K, lda, ldb, ta, tb, bm,
+                                                     bn, st);
   return out_dtype == 0
              ? (int)dispatch<__nv_bfloat16, float>(variant, a, b, c, M, N, K,
-                                                   bm, bn, st)
-             : (int)dispatch<__nv_bfloat16, __nv_bfloat16>(variant, a, b, c,
-                                                           M, N, K, bm, bn,
-                                                           st);
+                                                   lda, ldb, ta, tb, bm, bn,
+                                                   st)
+             : (int)dispatch<__nv_bfloat16, __nv_bfloat16>(
+                   variant, a, b, c, M, N, K, lda, ldb, ta, tb, bm, bn, st);
 }
 
 const char* matmul_error_string(int err) {

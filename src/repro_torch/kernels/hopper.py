@@ -31,11 +31,12 @@ def smem_bytes(bm: int, bn: int) -> int:
     return STAGES * (bm + bn) * BK * 2 + 1024
 
 
-def tma_ok(K: int, ldb: int, aligned: bool = True) -> bool:
+def tma_ok(lda: int, ldb: int, aligned: bool = True) -> bool:
     """TMA takes a 16-byte aligned base and row strides of 16-byte multiples:
-    bf16 a (M, K) and b (K, N) with row stride ldb need K % 8 == 0 and
-    ldb % 8 == 0 (``aligned``: both bases on 16 bytes)."""
-    return aligned and K % 8 == 0 and ldb % 8 == 0
+    bf16 operands whose storages have row strides lda and ldb (K and N for
+    a row-major a (M, K) and b (K, N); M and K for aᵀ and bᵀ) need
+    lda % 8 == 0 and ldb % 8 == 0 (``aligned``: both bases on 16 bytes)."""
+    return aligned and lda % 8 == 0 and ldb % 8 == 0
 
 
 def _tile_cost(bm: int, bn: int) -> float:

@@ -20,13 +20,11 @@ from repro_torch.kernels import ref
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """a (M,K) @ b (K,N) -> (M,N) with an f32 accumulator, in ``out_dtype``
-    (default a's type). Both devices take only 2-D contiguous operands, so
-    the CPU tests hold callers to the kernel's layout."""
-    if a.dim() != 2 or b.dim() != 2 or not (a.is_contiguous()
-                                             and b.is_contiguous()):
-        raise ValueError("matmul takes 2-D contiguous operands; got "
-                         f"{tuple(a.shape)} {tuple(a.stride())} @ "
-                         f"{tuple(b.shape)} {tuple(b.stride())}")
+    (default a's type). Each operand is contiguous or the transpose of a
+    contiguous tensor (aᵀ, bᵀ: the backward's xᵀ and wᵀ, read where they
+    lie); both devices refuse any other layout, so the CPU tests hold
+    callers to the kernel's."""
+    _mm.layout(a, b)
     if a.device.type == "cuda":
         return _mm.matmul(a, b, out_dtype=out_dtype)
     if a.device.type == "cpu":
@@ -50,16 +48,53 @@ def matmul_rmsnorm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor, *,
     raise ValueError(f"no matmul_rmsnorm for device {a.device}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    q_positions: torch.Tensor, kv_positions: torch.Tensor,
-                    causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(q kᵀ·scale) v under the position mask; q (B,Sq,H,dh),
-    k (B,Skv,Hkv,dh), v (B,Skv,Hkv,dv) with dv <= dh -> (B,Sq,H,dv)."""
-    kw = dict(q_positions=q_positions, kv_positions=kv_positions,
-              causal=causal, window=window, scale=scale)
+def _attention_forward(q, k, v, kw):
     if q.device.type == "cuda":
         return _fa.flash_attention(q, k, v, **kw)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, **kw)
     raise ValueError(f"no flash_attention for device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The attention core as a differentiable op. Forward: the hand kernel on
+    a CUDA tensor, the plain version on the CPU. Backward: the VJP of the
+    plain version, recomputed in torch math from the saved q, k, v. The JAX
+    package has no backward kernel either (its Pallas kernel has no VJP and
+    its model's core is plain ``jnp``), so this is the counterpart, not a
+    fallback."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, causal, window,
+                scale):
+        kw = dict(q_positions=q_positions, kv_positions=kv_positions,
+                  causal=causal, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, q_positions, kv_positions)
+        ctx.kw = dict(causal=causal, window=window, scale=scale)
+        return _attention_forward(q, k, v, kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, q_positions, kv_positions = ctx.saved_tensors
+        with torch.enable_grad():
+            prim = tuple(t.detach().requires_grad_() for t in (q, k, v))
+            out = ref.attention_ref(*prim, q_positions=q_positions,
+                                    kv_positions=kv_positions, **ctx.kw)
+            grads = torch.autograd.grad(out, prim, grad_out)
+        return (*grads, None, None, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q kᵀ·scale) v under the position mask; q (B,Sq,H,dh),
+    k (B,Skv,Hkv,dh), v (B,Skv,Hkv,dv) with dv <= dh -> (B,Sq,H,dv).
+    Differentiable in q, k and v (:class:`_FlashAttention`) where autograd
+    records; otherwise one plain call of the kernel or the CPU version."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, q_positions, kv_positions,
+                                     causal, window, scale)
+    return _attention_forward(q, k, v, dict(
+        q_positions=q_positions, kv_positions=kv_positions, causal=causal,
+        window=window, scale=scale))

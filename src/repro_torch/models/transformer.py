@@ -14,7 +14,19 @@ weights, the embedded activation is cut to this rank's sequence shard, every
 period runs as one dataflow graph (:func:`repro_torch.core.tp.sp_period`)
 and stays sequence-sharded between periods, and the loss's (sum, count) is
 all-reduced over the ring. On one device there is no TP context and every
-block takes the per-block path, as in JAX. Serving (``prefill`` /
+block takes the per-block path, as in JAX.
+
+Training: ``forward`` and ``loss`` are differentiable once the parameters
+require grad (``repro_torch.train.step.init_state`` sets that; the model is
+built frozen, for serving). On a ring each period's backward is graph-built
+(``sp_period``); the ring's partial grads of the replicated embedding, head
+and final norm are summed by :meth:`LM.sync_grads`, once, after backward.
+``Runtime.remat`` checkpoints each period and the remainder tail on one
+device (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``); a period on a
+ring already saves only (x, weights) for its graph-built backward, which
+re-executes the forward, so there it adds nothing and is not applied (JAX's
+``jax.checkpoint`` around its ``custom_vjp`` runs that forward a third
+time: the same values). Serving (``prefill`` /
 ``decode_step`` over dense caches, ``serve_step`` over paged pools) runs on
 one device only; MLA blocks run on one device only (JAX's mixer never
 shards MLA) and have no paged path (their cache is a latent, not K/V).
@@ -25,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tp as tp_mod
@@ -159,21 +172,30 @@ def _blocks_forward(kinds: Sequence[str], blocks: Sequence[Block],
 
 def stack_forward(blocks: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig,
                   tpc: Optional[tp_mod.TPContext] = None,
-                  prefix_len: int = 0):
+                  prefix_len: int = 0, remat: bool = False):
     """The whole stack, one ``layer_pattern`` period at a time (JAX's
-    ``lax.scan`` over stacked periods), then the remainder layers."""
+    ``lax.scan`` over stacked periods), then the remainder layers. With
+    ``remat`` (where autograd records) each period and the remainder tail
+    keep only their input for the backward and run their forward again
+    there (``torch.utils.checkpoint``, non-reentrant)."""
     pattern = tuple(cfg.layer_pattern)
     P = len(pattern)
     n_full = cfg.num_layers // P
+    remat = remat and torch.is_grad_enabled()
+
+    def run(kinds, blks, x):
+        if remat:
+            return checkpoint(_blocks_forward, kinds, blks, x, cfg, tpc,
+                              prefix_len, use_reentrant=False)
+        return _blocks_forward(kinds, blks, x, cfg, tpc, prefix_len)
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in range(n_full):
-        x, a = _blocks_forward(pattern, blocks[p * P:(p + 1) * P], x, cfg,
-                               tpc, prefix_len)
+        x, a = run(pattern, blocks[p * P:(p + 1) * P], x)
         aux = aux + a
     rem = cfg.layer_kinds()[n_full * P:]
     if rem:
-        x, a = _blocks_forward(rem, blocks[n_full * P:], x, cfg, tpc,
-                               prefix_len)
+        x, a = run(rem, blocks[n_full * P:], x)
         aux = aux + a
     return x, aux
 
@@ -320,8 +342,24 @@ def chunked_ce_loss(x: torch.Tensor, embed_or_head: torch.Tensor,
         tot = tot + ((lse - gold) * mc).sum()
         cnt = cnt + mc.sum()
     if group is not None and group.size > 1:
-        tot, cnt = group.all_reduce(torch.stack([tot, cnt]))
+        tot, cnt = _RingSum.apply(torch.stack([tot, cnt]), group)
     return tot / torch.clamp(cnt, min=1.0)
+
+
+class _RingSum(torch.autograd.Function):
+    """The loss's all-reduce of (sum, count) over the ring, differentiable
+    with an identity backward: every rank seeds the same cotangent of the
+    same replicated loss, which is already each rank's cotangent of its own
+    partial sum (an all-reduce there would make every grad tp times too
+    large)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +435,6 @@ class LM(nn.Module):
         return (self.embed if tied else self.lm_head), tied
 
     # ----- training forward -----
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Hidden states after the final norm, and the aux loss. tokens:
@@ -407,8 +444,28 @@ class LM(nn.Module):
         x = self._embed(tokens, self.rt.dtype)
         if tpc is not None:
             x = x[:, self._seq_shard(x.shape[1])].contiguous()
-        x, aux = stack_forward(self.blocks, x, self.cfg, tpc)
+        x, aux = stack_forward(self.blocks, x, self.cfg, tpc,
+                               remat=self.rt.remat and tpc is None)
         return self.final_norm(x), aux
+
+    def sharded_names(self) -> frozenset:
+        """The parameters this rank holds a shard of (the rest every rank of
+        the ring holds whole)."""
+        from repro_torch.core.tp import param_shard_dim
+
+        return frozenset(n for n, _ in self.named_parameters()
+                         if param_shard_dim(n, self.cfg, self.tp) is not None)
+
+    def sync_grads(self) -> None:
+        """Sum over the ring, once, the grads of the parameters outside the
+        period graphs (embedding, head, final norm): each rank's are the
+        partial sums of its sequence shard. The period graphs' replicated
+        weights are summed in their own backward. A no-op on one device."""
+        if self.tp == 1:
+            return
+        for name, p in self.named_parameters():
+            if not name.startswith("blocks.") and p.grad is not None:
+                p.grad = self.group.all_reduce(p.grad)
 
     def _seq_shard(self, S: int) -> slice:
         if S % self.tp:
@@ -418,7 +475,6 @@ class LM(nn.Module):
         s = S // self.tp
         return slice(self.group.rank * s, (self.group.rank + 1) * s)
 
-    @torch.no_grad()
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token cross-entropy (+ the weighted aux loss) of
         ``batch`` ({"tokens", "labels"[, "mask"]}, each (B, S)). The same

@@ -1,0 +1,14 @@
+from repro_torch.optim.optimizers import (
+    Optimizer,
+    adamw,
+    clip_by_global_norm,
+    constant_schedule,
+    cosine_schedule,
+    global_norm,
+    make_optimizer,
+)
+
+__all__ = [
+    "Optimizer", "adamw", "make_optimizer", "cosine_schedule",
+    "constant_schedule", "clip_by_global_norm", "global_norm",
+]

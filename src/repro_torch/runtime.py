@@ -3,8 +3,8 @@ tensor-parallel config, the loss chunk; plus the device rule every entry
 point follows.
 
 Counterpart of ``repro/runtime.py`` without its deprecated flat-name shims.
-The memory and optimizer knobs (remat, cache layout, ZeRO) arrive with the
-slices that read them. ``runtime_for`` is the counterpart of
+``remat`` is here (activation checkpointing per period, read by training);
+the cache layout and ZeRO knobs arrive with the slices that read them. ``runtime_for`` is the counterpart of
 ``repro/launch/specs.py::runtime_for``.
 """
 from __future__ import annotations
@@ -56,6 +56,8 @@ class Runtime:
     param_dtype: str = "float32"
     # distribution: all tensor-parallel knobs
     tp: TPConfig = field(default_factory=TPConfig)
+    # activation checkpointing per period and around the remainder tail
+    remat: bool = True
     # the cross-entropy runs over sequence chunks of this length (bounds the
     # (B, chunk, vocab) logits)
     loss_chunk: int = 512
@@ -69,7 +71,7 @@ class Runtime:
         return DTYPES[self.param_dtype]
 
 
-SMOKE = Runtime(compute_dtype="float32", loss_chunk=64)
+SMOKE = Runtime(compute_dtype="float32", remat=False, loss_chunk=64)
 
 
 def runtime_for(cfg: ArchConfig) -> Runtime:

@@ -189,6 +189,9 @@ def test_matmul_out_dtype_and_dispatch():
     want = ta.float().numpy() @ tb.float().numpy()
     np.testing.assert_allclose(got.numpy(), want, **TOL["float32"])
     with pytest.raises(ValueError, match="contiguous"):
-        ops.matmul(ta.T, tb[:5])        # the kernel's layout, on every device
+        # the kernel's layouts, on every device: contiguous operands or the
+        # transpose of one (ta.T passes since the backward's slice); a
+        # strided slice is neither
+        ops.matmul(ta[:, ::2], tb[:4])
     with pytest.raises(ValueError, match="CUDA"):
         mm.matmul(ta, tb)

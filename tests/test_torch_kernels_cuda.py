@@ -186,13 +186,87 @@ def test_matmul_dispatch_counts_launches_and_rejects(dev):
     before = mm.launches
     ops.matmul(a, b)
     assert mm.launches == before + 1
-    with pytest.raises(ValueError):      # not contiguous: raise, no fallback
-        ops.matmul(a.T.contiguous().T, b)
+    with pytest.raises(ValueError):      # strided: raise, no fallback
+        ops.matmul(a[:, ::2], b[:16])
     with pytest.raises(TypeError):
         ops.matmul(a.half(), b.half())
     with pytest.raises(TypeError):
         mm.matmul(a, b.bfloat16())
     assert mm.launches == before + 1
+
+
+# transposed operands, as the backward passes them: aᵀ (xᵀ of dw = xᵀ·dy)
+# and bᵀ (wᵀ of dx = dy·wᵀ), read where they lie, in every variant
+LAYOUT_SHAPES = [(1, 7, 5), (65, 33, 130), (64, 64, 64), (130, 72, 200),
+                 (200, 520, 72), (512, 2048, 256), (2048, 1024, 512)]
+
+
+def layout_case(dev, M, K, N, dtype, layout, seed=0):
+    """a (M, K), b (K, N) of ``dtype`` in ``layout``: "t" stores the operand
+    transposed (aᵀ's storage is (K, M), bᵀ's (N, K))."""
+    g = torch.Generator(device="cpu").manual_seed(seed + M * K + N)
+    a = torch.randn(M, K, generator=g).to(dev, dtype)
+    b = torch.randn(K, N, generator=g).to(dev, dtype)
+    if layout[0] == "t":
+        a = a.T.contiguous().T
+    if layout[1] == "t":
+        b = b.T.contiguous().T
+    return a, b
+
+
+@pytest.mark.parametrize("layout", ["tn", "nt", "tt"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", LAYOUT_SHAPES)
+def test_matmul_transposed_layouts(dev, M, K, N, dtype, layout):
+    a, b = layout_case(dev, M, K, N, dtype, layout)
+    if min(M, K, N) > 1:
+        assert mm.layout(a, b) == layout
+    layout = mm.layout(a, b)      # a size-1 operand is contiguous either way
+    ta, tb = layout[0] == "t", layout[1] == "t"
+    p = mm.plan(M, N, K, b.stride(1) if tb else N, dtype,
+                aligned=a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0,
+                layout=layout, lda=a.stride(1) if ta else K)
+    before = dict(mm.launches_by_variant)
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    delta = {k: n - before[k] for k, n in mm.launches_by_variant.items()
+             if n != before[k]}
+    assert delta == {f"{p.variant}.{layout}": 1}
+    if dtype == torch.float32:
+        assert p.variant == "ffma"            # full f32, no TF32
+    elif M % 8 == 0 and K % 8 == 0 and N % 8 == 0:
+        assert p.variant == "wgmma"
+    assert got.shape == (M, N) and got.dtype == dtype
+    assert_matmul_close(got, ref.matmul_ref(a, b), a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_matches_torch_math(dev, dtype):
+    """The differentiable attention core on the card: the forward is the
+    kernel (one launch), the backward the VJP of the plain version."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    B, S, H, Hkv, dh = 2, 192, 4, 2, 128
+    mk = lambda h: torch.randn(B, S, h, dh, generator=g).to(dev, dtype)
+    q, k, v = mk(H), mk(Hkv), mk(Hkv)
+    pos = torch.arange(S, dtype=torch.int32,
+                       device=dev).expand(B, S).contiguous()
+    kw = dict(q_positions=pos, kv_positions=pos, causal=True)
+    gy = torch.randn(B, S, H, dh, generator=g).to(dev, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fa.launches
+    out = ops.flash_attention(*leaves, **kw)
+    assert fa.launches == before + 1
+    out.backward(gy)
+    assert fa.launches == before + 1          # the backward is torch math
+    want = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.attention_ref(*want, **kw).backward(gy)
+    torch.cuda.synchronize()
+    # the same torch math on the same inputs: equal up to the library's
+    # choice of reduction order
+    for got_t, want_t in zip(leaves, want):
+        torch.testing.assert_close(got_t.grad.float(), want_t.grad.float(),
+                                   rtol=1e-5, atol=1e-5)
+    assert_flash_close(out.detach(), q, k, v, dict(kw, window=0))
 
 
 # flash attention with a value head dim below the query/key dim: MLA's
@@ -395,7 +469,7 @@ def test_matmul_variants(dev, M, K, N, dtype, out_dtype):
     assert mm.plan(M, N, K, N, dtype).variant == want_variant
     got, delta = variant_delta(
         mm, lambda: mm.matmul(a, b, out_dtype=out_dtype))
-    assert delta == {want_variant: 1}
+    assert delta == {f"{want_variant}.nn": 1}     # by variant and layout
     assert got.dtype == out_dtype and got.shape == (M, N)
     assert_matmul_close(got, ref.matmul_ref(a, b, out_dtype), a, b)
 

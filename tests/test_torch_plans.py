@@ -40,6 +40,8 @@ def _chip_smoke():
 CS = _chip_smoke()
 TP_SHAPES = {it: CS.tp_matmul_shapes(CS.get_tp_cfg(), it) for it in (2, 4)}
 MLA_SHAPES = CS.mla_norm_shapes(CS.get_mla_cfg())
+# phase 9's backward calls with a transposed operand: (M, K, N, layout)
+TRAIN_SHAPES = CS.train_matmul_shapes(CS.get_tp_cfg())
 # tests/test_kernels.py's sweeps (matmul (M, K, N); matmul_ln (M, K, N))
 MM_SWEEP = [(128, 128, 128), (256, 512, 128), (64, 384, 96), (32, 32, 32),
             (512, 128, 256), (128, 1024, 64)]
@@ -70,6 +72,33 @@ def test_matmul_plan_f32_takes_ffma(M, K, N):
     p = mm.plan(M, N, K, N, F32)
     assert p.variant == "ffma" and (p.bm, p.bn) == (64, 64)
     _fits(p)
+
+
+def _train_strides(M, K, N, layout):
+    """(lda, ldb) of a contiguous storage in ``layout``: aᵀ's (K, M) at M,
+    bᵀ's (N, K) at K."""
+    return (M if layout[0] == "t" else K), (K if layout[1] == "t" else N)
+
+
+@pytest.mark.parametrize("M,K,N,layout", TRAIN_SHAPES)
+def test_matmul_plan_backward_layouts(M, K, N, layout):
+    """Every transposed call of phase 9's backward: bf16 on the wgmma
+    mainloop in its layout, filling the card; f32 on the FFMA kernel."""
+    assert layout in ("nt", "tn")
+    lda, ldb = _train_strides(M, K, N, layout)
+    p = mm.plan(M, N, K, ldb, BF16, layout=layout, lda=lda)
+    assert p.variant == "wgmma" and p.layout == layout
+    assert p.grid == (hopper.cdiv(N, p.bn), hopper.cdiv(M, p.bm))
+    _fits(p)
+    assert p.ctas >= min(128, hopper.cdiv(M, 64) * hopper.cdiv(N, 64))
+    p32 = mm.plan(M, N, K, ldb, F32, layout=layout, lda=lda)
+    assert p32.variant == "ffma" and p32.layout == layout
+    # a storage row stride TMA cannot take sends bf16 to FFMA in any layout
+    assert mm.plan(M, N, K, ldb, BF16, layout=layout,
+                   lda=lda + 1 if layout[0] == "t" else lda,
+                   ).variant == ("ffma" if layout[0] == "t" else "wgmma")
+    with pytest.raises(ValueError, match="layout"):
+        mm.plan(M, N, K, ldb, BF16, layout="xx")
 
 
 def test_matmul_plan_tiles_and_routing():

@@ -1,5 +1,5 @@
 """Per-rank bodies of the port's multi-rank CPU tests (``tests/test_torch_core.py``,
-``tests/test_torch_tp.py``), run on every rank of a gloo ring by
+``tests/test_torch_tp.py``, ``tests/test_torch_train.py``), run on every rank of a gloo ring by
 ``repro_torch.launch.ranks.run_ranks``. This module imports torch, numpy and
 ``repro_torch`` only, so the rank processes never import JAX; the tests
 compare what the ranks return against JAX and against unsharded math."""
@@ -149,3 +149,100 @@ def loss_cells(group, cases, tokens):
                                     for nd in g.nodes)
                 res[(arch, mode, mb)] = (loss, made, derived, overlaps)
     return res
+
+
+def grad_cells(group, cases, tokens, runs, norm_tree):
+    """``LM.loss`` and its backward on this rank for every (arch, mode,
+    microbatches) run, with the bridged JAX parameters of ``cases[arch]``:
+    returns {run: (loss, {param: this rank's grad}, matmul calls made,
+    calls derived from the optimized forward and training graphs, flash
+    calls made, flash calls derived, overlap_asym executions, overlap_asym
+    nodes of those graphs, cross-direction overlap_asym nodes, the (M, K, N,
+    layout) of every matmul call with a transposed operand)}, and under
+    "norm" the ring's ``global_norm`` of ``norm_tree`` (:func:`norm_cell`)."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_arch
+    from repro_torch.core.backends import get_backend
+    from repro_torch.models import LM
+    from repro_torch.runtime import SMOKE, Runtime, TPConfig
+
+    from repro_torch.kernels import matmul as mmk
+
+    count = _count_matmuls()
+    transposed = set()
+    inner_mm = ops.matmul
+
+    def recorded(a, b, **kw):
+        lay = mmk.layout(a, b)
+        if lay != "nn":
+            transposed.add((a.shape[0], a.shape[1], b.shape[1], lay))
+        return inner_mm(a, b, **kw)
+
+    ops.matmul = recorded
+    flash = [0]
+    inner_fa = ops.flash_attention
+
+    def fa_counted(*a, **kw):
+        flash[0] += 1
+        return inner_fa(*a, **kw)
+
+    ops.flash_attention = fa_counted
+    asym = [0]
+    for name in ("barrier", "cais"):
+        be = get_backend(name)
+
+        def counted(*a, _inner=be.overlap_asymmetric, **kw):
+            asym[0] += 1
+            return _inner(*a, **kw)
+
+        be.overlap_asymmetric = counted
+    tok = _t(tokens)
+    B, S = tokens.shape
+    res = {}
+    for arch, mode, mb in runs:
+        cfg = get_arch(arch).smoke()
+        rt = Runtime(compute_dtype="float32", loss_chunk=SMOKE.loss_chunk,
+                     remat=False,
+                     tp=TPConfig(mode=mode, chunks=2, microbatches=mb))
+        lm = LM(cfg, rt, device="cpu", seed=None, group=group)
+        bridge.load_jax_params(lm, cases[arch])
+        lm.requires_grad_(True)
+        count[0] = flash[0] = asym[0] = 0
+        transposed.clear()
+        loss = lm.loss({"tokens": tok, "labels": tok})
+        loss.backward()
+        lm.sync_grads()
+        made = (count[0], flash[0], asym[0])
+        tpc = tp_mod.TPContext.from_config(rt.tp, group)
+        P = len(cfg.layer_pattern)
+        derived = fderived = pairs = cross = 0
+        for p in range(cfg.num_layers // P):
+            base, _ = tp_mod._period_graph(tpc, lm.blocks[p * P:(p + 1) * P],
+                                           cfg, cfg.layer_pattern)
+            merged = tp_mod.microbatch_period_graph(base, mb)
+            fwd = dataflow.optimize(merged)
+            _, bwd = tp_mod.training_graph(merged, cfg.norm)
+            for g in (fwd, bwd):
+                derived += tp_mod.matmul_calls(g, tpc, B // mb, S,
+                                               cfg.d_model, 4)
+                fderived += tp_mod.flash_calls(g)
+                pairs += sum(nd.op == "overlap_asym" for nd in g.nodes)
+            cross += len(tp_mod.cross_direction_pairs(merged, bwd))
+        res[(arch, mode, mb)] = (
+            float(loss.detach()),
+            {n: p.grad.numpy() for n, p in lm.named_parameters()},
+            made[0], derived, made[1], fderived, made[2], pairs, cross,
+            sorted(transposed))
+    res["norm"] = norm_cell(group, norm_tree)
+    return res
+
+
+def norm_cell(group, tree):
+    """``global_norm`` of ``tree`` on this rank, with "a" sharded by rows and
+    "c" by its last dimension over the ring and "b" replicated."""
+    from repro_torch.optim.optimizers import global_norm
+
+    n, r = group.size, group.rank
+    local = {"a": _rows(tree["a"], r, n, 0), "b": _t(tree["b"]),
+             "c": _rows(tree["c"], r, n, 2)}
+    return float(global_norm(local, group, sharded=("a", "c")))
