@@ -10,10 +10,11 @@ Phases (any failure exits non-zero):
      and TMA load (``UTMALDG``) instructions by ``cuobjdump -sass``, and
      fail if any of the three libraries lacks either;
   3. each kernel against its plain PyTorch version on the card, in bf16 and
-     f32: flash attention at the shapes the serving path and the
-     tensor-parallel path give it and at the TPU kernel's own (BH, S, d)
-     case; matmul at the TPU kernel's test shapes, at the shapes the
-     ring schedules of phase 6 give it, and at every shape phase 9's
+     f32: flash attention at the shapes the serving path, the
+     tensor-parallel path and a rank of phase 10 give it and at the TPU
+     kernel's own (BH, S, d) case; matmul at the TPU kernel's test shapes,
+     at the shapes the ring schedules of phase 6 and the serve graphs of
+     phase 10 give it, and at every shape phase 9's
      backward gives it with a transposed operand, in its layout (``nt``:
      dx = dy·wᵀ, ``tn``: dw = xᵀ·dy; the kernel, the plain version and
      cuBLAS all take the same strided views); the kernel's time beside the
@@ -94,6 +95,28 @@ Phases (any failure exits non-zero):
      every matmul call shape and layout must be among those phase 3
      checked. Step times are printed with the note that gloo stages every
      hop through the host.
+ 10. paged serving over the ring: internlm2-1.8b at full width and depth,
+     random weights from seed 0, f32 params, phase 5's traffic (4 requests
+     of 600-700 prompt tokens, 16 new tokens, prefill chunk 128, block 16)
+     through the paged ``Engine``, and a scripted ``serve_step`` schedule (2
+     prefill chunks of 128 for the 4 rows, a mixed step of 127 tokens, 4
+     decode steps). First on one device in f32 and bf16 compute, its tokens,
+     top-2 margins and logits kept on the host while the card is freed; then
+     one spawn of 4 gloo ranks sharing the card (each holding its weight
+     shards and its kv heads' pools) runs ``barrier`` f32, ``cais`` f32 and
+     ``cais`` bf16: the f32 logits must lie within ``LOGIT_TOL`` of one
+     device's, the bf16 ones within ``BF16_LOGIT_FACTOR`` times one device's
+     bf16 distance from its f32 logits, every rank's logits bitwise equal and
+     its tokens identical, the f32 tokens one device's (or, from a request's
+     first difference, a one-device top-2 margin below ``LOGIT_TOL``), the
+     matmul launches equal to ``matmul_calls`` of the optimized serve graphs,
+     flash once a layer a step (decode on split-KV, prefill on wgmma in bf16
+     and FFMA in f32), two ``gemm_ar`` a layer a step dispatched through the
+     backend, and every call shape of both kernels among phase 3's. Then
+     gemma3-1b cut to one period (5 sliding-window layers and a global one;
+     its kv head replicated and sliced on each rank), ``cais`` f32, its
+     scripted logits over 4 prefill chunks (past the 512 window) within
+     ``LOGIT_TOL`` of one device's.
 Phase 3 also holds matmul_rmsnorm against its plain version at the TPU
 kernel's test shapes, at every shape phase 8 calls (b a column slice of
 ``wkv_a`` for the KV latent) and at N 8192, and flash attention at the MLA
@@ -175,6 +198,24 @@ MLA_ARCH, MLA_REQUESTS, MLA_PROMPT, MLA_MAX_NEW = "minicpm3-4b", 4, 1024, 16
 # orders of z) carried through the norm, i.e. scaled by |1 + scale[n]| /
 # rms(z[m]); the two rms differ by far less, as each averages N errors
 MLN_EPS = 1e-6
+# phase 10: paged serving over the ring (phase 5's traffic): internlm2-1.8b
+# (kv heads sharded, 2 a rank) in these (mode, compute type) runs, its
+# scripted serve_step logits over SCRIPTED_CHUNKS prefill chunks; then
+# gemma3-1b cut to one period (5 sliding-window layers and a global one;
+# its one kv head replicated and sliced on every rank), cais f32, over
+# REPL_CHUNKS chunks, so that positions pass its 512 window
+SERVE_TP_RUNS = [("barrier", "float32"), ("cais", "float32"),
+                 ("cais", "bfloat16")]
+SCRIPTED_CHUNKS = 2
+REPL_ARCH, REPL_LAYERS, REPL_CHUNKS = "gemma3-1b", 6, 4
+# bf16 ring logits against the one-device bf16 logits: both round every
+# activation to bf16, and the ring also rounds each rank's partial product
+# before the gemm_ar sums the four in bf16 (two more roundings a reduction
+# than one device's one). So the ring lies within a few of one device's
+# distances from the f32 logits, and ||ring - one|| <= ||ring - f32|| +
+# ||one - f32||: held per step at BF16_LOGIT_FACTOR times ||one - f32||
+# (Frobenius norms over the rows)
+BF16_LOGIT_FACTOR = 4.0
 
 
 def log(msg: str) -> None:
@@ -459,6 +500,27 @@ def phase_kernels(cfg, fa, ref) -> list:
         # the MLA prefill core of phase 8: dh 96, dv 64
         rows.append(check_kernel_case("mla_prefill", mla_core_case(
             get_mla_cfg(), dtype, seed=4), fa, ref))
+    # phase 10's rank-local cores: internlm2-1.8b's 4 q / 2 kv heads (bf16
+    # and f32) and gemma3-1b's 1 q head over its replicated kv head (f32,
+    # the 512 window), at a decode step, a prefill chunk and the ragged
+    # mixed step (decode rows beside prefill rows)
+    from repro_torch.configs import get_arch
+
+    for arch, dtypes, p0 in ((TP_ARCH, (torch.bfloat16, torch.float32), 256),
+                             (REPL_ARCH, (torch.float32,), 512)):
+        rank_cfg = serve_rank_cfg(get_arch(arch))
+        for dtype in dtypes:
+            for name, Sq, q0, ctx in (
+                    ("decode", 1, [699, 649, 0, 612], [700, 650, 0, 613]),
+                    ("prefill_chunk", PREFILL_CHUNK, [640, 0, 0, 512],
+                     [700, 128, 0, 640]),
+                    ("mixed", PREFILL_CHUNK - 1, [p0] * 4,
+                     [p0 + 1, p0 + 1, p0 + PREFILL_CHUNK - 1,
+                      p0 + PREFILL_CHUNK - 1])):
+                rows.append(check_kernel_case(
+                    f"ring_{arch.split('-')[0]}_{name}", serving_case(
+                        rank_cfg, Sq, q0=q0, ctx=ctx, dtype=dtype,
+                        seed=Sq + p0), fa, ref))
     return rows
 
 
@@ -570,6 +632,17 @@ def phase_matmul(mmk, ref) -> list:
         for M, K, N, lay in train_matmul_shapes(get_tp_cfg()):
             rows.append(check_matmul_case("train", M, K, N, dtype, mmk, ref,
                                           layout=lay))
+        # phase 10's serving rows on a rank: decode (M = 4), the ragged
+        # mixed step, prefill chunks and the cais ring's partials
+        for M, K, N in serve_matmul_shapes(get_tp_cfg(), serve_traffic()):
+            rows.append(check_matmul_case("serve_tp", M, K, N, dtype, mmk,
+                                          ref))
+    from repro_torch.configs import get_arch
+
+    for M, K, N in serve_matmul_shapes(get_arch(REPL_ARCH),
+                                       serve_traffic()):
+        rows.append(check_matmul_case("serve_repl", M, K, N, torch.float32,
+                                      mmk, ref))
     return rows
 
 
@@ -1585,6 +1658,474 @@ def phase_train() -> dict:
                 wall_s=wall, call_shapes=sorted(shapes))
 
 
+# ---------------------------------------------------------------------------
+# phase 10: paged serving over a flat TP ring of 4 ranks against one device
+# ---------------------------------------------------------------------------
+
+
+def serve_traffic() -> dict:
+    """Phase 10's traffic: phase 5's constants."""
+    return dict(requests=REQUESTS, prompt_min=PROMPT_MIN,
+                prompt_max=PROMPT_MAX, max_new=MAX_NEW, chunk=PREFILL_CHUNK,
+                block=BLOCK_SIZE)
+
+
+def serve_prompts(cfg, tr: dict) -> list:
+    """``tr["requests"]`` prompts of prompt_min..prompt_max tokens from a
+    numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 10)
+    return [rng.integers(1, cfg.vocab_size, int(rng.integers(
+        tr["prompt_min"], tr["prompt_max"] + 1))).astype(np.int32)
+        for _ in range(tr["requests"])]
+
+
+def serve_config(tr: dict):
+    """The engine's config, as ``launch.serve`` builds it."""
+    from repro_torch.serve import ServeConfig
+
+    return ServeConfig(max_batch=tr["requests"],
+                       s_max=tr["prompt_max"] + tr["max_new"],
+                       block_size=tr["block"], prefill_chunk=tr["chunk"])
+
+
+def serve_width(tr: dict) -> int:
+    """The engine's block-table width (s_max in blocks), which the scripted
+    steps share, so that both gather the same Skv."""
+    return -(-(tr["prompt_max"] + tr["max_new"]) // tr["block"])
+
+
+def scripted_steps(cfg, tr: dict, chunks: int) -> list:
+    """The scripted ``serve_step`` schedule over ``tr["requests"]`` rows, row
+    b in blocks b·W .. b·W + W − 1: ``chunks`` prefill chunks of
+    ``tr["chunk"]`` tokens for every row; one mixed step of chunk − 1
+    tokens (S % 4 != 0: the monolithic gemm_ar), the first half of the rows
+    decoding and the rest prefilling; then 4 decode steps. Tokens from a
+    numpy seed. Returns [(tokens, (block_tables, positions, context_lens,
+    last))] in numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 11)
+    B, C, W = tr["requests"], tr["chunk"], serve_width(tr)
+    if (chunks + 1) * C + 3 > W * tr["block"]:
+        raise ValueError(f"{chunks} chunks and 5 steps more do not fit "
+                         f"{W} blocks a row")
+    bt = np.arange(B * W, dtype=np.int32).reshape(B, W)
+    tok = lambda *s: rng.integers(1, cfg.vocab_size, s).astype(np.int32)
+    steps = []
+    for j in range(chunks):
+        pos = np.broadcast_to(np.arange(j * C, (j + 1) * C, dtype=np.int32),
+                              (B, C)).copy()
+        steps.append((tok(B, C), (bt, pos, np.full(B, (j + 1) * C, np.int32),
+                                  np.full(B, C - 1, np.int32))))
+    S, p0, dec = C - 1, chunks * C, np.arange(B) < B // 2
+    pos = np.full((B, S), -1, np.int32)
+    pos[dec, 0] = p0
+    pos[~dec] = np.arange(p0, p0 + S)
+    nxt = np.where(dec, p0 + 1, p0 + S).astype(np.int32)
+    steps.append((np.where(pos >= 0, tok(B, S), 0).astype(np.int32),
+                  (bt, pos, nxt, np.where(dec, 0, S - 1).astype(np.int32))))
+    for t in range(4):
+        p = (nxt + t).astype(np.int32)
+        steps.append((tok(B, 1), (bt, p[:, None].copy(), p + 1,
+                                  np.zeros(B, np.int32))))
+    return steps
+
+
+def run_scripted(lm, steps, block: int, keep: bool = True) -> tuple:
+    """``lm.serve_step`` over ``steps`` from fresh pools: every step's logits
+    on the host (with ``keep``) and their SHA-256 digests."""
+    import hashlib
+
+    from repro_torch.models.attention import KVView
+
+    dev = lm.device
+    pools = lm.init_pools(steps[0][1][0].size, block)
+    out, digests = [], []
+    for toks, view in steps:
+        v = KVView(*(torch.from_numpy(a).to(dev) for a in view))
+        lg, pools = lm.serve_step(torch.from_numpy(toks).to(dev), pools, v)
+        lg = lg.cpu().numpy()
+        digests.append(hashlib.sha256(lg.tobytes()).hexdigest())
+        if keep:
+            out.append(lg)
+    return out, digests
+
+
+def engine_tokens(lm, cfg, prompts, tr: dict, margins=None) -> tuple:
+    """The paged Engine's greedy tokens for ``prompts`` on ``lm`` (one
+    device or this rank of its ring) and its step count; with ``margins``
+    (a dict), the gap between the two largest logits of each sampled
+    (rid, token index) and the largest."""
+    import numpy as np
+
+    from repro_torch.serve import Engine, Request
+    from repro_torch.serve import engine as engine_mod
+
+    sample = engine_mod._sample_token
+
+    def recorded(row, seed, rid, index, temperature):
+        top = np.sort(np.partition(row, -2)[-2:])
+        margins[(rid, index)] = (float(top[1] - top[0]), float(top[1]))
+        return sample(row, seed, rid, index, temperature)
+
+    if margins is not None:
+        engine_mod._sample_token = recorded
+    try:
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=tr["max_new"])
+                for i, p in enumerate(prompts)]
+        eng = Engine(lm, cfg, lm.rt, serve_config(tr), device=lm.device)
+        eng.run(reqs, seed=SEED)
+    finally:
+        engine_mod._sample_token = sample
+    if not all(r.done and len(r.out_tokens) == tr["max_new"] for r in reqs):
+        raise AssertionError("a request did not finish")
+    return [list(r.out_tokens) for r in reqs], eng.steps
+
+
+def serve_reference(cfg, tr: dict, prompts, steps, dtypes,
+                    device="cuda") -> dict:
+    """One device, f32 params from seed SEED, each compute type of
+    ``dtypes``: the scripted steps' logits and (with ``prompts``) the
+    Engine's tokens and top-2 margins. Frees the card before it returns."""
+    from repro_torch.models import LM
+    from repro_torch.runtime import Runtime
+
+    lm = LM(cfg, Runtime(compute_dtype="float32"), device=device, seed=SEED)
+    out = {}
+    for dtype in dtypes:
+        lm.rt = Runtime(compute_dtype=dtype)
+        _sync(device)
+        t0 = time.monotonic()
+        res = dict(logits=run_scripted(lm, steps, tr["block"])[0])
+        _sync(device)
+        res["script_s"] = time.monotonic() - t0
+        if prompts is not None:
+            margins = {}
+            t0 = time.monotonic()
+            res["tokens"], res["engine_steps"] = engine_tokens(
+                lm, cfg, prompts, tr, margins)
+            _sync(device)
+            res.update(margins=margins, engine_s=time.monotonic() - t0)
+        out[dtype] = res
+    del lm
+    if _on_card(device):
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_matmul_shapes(cfg, tr: dict, world: int = TP_WORLD) -> list:
+    """(M, K, N) of every matmul call a rank makes in phase 10, by the serve
+    graph's own arithmetic: the gemm_col GEMMs (q, k, v, up, gate) over the
+    B·S rows of a step (S 1, chunk − 1, chunk); each gemm_ar's one GEMM over
+    those rows (barrier, and cais where S does not split over the ring) or
+    the cais ring's partial GEMMs of B·(S/n)/2 rows (S = chunk, the
+    bidirectional halves)."""
+    n, d, dh = world, cfg.d_model, cfg.resolved_head_dim
+    kv_tp = n if cfg.num_kv_heads % n == 0 else 1
+    fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // kv_tp
+    ff = cfg.d_ff // n
+    B, C = tr["requests"], tr["chunk"]
+    rows = {B * s for s in (1, C - 1, C)}
+    ring = {B * (C // n) // 2}
+    return sorted({(m, d, f) for m in rows for f in (fq, fkv, ff)}
+                  | {(m, k, d) for m in rows | ring for k in (fq, ff)})
+
+
+def serve_rank_cfg(cfg, world: int = TP_WORLD):
+    """``cfg`` as one rank's attention core sees it: its query heads, its kv
+    heads (a replicated kv head sliced to the ones its q heads use)."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    h = H // world
+    kv = Hkv // world if Hkv % world == 0 else max(h // (H // Hkv), 1)
+    return cfg.scaled(num_heads=h, num_kv_heads=kv,
+                      head_dim=cfg.resolved_head_dim)
+
+
+def serve_tp_rank(group, tr, runs, prompts, steps, repl_steps, cfg, rcfg,
+                  device="cuda"):
+    """One rank of phase 10. For each (mode, dtype) run on ``cfg``
+    (internlm2-1.8b): the scripted steps' logits (kept on rank 0; digests
+    on every rank) and the ring Engine's tokens, with the kernels' launches
+    (set to 0 just before the run) against the counts derived from the
+    optimized serve graphs, the gemm_ar dispatches, every call shape, times
+    and peak memory. Then ``rcfg`` (gemma3-1b cut to REPL_LAYERS layers),
+    cais f32, scripted steps only."""
+    from repro_torch.core import dataflow
+    from repro_torch.core import tp as tp_mod
+    from repro_torch.core.backends import get_backend
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.runtime import Runtime, TPConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ar = [0]
+    for name in ("barrier", "cais"):
+        be = get_backend(name)
+
+        def counted(*a, _inner=be.gemm_ar, **k):
+            ar[0] += 1
+            return _inner(*a, **k)
+
+        be.gemm_ar = counted
+    mm_calls, fa_calls = {}, {}
+
+    def shapes(a, b, _inner=ops.matmul, **k):
+        key = (*a.shape, b.shape[1], str(a.dtype).replace("torch.", ""))
+        mm_calls[key] = mm_calls.get(key, 0) + 1
+        return _inner(a, b, **k)
+
+    ops.matmul = shapes
+    record_calls(ops, fa_calls)
+
+    def one_run(lm, cfg, mode, dtype, script_steps, with_engine):
+        rt = Runtime(compute_dtype=dtype, tp=TPConfig(mode=mode))
+        lm.rt = rt
+        bs = []
+        inner = lm.serve_step
+
+        def step(tokens, pools, view):
+            bs.append(tuple(tokens.shape))
+            return inner(tokens, pools, view)
+
+        lm.serve_step = step
+        _peak_start(device)
+        mmk.launches = fa.launches = ar[0] = 0
+        mmk.launches_by_variant = dict.fromkeys(mmk.COUNTERS, 0)
+        fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+        mm_calls.clear()
+        fa_calls.clear()
+        t0 = time.monotonic()
+        logits, digests = run_scripted(lm, script_steps, tr["block"],
+                                       keep=group.rank == 0)
+        _sync(device)
+        script_s = time.monotonic() - t0
+        tokens, engine_steps = (engine_tokens(lm, cfg, prompts, tr)
+                                if with_engine else (None, 0))
+        _sync(device)
+        wall = time.monotonic() - t0
+        peak = _peak_gib(device)
+        launches = (mmk.launches, fa.launches, ar[0])
+        del lm.serve_step
+        tpc = tp_mod.TPContext.from_config(rt.tp, group)
+        P = len(cfg.layer_pattern)
+        g, _ = tp_mod.serve_period_graph(tpc, lm.blocks[:P], cfg,
+                                         cfg.layer_kinds()[:P])
+        g = dataflow.optimize(g)
+        per = {s: tp_mod.matmul_calls(g, tpc, s[0], s[1], cfg.d_model,
+                                      rt.dtype.itemsize)
+               for s in set(bs)}
+        decode = sum(S == 1 for _, S in bs)
+        f32 = dtype == "float32"
+        return dict(
+            mode=mode, dtype=dtype, logits=logits, digests=digests,
+            tokens=tokens, steps=len(bs), engine_steps=engine_steps,
+            decode_steps=decode, script_s=script_s, wall_s=wall,
+            peak_gib=peak, matmul_launches=launches[0],
+            matmul_derived=sum(per[s] for s in bs) * (cfg.num_layers // P),
+            matmul_variants=mmk.variant_totals(),
+            flash_launches=launches[1],
+            flash_derived=cfg.num_layers * len(bs),
+            flash_variants=dict(fa.launches_by_variant),
+            flash_expected=dict(
+                splitkv=cfg.num_layers * decode,
+                wgmma=0 if f32 else cfg.num_layers * (len(bs) - decode),
+                ffma=cfg.num_layers * (len(bs) - decode) if f32 else 0),
+            gemm_ar=launches[2], gemm_ar_derived=2 * cfg.num_layers * len(bs),
+            matmul_shapes=sorted([*k, v] for k, v in mm_calls.items()),
+            flash_shapes=sorted([*k, v] for k, v in fa_calls.items()),
+            wire=group.backend + (", staged through the host"
+                                  if _on_card(device)
+                                  and group.backend == "gloo" else ""))
+
+    lm = LM(cfg, Runtime(compute_dtype="float32"), device=device, seed=SEED,
+            group=group)
+    if _on_card(device):
+        torch.cuda.empty_cache()      # the whole model drawn for the shards
+    out = [one_run(lm, cfg, mode, dtype, steps, True) for mode, dtype in runs]
+    del lm
+    if _on_card(device):
+        torch.cuda.empty_cache()
+    lm = LM(rcfg, Runtime(compute_dtype="float32"), device=device, seed=SEED,
+            group=group)
+    repl = one_run(lm, rcfg, "cais", "float32", repl_steps, False)
+    del lm
+    if _on_card(device):
+        torch.cuda.empty_cache()
+    return out, repl
+
+
+def _logits_close(got, want, tol) -> tuple:
+    """(max |Δ|, worst |Δ| / (atol + rtol·|want|)) over every step."""
+    import numpy as np
+
+    err = worst = 0.0
+    for g, w in zip(got, want):
+        d = np.abs(g - w)
+        err = max(err, float(d.max()))
+        worst = max(worst, float((d / (tol["atol"] + tol["rtol"]
+                                      * np.abs(w))).max()))
+    return err, worst
+
+
+def _logits_rel(got, want) -> list:
+    """Per step, ||got − want|| / ||want|| (Frobenius, every row)."""
+    import numpy as np
+
+    return [float(np.linalg.norm(g - w) / np.linalg.norm(w))
+            for g, w in zip(got, want)]
+
+
+def token_rule(got, want, margins, tol) -> tuple:
+    """Whether the ring's f32 tokens follow the rule: equal to one device's,
+    or, from the first position where a request's differ, the one-device
+    margin between its top two logits there below ``tol`` (atol + rtol ·
+    the top logit). Returns (ok, [(rid, index, margin, limit)] at each
+    first difference)."""
+    diffs = []
+    for rid, (g, w) in enumerate(zip(got, want)):
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is not None:
+            margin, top = margins[(rid, j)]
+            diffs.append((rid, j, margin,
+                          tol["atol"] + tol["rtol"] * abs(top)))
+    return all(m < lim for _, _, m, lim in diffs), diffs
+
+
+def serve_tp_checks(one: dict, repl_one: dict, ranks: list,
+                    runs=None) -> tuple:
+    """Phase 10's checks on what the ranks returned, against the one-device
+    references. Returns (rows, failed)."""
+    runs = SERVE_TP_RUNS if runs is None else runs
+    rows, failed = [], []
+    cases = [(run, [rk[0][i] for rk in ranks], one)
+             for i, run in enumerate(runs)]
+    cases.append(((REPL_ARCH, "cais", "float32"), [rk[1] for rk in ranks],
+                  repl_one))
+    for run, per, ref in cases:
+        head = per[0]
+        f32 = head["dtype"] == "float32"
+        checks = {
+            "logits bitwise equal across ranks": all(
+                p["digests"] == head["digests"] for p in per),
+            "matmul launches = serve graphs": all(
+                p["matmul_launches"] == p["matmul_derived"] > 0 for p in per),
+            "flash launches = layers x steps": all(
+                p["flash_launches"] == p["flash_derived"] > 0 for p in per),
+            "flash variants (decode splitkv; prefill wgmma bf16, ffma f32)":
+                all(p["flash_variants"] == p["flash_expected"] for p in per),
+            "matmul variants (wgmma bf16, ffma f32)": all(
+                p["matmul_variants"] == (
+                    dict(wgmma=0, ffma=p["matmul_launches"]) if f32 else
+                    dict(wgmma=p["matmul_launches"], ffma=0)) for p in per),
+            "two gemm_ar a layer a step through the backend": all(
+                p["gemm_ar"] == p["gemm_ar_derived"] > 0 for p in per),
+        }
+        row = {k: v for k, v in head.items() if k not in (
+            "logits", "digests", "matmul_shapes", "flash_shapes")}
+        if f32:
+            err, worst = _logits_close(head["logits"],
+                                       ref["float32"]["logits"], LOGIT_TOL)
+            checks[f"f32 logits within {LOGIT_TOL}"] = worst <= 1.0
+            row.update(logits_max_abs_err=err, logits_err_over_tol=worst)
+        else:
+            rel = _logits_rel(head["logits"], ref["bfloat16"]["logits"])
+            scale = _logits_rel(ref["bfloat16"]["logits"],
+                                ref["float32"]["logits"])
+            checks[f"bf16 logits within {BF16_LOGIT_FACTOR:g} x one "
+                   "device's bf16 distance from f32"] = all(
+                r <= BF16_LOGIT_FACTOR * s for r, s in zip(rel, scale))
+            row.update(logits_rel=rel, one_device_bf16_rel_to_f32=scale)
+        if head["tokens"] is not None:
+            checks["tokens equal across ranks"] = all(
+                p["tokens"] == head["tokens"] for p in per)
+            want = ref[head["dtype"]]["tokens"]
+            row["tokens_equal_one_device"] = head["tokens"] == want
+            if f32:
+                ok, diffs = token_rule(head["tokens"], want,
+                                       ref["float32"]["margins"], LOGIT_TOL)
+                checks["f32 tokens: one device's, or a tie within "
+                       "LOGIT_TOL"] = ok
+                row["first_differences"] = diffs
+        row.update(checks=checks, wall_s=[p["wall_s"] for p in per],
+                   peak_gib=[p["peak_gib"] for p in per])
+        rows.append(row)
+        failed += [(run, k) for k, v in checks.items() if not v]
+    return rows, failed
+
+
+def phase_serve_tp() -> dict:
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.ranks import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr, cfg = serve_traffic(), get_tp_cfg()
+    rcfg = get_arch(REPL_ARCH).scaled(num_layers=REPL_LAYERS)
+    prompts = serve_prompts(cfg, tr)
+    steps = scripted_steps(cfg, tr, SCRIPTED_CHUNKS)
+    repl_steps = scripted_steps(rcfg, tr, REPL_CHUNKS)
+    t0 = time.monotonic()
+    one = serve_reference(cfg, tr, prompts, steps, ("float32", "bfloat16"))
+    repl_one = serve_reference(rcfg, tr, None, repl_steps, ("float32",))
+    ref_s = time.monotonic() - t0
+    for dtype, res in one.items():
+        log(f"  one device {dtype}: scripted {len(steps)} steps "
+            f"{res['script_s']:.2f}s, engine {res['engine_steps']} steps "
+            f"{res['engine_s']:.2f}s, tokens {res['tokens']}")
+    t0 = time.monotonic()
+    ranks = run_ranks(serve_tp_rank, TP_WORLD, tr, SERVE_TP_RUNS, prompts,
+                      steps, repl_steps, cfg, rcfg, device="cuda",
+                      timeout=900)
+    wall = time.monotonic() - t0
+    rows, failed = serve_tp_checks(one, repl_one, ranks)
+    total_mm = sum(p["matmul_launches"] for rk in ranks
+                   for p in rk[0] + [rk[1]])
+    total_fa = sum(p["flash_launches"] for rk in ranks
+                   for p in rk[0] + [rk[1]])
+    mm_shapes = {tuple(s[:4]) for rk in ranks for p in rk[0] + [rk[1]]
+                 for s in p["matmul_shapes"]}
+    fa_shapes = {tuple(s[:-1]) for rk in ranks for p in rk[0] + [rk[1]]
+                 for s in p["flash_shapes"]}
+    for row in rows:
+        arch = TP_ARCH if row["tokens"] is not None else \
+            f"{REPL_ARCH} ({REPL_LAYERS} layers)"
+        log(f"  {arch} {row['mode']} {row['dtype']}: "
+            + ", ".join(f"{k} {json.dumps(row[k])}" for k in (
+                "logits_max_abs_err", "logits_err_over_tol", "logits_rel",
+                "one_device_bf16_rel_to_f32", "tokens_equal_one_device",
+                "first_differences") if k in row)
+            + f"; per rank: {row['steps']} serve steps "
+            f"({row['decode_steps']} decode; engine {row['engine_steps']}), "
+            f"matmul {row['matmul_launches']} (graphs "
+            f"{row['matmul_derived']}; {json.dumps(row['matmul_variants'])})"
+            f", flash {row['flash_launches']} "
+            f"{json.dumps(row['flash_variants'])}, gemm_ar "
+            f"{row['gemm_ar']}; scripted {row['script_s']:.2f}s, all "
+            f"{max(row['wall_s']):.2f}s; peak {row['peak_gib']} GiB by rank;"
+            f" wire: {row['wire']}")
+    if failed:
+        raise AssertionError(f"phase 10: failed {failed}")
+    log(f"  {TP_WORLD} ranks in {wall:.1f}s (spawn and weights included; "
+        "gloo stages every ring hop through the host, so these times check "
+        "correctness, not TP speed: that needs NCCL and 4 cards); one-device "
+        f"references {ref_s:.1f}s; launches over all ranks and runs: matmul "
+        f"{total_mm}, flash {total_fa}")
+    return dict(runs=rows, matmul_launches=total_mm, flash_launches=total_fa,
+                wall_s=wall, reference_s=ref_s,
+                one_device={k: {kk: v[kk] for kk in ("tokens", "script_s",
+                                                    "engine_s",
+                                                    "engine_steps")}
+                            for k, v in one.items()},
+                matmul_shapes=sorted(mm_shapes),
+                flash_shapes=sorted(fa_shapes))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -1702,16 +2243,32 @@ def main() -> int:
                              f"not check: {unchecked}")
     log("  train " + json.dumps(train))
 
+    log(f"phase 10: paged serving of {TP_ARCH} at full width and depth and "
+        f"{REPL_ARCH} cut to {REPL_LAYERS} layers, {TP_WORLD} TP ranks on one "
+        "card over gloo, against one device")
+    log("  " + smi)
+    serve_tp = phase_serve_tp()
+    checked_mm = {(r["shape"]["M"], r["shape"]["K"], r["shape"]["N"],
+                   r["dtype"]) for r in mm_rows if r["layout"] == "nn"}
+    unchecked = [("matmul", s) for s in serve_tp["matmul_shapes"]
+                 if s not in checked_mm]
+    unchecked += [("flash_attention", s) for s in serve_tp["flash_shapes"]
+                  if s not in checked_fa]
+    if unchecked:
+        raise AssertionError(f"phase 10 called kernels at shapes phase 3 "
+                             f"did not check: {unchecked}")
+    log("  serve_tp " + json.dumps(serve_tp))
+
     log("kernel cases " + json.dumps({"flash_attention": rows,
                                       "matmul": mm_rows,
                                       "matmul_rmsnorm": mln_rows}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f}s")
     # flash_attention's record reads the paged serving path's most frequent
     # call, a decode step in bf16, with its launches on every path (phases
-    # 5, 6 and 8); matmul's reads the ring step that carries most of phase
-    # 6's GEMM work, the gate/up chunk of the cais schedule, in f32 (the
-    # FFMA kernel: f32 runs are four of phase 6's five; the same step in
-    # bf16, the wgmma variant, is printed on the line before it);
+    # 5, 6, 8, 9 and 10); matmul's reads the ring step that carries most
+    # of phase 6's GEMM work, the gate/up chunk of the cais schedule, in f32
+    # (the FFMA kernel: f32 runs are four of phase 6's five; the same step
+    # in bf16, the wgmma variant, is printed on the line before it);
     # matmul_rmsnorm's reads phase 8's most frequent call, the query latent
     # of a decode step (M = 4, N = 768) in bf16 (split-K). Every case is on
     # the "kernel cases" line. ms, plain_ms and library_ms are the times of
@@ -1746,12 +2303,14 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:86",
          "launches": rep["launches"] + tp["flash_launches"]
-         + mla["launches"]["flash_attention"] + train["flash_launches"],
+         + mla["launches"]["flash_attention"] + train["flash_launches"]
+         + serve_tp["flash_launches"],
          **record(head)},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:56",
-         "launches": tp["matmul_launches"] + train["matmul_launches"],
+         "launches": tp["matmul_launches"] + train["matmul_launches"]
+         + serve_tp["matmul_launches"],
          **record(mm_head)},
         {"name": "matmul_rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul_rmsnorm.cu",

@@ -12,7 +12,15 @@ cross-chain pairs it turns into ``overlap_asym``.
 Each rank holds only its shard of each TP weight (:func:`param_shard_dim`):
 QKV and up/gate by columns, the out and down projections by rows, norms
 replicated; K/V replicate when ``num_kv_heads % tp != 0``. Activations
-between periods are sequence-sharded (B, S/tp, d).
+between periods are sequence-sharded (B, S/tp, d), or, in the
+replicated-activation layout (``seq_sharded=False``: decode S=1 and ragged
+S % tp != 0, which cannot shard the sequence), whole on every rank: the
+graph then has no gather and its out/down projections end in an allreduce,
+which pass 1 fuses to ``gemm_ar``.
+
+Serving over the ring (:func:`sp_serve_period`) runs a period of a mixed
+prefill/decode step as one graph in that layout, the paged KV pools and
+block tables riding through each attention core node.
 
 The backward of a period is graph-built, as ``repro``'s ``jax.custom_vjp``
 under ``TPConfig(graph_backward=True)``: :class:`_PeriodFunction` saves only
@@ -20,14 +28,15 @@ under ``TPConfig(graph_backward=True)``: :class:`_PeriodFunction` saves only
 period (:func:`repro_torch.core.dataflow.build_training_graph`), runs pass 3
 on the merged forward+backward graph (so one chain's backward grad
 reduce-scatter may pair with another chain's forward gather), executes it
-on this rank, sums each weight's per-use grads and all-reduces those of the
-weights the ring replicates.
+on this rank, sums each weight's per-use grads and all-reduces those that
+are partial over the ring (:func:`replicated_weights`: in the replicated
+layout every rank sees the whole batch and sequence, so only replicated
+wk/wv, read a few heads a rank, are).
 
-Not here yet: the MoE period (ROADMAP A10), the replicated-activation
-decode/ragged layout (A11), the serving period (A12), the perfsim planner
-(A13), and ``graph_backward=False`` on a ring (A15: JAX falls back to
-autodiff of the executed forward, through its collectives; the port has no
-autodiff through the ring collectives).
+Not here yet: the MoE period (ROADMAP A10), the perfsim planner (A13), and
+``graph_backward=False`` on a ring (A15: JAX falls back to autodiff of the
+executed forward, through its collectives; the port has no autodiff through
+the ring collectives).
 """
 from __future__ import annotations
 
@@ -102,10 +111,10 @@ class TPContext:
 @dataclass(frozen=True)
 class SPOptions:
     """Keyword options of the ``sp_*`` entry points (``opts=SPOptions(...)``
-    or the fields as direct keywords). ``prefix_len`` (prefix-LM) and
-    ``seq_sharded=False`` (the decode/ragged layout, ROADMAP A11) are not
-    ported yet and raise; JAX's ``window`` belongs to the per-sub-layer
-    ``sp_attention``, which is not ported."""
+    or the fields as direct keywords). ``seq_sharded=False`` is the
+    replicated-activation (decode/ragged) layout; ``prefix_len``
+    (prefix-LM) is not ported yet and raises; JAX's ``window`` belongs to
+    the per-sub-layer ``sp_attention``, which is not ported."""
 
     prefix_len: int = 0
     norm_kind: str = "rmsnorm"
@@ -152,52 +161,62 @@ def param_shard_dim(name: str, cfg, tp: int) -> Optional[int]:
 
 
 def _ffn_chain_nodes(src: str, out: str, has_gate: bool, act: str,
-                     tag: str = "", p: str = "") -> list:
+                     tag: str = "", p: str = "",
+                     seq_sharded: bool = True) -> list:
     """AG → GEMM(up[, gate]) → act[(·)] → GEMM(down) → RS nodes from value
     ``src`` to value ``out``; ``tag`` uniquifies node names inside a larger
-    graph and ``p`` namespaces node names and weight keys."""
+    graph and ``p`` namespaces node names and weight keys. With
+    ``seq_sharded=False`` (replicated activation) there is no gather and
+    the chain ends in an allreduce."""
     from repro_torch.models.layers import activation
 
     ag, up, gate, h, down = (f"{p}agx{tag}", f"{p}up{tag}", f"{p}gate{tag}",
                              f"{p}h{tag}", f"{p}down{tag}")
-    nodes = [df.Node(ag, "allgather", (src,)),
-             df.Node(up, "gemm_col", (ag,), (p + "w_up",))]
+    nodes = [df.Node(ag, "allgather", (src,))] if seq_sharded else []
+    gin = ag if seq_sharded else src
+    nodes.append(df.Node(up, "gemm_col", (gin,), (p + "w_up",)))
     if has_gate:
-        nodes.append(df.Node(gate, "gemm_col", (ag,), (p + "w_gate",)))
+        nodes.append(df.Node(gate, "gemm_col", (gin,), (p + "w_gate",)))
         nodes.append(df.Node(h, "custom", (up, gate),
                              fn=lambda u, g: activation(act, g) * u))
     else:
         nodes.append(df.Node(h, "custom", (up,),
                              fn=lambda u: activation(act, u)))
     nodes += [df.Node(down, "gemm_row", (h,), (p + "w_down",)),
-              df.Node(out, "reduce_scatter", (down,))]
+              df.Node(out, "reduce_scatter" if seq_sharded else "allreduce",
+                      (down,))]
     return nodes
 
 
-def _attention_block_nodes(core_fn: Callable, p: str = "",
-                           src: str = "x") -> list:
-    """src → LN1 → AG → QKV → core → out-GEMM → RS → +src residual (value
-    ``{p}r1``)."""
-    return [
-        df.Node(f"{p}ln1", "layernorm", (src,), (f"{p}scale1",)),
-        df.Node(f"{p}agx1", "allgather", (f"{p}ln1",)),
-        df.Node(f"{p}q", "gemm_col", (f"{p}agx1",), (f"{p}wq",)),
-        df.Node(f"{p}k", "gemm_col", (f"{p}agx1",), (f"{p}wk",)),
-        df.Node(f"{p}v", "gemm_col", (f"{p}agx1",), (f"{p}wv",)),
+def _attention_block_nodes(core_fn: Callable, p: str = "", src: str = "x",
+                           seq_sharded: bool = True) -> list:
+    """src → LN1 → [AG →] QKV → core → out-GEMM → RS|AR → +src residual
+    (value ``{p}r1``); with ``seq_sharded=False`` no gather, and the
+    out-projection reduces with an allreduce."""
+    nodes = [df.Node(f"{p}ln1", "layernorm", (src,), (f"{p}scale1",))]
+    if seq_sharded:
+        nodes.append(df.Node(f"{p}agx1", "allgather", (f"{p}ln1",)))
+    gin = f"{p}agx1" if seq_sharded else f"{p}ln1"
+    return nodes + [
+        df.Node(f"{p}q", "gemm_col", (gin,), (f"{p}wq",)),
+        df.Node(f"{p}k", "gemm_col", (gin,), (f"{p}wk",)),
+        df.Node(f"{p}v", "gemm_col", (gin,), (f"{p}wv",)),
         df.Node(f"{p}o", "custom", (f"{p}q", f"{p}k", f"{p}v"), fn=core_fn),
         df.Node(f"{p}proj", "gemm_row", (f"{p}o",), (f"{p}wo",)),
-        df.Node(f"{p}rs1", "reduce_scatter", (f"{p}proj",)),
+        df.Node(f"{p}rs1", "reduce_scatter" if seq_sharded else "allreduce",
+                (f"{p}proj",)),
         df.Node(f"{p}r1", "residual", (f"{p}rs1", src)),
     ]
 
 
 def _dense_block_nodes(core_fn: Callable, has_gate: bool, act: str,
-                       p: str = "", src: str = "x"):
+                       p: str = "", src: str = "x",
+                       seq_sharded: bool = True):
     """One dense block as a graph fragment: returns (nodes, out_value)."""
-    nodes = _attention_block_nodes(core_fn, p, src) + [
+    nodes = _attention_block_nodes(core_fn, p, src, seq_sharded) + [
         df.Node(f"{p}ln2", "layernorm", (f"{p}r1",), (f"{p}scale2",)),
     ] + _ffn_chain_nodes(f"{p}ln2", f"{p}rs2", has_gate, act, tag="2",
-                         p=p) + [
+                         p=p, seq_sharded=seq_sharded) + [
         df.Node(f"{p}r2", "residual", (f"{p}rs2", f"{p}r1")),
     ]
     return nodes, f"{p}r2"
@@ -226,34 +245,47 @@ def dense_period_graph(core_fns: Sequence[Callable], has_gate: bool,
     return df.Graph(nodes, outputs=(src,))
 
 
+def _local_heads(cfg, tp: int):
+    """(query heads, kv heads) a rank of a ring of ``tp`` holds: Hkv/tp kv
+    heads when they shard, all Hkv when they replicate."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    return max(H // tp, 1), (max(Hkv // tp, 1) if Hkv % tp == 0 else Hkv)
+
+
+def _rank_kv(k: torch.Tensor, v: torch.Tensor, cfg, tp: int, rank: int):
+    """With replicated KV, the kv heads (dim 2) the rank's q heads use, made
+    contiguous for the flash kernel (head sharding is contiguous, so they
+    are one run); sharded KV passes through."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    if Hkv % tp == 0:
+        return k, v
+    g = H // Hkv                        # q heads per kv head
+    H_loc = max(H // tp, 1)
+    need = max(H_loc // g, 1)
+    start = (rank * H_loc) // g
+    return (k[:, :, start:start + need].contiguous(),
+            v[:, :, start:start + need].contiguous())
+
+
 def _attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
                        ) -> Callable:
     """The local attention math (rope, KV head slicing, the flash core,
-    head reshape) as the closure of a ``custom`` node. q/k/v arrive
-    gathered over the full sequence with this rank's heads; with replicated
-    KV the rank slices the kv heads its q heads use (head sharding is
-    contiguous)."""
+    head reshape) as the closure of a ``custom`` node. q/k/v arrive over
+    the full sequence (gathered, or replicated) with this rank's heads; with
+    replicated KV the rank slices the kv heads its q heads use."""
     from repro_torch.models.attention import attention_core
     from repro_torch.models.layers import apply_rope
 
-    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    kv_sharded = Hkv % tp == 0
+    dh = cfg.resolved_head_dim
+    H_loc, Hkv_loc = _local_heads(cfg, tp)
 
     def core(q, k, v):        # one flash_attention call (core.flash_calls)
         B_, S = q.shape[0], q.shape[1]
-        H_loc = max(H // tp, 1)
-        Hkv_loc = max(Hkv // tp, 1) if kv_sharded else Hkv
         pos = torch.arange(S, dtype=torch.int32,
                            device=q.device).expand(B_, S).contiguous()
         q = apply_rope(q.reshape(B_, S, H_loc, dh), pos, cfg.rope_theta)
         k = apply_rope(k.reshape(B_, S, Hkv_loc, dh), pos, cfg.rope_theta)
-        v = v.reshape(B_, S, Hkv_loc, dh)
-        if not kv_sharded:
-            g = H // Hkv                    # q heads per kv head
-            need = max(H_loc // g, 1)
-            start = (rank * H_loc) // g
-            k = k[:, :, start:start + need].contiguous()
-            v = v[:, :, start:start + need].contiguous()
+        k, v = _rank_kv(k, v.reshape(B_, S, Hkv_loc, dh), cfg, tp, rank)
         o = attention_core(q, k, v, q_positions=pos, kv_positions=pos,
                            causal=True, window=window)
         return o.reshape(B_, S, H_loc * dh)
@@ -262,8 +294,22 @@ def _attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
     return core
 
 
+def _block_weights(params, p: str, dtype) -> Dict[str, torch.Tensor]:
+    """A dense block's weights under period-graph keys ``{p}<leaf>``."""
+    m, f = params.mixer, params.ffn
+    return {
+        p + "scale1": params.norm1.scale.to(dtype),
+        p + "wq": m.wq.to(dtype), p + "wk": m.wk.to(dtype),
+        p + "wv": m.wv.to(dtype), p + "wo": m.wo.to(dtype),
+        p + "scale2": params.norm2.scale.to(dtype),
+        p + "w_up": f.w_up.to(dtype), p + "w_gate": f.w_gate.to(dtype),
+        p + "w_down": f.w_down.to(dtype),
+    }
+
+
 def _block_graph_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
-                          src: str, dtype=torch.float32):
+                          src: str, dtype=torch.float32,
+                          seq_sharded: bool = True):
     """One dense block (a :class:`repro_torch.models.transformer.Block`
     holding this rank's shards) as a period-graph fragment: nodes chained
     from value ``src``, every node name and weight key namespaced
@@ -272,20 +318,12 @@ def _block_graph_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
         raise NotImplementedError("MoE period graphs are not ported yet "
                                   "(ROADMAP A10)")
     p = f"b{idx}."
-    m, f = params.mixer, params.ffn
     window = cfg.window if kind == "swa" else 0
     core = _attention_core_fn(cfg, tpc.tp, window=window,
                               rank=tpc.group.rank)
-    weights = {
-        p + "scale1": params.norm1.scale.to(dtype),
-        p + "wq": m.wq.to(dtype), p + "wk": m.wk.to(dtype),
-        p + "wv": m.wv.to(dtype), p + "wo": m.wo.to(dtype),
-        p + "scale2": params.norm2.scale.to(dtype),
-        p + "w_up": f.w_up.to(dtype), p + "w_gate": f.w_gate.to(dtype),
-        p + "w_down": f.w_down.to(dtype),
-    }
-    nodes, out = _dense_block_nodes(core, True, cfg.act, p=p, src=src)
-    return nodes, out, weights
+    nodes, out = _dense_block_nodes(core, True, cfg.act, p=p, src=src,
+                                    seq_sharded=seq_sharded)
+    return nodes, out, _block_weights(params, p, dtype)
 
 
 # a period-graph weight key's leaf -> the Block parameter it holds
@@ -295,19 +333,27 @@ _WEIGHT_PARAMS = {"scale1": "norm1.scale", "scale2": "norm2.scale",
                   "w_gate": "ffn.w_gate", "w_down": "ffn.w_down"}
 
 
-def replicated_weights(weights, cfg, tp: int) -> frozenset:
-    """The keys of a period graph's ``weights`` that every rank of a ring of
-    ``tp`` holds whole (:func:`param_shard_dim` None: the norm scales, and
-    wk/wv when ``num_kv_heads % tp != 0``): their gradients are partial sums
-    over the ring's sequence shards."""
+def replicated_weights(weights, cfg, tp: int,
+                       seq_sharded: bool = True) -> frozenset:
+    """The keys of a period graph's ``weights`` whose gradients are partial
+    sums over a ring of ``tp``, to be all-reduced. Sequence-sharded, every
+    weight each rank holds whole (:func:`param_shard_dim` None: the norm
+    scales, and wk/wv when ``num_kv_heads % tp != 0``): each rank sums over
+    its own sequence shard. In the replicated layout every rank sees the
+    whole batch and sequence, so a norm scale's grad is complete; replicated
+    wk/wv still are partial, since a rank's attention reads only the kv
+    heads its q heads use (JAX's replicated-layout backward sums none of
+    them, which undercounts wk/wv there: ROADMAP C)."""
+    kv = ("wk", "wv")
     return frozenset(
         k for k in weights
         if param_shard_dim("blocks.0." + _WEIGHT_PARAMS[k.split(".", 1)[1]],
-                           cfg, tp) is None)
+                           cfg, tp) is None
+        and (seq_sharded or k.split(".", 1)[1] in kv))
 
 
 def _period_graph(tpc: TPContext, params_seq, cfg, kinds: Sequence[str],
-                  dtype=torch.float32):
+                  dtype=torch.float32, seq_sharded: bool = True):
     """The single-chain period graph :func:`sp_period` executes: every block
     chained through per-block ``b{i}.`` namespaces from input ``x``.
     Returns (graph, weights dict)."""
@@ -316,7 +362,8 @@ def _period_graph(tpc: TPContext, params_seq, cfg, kinds: Sequence[str],
     src = "x"
     for i, (params, kind) in enumerate(zip(params_seq, kinds)):
         ns, src, w = _block_graph_fragment(tpc, params, cfg, kind, i, src,
-                                           dtype=dtype)
+                                           dtype=dtype,
+                                           seq_sharded=seq_sharded)
         nodes += ns
         weights.update(w)
     return df.Graph(nodes, outputs=(src,)), weights
@@ -334,21 +381,21 @@ def microbatch_period_graph(base: df.Graph, num_microbatches: int
 
 def resolve_microbatches(tpc: TPContext, x: torch.Tensor,
                          requested: Union[int, str, None] = None,
-                         moe: bool = False) -> int:
+                         moe: bool = False, seq_sharded: bool = True) -> int:
     """The effective period-graph batch split for this rank's activation
-    ``x`` ((B, S/tp, d), sequence-sharded). ``requested=None`` defers to
-    ``tpc.num_microbatches``; ``"auto"`` asks
+    ``x`` ((B, S/tp, d) sequence-sharded, or (B, S, d) replicated).
+    ``requested=None`` defers to ``tpc.num_microbatches``; ``"auto"`` asks
     :func:`repro_torch.core.coordination.plan_microbatches` with the batch
-    and the full gathered-activation payload. The result is clamped to the
-    largest value that divides the batch (1 = unsplit); ``"auto"`` never
-    splits an MoE period."""
+    and the full-activation payload. The result is clamped to the largest
+    value that divides the batch (1 = unsplit); ``"auto"`` never splits an
+    MoE period."""
     req = tpc.num_microbatches if requested is None else requested
     b_loc = max(int(x.shape[0]), 1)
     if req == "auto":
         if moe:
             return 1
-        payload = b_loc * int(x.shape[1]) * tpc.tp * int(x.shape[2]) * \
-            x.element_size()
+        seq = int(x.shape[1]) * (tpc.tp if seq_sharded else 1)
+        payload = b_loc * seq * int(x.shape[2]) * x.element_size()
         mb = coordination.plan_microbatches(
             b_loc, float(payload), tpc.tp,
             bidirectional=tpc.cais.bidirectional, hw=tpc.hw)
@@ -373,11 +420,12 @@ def _core_comp_hints(cfg, kinds: Sequence[str], batch: int, seq: int
 
 def _plan_period(tpc: TPContext, base: df.Graph, weights, x,
                  requested: Union[int, str, None], moe: bool,
-                 comp_hints: Optional[Dict[str, float]] = None):
+                 comp_hints: Optional[Dict[str, float]] = None,
+                 seq_sharded: bool = True):
     """The (num_microbatches, pass-3 planner) decision for one period graph:
     the greedy policy's α-β split and nearest-first pairing (planner
     None)."""
-    return resolve_microbatches(tpc, x, requested, moe), None
+    return resolve_microbatches(tpc, x, requested, moe, seq_sharded), None
 
 
 def training_graph(merged: df.Graph, norm: str = "rmsnorm",
@@ -467,28 +515,31 @@ def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     ``num_microbatches`` (default: the :class:`TPContext` knob) splits the
     batch into that many independent chains merged into the same graph with
     shared weights; the outputs are concatenated back. x: (B, S/tp, d)
-    sequence-sharded. Returns (period output (B, S/tp, d), aux loss), the
-    aux loss 0 for dense periods.
+    sequence-sharded, or with ``seq_sharded=False`` (the decode/ragged
+    layout, dense blocks only) (B, S, d) whole on every rank, the sequence
+    positions ``arange(S)``. Returns (period output, shaped as x, aux loss),
+    the aux loss 0 for dense periods.
 
     Where autograd records (x or a weight requires grad), the period runs
     as :class:`_PeriodFunction`, whose backward is graph-built
-    (``tpc.graph_backward``, the default; ``False`` raises, ROADMAP A15)."""
+    (``tpc.graph_backward``, the default; ``False`` raises, ROADMAP A15).
+    In the replicated layout the norm scales' grads are complete on each
+    rank and are not summed over the ring (:func:`replicated_weights`)."""
     o = _sp_opts(opts, kw)
-    if not o.seq_sharded:
-        raise NotImplementedError("the replicated-activation decode/ragged "
-                                  "layout is not ported yet (ROADMAP A11)")
     if o.prefix_len:
         raise NotImplementedError("prefix-LM attention is not ported yet "
                                   "(VLM family, ROADMAP A15)")
     base, weights = _period_graph(tpc, params_seq, cfg, kinds,
-                                  dtype=x.dtype)
-    hints = _core_comp_hints(cfg, kinds, int(x.shape[0]),
-                             int(x.shape[1]) * tpc.tp)
+                                  dtype=x.dtype, seq_sharded=o.seq_sharded)
+    seq = int(x.shape[1]) * (tpc.tp if o.seq_sharded else 1)
+    hints = _core_comp_hints(cfg, kinds, int(x.shape[0]), seq)
     mb, planner = _plan_period(tpc, base, weights, x, o.num_microbatches,
-                               moe=False, comp_hints=hints)
+                               moe=False, comp_hints=hints,
+                               seq_sharded=o.seq_sharded)
     merged = microbatch_period_graph(base, mb)
     period = _Period(tpc, merged, df.optimize(merged, planner=planner),
-                     list(weights), replicated_weights(weights, cfg, tpc.tp),
+                     list(weights),
+                     replicated_weights(weights, cfg, tpc.tp, o.seq_sharded),
                      mb, o.norm_kind, planner)
     ws = tuple(weights.values())
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -516,9 +567,111 @@ def sp_moe_ffn(*_, **__):
                               "yet (ROADMAP A10)")
 
 
-def sp_serve_period(*_, **__):
-    raise NotImplementedError("serving over a TP ring is not ported yet "
-                              "(ROADMAP A12)")
+def _serve_attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
+                             ) -> Callable:
+    """The paged-serving attention core as a multi-output ``custom`` node:
+    besides q/k/v it takes the :class:`repro_torch.models.attention.KVView`
+    tensors (block tables, positions, context lens) and this block's KV
+    pools, writes the step's K/V through the block tables, attends over each
+    row's gathered context and returns (o, kp, vp). The pools are updated in
+    place (the port's departure from JAX, ``models/attention.py``), so the
+    returned pools are the input tensors. Sharded pools hold this rank's kv
+    heads; replicated ones are written alike on every rank and sliced to the
+    rank's heads for the core."""
+    from repro_torch.models.attention import (attention_core, paged_lookup,
+                                              paged_update)
+    from repro_torch.models.layers import apply_rope
+
+    dh = cfg.resolved_head_dim
+    H_loc, Hkv_loc = _local_heads(cfg, tp)
+
+    def core(q, k, v, bt, qpos, ctx, kp, vp):   # one flash_attention call
+        B_, S = q.shape[0], q.shape[1]
+        pos = qpos.clamp_min(0)
+        q = apply_rope(q.reshape(B_, S, H_loc, dh), pos, cfg.rope_theta)
+        k = apply_rope(k.reshape(B_, S, Hkv_loc, dh), pos, cfg.rope_theta)
+        paged_update(kp, vp, k, v.reshape(B_, S, Hkv_loc, dh), bt, qpos)
+        kk, vv, kv_pos = paged_lookup(kp, vp, bt, ctx)
+        kk, vv = _rank_kv(kk, vv, cfg, tp, rank)
+        o = attention_core(q, kk, vv, q_positions=qpos, kv_positions=kv_pos,
+                           causal=True, window=window)
+        return o.reshape(B_, S, H_loc * dh), kp, vp
+
+    core.flash_calls = 1
+    return core
+
+
+def _serve_block_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
+                          src: str, dtype=torch.float32):
+    """One dense block as a serve-period graph fragment: the
+    replicated-activation block (:func:`_dense_block_nodes` with
+    ``seq_sharded=False``) whose attention core is the pool-carrying
+    :func:`_serve_attention_core_fn` node, reading graph inputs ``bt``,
+    ``qpos``, ``ctx``, ``b{idx}.kp``, ``b{idx}.vp`` and giving
+    ``b{idx}.kpn``/``b{idx}.vpn``. Returns (nodes, out_value, weights)."""
+    p = f"b{idx}."
+    window = cfg.window if kind == "swa" else 0
+    core = _serve_attention_core_fn(cfg, tpc.tp, window=window,
+                                    rank=tpc.group.rank)
+    nodes, out = _dense_block_nodes(core, True, cfg.act, p=p, src=src,
+                                    seq_sharded=False)
+    serve = df.Node(f"{p}o", "custom",
+                    (f"{p}q", f"{p}k", f"{p}v", "bt", "qpos", "ctx",
+                     f"{p}kp", f"{p}vp"),
+                    outputs=(f"{p}o", f"{p}kpn", f"{p}vpn"), fn=core)
+    nodes = [serve if n.name == f"{p}o" else n for n in nodes]
+    return nodes, out, _block_weights(params, p, dtype)
+
+
+def serve_period_graph(tpc: TPContext, params_seq, cfg,
+                       kinds: Sequence[str], dtype=torch.float32):
+    """The graph :func:`sp_serve_period` optimizes and executes, before
+    ``optimize``: inputs ``x``, ``bt``, ``qpos``, ``ctx`` and each block's
+    pools, outputs the period output and each block's new pools. Returns
+    (graph, weights dict)."""
+    nodes = [df.Node(v, "input") for v in ("x", "bt", "qpos", "ctx")]
+    weights: Dict[str, torch.Tensor] = {}
+    src = "x"
+    for i, (params, kind) in enumerate(zip(params_seq, kinds)):
+        nodes += [df.Node(f"b{i}.kp", "input"), df.Node(f"b{i}.vp", "input")]
+        ns, src, w = _serve_block_fragment(tpc, params, cfg, kind, i, src,
+                                           dtype=dtype)
+        nodes += ns
+        weights.update(w)
+    pools = tuple(f"b{i}.{n}" for i in range(len(kinds))
+                  for n in ("kpn", "vpn"))
+    return df.Graph(nodes, outputs=(src,) + pools), weights
+
+
+def sp_serve_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
+                    kinds: Sequence[str], pools_seq, view, *,
+                    norm_kind: str = "rmsnorm"):
+    """A whole period of a mixed prefill/decode serving step as ONE dataflow
+    graph on this rank: the serving counterpart of :func:`sp_period`. The
+    activation stays replicated (decode S=1 and chunked prefill with
+    S % tp != 0 alike), so pass 1 fuses every out-projection and FFN-down
+    reduction into a backend-dispatched ``gemm_ar``. The block tables,
+    positions and context lens (``view``, a
+    :class:`repro_torch.models.attention.KVView`) and each block's pools
+    (``pools_seq``, one ``{"k", "v"}`` dict a block, this rank's heads)
+    enter as graph inputs of the attention core nodes; the pools are written
+    in place and come back as graph outputs. The ``perfsim`` planner is
+    ROADMAP A13: its context refuses to be built.
+
+    x: (B, S_step, d) whole on every rank. Returns (period output, the
+    pools list)."""
+    base, weights = serve_period_graph(tpc, params_seq, cfg, kinds,
+                                       dtype=x.dtype)
+    graph = df.optimize(base)
+    vals = {"x": x, "bt": view.block_tables, "qpos": view.positions,
+            "ctx": view.context_lens}
+    for i, pool in enumerate(pools_seq):
+        vals[f"b{i}.kp"], vals[f"b{i}.vp"] = pool["k"], pool["v"]
+    res = df.execute(graph, vals, weights, group=tpc.group, cais=tpc.cais,
+                     norm=norm_kind, backend=tpc.backend)
+    pools = [{"k": res[1 + 2 * i], "v": res[2 + 2 * i]}
+             for i in range(len(kinds))]
+    return res[0], pools
 
 
 def tp_applicable(cfg, kind: str, tp: int,
@@ -545,14 +698,17 @@ def tp_applicable(cfg, kind: str, tp: int,
 def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
                  d_model: int, itemsize: int) -> int:
     """The matmul-kernel calls one rank makes executing the optimized
-    dense period ``graph``, a forward or a training graph (its backward
+    dense period ``graph``, a forward, training or serve graph (its backward
     ops, the ``_dw``/``_gemm_t`` customs and ``gemm_rs`` over derived
     weights included), derived from its nodes alone: ``batch`` is each
-    chain's batch, ``seq`` the full sequence, so every gathered activation
-    is (batch, seq, d_model) of ``itemsize`` bytes. ``barrier`` issues one
-    GEMM per weight; ``cais`` one per weight per micro-chunk per ring step on
-    the gather side and one per hop (two per hop bidirectionally) on the
-    reduce side."""
+    chain's batch, ``seq`` the full sequence, so every gathered or
+    replicated activation is (batch, seq, d_model) of ``itemsize`` bytes.
+    ``barrier`` issues one GEMM per weight; ``cais`` one per weight per
+    micro-chunk per ring step on the gather side and one per hop (two per
+    hop bidirectionally) on the reduce side. A ``gemm_col`` is one GEMM; a
+    ``gemm_ar`` is the reduce side's partial GEMMs (``cais``) or one GEMM
+    (``barrier``, and ``cais``'s monolithic fallback where ``seq`` does not
+    split over the ring)."""
     n = tpc.tp
     s_loc = seq // n
     if n == 1 or tpc.mode == "barrier":
@@ -593,7 +749,7 @@ def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
             calls += (1 + k - 1) if tpc.mode == "barrier" or n == 1 \
                 else n + n * (k - 1)
         elif node.op == "gemm_ar":
-            calls += rs() if tpc.mode == "cais" else 1
+            calls += rs() if seq % n == 0 else 1
     return calls
 
 

@@ -14,7 +14,10 @@ The flags are ``repro``'s, plus ``--device`` (default ``cuda``: the launcher
 fails where there is no card unless told ``--device cpu``) and the serving
 shape: ``--prompt-len-min`` (prompt lengths drawn from
 [min, ``--prompt-len``]), ``--prefill-chunk`` and ``--block-size``. Only
-``--mesh none`` is ported.
+``--mesh none`` is ported: JAX's meshes have a data-parallel axis (``debug``
+is 2 x 4), ROADMAP A14. Serving over a TP ring runs the ``Engine`` on a
+model built with ``group=`` on every rank
+(:func:`repro_torch.launch.ranks.run_ranks`).
 """
 from __future__ import annotations
 
@@ -64,8 +67,8 @@ def main(argv: Optional[List[str]] = None
     args = parser().parse_args(argv)
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: tensor-parallel serving is not ported yet "
-            "(ROADMAP A4-A7)")
+            f"--mesh {args.mesh}: meshes with a data-parallel axis are not "
+            "ported yet (ROADMAP A14)")
     cfg = get_arch(args.arch)
     rt = runtime_for(cfg)
     if args.smoke:

@@ -60,10 +60,15 @@ class KVView(NamedTuple):
 
 
 def init_kv_pool(cfg: ArchConfig, num_blocks: int, block_size: int,
-                 dtype: torch.dtype, device: torch.device) -> Pool:
+                 dtype: torch.dtype, device: torch.device, tp: int = 1
+                 ) -> Pool:
     """One layer's paged KV pool: ``num_blocks`` fixed-size blocks shared by
-    every request."""
-    shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    every request. On a TP ring of ``tp`` a rank holds its Hkv/tp kv heads
+    when they shard, and all Hkv when they replicate (JAX's
+    ``pool_pspec``)."""
+    Hkv = cfg.num_kv_heads
+    heads = Hkv // tp if Hkv % tp == 0 else Hkv
+    shape = (num_blocks, block_size, heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -13,8 +13,12 @@ explicit backend in ``rt.tp.mode``) each rank holds its shards of the TP
 weights, the embedded activation is cut to this rank's sequence shard, every
 period runs as one dataflow graph (:func:`repro_torch.core.tp.sp_period`)
 and stays sequence-sharded between periods, and the loss's (sum, count) is
-all-reduced over the ring. On one device there is no TP context and every
-block takes the per-block path, as in JAX.
+all-reduced over the ring. Paged serving (``serve_step``) on a ring keeps
+the activation whole on every rank and runs each period as one serve graph
+(:func:`repro_torch.core.tp.sp_serve_period`) against the rank's KV pools;
+the embedding and head are whole on every rank, so every rank computes the
+same logits. On one device there is no TP context and every block takes the
+per-block path, as in JAX.
 
 Training: ``forward`` and ``loss`` are differentiable once the parameters
 require grad (``repro_torch.train.step.init_state`` sets that; the model is
@@ -26,10 +30,10 @@ device (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``); a period on a
 ring already saves only (x, weights) for its graph-built backward, which
 re-executes the forward, so there it adds nothing and is not applied (JAX's
 ``jax.checkpoint`` around its ``custom_vjp`` runs that forward a third
-time: the same values). Serving (``prefill`` /
-``decode_step`` over dense caches, ``serve_step`` over paged pools) runs on
-one device only; MLA blocks run on one device only (JAX's mixer never
-shards MLA) and have no paged path (their cache is a latent, not K/V).
+time: the same values). Serving over dense caches (``prefill`` /
+``decode_step``) runs on one device only (ROADMAP A11, A12); MLA blocks run
+on one device only (JAX's mixer never shards MLA) and have no paged path
+(their cache is a latent, not K/V).
 """
 from __future__ import annotations
 
@@ -281,9 +285,9 @@ def block_step(params: Block, x: torch.Tensor, pool: attn.Pool,
                view: attn.KVView, cfg: ArchConfig
                ) -> Tuple[torch.Tensor, attn.Pool]:
     """One block of a mixed prefill/decode serving step against its paged
-    KV pool (updated in place). Returns (x, pool). Attention blocks only:
-    an MLA layer caches a latent, which the pools do not hold (JAX's
-    ``paged_supported`` gate)."""
+    KV pool (updated in place), on one device. Returns (x, pool). Attention
+    blocks only: an MLA layer caches a latent, which the pools do not hold
+    (JAX's ``paged_supported`` gate)."""
     if params.kind not in ("attn", "swa"):
         raise NotImplementedError(f"{params.kind!r} blocks have no paged "
                                   "path; serve them through the dense engine")
@@ -293,21 +297,58 @@ def block_step(params: Block, x: torch.Tensor, pool: attn.Pool,
     return _ffn_residual(params, x + mixed, cfg), pool
 
 
+def _blocks_step(kinds: Sequence[str], blocks: Sequence[Block],
+                 x: torch.Tensor, pools: Sequence[attn.Pool],
+                 view: attn.KVView, cfg: ArchConfig,
+                 tpc: Optional[tp_mod.TPContext] = None):
+    """Consecutive blocks of a serving step. On a TP ring, when every block
+    is whole-block TP-applicable (attention kinds, dense FFN), the period
+    runs as ONE serve graph (``sp_serve_period``: replicated activation,
+    ``gemm_ar`` reductions, the pools through each core node); otherwise
+    the rank raises (JAX falls back per block under GSPMD; the port has no
+    such fallback, ROADMAP A5). On one device, block by block."""
+    if tpc is None:
+        for blk, pool in zip(blocks, pools):
+            x, _ = block_step(blk, x, pool, view, cfg)
+        return x, list(pools)
+    if cfg.moe is not None or not all(
+            _whole_block_applicable(cfg, k, tpc.tp, tpc.route_ring)
+            for k in kinds):
+        raise NotImplementedError(
+            f"{cfg.name}: serving blocks {tuple(kinds)} that are not "
+            f"whole-block TP-applicable at tp={tpc.tp} is not ported yet "
+            "(ROADMAP A5)")
+    return tp_mod.sp_serve_period(tpc, x, list(blocks), cfg, kinds,
+                                  list(pools), view, norm_kind=cfg.norm)
+
+
 def stack_step(blocks: nn.ModuleList, x: torch.Tensor,
-               pools: List[attn.Pool], view: attn.KVView, cfg: ArchConfig
+               pools: List[attn.Pool], view: attn.KVView, cfg: ArchConfig,
+               tpc: Optional[tp_mod.TPContext] = None
                ) -> Tuple[torch.Tensor, List[attn.Pool]]:
-    """One mixed prefill/decode serving step through the whole stack, layer
-    by layer; ``pools[i]`` belongs to layer ``i`` (updated in place)."""
-    for blk, pool in zip(blocks, pools):
-        x, _ = block_step(blk, x, pool, view, cfg)
+    """One mixed prefill/decode serving step through the whole stack, one
+    ``layer_pattern`` period at a time, then the remainder layers (as
+    :func:`stack_forward`); ``pools[i]`` belongs to layer ``i`` (updated in
+    place)."""
+    P = len(cfg.layer_pattern)
+    n_full = cfg.num_layers // P
+    kinds = cfg.layer_kinds()
+    spans = [(p * P, (p + 1) * P) for p in range(n_full)]
+    if n_full * P < cfg.num_layers:
+        spans.append((n_full * P, cfg.num_layers))
+    for lo, hi in spans:
+        x, _ = _blocks_step(kinds[lo:hi], blocks[lo:hi], x, pools[lo:hi],
+                            view, cfg, tpc)
     return x, pools
 
 
 def init_stack_pools(cfg: ArchConfig, num_blocks: int, block_size: int,
-                     dtype: torch.dtype, device: torch.device
+                     dtype: torch.dtype, device: torch.device, tp: int = 1
                      ) -> List[attn.Pool]:
-    """Paged KV pools for the whole stack, one per layer in layer order."""
-    return [attn.init_kv_pool(cfg, num_blocks, block_size, dtype, device)
+    """Paged KV pools for the whole stack, one per layer in layer order,
+    with a rank's kv heads on a ring of ``tp``
+    (:func:`repro_torch.models.attention.init_kv_pool`)."""
+    return [attn.init_kv_pool(cfg, num_blocks, block_size, dtype, device, tp)
             for _ in range(cfg.num_layers)]
 
 
@@ -536,8 +577,9 @@ class LM(nn.Module):
 
     # ----- paged serving (docs/serving.md) -----
     def init_pools(self, num_blocks: int, block_size: int) -> List[attn.Pool]:
+        """This rank's paged KV pools (its kv heads on a ring)."""
         return init_stack_pools(self.cfg, num_blocks, block_size,
-                                self.rt.dtype, self.device)
+                                self.rt.dtype, self.device, self.tp)
 
     @torch.no_grad()
     def serve_step(self, tokens: torch.Tensor, pools: List[attn.Pool],
@@ -545,14 +587,16 @@ class LM(nn.Module):
         """One mixed prefill/decode step against paged KV pools.
         tokens: (B, S_step) int (0 at padding positions). Returns the
         per-row logits at each row's last valid position, (B, 1, V) f32,
-        and the pools (updated in place)."""
-        self._one_device("paged serving")
+        and the pools (updated in place). On a TP ring every rank passes the
+        same tokens and view with its own pools (:meth:`init_pools`) and
+        gets the same logits."""
         if any(b.kind not in ("attn", "swa") for b in self.blocks):
             raise NotImplementedError(
                 f"{self.cfg.name}: only attention blocks have a paged path; "
                 "serve the others through the dense engine")
+        tpc = _tp_context(self.rt, self.group)
         x = self._embed(tokens, self.rt.dtype)
-        x, pools = stack_step(self.blocks, x, pools, view, self.cfg)
+        x, pools = stack_step(self.blocks, x, pools, view, self.cfg, tpc)
         B = x.shape[0]
         x_last = x[torch.arange(B, device=x.device), view.last.long()][:, None]
         return self.logits(self.final_norm(x_last)), pools

@@ -1,4 +1,4 @@
-"""Serving engines of ``repro/serve/engine.py`` on one device: the paged-KV
+"""Serving engines of ``repro/serve/engine.py``: the paged-KV
 continuous-batching ``Engine`` and the static-batch ``DenseEngine``, which
 ``Engine`` falls back to for archs outside the paged path (MLA), as JAX's
 does.
@@ -15,9 +15,15 @@ Sampling is replayable: greedy at temperature 0; otherwise each token is
 drawn with a ``torch.Generator`` seeded from (seed, rid, token_index) alone,
 so a request's tokens do not depend on what it was batched with.
 
-Not ported: tensor-parallel serving over a mesh (ROADMAP A4-A7) and the
-prefix/extras inputs of the enc-dec and VLM families; the engines raise for
-a mesh.
+Tensor parallelism: the ``Engine`` serves on the model's own TP ring
+(``LM(..., group=...)``, the counterpart of JAX's ``mesh=``). Every rank runs
+the same scheduler on the same requests, with the clock it admits by agreed
+over the ring, so the ranks assemble the same batches, get the same logits
+and sample the same tokens. ``mesh=`` itself still refuses anything but
+``None`` (a data-parallel or 2D mesh is ROADMAP A14), and ``DenseEngine``
+on a ring raises: MLA is not whole-block TP-applicable, and ``prefill`` /
+``decode_step`` on a ring are ROADMAP A11/A12. Not ported either: the
+prefix/extras inputs of the enc-dec and VLM families.
 """
 from __future__ import annotations
 
@@ -86,30 +92,44 @@ def paged_supported(model, cfg: Optional[ArchConfig]) -> bool:
     return all(k in ("attn", "swa") for k in cfg.layer_kinds())
 
 
-def _one_device(model, mesh, device) -> torch.device:
+def _engine_device(model, mesh, device) -> torch.device:
     """The device an engine runs on; raises for a mesh, or for a model that
     lies elsewhere."""
     device = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError(
-            "serving over a mesh (tensor parallelism) is not ported yet "
-            "(ROADMAP A4-A7); the port serves on one device")
+            "serving over a mesh is not ported (a data-parallel or 2D mesh "
+            "is ROADMAP A14); tensor-parallel serving runs on the model's own "
+            "ring, LM(..., group=...)")
     if model.device.type != device.type:
         raise ValueError(f"model lies on {model.device}, engine runs on "
                          f"{device}")
     return device
 
 
+def _ring_clock(group, now: float, device: torch.device) -> float:
+    """One clock for every rank of the model's ring (the mean of the ranks'
+    readings, summed on the model's device, as NCCL needs), so that
+    admission by arrival time cannot differ between ranks; ``now`` itself
+    off a ring."""
+    if group is None or group.size <= 1:
+        return now
+    t = torch.tensor([now], dtype=torch.float64, device=device)
+    return float(group.all_reduce(t)[0]) / group.size
+
+
 class Engine:
-    """Paged-KV continuous-batching engine on one device (CUDA unless the
-    caller passes ``device="cpu"``; the model must lie there). Falls back
-    to :class:`DenseEngine` for archs outside the paged path."""
+    """Paged-KV continuous-batching engine on one device or on the model's
+    TP ring (CUDA unless the caller passes ``device="cpu"``; the model must
+    lie there). Falls back to :class:`DenseEngine` for archs outside the
+    paged path."""
 
     def __init__(self, model, cfg: ArchConfig, rt: Runtime,
                  serve_cfg: Optional[ServeConfig] = None, *, mesh=None,
                  device=None):
-        self.device = _one_device(model, mesh, device)
+        self.device = _engine_device(model, mesh, device)
         self.model = model
+        self.group = getattr(model, "group", None)
         self.cfg = cfg
         self.rt = rt
         self.sc = serve_cfg if serve_cfg is not None else ServeConfig()
@@ -179,7 +199,8 @@ class Engine:
         self.steps = 0
         t0 = time.monotonic()
         while sched.has_work():
-            now = time.monotonic() - t0
+            now = _ring_clock(self.group, time.monotonic() - t0,
+                              self.device)
             sched.admit(now)
             rows = sched.next_batch()
             if not rows:
@@ -207,7 +228,7 @@ class Engine:
         makespan = time.monotonic() - t0
         from repro_torch.serve.loadgen import latency_report
         self.last_report = latency_report(
-            requests, makespan, n_devices=1,
+            requests, makespan, n_devices=getattr(self.model, "tp", 1),
             kv_utilization=alloc.peak_used / alloc.num_blocks, seed=seed)
         self.last_report["prefix_hits"] = float(alloc.prefix_hits)
         self.last_report["steps"] = float(self.steps)
@@ -215,16 +236,22 @@ class Engine:
 
 
 class DenseEngine:
-    """The static-batch engine: dense ``(B, s_max)`` caches, one batch per
-    same-length prompt group (left-padded, as JAX's), one ``LM.prefill``
-    and then ``LM.decode_step`` calls until every request of the batch has
-    its tokens. ``steps`` counts the prefill and decode calls of the last
-    run."""
+    """The static-batch engine on one device: dense ``(B, s_max)`` caches,
+    one batch per same-length prompt group (left-padded, as JAX's), one
+    ``LM.prefill`` and then ``LM.decode_step`` calls until every request of
+    the batch has its tokens. ``steps`` counts the prefill and decode calls
+    of the last run. A model on a TP ring raises: ``prefill`` and
+    ``decode_step`` on a ring are ROADMAP A11/A12."""
 
     def __init__(self, model, cfg: ArchConfig, rt: Runtime,
                  serve_cfg: Optional[ServeConfig] = None, *, mesh=None,
                  device=None):
-        self.device = _one_device(model, mesh, device)
+        self.device = _engine_device(model, mesh, device)
+        if getattr(model, "tp", 1) > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the dense engine on a TP ring needs prefill "
+                "and decode_step on a ring, which are not ported yet "
+                "(ROADMAP A11, A12)")
         self.model = model
         self.cfg = cfg
         self.rt = rt

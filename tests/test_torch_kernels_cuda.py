@@ -169,6 +169,82 @@ def test_matmul_kernel_matches_plain(dev, M, K, N, dtype):
     assert_matmul_close(got, ref.matmul_ref(a, b), a, b)
 
 
+# serving over a TP ring of 4 (chip_smoke.py phase 10), on one rank: the
+# decode rows (M = 4), a ragged mixed step (4 x 127), a prefill chunk
+# (4 x 128) and the cais gemm_ar ring's partials (64 rows), for
+# internlm2-1.8b (q 512, kv 256, ff 2048 columns a rank; d 2048) and
+# gemma3-1b (q and kv 256, ff 1728; d 1152)
+SERVE_TP_SHAPES = [(4, 2048, 512), (4, 2048, 256), (4, 2048, 2048),
+                   (4, 512, 2048), (508, 2048, 512), (508, 512, 2048),
+                   (512, 2048, 256), (64, 512, 2048), (64, 2048, 2048),
+                   (4, 1152, 256), (4, 1152, 1728), (4, 1728, 1152),
+                   (508, 1152, 1728), (64, 256, 1152)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", SERVE_TP_SHAPES)
+def test_matmul_serving_ring_shapes(dev, M, K, N, dtype):
+    g = torch.Generator(device="cpu").manual_seed(M * K + N)
+    a = torch.randn(M, K, generator=g).to(dev, dtype)
+    b = torch.randn(K, N, generator=g).to(dev, dtype)
+    before = dict(mm.launches_by_variant)
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    variant = "wgmma" if dtype == torch.bfloat16 else "ffma"
+    assert mm.launches_by_variant[f"{variant}.nn"] == \
+        before[f"{variant}.nn"] + 1
+    assert_matmul_close(got, ref.matmul_ref(a, b), a, b)
+
+
+# the rank-local attention cores of serving over a ring of 4: internlm2's
+# 4 q / 2 kv heads at dh 128, and gemma3-1b's 1 q head over its one
+# replicated kv head at dh 256 under the 512 window
+RING_CASES = {
+    "tp_decode": dict(B=4, Sq=1, Skv=720, H=4, Hkv=2, dh=128,
+                      ctx=[700, 650, 0, 613], q0=[699, 649, 0, 612]),
+    "tp_prefill": dict(B=4, Sq=128, Skv=720, H=4, Hkv=2, dh=128,
+                       ctx=[700, 128, 0, 640], q0=[640, 0, 0, 512]),
+    "tp_mixed": dict(B=4, Sq=127, Skv=720, H=4, Hkv=2, dh=128,
+                     ctx=[257, 257, 383, 383], q0=[256, 256, 256, 256]),
+    "repl_decode": dict(B=4, Sq=1, Skv=720, H=1, Hkv=1, dh=256,
+                        ctx=[700, 650, 0, 613], q0=[699, 649, 0, 612]),
+    "repl_mixed": dict(B=4, Sq=127, Skv=720, H=1, Hkv=1, dh=256,
+                       ctx=[513, 513, 639, 639], q0=[512, 512, 512, 512]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(RING_CASES))
+def test_kernel_matches_plain_at_ring_serving_shapes(dev, case, dtype):
+    c = RING_CASES[case]
+    q, k, v, qpos, kpos = paged_case(dev, dtype, **c)
+    kw = dict(q_positions=qpos, kv_positions=kpos, causal=True,
+              window=512 if case.startswith("repl") else 0)
+    want = {1: "splitkv"}.get(c["Sq"], "wgmma" if dtype == torch.bfloat16
+                              else "ffma")
+    assert flash_variant(q, k, v) == want
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert_flash_close(got, q, k, v, kw)
+
+
+def test_flash_refuses_a_strided_head_slice(dev):
+    """A replicated kv head sliced to a rank's heads is a strided view: the
+    kernel refuses it, and the contiguous copy the TP core makes runs."""
+    q, k, v, qpos, kpos = paged_case(dev, torch.bfloat16, B=4, Sq=1,
+                                     Skv=720, H=1, Hkv=2, dh=256,
+                                     ctx=[700, 650, 0, 613],
+                                     q0=[699, 649, 0, 612])
+    ks, vs = k[:, :, 1:2], v[:, :, 1:2]
+    kw = dict(q_positions=qpos, kv_positions=kpos, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q, ks, vs, **kw)
+    ks, vs = ks.contiguous(), vs.contiguous()
+    got = ops.flash_attention(q, ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert_flash_close(got, q, ks, vs, kw)
+
+
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_matmul_out_dtype(dev, out_dtype):
     g = torch.Generator(device="cpu").manual_seed(5)

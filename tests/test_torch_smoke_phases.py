@@ -1,4 +1,6 @@
-"""``chip_smoke.py``'s phase 9 on the CPU at smoke size: the one-device
+"""``chip_smoke.py``'s phases 9 and 10 on the CPU at smoke size.
+
+Phase 9: the one-device
 reference step and its host store, and the rank body on a gloo ring of 4,
 with the plain versions in place of the kernels (so the kernels' launch
 counters, which only the card moves, are not read here). Everything else
@@ -7,7 +9,13 @@ gradients, m, v and parameters against the reference within the phase's
 own bounds, the matmul and flash calls against the graph-derived counts,
 overlap_asym as the graphs say with a cross-direction pair at 2
 microbatches, and every transposed matmul call among the shapes phase 3
-checks."""
+checks.
+
+Phase 10: the one-device serving references and the rank body on a gloo
+ring of 4 (internlm2-1.8b, and gemma3-1b's replicated kv head and window),
+with a small traffic: every check the phase makes on the card except the
+launch counters and variants, and every matmul call shape among those
+``serve_matmul_shapes`` predicts for phase 3."""
 import sys
 import tempfile
 from pathlib import Path
@@ -67,3 +75,51 @@ def test_phase9_on_the_cpu(phase9, i):
                 for q in ("grad", "m", "v"):
                     assert e[q][0] <= e[q][1]
                 assert e["param"][1] <= 1.0
+
+
+# phase 10's traffic cut to smoke size: prompts of 12-40 tokens, chunks of
+# 8 (the ragged mixed step is 7 long), blocks of 4
+TRAFFIC = dict(requests=4, prompt_min=12, prompt_max=40, max_new=4, chunk=8,
+               block=4)
+LAUNCH_CHECKS = ("matmul launches", "flash launches", "flash variants",
+                 "matmul variants")
+
+
+@pytest.fixture(scope="module")
+def phase10():
+    cfg = get_arch("internlm2-1.8b").smoke()
+    rcfg = get_arch(CS.REPL_ARCH).smoke()
+    prompts = CS.serve_prompts(cfg, TRAFFIC)
+    steps = CS.scripted_steps(cfg, TRAFFIC, CS.SCRIPTED_CHUNKS)
+    rsteps = CS.scripted_steps(rcfg, TRAFFIC, CS.REPL_CHUNKS)
+    one = CS.serve_reference(cfg, TRAFFIC, prompts, steps,
+                             ("float32", "bfloat16"), "cpu")
+    rone = CS.serve_reference(rcfg, TRAFFIC, None, rsteps, ("float32",),
+                              "cpu")
+    ranks = run_ranks(CS.serve_tp_rank, 4, TRAFFIC, CS.SERVE_TP_RUNS,
+                      prompts, steps, rsteps, cfg, rcfg, "cpu", device="cpu",
+                      timeout=600)
+    rows, _ = CS.serve_tp_checks(one, rone, ranks)
+    return cfg, rcfg, ranks, rows
+
+
+@pytest.mark.parametrize("i", range(len(CS.SERVE_TP_RUNS) + 1),
+                         ids=["-".join(r) for r in CS.SERVE_TP_RUNS]
+                         + ["repl"])
+def test_phase10_on_the_cpu(phase10, i):
+    cfg, rcfg, ranks, rows = phase10
+    row = rows[i]
+    bad = [k for k, v in row["checks"].items()
+           if not v and not k.startswith(LAUNCH_CHECKS)]
+    assert not bad
+    c = cfg if i < len(CS.SERVE_TP_RUNS) else rcfg
+    predicted = set(CS.serve_matmul_shapes(c, TRAFFIC))
+    for rk in ranks:
+        p = rk[0][i] if i < len(CS.SERVE_TP_RUNS) else rk[1]
+        assert sum(s[-1] for s in p["matmul_shapes"]) == p["matmul_derived"]
+        assert sum(s[-1] for s in p["flash_shapes"]) == p["flash_derived"]
+        assert {tuple(s[:3]) for s in p["matmul_shapes"]} <= predicted
+        assert p["gemm_ar"] == p["gemm_ar_derived"] > 0
+    if row["tokens"] is not None:
+        assert row["steps"] == row["engine_steps"] + len(
+            CS.scripted_steps(cfg, TRAFFIC, CS.SCRIPTED_CHUNKS))

@@ -4,7 +4,8 @@ CPU: ``LM.loss`` on a gloo ring of 2 and 4 ranks (``barrier`` and ``cais``,
 with bridged parameters, within 1e-5 of JAX ``LM.loss`` on one CPU device;
 the one-device port's loss likewise; the matmul calls a rank makes equal to
 the count derived from the optimized period graphs; and the unported TP
-paths raising with their ROADMAP item. The ranks run in their own processes
+paths raising with their ROADMAP item (paged serving on a ring is
+``tests/test_torch_serve_tp.py``). The ranks run in their own processes
 (``tests/torch_rank_cells.py``, no JAX), spawned once per world size."""
 import functools
 
@@ -22,9 +23,11 @@ from repro.runtime import SMOKE as JAX_SMOKE  # noqa: E402
 import torch_rank_cells as cells  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.core import tp as tp_mod  # noqa: E402
 from repro_torch.launch.ranks import run_ranks  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.runtime import SMOKE, Runtime, TPConfig  # noqa: E402
+from repro_torch.serve import DenseEngine  # noqa: E402
 from repro_torch.sharding import TPGroup  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -119,8 +122,16 @@ def test_unported_tp_paths_raise():
         lm.loss(odd)
     with pytest.raises(NotImplementedError, match="A13"):
         TPConfig(mode="cais", planner="perfsim")
-    with pytest.raises(NotImplementedError, match="A12"):
-        lm.serve_step(toks, [], None)
+    # paged serving runs on a ring (tests/test_torch_serve_tp.py); serving
+    # over dense caches, the dense engine and the perfsim serve plan do not
+    with pytest.raises(NotImplementedError, match="A11, A12"):
+        lm.prefill(toks)
+    with pytest.raises(NotImplementedError, match="A11, A12"):
+        lm.decode_step(toks[:, :1], [], torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="A11, A12"):
+        DenseEngine(lm, cfg, lm.rt, device="cpu")
+    with pytest.raises(NotImplementedError, match="A13"):
+        tp_mod.TPContext(group, backend="cais", planner="perfsim")
 
 
 def test_tp_model_defaults_to_the_card():

@@ -246,3 +246,159 @@ def norm_cell(group, tree):
     local = {"a": _rows(tree["a"], r, n, 0), "b": _t(tree["b"]),
              "c": _rows(tree["c"], r, n, 2)}
     return float(global_norm(local, group, sharded=("a", "c")))
+
+
+# ---------------------------------------------------------------------------
+# serving over the ring (tests/test_torch_serve_tp.py)
+# ---------------------------------------------------------------------------
+
+
+def _count_gemm_ar():
+    """Wrap every registered backend's ``gemm_ar`` with one counter (the
+    dispatches of ``serve.backend_dispatch_gemm_ar``); returns it."""
+    count = [0]
+    for name in ("barrier", "cais"):
+        be = backends.get_backend(name)
+
+        def counted(*a, _inner=be.gemm_ar, **kw):
+            count[0] += 1
+            return _inner(*a, **kw)
+
+        be.gemm_ar = counted
+    return count
+
+
+def _block_shard(cfg, tree, group):
+    """A ``Block`` holding this rank's shards of a ``repro`` block's
+    parameters (a numpy tree {"norm1": {...}, "mixer": {...}, ...})."""
+    from repro_torch.models.transformer import Block
+
+    blk = Block("attn", cfg, torch.float32, torch.device("cpu"), group.size)
+    sd = {}
+    for mod, leaves in tree.items():
+        for leaf, a in leaves.items():
+            t = _t(a)
+            dim = tp_mod.param_shard_dim(f"blocks.0.{mod}.{leaf}", cfg,
+                                         group.size)
+            if dim is not None:
+                t = _rows(a, group.rank, group.size, dim)
+            sd[f"{mod}.{leaf}"] = t
+    blk.load_state_dict(sd)
+    return blk
+
+
+def _view(v):
+    from repro_torch.models.attention import KVView
+
+    return KVView(*(_t(a) for a in v))
+
+
+def serve_tp_cells(group, block, serve, engine):
+    """Every serving-over-the-ring case on this rank.
+
+    ``block``: (arch, numpy block tree, {S: x}): ``sp_block`` in the
+    replicated layout, forward and graph-built backward of mean(out²), per
+    (S, mode): (out, dx, {weight: this rank's grad}, gemm_ar dispatches in
+    the forward and in the backward, matmul calls made and derived from the
+    forward and training graphs).
+    ``serve``: {arch: (overrides, numpy params)} and the schedule, a list of
+    (tokens, (bt, pos, ctx, last)): ``LM.serve_step`` per (arch, mode):
+    (logits per step, final pools, gemm_ar dispatches, matmul calls made
+    and derived, flash calls made and derived).
+    ``engine``: (arch, overrides, numpy params, prompts, max_new, serve
+    config kwargs): the ring ``Engine``'s greedy tokens and every step's
+    logits."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+    from repro_torch.runtime import Runtime, TPConfig
+    from repro_torch.serve import Engine, Request, ServeConfig
+
+    ar = _count_gemm_ar()
+    mm = _count_matmuls()
+    flash = [0]
+    inner_fa = ops.flash_attention
+
+    def fa_counted(*a, **kw):
+        flash[0] += 1
+        return inner_fa(*a, **kw)
+
+    ops.flash_attention = fa_counted
+    out = {"_jax_imported": False}
+
+    arch, tree, xs = block
+    cfg = get_arch(arch).smoke()
+    for S, x_np in xs.items():
+        for mode in ("barrier", "cais"):
+            tpc = tp_mod.TPContext(group, backend=mode,
+                                   cais=prim.CAISConfig(num_chunks=2))
+            blk = _block_shard(cfg, tree, group)
+            blk.requires_grad_(True)
+            x = _t(x_np).requires_grad_(True)
+            ar[0] = mm[0] = 0
+            y, _ = tp_mod.sp_block(tpc, x, blk, cfg, "attn",
+                                   norm_kind=cfg.norm, seq_sharded=False)
+            fwd_ar, fwd_mm = ar[0], mm[0]
+            (y * y).mean().backward()
+            base, _ = tp_mod._period_graph(tpc, [blk], cfg, ("attn",),
+                                           seq_sharded=False)
+            B = x_np.shape[0]
+            derived = [tp_mod.matmul_calls(g, tpc, B, S, cfg.d_model, 4)
+                       for g in (dataflow.optimize(base),
+                                 tp_mod.training_graph(base, cfg.norm)[1])]
+            out[("block", S, mode)] = (
+                y.detach().numpy(), x.grad.numpy(),
+                {n: p.grad.numpy() for n, p in blk.named_parameters()},
+                (fwd_ar, ar[0] - fwd_ar), (fwd_mm, mm[0] - fwd_mm), derived)
+
+    cases, schedule = serve
+    for arch, (over, params) in cases.items():
+        cfg = get_arch(arch).smoke().scaled(**over)
+        for mode in ("barrier", "cais"):
+            rt = Runtime(compute_dtype="float32",
+                         tp=TPConfig(mode=mode, chunks=2))
+            lm = LM(cfg, rt, device="cpu", seed=None, group=group)
+            bridge.load_jax_params(lm, params)
+            tpc = tp_mod.TPContext.from_config(rt.tp, group)
+            pools = lm.init_pools(8, 4)
+            logits, counts = [], []
+            for toks, view in schedule:
+                ar[0] = mm[0] = flash[0] = 0
+                lg, pools = lm.serve_step(_t(toks), pools, _view(view))
+                B, S = toks.shape
+                P = len(cfg.layer_pattern)
+                derived = 0
+                for lo in range(0, cfg.num_layers, P):
+                    kinds = cfg.layer_kinds()[lo:lo + P]
+                    g, _ = tp_mod.serve_period_graph(
+                        tpc, lm.blocks[lo:lo + P], cfg, kinds)
+                    derived += tp_mod.matmul_calls(
+                        dataflow.optimize(g), tpc, B, S, cfg.d_model, 4)
+                logits.append(lg.numpy())
+                counts.append((ar[0], mm[0], derived, flash[0]))
+            out[("serve", arch, mode)] = (
+                logits, [{k: v.numpy() for k, v in p.items()}
+                         for p in pools], counts)
+
+    arch, over, params, prompts, max_new, sc_kw = engine
+    cfg = get_arch(arch).smoke().scaled(**over)
+    rt = Runtime(compute_dtype="float32", tp=TPConfig(mode="cais"))
+    lm = LM(cfg, rt, device="cpu", seed=None, group=group)
+    bridge.load_jax_params(lm, params)
+    seen = []
+    step = lm.serve_step
+
+    def recorded(*a):
+        lg, pools = step(*a)
+        seen.append(lg.numpy())
+        return lg, pools
+
+    lm.serve_step = recorded
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    eng = Engine(lm, cfg, rt, ServeConfig(**sc_kw), device="cpu")
+    eng.run(reqs, seed=0)
+    out["engine"] = ([r.out_tokens for r in reqs], seen,
+                     eng.last_report["steps"])
+    out["_jax_imported"] = "jax" in sys.modules
+    return out
