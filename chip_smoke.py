@@ -81,7 +81,9 @@ Phases (any failure exits non-zero):
      freed; then one spawn of 4 gloo ranks sharing the card runs the step
      through ``train.step.make_train_step`` (LM.loss, each period's
      graph-built backward, the ring's grad sums, AdamW) for ``barrier`` with
-     1 microbatch and ``cais`` with 2, in f32, and ``cais`` with 2 in bf16.
+     1 microbatch and ``cais`` with 2, in f32, ``cais`` with 2 in bf16, and
+     ``cais`` in f32 under ``planner="perfsim"`` with the split ``auto``
+     (the planner picks the split and both directions' pairings).
      Each run's loss must lie within 1e-4 (f32) or ``BF16_LOSS_RTOL`` (bf16)
      of one device's; in f32 the grad norm within ``TRAIN_RTOL``, every
      gradient, m and v within ``TRAIN_RTOL`` times the one-device tensor's
@@ -93,8 +95,12 @@ Phases (any failure exits non-zero):
      in bf16 and FFMA in f32, overlap_asym must execute as the graphs say,
      with a backward node paired with a forward one at 2 microbatches, and
      every matmul call shape and layout must be among those phase 3
-     checked. Step times are printed with the note that gloo stages every
-     hop through the host.
+     checked. The perfsim run must also hold one plan on every rank (a
+     digest gathered over the ring), graphs that pair what the plans say,
+     and executed overlap_asym nodes that are the plans' pairs; it prints
+     the plans, their simulated makespans against greedy's, the cache's
+     hits, misses and memo hits and the planner's host seconds. Step times
+     are printed with the note that gloo stages every hop through the host.
  10. paged serving over the ring: internlm2-1.8b at full width and depth,
      random weights from seed 0, f32 params, phase 5's traffic (4 requests
      of 600-700 prompt tokens, 16 new tokens, prefill chunk 128, block 16)
@@ -103,10 +109,13 @@ Phases (any failure exits non-zero):
      decode steps). First on one device in f32 and bf16 compute, its tokens,
      top-2 margins and logits kept on the host while the card is freed; then
      one spawn of 4 gloo ranks sharing the card (each holding its weight
-     shards and its kv heads' pools) runs ``barrier`` f32, ``cais`` f32 and
-     ``cais`` bf16: the f32 logits must lie within ``LOGIT_TOL`` of one
-     device's, the bf16 ones within ``BF16_LOGIT_FACTOR`` times one device's
-     bf16 distance from its f32 logits, every rank's logits bitwise equal and
+     shards and its kv heads' pools) runs ``barrier`` f32, ``cais`` f32,
+     ``cais`` bf16 and ``cais`` f32 under the perfsim planner (its logits
+     bitwise the greedy ``cais`` f32 run's, its plans pairing nothing, its
+     planning host time a step printed): the f32 logits must lie within
+     ``LOGIT_TOL`` of one device's, the bf16 ones within
+     ``BF16_LOGIT_FACTOR`` times one device's bf16 distance from its f32
+     logits, every rank's logits bitwise equal and
      its tokens identical, the f32 tokens one device's (or, from a request's
      first difference, a one-device top-2 margin below ``LOGIT_TOL``), the
      matmul launches equal to ``matmul_calls`` of the optimized serve graphs,
@@ -126,7 +135,9 @@ device JSON. Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -178,7 +189,10 @@ HIDDEN_TOL = dict(rtol=1e-4, atol=1e-4)
 # constant lr (the launcher's cosine schedule gives lr 0 at step 0, which
 # would compare nothing)
 TRAIN_RUNS = [("barrier", 1, "float32"), ("cais", 2, "float32"),
-              ("cais", 2, "bfloat16")]
+              ("cais", 2, "bfloat16"),
+              # the perfsim planner picks the split and both directions'
+              # pairs (the others plan greedily)
+              ("cais", "auto", "float32", "perfsim")]
 TRAIN_LR = 1e-4
 # AdamW's eps and clip norm (its defaults), named for the parameter bound
 TRAIN_EPS, TRAIN_CLIP = 1e-8, 1.0
@@ -205,7 +219,7 @@ MLN_EPS = 1e-6
 # its one kv head replicated and sliced on every rank), cais f32, over
 # REPL_CHUNKS chunks, so that positions pass its 512 window
 SERVE_TP_RUNS = [("barrier", "float32"), ("cais", "float32"),
-                 ("cais", "bfloat16")]
+                 ("cais", "bfloat16"), ("cais", "float32", "perfsim")]
 SCRIPTED_CHUNKS = 2
 REPL_ARCH, REPL_LAYERS, REPL_CHUNKS = "gemma3-1b", 6, 4
 # bf16 ring logits against the one-device bf16 logits: both round every
@@ -656,14 +670,19 @@ def train_matmul_shapes(cfg, world: int = TP_WORLD, batch: int = TP_BATCH,
     b·S rows (tn), and the grad reduce-scatters through the concatenated
     transposed up+gate and q+k+v weights (nt: b·S rows under barrier, b·S_loc
     / 2 a hop on the bidirectional cais ring, b·S_loc paired in
-    overlap_asym)."""
+    overlap_asym). A run's microbatches ``"auto"`` (the perfsim planner
+    picks them) stand for every split the planner may take: 1, 2 and 4
+    where they divide the batch."""
     runs = TRAIN_RUNS if runs is None else runs
     n, d, dh = world, cfg.d_model, cfg.resolved_head_dim
     kv_tp = n if cfg.num_kv_heads % n == 0 else 1
     fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // kv_tp
     ff, s_loc = cfg.d_ff // n, seq // n
     shapes = set()
-    for mode, mb, _ in runs:
+    splits = [(mode, mb) for mode, req, *_ in runs
+              for mb in ((1, 2, 4) if req == "auto" else (req,))
+              if batch % mb == 0]
+    for mode, mb in splits:
         b = batch // mb
         rows = b * seq
         shapes |= {(rows, d, ff, "nt"), (rows, d, fq, "nt"),
@@ -1363,6 +1382,80 @@ def train_reference(batch, root: str, cfg, device="cuda") -> tuple:
     return ref, store
 
 
+def plan_probe() -> dict:
+    """On this rank, wrap the perfsim planner's two entry points
+    (``repro_torch.plan.period_planner``, ``PerfsimPlanner.pair``) and
+    ``dataflow.execute``. Returns the record they fill: "times", the host
+    seconds of every planning call by what answered it ("miss": the search
+    ran; "memo": the in-process memo; "hit": the cache's JSON entry);
+    "plans", the Plan of each call; "executed", {overlap_asym node:
+    executions}. Clear it with :func:`probe_reset`."""
+    from repro_torch import plan
+    from repro_torch.core import dataflow
+
+    probe = dict(times={"miss": [], "memo": [], "hit": []}, plans=[],
+                 executed={})
+
+    def timed(fn, plan_of):
+        def wrapped(*a, **k):
+            c = plan.default_cache()
+            before = (c.misses, c.memo_hits)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            dt = time.perf_counter() - t0
+            kind = ("miss" if c.misses > before[0] else
+                    "memo" if c.memo_hits > before[1] else "hit")
+            probe["times"][kind].append(dt)
+            probe["plans"].append(plan_of(a, out))
+            return out
+        return wrapped
+
+    plan.period_planner = timed(plan.period_planner, lambda a, out: out[0])
+    plan.search.PerfsimPlanner.pair = timed(plan.search.PerfsimPlanner.pair,
+                                            lambda a, out: a[0].plan)
+    execute = dataflow.execute
+
+    def recorded(g, *a, **k):
+        for nd in g.nodes:
+            if nd.op == "overlap_asym":
+                probe["executed"][nd.name] = \
+                    probe["executed"].get(nd.name, 0) + 1
+        return execute(g, *a, **k)
+
+    dataflow.execute = recorded
+    return probe
+
+
+def probe_reset(probe: dict) -> None:
+    for v in probe["times"].values():
+        v.clear()
+    probe["plans"].clear()
+    probe["executed"].clear()
+
+
+def probe_times(probe: dict) -> dict:
+    """{kind: (calls, min, median, max host seconds)} of the planning
+    calls."""
+    out = {}
+    for kind, ts in probe["times"].items():
+        if ts:
+            ts = sorted(ts)
+            out[kind] = (len(ts), ts[0], ts[len(ts) // 2], ts[-1])
+    return out
+
+
+def plan_digests_agree(group, obj) -> bool:
+    """Whether every rank of ``group`` holds the same ``obj`` (a JSON-able
+    plan record): its SHA-256 gathered over the ring."""
+    import hashlib
+
+    digest = hashlib.sha256(json.dumps(obj, sort_keys=True).encode()
+                            ).digest()
+    mine = torch.tensor(list(digest), dtype=torch.int64)[None]
+    every = group.all_gather(mine, 0)
+    return bool((every == mine).all())
+
+
 def _ref_shard(store, q: str, name: str, r: int, n: int, cfg):
     """Rank ``r``'s shard of the one-device tensor ``name`` of quantity
     ``q``, flat and contiguous on the host."""
@@ -1433,14 +1526,20 @@ def train_errors(lm, state, store, ref, r: int, n: int, cfg) -> tuple:
 
 
 def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
-    """One rank of phase 9: for each (mode, microbatches, dtype) run, one
-    train step (LM.loss, its graph-built backward, the ring's grad sums,
-    AdamW) from the same initial shards, with the kernels' launches (set to
-    0 just before the step) against the counts derived from the optimized
-    forward and training graphs, every matmul call's shape and layout, and
-    in f32 this rank's gradients, m, v and parameters against the one-device
-    step's shards."""
-    from repro_torch.core import dataflow
+    """One rank of phase 9: for each (mode, microbatches, dtype[, planner])
+    run, one train step (LM.loss, its graph-built backward, the ring's grad
+    sums, AdamW) from the same initial shards, with the kernels' launches
+    (set to 0 just before the step) against the counts derived from the
+    planned forward and training graphs (``tp.build_period``), every matmul
+    call's shape and layout, and in f32 this rank's gradients, m, v and
+    parameters against the one-device step's shards. A perfsim run also
+    returns its plans (split, pairings, simulated makespans against
+    greedy's), whether every rank holds the same, the overlap_asym nodes
+    its graphs executed against the plans' pairs, and the planner's host
+    time by what answered each call."""
+    from collections import Counter
+
+    from repro_torch import plan as plan_mod
     from repro_torch.core import tp as tp_mod
     from repro_torch.core.backends import get_backend
     from repro_torch.kernels import flash_attention as fa
@@ -1478,10 +1577,13 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
         return _inner(a, b, **k)
 
     ops.matmul = shapes
+    probe = plan_probe()
     out = []
-    for mode, mb, dtype in runs:
-        rt = Runtime(compute_dtype=dtype, tp=TPConfig(mode=mode,
-                                                      microbatches=mb))
+    for run in runs:
+        mode, mb, dtype = run[:3]
+        planner = run[3] if len(run) > 3 else "greedy"
+        rt = Runtime(compute_dtype=dtype, tp=TPConfig(
+            mode=mode, microbatches=mb, planner=planner))
         lm.rt = rt
         with torch.no_grad():
             for k, p in lm.named_parameters():
@@ -1495,27 +1597,54 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
         mmk.launches_by_variant = dict.fromkeys(mmk.COUNTERS, 0)
         fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
         calls.clear()
+        probe_reset(probe)
         t0 = time.monotonic()
         state, metrics = step(state, batch)
         _sync(device)
         wall = time.monotonic() - t0
         launches = (mmk.launches, fa.launches, asym[0])
         layouts = dict(mmk.launches_by_variant)
+        executed, times = dict(probe["executed"]), probe_times(probe)
         peak = _peak_gib(device)
         tpc = tp_mod.TPContext.from_config(rt.tp, group)
-        base, _ = tp_mod._period_graph(tpc, [lm.blocks[0]], cfg, ("attn",))
-        merged = tp_mod.microbatch_period_graph(base, mb)
-        fwd = dataflow.optimize(merged)
-        _, bwd = tp_mod.training_graph(merged, cfg.norm)
+        x = torch.empty(B, S // n, cfg.d_model, dtype=rt.dtype,
+                        device="meta")
+        period, _ = tp_mod.build_period(tpc, x, [lm.blocks[0]], cfg,
+                                        ("attn",), norm_kind=cfg.norm)
+        _, bwd, bwd_planner = period.training()
+        fwd, mb = period.graph, period.mb
         per = sum(tp_mod.matmul_calls(g, tpc, B // mb, S, cfg.d_model,
                                       rt.dtype.itemsize)
                   for g in (fwd, bwd))
         fper = sum(tp_mod.flash_calls(g) for g in (fwd, bwd))
         pairs = [nd.name for g in (fwd, bwd) for nd in g.nodes
                  if nd.op == "overlap_asym"]
-        cross = tp_mod.cross_direction_pairs(merged, bwd)
+        cross = tp_mod.cross_direction_pairs(period.merged, bwd)
+        plans = None
+        if planner == "perfsim":
+            fp, bp = period.plan, bwd_planner.plan
+            plans = dict(
+                mb=mb, forward=[list(p) for p in fp.pairing],
+                backward=[list(p) for p in bp.pairing],
+                chunks=[fp.num_chunks, bp.num_chunks],
+                makespan_ms=[fp.makespan * 1e3, bp.makespan * 1e3],
+                greedy_makespan_ms=[fp.greedy_makespan * 1e3,
+                                    bp.greedy_makespan * 1e3])
+            planned = sorted(f"{a}+{b}" for a, b in fp.pairing + bp.pairing)
+            cache = plan_mod.default_cache()
+            plans.update(
+                same_on_every_rank=plan_digests_agree(
+                    group, {k: plans[k] for k in ("mb", "forward",
+                                                  "backward", "chunks")}),
+                graphs_pair_the_plan=sorted(pairs) == planned,
+                executed_is_the_plan=executed == {
+                    p: c * cfg.num_layers
+                    for p, c in Counter(planned).items()},
+                host_s=times,
+                cache=dict(cache.stats, memo_hits=cache.memo_hits))
         row = dict(
-            mode=mode, mb=mb, dtype=dtype, loss=float(metrics["loss"]),
+            mode=mode, mb=mb, requested_mb=run[1], planner=planner,
+            dtype=dtype, loss=float(metrics["loss"]),
             grad_norm=float(metrics["grad_norm"]), wall_s=wall,
             peak_gib=peak, matmul_launches=launches[0],
             matmul_derived=per * cfg.num_layers, matmul_layouts=layouts,
@@ -1527,6 +1656,7 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
             overlap_asym_nodes=len(pairs) * cfg.num_layers,
             cross_direction_pairs=cross,
             call_shapes=sorted([*k, v] for k, v in calls.items()),
+            plans=plans,
             wire=group.backend + (", staged through the host"
                                   if group.staged(metrics["grad_norm"])
                                   else ""))
@@ -1542,6 +1672,40 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
         if _on_card(device):
             torch.cuda.empty_cache()
     return out
+
+
+def plan_checks(per: list) -> dict:
+    """A perfsim run's checks on what every rank returned: one plan on every
+    rank (gathered over the ring, and as returned), the optimized graphs
+    pairing what the plans say, and the graphs executed doing so."""
+    key = lambda p: json.dumps({k: p["plans"][k] for k in (  # noqa: E731
+        "mb", "forward", "backward", "chunks")})
+    return {
+        "plans equal on every rank": all(
+            p["plans"]["same_on_every_rank"] for p in per)
+        and len({key(p) for p in per}) == 1,
+        "the optimized graphs pair what the plans say": all(
+            p["plans"]["graphs_pair_the_plan"] for p in per),
+        "executed overlap_asym = the plans' pairs": all(
+            p["plans"]["executed_is_the_plan"] for p in per),
+    }
+
+
+@contextlib.contextmanager
+def plan_cache_at(root):
+    """Point the plan cache of the ranks spawned inside the block at
+    ``root`` (they share it, and read ``REPRO_TORCH_PLAN_CACHE`` when they
+    first plan): a fresh directory a phase, so its first lookups miss."""
+    var = "REPRO_TORCH_PLAN_CACHE"
+    saved = os.environ.get(var)
+    os.environ[var] = str(root)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = saved
 
 
 def phase_train() -> dict:
@@ -1569,8 +1733,9 @@ def phase_train() -> dict:
             f"loss (forward) {ref['loss_bf16']:.7f}; reference kept on the "
             f"host: {ref['store_gb']:.1f} GB in {ref['write_s']:.1f}s")
         t0 = time.monotonic()
-        ranks = run_ranks(train_rank, TP_WORLD, batch, TRAIN_RUNS, store, ref,
-                          cfg, device="cuda", timeout=1200)
+        with plan_cache_at(Path(root) / "plans"):
+            ranks = run_ranks(train_rank, TP_WORLD, batch, TRAIN_RUNS, store,
+                              ref, cfg, device="cuda", timeout=1200)
         wall = time.monotonic() - t0
     rows, total_mm, total_fa, shapes, failed = [], 0, 0, set(), []
     for i, run in enumerate(TRAIN_RUNS):
@@ -1603,8 +1768,10 @@ def phase_train() -> dict:
                 p["overlap_asym"] == p["overlap_asym_nodes"] for p in per),
             "a backward node paired with a forward one": (
                 all(p["cross_direction_pairs"] for p in per)
-                if head["mb"] > 1 else True),
+                if head["mb"] > 1 and head["planner"] == "greedy" else True),
         }
+        if head["plans"] is not None:
+            checks.update(plan_checks(per))
         if f32:
             checks[f"grad norm within {TRAIN_RTOL:g}"] = gn_rel <= TRAIN_RTOL
             for q in ("grad", "m", "v"):
@@ -1633,7 +1800,8 @@ def phase_train() -> dict:
                    wall_s=[p["wall_s"] for p in per],
                    peak_gib=[p["peak_gib"] for p in per], checks=checks)
         rows.append(row)
-        log(f"  {run[0]:>7} mb={run[1]} {run[2]:>8}: loss "
+        log(f"  {run[0]:>7} mb={head['mb']} (asked {run[1]}) {run[2]:>8} "
+            f"{head['planner']}: loss "
             f"{head['loss']:.7f} (one device {ref_loss:.7f}, rel "
             f"{rel:.2e}), grad norm {head['grad_norm']:.7f} (rel "
             f"{gn_rel:.2e}); worst err/bound {json.dumps(worst)}; "
@@ -1645,6 +1813,8 @@ def phase_train() -> dict:
             f"({len(head['cross_direction_pairs'])} cross-direction nodes a "
             f"period); step {max(row['wall_s']):.2f}s; peak "
             f"{row['peak_gib']} GiB by rank; wire: {head['wire']}")
+        if head["plans"] is not None:
+            log(f"    perfsim plans (rank 0): {json.dumps(head['plans'])}")
         failed += [(run, k) for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"phase 9: failed {failed}")
@@ -1845,13 +2015,16 @@ def serve_rank_cfg(cfg, world: int = TP_WORLD):
 
 def serve_tp_rank(group, tr, runs, prompts, steps, repl_steps, cfg, rcfg,
                   device="cuda"):
-    """One rank of phase 10. For each (mode, dtype) run on ``cfg``
-    (internlm2-1.8b): the scripted steps' logits (kept on rank 0; digests
-    on every rank) and the ring Engine's tokens, with the kernels' launches
-    (set to 0 just before the run) against the counts derived from the
-    optimized serve graphs, the gemm_ar dispatches, every call shape, times
-    and peak memory. Then ``rcfg`` (gemma3-1b cut to REPL_LAYERS layers),
-    cais f32, scripted steps only."""
+    """One rank of phase 10. For each (mode, dtype[, planner]) run on
+    ``cfg`` (internlm2-1.8b): the scripted steps' logits (kept on rank 0;
+    digests on every rank) and the ring Engine's tokens, with the kernels'
+    launches (set to 0 just before the run) against the counts derived from
+    the optimized serve graphs, the gemm_ar dispatches, every call shape,
+    times and peak memory; a perfsim run also its plans' pairings, the
+    overlap_asym nodes executed, and the planner's host time by what
+    answered each call, and per serve step. Then ``rcfg`` (gemma3-1b cut to
+    REPL_LAYERS layers), cais f32, scripted steps only."""
+    from repro_torch import plan as plan_mod
     from repro_torch.core import dataflow
     from repro_torch.core import tp as tp_mod
     from repro_torch.core.backends import get_backend
@@ -1880,9 +2053,12 @@ def serve_tp_rank(group, tr, runs, prompts, steps, repl_steps, cfg, rcfg,
 
     ops.matmul = shapes
     record_calls(ops, fa_calls)
+    probe = plan_probe()
 
-    def one_run(lm, cfg, mode, dtype, script_steps, with_engine):
-        rt = Runtime(compute_dtype=dtype, tp=TPConfig(mode=mode))
+    def one_run(lm, cfg, mode, dtype, script_steps, with_engine,
+                planner="greedy"):
+        rt = Runtime(compute_dtype=dtype, tp=TPConfig(mode=mode,
+                                                      planner=planner))
         lm.rt = rt
         bs = []
         inner = lm.serve_step
@@ -1898,11 +2074,23 @@ def serve_tp_rank(group, tr, runs, prompts, steps, repl_steps, cfg, rcfg,
         fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
         mm_calls.clear()
         fa_calls.clear()
+        probe_reset(probe)
         t0 = time.monotonic()
         logits, digests = run_scripted(lm, script_steps, tr["block"],
                                        keep=group.rank == 0)
         _sync(device)
         script_s = time.monotonic() - t0
+        plans = None
+        if planner == "perfsim":
+            cache = plan_mod.default_cache()
+            plans = dict(
+                pairings=sorted({json.dumps(p.pairing)
+                                 for p in probe["plans"]}),
+                executed=dict(probe["executed"]),
+                host_s=probe_times(probe),
+                host_s_per_step=sum(sum(v) for v in probe["times"].values())
+                / len(script_steps),
+                cache=dict(cache.stats, memo_hits=cache.memo_hits))
         tokens, engine_steps = (engine_tokens(lm, cfg, prompts, tr)
                                 if with_engine else (None, 0))
         _sync(device)
@@ -1921,7 +2109,8 @@ def serve_tp_rank(group, tr, runs, prompts, steps, repl_steps, cfg, rcfg,
         decode = sum(S == 1 for _, S in bs)
         f32 = dtype == "float32"
         return dict(
-            mode=mode, dtype=dtype, logits=logits, digests=digests,
+            mode=mode, dtype=dtype, planner=planner, plans=plans,
+            logits=logits, digests=digests,
             tokens=tokens, steps=len(bs), engine_steps=engine_steps,
             decode_steps=decode, script_s=script_s, wall_s=wall,
             peak_gib=peak, matmul_launches=launches[0],
@@ -1945,7 +2134,8 @@ def serve_tp_rank(group, tr, runs, prompts, steps, repl_steps, cfg, rcfg,
             group=group)
     if _on_card(device):
         torch.cuda.empty_cache()      # the whole model drawn for the shards
-    out = [one_run(lm, cfg, mode, dtype, steps, True) for mode, dtype in runs]
+    out = [one_run(lm, cfg, run[0], run[1], steps, True, *run[2:])
+           for run in runs]
     del lm
     if _on_card(device):
         torch.cuda.empty_cache()
@@ -2003,6 +2193,8 @@ def serve_tp_checks(one: dict, repl_one: dict, ranks: list,
     rows, failed = [], []
     cases = [(run, [rk[0][i] for rk in ranks], one)
              for i, run in enumerate(runs)]
+    greedy = {(run[0], run[1]): per for run, per, _ in cases
+              if run[2:] in ((), ("greedy",))}
     cases.append(((REPL_ARCH, "cais", "float32"), [rk[1] for rk in ranks],
                   repl_one))
     for run, per, ref in cases:
@@ -2024,6 +2216,18 @@ def serve_tp_checks(one: dict, repl_one: dict, ranks: list,
             "two gemm_ar a layer a step through the backend": all(
                 p["gemm_ar"] == p["gemm_ar_derived"] > 0 for p in per),
         }
+        if head.get("plans") is not None:
+            # the replicated layout has no gemm_rs/ag_gemm pair to plan
+            same = greedy[(head["mode"], head["dtype"])]
+            checks.update({
+                "logits bitwise equal to the greedy run's": all(
+                    p["digests"] == g["digests"] for p, g in zip(per, same)),
+                "tokens equal to the greedy run's": all(
+                    p["tokens"] == g["tokens"] for p, g in zip(per, same)),
+                "plans pair nothing, and nothing paired ran": all(
+                    p["plans"]["pairings"] == ["[]"]
+                    and not p["plans"]["executed"] for p in per),
+            })
         row = {k: v for k, v in head.items() if k not in (
             "logits", "digests", "matmul_shapes", "flash_shapes")}
         if f32:
@@ -2059,6 +2263,7 @@ def serve_tp_checks(one: dict, repl_one: dict, ranks: list,
 
 def phase_serve_tp() -> dict:
     import gc
+    import tempfile
 
     from repro_torch.configs import get_arch
     from repro_torch.launch.ranks import run_ranks
@@ -2079,9 +2284,11 @@ def phase_serve_tp() -> dict:
             f"{res['script_s']:.2f}s, engine {res['engine_steps']} steps "
             f"{res['engine_s']:.2f}s, tokens {res['tokens']}")
     t0 = time.monotonic()
-    ranks = run_ranks(serve_tp_rank, TP_WORLD, tr, SERVE_TP_RUNS, prompts,
-                      steps, repl_steps, cfg, rcfg, device="cuda",
-                      timeout=900)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plans_") as root, \
+            plan_cache_at(root):
+        ranks = run_ranks(serve_tp_rank, TP_WORLD, tr, SERVE_TP_RUNS,
+                          prompts, steps, repl_steps, cfg, rcfg,
+                          device="cuda", timeout=900)
     wall = time.monotonic() - t0
     rows, failed = serve_tp_checks(one, repl_one, ranks)
     total_mm = sum(p["matmul_launches"] for rk in ranks
@@ -2095,7 +2302,7 @@ def phase_serve_tp() -> dict:
     for row in rows:
         arch = TP_ARCH if row["tokens"] is not None else \
             f"{REPL_ARCH} ({REPL_LAYERS} layers)"
-        log(f"  {arch} {row['mode']} {row['dtype']}: "
+        log(f"  {arch} {row['mode']} {row['dtype']} {row['planner']}: "
             + ", ".join(f"{k} {json.dumps(row[k])}" for k in (
                 "logits_max_abs_err", "logits_err_over_tol", "logits_rel",
                 "one_device_bf16_rel_to_f32", "tokens_equal_one_device",
@@ -2109,6 +2316,9 @@ def phase_serve_tp() -> dict:
             f"{row['gemm_ar']}; scripted {row['script_s']:.2f}s, all "
             f"{max(row['wall_s']):.2f}s; peak {row['peak_gib']} GiB by rank;"
             f" wire: {row['wire']}")
+        if row.get("plans") is not None:
+            log(f"    {row['planner']} plans (rank 0): "
+                + json.dumps(row["plans"]))
     if failed:
         raise AssertionError(f"phase 10: failed {failed}")
     log(f"  {TP_WORLD} ranks in {wall:.1f}s (spawn and weights included; "

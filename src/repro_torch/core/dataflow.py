@@ -20,7 +20,10 @@ The adjoints' local math differentiates the node's fn with
 :func:`repro_torch.core.primitives.mm` with the transposed operands read
 where they lie (``_dw`` is ``mm(actᵀ, gout)``, ``_gemm_t`` ``mm(gy, wᵀ)``).
 
-Not here yet: the perfsim planner for pass 3 (ROADMAP A13). The
+Pass 3 takes the greedy policy or a planner: ``optimize(g, planner=...)``
+with ``"perfsim"`` or a :class:`repro_torch.plan.search.PerfsimPlanner`
+scores candidate pairings by simulated makespan (:mod:`repro_torch.plan`),
+and ``pair_asymmetric(g, pairing=...)`` replays a decided pairing. The
 expert-routing ops (``route``, ``unroute``, ``a2a_ffn``) and their adjoint
 ``bwd_a2a_ffn`` are valid IR but their collective is ROADMAP A10.
 
@@ -393,15 +396,34 @@ def apply_pair(g: Graph, a: Node, b: Node) -> Graph:
     return Graph(_topo(nodes, g.outputs), g.outputs)
 
 
-def pair_asymmetric(g: Graph) -> Graph:
+def pair_asymmetric(g: Graph,
+                    pairing: Optional[Sequence[Tuple[str, str]]] = None
+                    ) -> Graph:
     """Pass 3: co-schedule independent gemm_rs + ag_gemm[_multi] pairs so
     their complementary ring directions share the links each step (e.g. one
     microbatch's FFN-out RS against another's attention-in gather).
 
-    Deterministic, nearest-independent-pair-first: fuse the head of
-    :func:`asymmetric_candidates` and repeat until no independent pair
-    remains, so a merged microbatch/period graph co-schedules the *adjacent*
-    seam rather than an arbitrary first match."""
+    Default policy (deterministic, nearest-independent-pair-first): fuse the
+    head of :func:`asymmetric_candidates` and repeat until no independent
+    pair remains, so a merged microbatch/period graph co-schedules the
+    *adjacent* seam rather than an arbitrary first match.
+
+    With an explicit ``pairing`` — an ordered sequence of (gemm_rs name,
+    ag_gemm name), a planner decision (:mod:`repro_torch.plan.search`) —
+    the pass applies exactly those pairs, in order. Each named pair must
+    still be a legal candidate when its turn comes (earlier fusions change
+    the dependency structure); an illegal pair raises :class:`GraphError`,
+    so a stale cached plan fails loudly rather than silently reordering."""
+    if pairing is not None:
+        for rs_name, ag_name in pairing:
+            cand = {(a.name, b.name): (a, b)
+                    for a, b in asymmetric_candidates(g)}
+            if (rs_name, ag_name) not in cand:
+                raise GraphError(
+                    f"planner pairing ({rs_name!r}, {ag_name!r}) is not a "
+                    f"legal independent pair of this graph")
+            g = apply_pair(g, *cand[(rs_name, ag_name)])
+        return g
     cands = asymmetric_candidates(g)
     if not cands:
         return Graph(_topo(list(g.nodes), g.outputs), g.outputs)
@@ -409,17 +431,27 @@ def pair_asymmetric(g: Graph) -> Graph:
 
 
 def optimize(g: Graph, asymmetric: bool = True, planner=None) -> Graph:
-    """Run passes 1 → 1b → 2 → 3. Pass 3 takes the greedy policy
-    (``planner`` None or ``"greedy"``); the perfsim planner is ROADMAP A13
-    and raises."""
-    if planner not in (None, "greedy"):
-        raise NotImplementedError(f"pass-3 planner {planner!r} is not ported "
-                                  "yet (ROADMAP A13); use 'greedy'")
+    """Run passes 1 → 1b → 2 → 3. ``planner`` drives pass 3's pairing order:
+
+    - ``None`` / ``"greedy"`` — the deterministic nearest-independent-first
+      policy (the default);
+    - ``"perfsim"`` — a :class:`repro_torch.plan.search.PerfsimPlanner` with
+      synthesized shapes: candidate pairings are scored by simulated
+      makespan over the perfsim cost model and the argmin wins;
+    - any object with a ``pair(g) -> Graph`` method — e.g. a PerfsimPlanner
+      carrying the real shapes/topology (the ``tp.sp_period`` path).
+    """
     g = fuse_compute_aware(g)
     g = fuse_shared_gather(g)
     g = fuse_sublayer_chain(g)
     if asymmetric:
-        g = pair_asymmetric(g)
+        if planner is None or planner == "greedy":
+            g = pair_asymmetric(g)
+        else:
+            if planner == "perfsim":
+                from repro_torch.plan import PerfsimPlanner
+                planner = PerfsimPlanner()
+            g = planner.pair(g)
     return g
 
 

@@ -33,7 +33,13 @@ are partial over the ring (:func:`replicated_weights`: in the replicated
 layout every rank sees the whole batch and sequence, so only replicated
 wk/wv, read a few heads a rank, are).
 
-Not here yet: the MoE period (ROADMAP A10), the perfsim planner (A13), and
+Under ``planner="perfsim"`` the perfsim schedule planner
+(:mod:`repro_torch.plan`) decides the microbatch split and the pass-3
+pairing of the forward, the training and the serve graphs, from the global
+shapes ``repro``'s planner sees (:func:`global_weight_shapes`): the same
+plans, cache keys included, as ``repro``'s.
+
+Not here yet: the MoE period (ROADMAP A10) and
 ``graph_backward=False`` on a ring (A15: JAX falls back to autodiff of the
 executed forward, through its collectives; the port has no autodiff through
 the ring collectives).
@@ -41,6 +47,7 @@ the ring collectives).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence, Union
 
@@ -55,6 +62,8 @@ from repro_torch.core.primitives import CAISConfig
 from repro_torch.hw import H100, HWSpec
 from repro_torch.sharding import TPGroup
 
+PLANNERS = ("greedy", "perfsim")
+
 
 @dataclass(frozen=True)
 class TPContext:
@@ -63,8 +72,12 @@ class TPContext:
     ``backend`` may be a registry name or a :class:`CollectiveBackend`
     instance. ``num_microbatches`` is the period-graph batch split (int, or
     ``"auto"`` to size it from the α-β model via
-    :func:`repro_torch.core.coordination.plan_microbatches`). ``hw`` is the
-    α-β target the planners read (the H100 by default)."""
+    :func:`repro_torch.core.coordination.plan_microbatches`). ``planner``
+    drives the split and pass 3: ``"greedy"`` (that α-β split and the
+    nearest-independent-first pairing) or ``"perfsim"`` (the simulated-
+    makespan search of :mod:`repro_torch.plan`, through its plan cache).
+    ``hw`` is the target the α-β planners and the perfsim fabric read (the
+    H100 by default)."""
 
     group: TPGroup
     backend: Union[str, CollectiveBackend] = "cais"
@@ -76,9 +89,9 @@ class TPContext:
 
     def __post_init__(self):
         object.__setattr__(self, "backend", get_backend(self.backend))
-        if self.planner != "greedy":
-            raise NotImplementedError(f"planner {self.planner!r} is not "
-                                      "ported yet (ROADMAP A13)")
+        if self.planner not in PLANNERS:
+            raise ValueError(f"unknown planner {self.planner!r}; one of "
+                             f"{PLANNERS}")
         if self.cais.hw is None:
             object.__setattr__(
                 self, "cais", dataclasses.replace(self.cais, hw=self.hw))
@@ -411,37 +424,143 @@ def _core_comp_hints(cfg, kinds: Sequence[str], batch: int, seq: int
                      ) -> Dict[str, float]:
     """Planner ``comp_hints`` of a single-chain period graph: the FLOPs of
     each attention core (``b{i}.o``), which the lowering cannot read off
-    GEMM weight shapes. Read by the perfsim planner (ROADMAP A13)."""
+    GEMM weight shapes (``batch`` a chain's rows, ``seq`` the full
+    sequence). Dense only: the routed expert FFN's hint comes with MoE
+    (ROADMAP A10)."""
     from repro_torch.models.counting import attention_core_flops
 
     flops = attention_core_flops(cfg, batch, seq)
     return {f"b{i}.o": flops for i in range(len(kinds))}
 
 
-def _plan_period(tpc: TPContext, base: df.Graph, weights, x,
+def global_weight_shapes(weights, cfg, tp: int) -> Dict[str, tuple]:
+    """The unsharded shape of each period-graph weight, which is what
+    ``repro``'s planner sees (its weights enter ``shard_map`` whole): a
+    rank's shard with its :func:`param_shard_dim` multiplied back by
+    ``tp``."""
+    out = {}
+    for k, w in weights.items():
+        shape = list(w.shape)
+        dim = param_shard_dim(
+            "blocks.0." + _WEIGHT_PARAMS[k.split(".", 1)[1]], cfg, tp)
+        if dim is not None:
+            shape[dim] *= tp
+        out[k] = tuple(shape)
+    return out
+
+
+def _shape_items(shapes: Dict[str, tuple]) -> tuple:
+    return tuple(sorted(shapes.items()))
+
+
+@dataclass(frozen=True)
+class _PlanView:
+    """What the perfsim planner is told about one period on this rank, in
+    ``repro``'s global terms: ``x_shape`` (batch, full S, d), the unsharded
+    weight shapes, the element size, the cores' FLOP hints, and ``static``,
+    the hashable description the plan memo keys on (the graph's role and
+    block kinds, the layout and all of the above)."""
+    x_shape: tuple
+    weight_shapes: Dict[str, tuple]
+    dtype_bytes: int
+    hints: Dict[str, float]
+    static: tuple
+
+
+def _plan_view(tpc: TPContext, weights, cfg, kinds: Sequence[str],
+               x: torch.Tensor, seq_sharded: bool,
+               hints: Dict[str, float]) -> _PlanView:
+    seq = int(x.shape[1]) * (tpc.tp if seq_sharded else 1)
+    x_shape = (int(x.shape[0]), seq, int(x.shape[2]))
+    wshapes = global_weight_shapes(weights, cfg, tpc.tp)
+    static = (tuple(kinds), seq_sharded, x_shape, _shape_items(wshapes),
+              x.element_size(), tpc.tp, tpc.mode, tpc.hw,
+              _shape_items(hints))
+    return _PlanView(x_shape, wshapes, x.element_size(), hints, static)
+
+
+def _plan_period(tpc: TPContext, base: df.Graph, x,
                  requested: Union[int, str, None], moe: bool,
-                 comp_hints: Optional[Dict[str, float]] = None,
-                 seq_sharded: bool = True):
-    """The (num_microbatches, pass-3 planner) decision for one period graph:
-    the greedy policy's α-β split and nearest-first pairing (planner
-    None)."""
-    return resolve_microbatches(tpc, x, requested, moe, seq_sharded), None
+                 view: Optional[_PlanView] = None, seq_sharded: bool = True):
+    """The (num_microbatches, pass-3 planner, perfsim Plan) decision for one
+    period graph under ``tpc.planner``.
+
+    ``"greedy"`` keeps the α-β split (:func:`resolve_microbatches`) and the
+    nearest-first pairing (planner and plan None). ``"perfsim"`` hands the
+    whole decision to :func:`repro_torch.plan.search.period_planner`, over
+    ``view``'s global shapes: microbatch candidates (1, 2, 4) dividing the
+    batch under ``"auto"`` (1 for MoE), an explicit request fixed, scored by
+    simulated makespan together with pass-3 pairings and chunk counts,
+    through the process-wide plan cache and its memo."""
+    if tpc.planner != "perfsim":
+        return (resolve_microbatches(tpc, x, requested, moe, seq_sharded),
+                None, None)
+    from repro_torch import plan as plan_mod
+
+    req = tpc.num_microbatches if requested is None else requested
+    b_loc = max(int(x.shape[0]), 1)
+    if req == "auto":
+        cands = (1,) if moe else tuple(
+            m for m in (1, 2, 4) if m <= b_loc and b_loc % m == 0)
+    else:
+        cands = (resolve_microbatches(tpc, x, requested, moe, seq_sharded),)
+    plan, pairer = plan_mod.period_planner(
+        base, x_shape=view.x_shape, weight_shapes=view.weight_shapes,
+        dtype_bytes=view.dtype_bytes, tp=tpc.tp, backend=tpc.mode,
+        mb_candidates=cands, hw=tpc.hw, cache=plan_mod.default_cache(),
+        comp_hints=view.hints, memo_key=("period", cands) + view.static)
+    return plan.num_microbatches, pairer, plan
+
+
+def _bwd_planner(tpc: TPContext, tg: "df.TrainingGraph", view: _PlanView,
+                 mb: int):
+    """The perfsim pass-3 planner of the merged forward+backward training
+    graph ``tg``: a :class:`repro_torch.plan.PerfsimPlanner` over its value
+    shapes (each chain's ``x`` and cotangent seed), the weight table
+    extended with the derived transposed keys, and the cores' hints split
+    over the chains, doubled for their ``adj.`` adjoints, as ``repro``'s."""
+    from repro_torch import plan as plan_mod
+
+    b, S, d = view.x_shape
+    per = (max(b // mb, 1), S, d)
+    chains = ["x"] if mb == 1 else [f"mb{i}.x" for i in range(mb)]
+    vshapes = {c: per for c in chains}
+    vshapes.update({gi: ((1,) if gi.endswith("aux") else per)
+                    for gi in tg.grad_inputs})
+    wshapes = dict(view.weight_shapes)
+    wshapes.update(df.derived_weight_shapes(tg.graph, wshapes))
+    bh = {}
+    for k, f in view.hints.items():
+        for pfx in ([""] if mb == 1 else [f"mb{i}." for i in range(mb)]):
+            bh[pfx + k] = f / mb
+            bh["adj." + pfx + k] = 2.0 * f / mb
+    return plan_mod.PerfsimPlanner(
+        value_shapes=vshapes, weight_shapes=wshapes,
+        dtype_bytes=view.dtype_bytes,
+        fabric=plan_mod.fabric_from_hw(tpc.hw, max(tpc.tp, 2)),
+        backend=tpc.mode, num_microbatches=mb,
+        cache=plan_mod.default_cache(), comp_hints=bh or None,
+        memo_key=("train", mb) + view.static)
 
 
 def training_graph(merged: df.Graph, norm: str = "rmsnorm",
-                   planner=None):
+                   bwd_planner: Optional[Callable] = None):
     """The backward of a (microbatch-merged) period graph: the training
     graph of its pass-2-fused form, and that graph optimized (pass 3 pairs
-    across directions). Returns (TrainingGraph, optimized graph)."""
+    across directions; ``bwd_planner`` maps the training graph to the
+    pass-3 planner, None for greedy). Returns (TrainingGraph, optimized
+    graph, the planner or None)."""
     g2 = df.fuse_sublayer_chain(df.fuse_shared_gather(
         df.fuse_compute_aware(merged)))
     tg = df.build_training_graph(g2, norm=norm)
-    return tg, df.optimize(tg.graph, planner=planner)
+    planner = bwd_planner(tg) if bwd_planner is not None else None
+    return tg, df.optimize(tg.graph, planner=planner), planner
 
 
 @dataclass
-class _Period:
-    """One period's forward and graph-built backward on this rank."""
+class Period:
+    """One period's forward and graph-built backward on this rank, as
+    :func:`build_period` planned them."""
     tpc: TPContext
     merged: df.Graph        # the microbatch-merged graph before optimize
     graph: df.Graph         # the optimized forward
@@ -449,7 +568,8 @@ class _Period:
     replicated: frozenset   # keys whose grads are all-reduced over the ring
     mb: int
     norm: str
-    planner: Optional[str] = None
+    plan: Optional[object] = None   # the forward's perfsim Plan, or None
+    bwd_planner: Optional[Callable] = None  # TrainingGraph -> planner
 
     def chains(self):
         return ["x"] if self.mb == 1 else [f"mb{i}.x" for i in range(self.mb)]
@@ -461,10 +581,15 @@ class _Period:
                          norm=self.norm, backend=self.tpc.backend)
         return res[0] if self.mb == 1 else torch.cat(res, dim=0)
 
+    def training(self):
+        """(TrainingGraph, the optimized training graph, its planner or
+        None) of this period."""
+        return training_graph(self.merged, self.norm, self.bwd_planner)
+
     def backward(self, x: torch.Tensor, ws, gy: torch.Tensor):
         """(dx, per-weight grads in the weights' types) for output cotangent
         ``gy``: the training graph executed on this rank."""
-        tg, bwd = training_graph(self.merged, self.norm, self.planner)
+        tg, bwd, _ = self.training()
         wmap = df.derived_weights(bwd, dict(zip(self.names, ws)))
         chains = self.chains()
         vals = dict(zip(chains, torch.chunk(x, self.mb, dim=0)))
@@ -490,10 +615,10 @@ class _Period:
 class _PeriodFunction(torch.autograd.Function):
     """The counterpart of ``repro``'s ``jax.custom_vjp`` around a period:
     the forward executes the optimized period graph and saves (x, weights)
-    only; the backward is :meth:`_Period.backward`."""
+    only; the backward is :meth:`Period.backward`."""
 
     @staticmethod
-    def forward(ctx, period: _Period, x, *ws):
+    def forward(ctx, period: Period, x, *ws):
         ctx.period = period
         ctx.save_for_backward(x, *ws)
         return period.forward(x, ws)
@@ -505,6 +630,37 @@ class _PeriodFunction(torch.autograd.Function):
         return (None, dx, *dws)
 
 
+def build_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
+                 kinds: Sequence[str], *, opts: Optional[SPOptions] = None,
+                 **kw):
+    """The :class:`Period` :func:`sp_period` runs for activation ``x`` (its
+    shape and dtype are read, so a ``meta`` tensor will do): the period
+    graph of this rank's shards, split into the planned microbatches and
+    optimized by the planned pass 3, and the weights it reads. Returns
+    (Period, weights dict)."""
+    o = _sp_opts(opts, kw)
+    if o.prefix_len:
+        raise NotImplementedError("prefix-LM attention is not ported yet "
+                                  "(VLM family, ROADMAP A15)")
+    base, weights = _period_graph(tpc, params_seq, cfg, kinds,
+                                  dtype=x.dtype, seq_sharded=o.seq_sharded)
+    seq = int(x.shape[1]) * (tpc.tp if o.seq_sharded else 1)
+    hints = _core_comp_hints(cfg, kinds, int(x.shape[0]), seq)
+    view = (_plan_view(tpc, weights, cfg, kinds, x, o.seq_sharded, hints)
+            if tpc.planner == "perfsim" else None)
+    mb, planner, plan = _plan_period(tpc, base, x, o.num_microbatches,
+                                     moe=False, view=view,
+                                     seq_sharded=o.seq_sharded)
+    merged = microbatch_period_graph(base, mb)
+    bwd = (functools.partial(_bwd_planner, tpc, view=view, mb=mb)
+           if view is not None else None)
+    period = Period(tpc, merged, df.optimize(merged, planner=planner),
+                    list(weights),
+                    replicated_weights(weights, cfg, tpc.tp, o.seq_sharded),
+                    mb, o.norm_kind, plan, bwd)
+    return period, weights
+
+
 def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
               kinds: Sequence[str], *, opts: Optional[SPOptions] = None,
               **kw):
@@ -514,33 +670,21 @@ def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
 
     ``num_microbatches`` (default: the :class:`TPContext` knob) splits the
     batch into that many independent chains merged into the same graph with
-    shared weights; the outputs are concatenated back. x: (B, S/tp, d)
-    sequence-sharded, or with ``seq_sharded=False`` (the decode/ragged
-    layout, dense blocks only) (B, S, d) whole on every rank, the sequence
-    positions ``arange(S)``. Returns (period output, shaped as x, aux loss),
-    the aux loss 0 for dense periods.
+    shared weights; the outputs are concatenated back. Under
+    ``planner="perfsim"`` the split and pass 3 come from the plan
+    (:func:`build_period`). x: (B, S/tp, d) sequence-sharded, or with
+    ``seq_sharded=False`` (the decode/ragged layout, dense blocks only)
+    (B, S, d) whole on every rank, the sequence positions ``arange(S)``.
+    Returns (period output, shaped as x, aux loss), the aux loss 0 for dense
+    periods.
 
     Where autograd records (x or a weight requires grad), the period runs
     as :class:`_PeriodFunction`, whose backward is graph-built
     (``tpc.graph_backward``, the default; ``False`` raises, ROADMAP A15).
     In the replicated layout the norm scales' grads are complete on each
     rank and are not summed over the ring (:func:`replicated_weights`)."""
-    o = _sp_opts(opts, kw)
-    if o.prefix_len:
-        raise NotImplementedError("prefix-LM attention is not ported yet "
-                                  "(VLM family, ROADMAP A15)")
-    base, weights = _period_graph(tpc, params_seq, cfg, kinds,
-                                  dtype=x.dtype, seq_sharded=o.seq_sharded)
-    seq = int(x.shape[1]) * (tpc.tp if o.seq_sharded else 1)
-    hints = _core_comp_hints(cfg, kinds, int(x.shape[0]), seq)
-    mb, planner = _plan_period(tpc, base, weights, x, o.num_microbatches,
-                               moe=False, comp_hints=hints,
-                               seq_sharded=o.seq_sharded)
-    merged = microbatch_period_graph(base, mb)
-    period = _Period(tpc, merged, df.optimize(merged, planner=planner),
-                     list(weights),
-                     replicated_weights(weights, cfg, tpc.tp, o.seq_sharded),
-                     mb, o.norm_kind, planner)
+    period, weights = build_period(tpc, x, params_seq, cfg, kinds,
+                                   opts=_sp_opts(opts, kw))
     ws = tuple(weights.values())
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not (torch.is_grad_enabled()
@@ -643,6 +787,40 @@ def serve_period_graph(tpc: TPContext, params_seq, cfg,
     return df.Graph(nodes, outputs=(src,) + pools), weights
 
 
+def serve_planner(tpc: TPContext, cfg, kinds: Sequence[str], weights,
+                  x: torch.Tensor, pools_seq, view):
+    """The pass-3 planner of a serve period: None under ``"greedy"``; under
+    ``"perfsim"`` a :class:`repro_torch.plan.PerfsimPlanner` over the graph's
+    value shapes as ``repro`` gives them (x; the block tables, positions and
+    context lens; each block's pools with all kv heads), the unsharded
+    weight shapes and the cores' FLOP hints, memoized in the process on
+    those shapes and the block kinds."""
+    if tpc.planner != "perfsim":
+        return None
+    from repro_torch import plan as plan_mod
+
+    kv_tp = tpc.tp if cfg.num_kv_heads % tpc.tp == 0 else 1
+    vshapes = {"x": tuple(x.shape), "bt": tuple(view.block_tables.shape),
+               "qpos": tuple(view.positions.shape),
+               "ctx": tuple(view.context_lens.shape)}
+    for i, pool in enumerate(pools_seq):
+        for kk, name in (("k", "kp"), ("v", "vp")):
+            shape = list(pool[kk].shape)
+            shape[2] *= kv_tp
+            vshapes[f"b{i}.{name}"] = tuple(shape)
+    wshapes = global_weight_shapes(weights, cfg, tpc.tp)
+    hints = _core_comp_hints(cfg, kinds, int(x.shape[0]), int(x.shape[1]))
+    static = ("serve", tuple(kinds), _shape_items(vshapes),
+              _shape_items(wshapes), x.element_size(), tpc.tp, tpc.mode,
+              tpc.hw, _shape_items(hints))
+    return plan_mod.PerfsimPlanner(
+        value_shapes=vshapes, weight_shapes=wshapes,
+        dtype_bytes=x.element_size(),
+        fabric=plan_mod.fabric_from_hw(tpc.hw, max(tpc.tp, 2)),
+        backend=tpc.mode, cache=plan_mod.default_cache(), comp_hints=hints,
+        memo_key=static)
+
+
 def sp_serve_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
                     kinds: Sequence[str], pools_seq, view, *,
                     norm_kind: str = "rmsnorm"):
@@ -655,14 +833,17 @@ def sp_serve_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     :class:`repro_torch.models.attention.KVView`) and each block's pools
     (``pools_seq``, one ``{"k", "v"}`` dict a block, this rank's heads)
     enter as graph inputs of the attention core nodes; the pools are written
-    in place and come back as graph outputs. The ``perfsim`` planner is
-    ROADMAP A13: its context refuses to be built.
+    in place and come back as graph outputs. Under ``planner="perfsim"``
+    pass 3 comes from the plan over the serve graph's own value shapes
+    (:func:`serve_planner`); the layout has no gemm_rs/ag_gemm pair, so the
+    plan pairs nothing.
 
     x: (B, S_step, d) whole on every rank. Returns (period output, the
     pools list)."""
     base, weights = serve_period_graph(tpc, params_seq, cfg, kinds,
                                        dtype=x.dtype)
-    graph = df.optimize(base)
+    graph = df.optimize(base, planner=serve_planner(
+        tpc, cfg, kinds, weights, x, pools_seq, view))
     vals = {"x": x, "bt": view.block_tables, "qpos": view.positions,
             "ctx": view.context_lens}
     for i, pool in enumerate(pools_seq):

@@ -35,8 +35,9 @@ V5E = HWSpec()
 
 # NVIDIA H100 SXM5 (80 GB). Sources: NVIDIA H100 Tensor Core GPU data sheet
 # (SXM column, dense rates) and the NVIDIA Hopper architecture white paper;
-# the two latencies are not on either and are assumptions to be calibrated
-# from the port's own measurements (ROADMAP A13).
+# the two latencies are not on either and are assumptions, until
+# ``repro_torch.plan.calibrate`` fits them from rows measured over NCCL on
+# two or more cards (ROADMAP A13).
 H100 = HWSpec(
     peak_flops=989e12,        # data sheet: BF16 Tensor Core, dense
     hbm_bw=3.35e12,           # data sheet: GPU memory bandwidth 3.35 TB/s

@@ -29,8 +29,9 @@ class TPConfig:
     the model path raises for it on a group larger than one);
     ``chunks=None`` lets the cais backend plan the ring chunking per
     collective; ``microbatches`` is the period-graph batch split (int, or
-    ``"auto"``); ``planner`` drives pass 3 (only ``"greedy"`` is ported:
-    ``"perfsim"`` is ROADMAP A13 and raises); ``sequence_parallel=False``
+    ``"auto"``); ``planner`` drives the split and pass 3 (``"greedy"``, or
+    ``"perfsim"``: the schedule planner of :mod:`repro_torch.plan`);
+    ``sequence_parallel=False``
     (replicated activations) is ROADMAP A11; ``graph_backward`` is read by
     the training slice (ROADMAP A8)."""
 
@@ -41,11 +42,6 @@ class TPConfig:
     microbatches: Union[int, str] = 1   # period-graph batch split
     planner: str = "greedy"             # pass-3 planner
     graph_backward: bool = True         # period grads via the graph VJP
-
-    def __post_init__(self):
-        if self.planner != "greedy":
-            raise NotImplementedError(f"planner {self.planner!r} is not "
-                                      "ported yet (ROADMAP A13)")
 
 
 @dataclass(frozen=True)

@@ -182,8 +182,11 @@ def test_graph_errors_match_repro(case):
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A13"):
-        df.optimize(df.sublayer_graph(), planner="perfsim")
+    # the perfsim planner is ported: optimize plans as repro's does
+    got = df.optimize(df.sublayer_graph(), planner="perfsim")
+    want = jdf.optimize(jdf.sublayer_graph(), planner="perfsim")
+    assert [(n.name, n.op) for n in got.nodes] == \
+        [(n.name, n.op) for n in want.nodes]
     with pytest.raises(NotImplementedError, match="A14"):
         init_tp_group(4, 0, init_method="file:///nowhere", dp=2)
     with pytest.raises(NotImplementedError, match="A10"):

@@ -18,11 +18,15 @@ smoke widths, in f32, each held to JAX on one CPU device within 1e-5:
 - the ``gemm_ar`` dispatches through the backend, forward and backward, and
   the matmul and flash calls against the graph-derived counts;
 - the ring ``Engine``'s greedy tokens against the one-device port
-  ``Engine``'s, with every step's logits bitwise equal across ranks.
+  ``Engine``'s, with every step's logits bitwise equal across ranks;
+- ``LM.serve_step`` under ``planner="perfsim"`` (cais): the same logits,
+  bitwise, as the greedy planner's, the plan cache consulted once for each
+  new period description and its memo for every repeat.
 
 The ranks run in their own processes (``tests/torch_rank_cells.py``, no
 JAX), spawned once per world size."""
 import functools
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -152,14 +156,22 @@ def engine_case():
     return params, [r.out_tokens for r in reqs]
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
-def ring(request):
+@functools.lru_cache(maxsize=None)
+def ring_run(n):
+    """One spawn of ``n`` gloo ranks: every serving case, and at world 4
+    the perfsim serving run."""
     params, xs, _ = block_case()
     serve = ({a: (SERVE[a], serve_case(a)[0]) for a in SERVE}, schedule())
     engine = (ENGINE_ARCH, SERVE[ENGINE_ARCH], engine_case()[0],
               ENGINE_PROMPTS, 4, ENGINE_KW)
-    return request.param, run_ranks(cells.serve_tp_cells, request.param,
-                                    (BLOCK_ARCH, params, xs), serve, engine)
+    with tempfile.TemporaryDirectory() as root:
+        return run_ranks(cells.serve_tp_cells, n, (BLOCK_ARCH, params, xs),
+                         serve, engine, root if n == 4 else None)
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
+def ring(request):
+    return request.param, ring_run(request.param)
 
 
 def _shard(a, name, cfg, r, n):
@@ -280,6 +292,32 @@ def test_serve_dispatch_and_calls(ring, run):
             assert ar == 2 * cfg.num_layers
             assert made == derived > 0
             assert flash == cfg.num_layers
+
+
+@pytest.mark.parametrize("arch", sorted(SERVE))
+def test_serve_perfsim_equals_greedy(arch):
+    """sp_serve_period under the perfsim planner at world 4: the replicated
+    layout has no gemm_rs/ag_gemm pair, so the plan pairs nothing and the
+    logits, pools and calls are the greedy planner's, bitwise; each period
+    description (its kinds and step shape) is looked up in the cache once a
+    rank, every repeat answered by the memo."""
+    res = ring_run(4)
+    cfg = get_arch(arch).smoke().scaled(**SERVE[arch])
+    P = len(cfg.layer_pattern)
+    periods = [tuple(cfg.layer_kinds()[lo:lo + P])
+               for lo in range(0, cfg.num_layers, P)]
+    shapes = {toks.shape for toks, _ in schedule()}
+    for r in res:
+        logits, pools, counts = r[("serve", arch, "cais", "perfsim")]
+        g_logits, g_pools, g_counts = r[("serve", arch, "cais")]
+        assert all(np.array_equal(a, b) for a, b in zip(logits, g_logits))
+        for p, q in zip(pools, g_pools):
+            assert all(np.array_equal(p[k], q[k]) for k in ("k", "v"))
+        assert counts == g_counts
+        hits, misses, memo = r[("plans", arch)]
+        assert memo > 0
+        assert hits + misses == len(shapes) * len(set(periods))
+        assert hits + misses + memo == len(schedule()) * len(periods)
 
 
 def test_engine_on_the_ring(ring):

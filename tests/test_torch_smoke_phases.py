@@ -42,8 +42,9 @@ def phase9():
                        DataConfig(CS.SEED))
     with tempfile.TemporaryDirectory() as root:
         ref, store = CS.train_reference(batch, root, cfg, "cpu")
-        ranks = run_ranks(CS.train_rank, 4, batch, CS.TRAIN_RUNS, store, ref,
-                          cfg, "cpu", device="cpu", timeout=600)
+        with CS.plan_cache_at(Path(root) / "plans"):
+            ranks = run_ranks(CS.train_rank, 4, batch, CS.TRAIN_RUNS, store,
+                              ref, cfg, "cpu", device="cpu", timeout=600)
     return cfg, ref, ranks
 
 
@@ -51,8 +52,9 @@ def phase9():
                          ids=["-".join(map(str, r)) for r in CS.TRAIN_RUNS])
 def test_phase9_on_the_cpu(phase9, i):
     cfg, ref, ranks = phase9
-    mode, mb, dtype = CS.TRAIN_RUNS[i]
+    dtype = CS.TRAIN_RUNS[i][2]
     per = [rk[i] for rk in ranks]
+    mb = per[0]["mb"]
     f32 = dtype == "float32"
     assert len({p["loss"] for p in per}) == 1
     want = ref["loss"] if f32 else ref["loss_bf16"]
@@ -64,7 +66,8 @@ def test_phase9_on_the_cpu(phase9, i):
         assert sum(c[-1] for c in p["call_shapes"]) == p["matmul_derived"]
         assert p["flash_derived"] == 3 * mb * cfg.num_layers
         assert p["overlap_asym"] == p["overlap_asym_nodes"]
-        assert bool(p["cross_direction_pairs"]) == (mb > 1)
+        if p["planner"] == "greedy":
+            assert bool(p["cross_direction_pairs"]) == (mb > 1)
         got = {(M, K, N, lay) for M, K, N, _, lay, _ in p["call_shapes"]
                if lay != "nn"}
         assert got and got <= predicted
@@ -75,6 +78,8 @@ def test_phase9_on_the_cpu(phase9, i):
                 for q in ("grad", "m", "v"):
                     assert e[q][0] <= e[q][1]
                 assert e["param"][1] <= 1.0
+    if per[0]["plans"] is not None:
+        assert all(CS.plan_checks(per).values())
 
 
 # phase 10's traffic cut to smoke size: prompts of 12-40 tokens, chunks of
@@ -96,9 +101,10 @@ def phase10():
                              ("float32", "bfloat16"), "cpu")
     rone = CS.serve_reference(rcfg, TRAFFIC, None, rsteps, ("float32",),
                               "cpu")
-    ranks = run_ranks(CS.serve_tp_rank, 4, TRAFFIC, CS.SERVE_TP_RUNS,
-                      prompts, steps, rsteps, cfg, rcfg, "cpu", device="cpu",
-                      timeout=600)
+    with tempfile.TemporaryDirectory() as root, CS.plan_cache_at(root):
+        ranks = run_ranks(CS.serve_tp_rank, 4, TRAFFIC, CS.SERVE_TP_RUNS,
+                          prompts, steps, rsteps, cfg, rcfg, "cpu",
+                          device="cpu", timeout=600)
     rows, _ = CS.serve_tp_checks(one, rone, ranks)
     return cfg, rcfg, ranks, rows
 

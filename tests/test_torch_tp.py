@@ -5,9 +5,16 @@ with bridged parameters, within 1e-5 of JAX ``LM.loss`` on one CPU device;
 the one-device port's loss likewise; the matmul calls a rank makes equal to
 the count derived from the optimized period graphs; and the unported TP
 paths raising with their ROADMAP item (paged serving on a ring is
-``tests/test_torch_serve_tp.py``). The ranks run in their own processes
+``tests/test_torch_serve_tp.py``). In the world-4 spawn, multidev_checks'
+``planner.perfsim_vs_greedy.{barrier,cais}`` cells: a 2-block period at 2
+microbatches under the perfsim and the greedy planner, each within 1e-5 of
+JAX's one-device blocks and within 1e-6 of each other, with the plans the
+ranks cached equal to ``repro``'s ``_plan_period`` for the same ring, keys
+included. The ranks run in their own processes
 (``tests/torch_rank_cells.py``, no JAX), spawned once per world size."""
+import dataclasses
 import functools
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -16,12 +23,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from jax.sharding import AbstractMesh  # noqa: E402
+from repro import plan as jplan  # noqa: E402
 from repro.configs import get_arch as jax_get_arch  # noqa: E402
+from repro.core import tp as jtp  # noqa: E402
+from repro.core.primitives import CAISConfig as JCAISConfig  # noqa: E402
+from repro.hw import HWSpec as JHWSpec  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
+from repro.models import transformer as jtr  # noqa: E402
+from repro.plan import cache as jcache  # noqa: E402
 from repro.runtime import SMOKE as JAX_SMOKE  # noqa: E402
 
 import torch_rank_cells as cells  # noqa: E402
-from repro_torch import bridge  # noqa: E402
+from repro_torch import bridge, hw  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import tp as tp_mod  # noqa: E402
 from repro_torch.launch.ranks import run_ranks  # noqa: E402
@@ -45,11 +59,71 @@ def jax_case(arch):
     return jax.tree.map(np.asarray, params), loss
 
 
+PLANNER_ARCH = "internlm2-1.8b"
+
+
+@functools.lru_cache(maxsize=None)
+def planner_case():
+    """(numpy trees of two blocks with random norm scales, x (2, 16, d),
+    JAX's one-device output of the 2-block period)."""
+    cfg = jax_get_arch(PLANNER_ARCH).smoke()
+    rng = np.random.default_rng(61)
+    trees = []
+    for j in range(2):
+        t = jax.tree.map(np.asarray, jtr.init_block(
+            jax.random.key(60 + j), "attn", cfg, jnp.float32))
+        for norm in ("norm1", "norm2"):
+            t[norm]["scale"] = 0.1 * rng.standard_normal(
+                t[norm]["scale"].shape).astype(np.float32)
+        trees.append(t)
+    x = rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32)
+    y = jnp.asarray(x)
+    for t in trees:
+        y, _ = jtr.block_forward("attn", t, y, cfg, JAX_SMOKE)
+    return trees, x, np.asarray(y)
+
+
+def jax_period_plans(n: int, mode: str, root) -> dict:
+    """{cache key: plan} of ``repro``'s ``_plan_period`` for the planner
+    cells' period on a ring of ``n`` (an abstract mesh: planning reads
+    shapes only), with the port's H100 spec."""
+    cfg = jax_get_arch(PLANNER_ARCH).smoke()
+    trees, x, _ = planner_case()
+    tpc = jtp.TPContext(mesh=AbstractMesh((1, n), ("data", "model")),
+                        backend=mode, cais=JCAISConfig(num_chunks=2),
+                        planner="perfsim",
+                        hw=JHWSpec(**dataclasses.asdict(hw.H100)))
+    base, weights, _, _ = jtp._period_graph(tpc, trees, cfg,
+                                            cells.PLANNER_KINDS)
+    saved = jcache._DEFAULT
+    jcache._DEFAULT = jplan.PlanCache(root=str(root))
+    try:
+        jtp._plan_period(tpc, base, weights,
+                         jax.ShapeDtypeStruct(x.shape, jnp.float32), 2,
+                         moe=False, comp_hints=jtp._core_comp_hints(
+                             cfg, cells.PLANNER_KINDS, x.shape[0],
+                             x.shape[1]))
+    finally:
+        jcache._DEFAULT = saved
+    return cells._plans_on_disk(str(root))
+
+
+@functools.lru_cache(maxsize=None)
+def ring_run(n):
+    """One spawn of ``n`` gloo ranks: every loss case, and at world 4 (as
+    multidev_checks runs them) the planner cells."""
+    cases = {a: jax_case(a)[0] for a in TP_ARCHS}
+    if n != 4:
+        return run_ranks(cells.loss_cells, n, cases, TOKENS)
+    trees, x, _ = planner_case()
+    with tempfile.TemporaryDirectory() as root:
+        return run_ranks(cells.loss_cells, n, cases, TOKENS,
+                         (PLANNER_ARCH, trees, x, root))
+
+
 @pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
 def ring(request):
-    cases = {a: jax_case(a)[0] for a in TP_ARCHS}
-    return request.param, run_ranks(cells.loss_cells, request.param, cases,
-                                    TOKENS)
+    return request.param, ring_run(request.param)
 
 
 RUNS = [(a, m, mb) for a in TP_ARCHS for m in ("barrier", "cais")
@@ -73,6 +147,47 @@ def test_matmul_calls_match_the_graph(ring, run):
         _, made, derived, overlaps = r[run]
         assert made == derived > 0
         assert (overlaps > 0) == (run[2] == 2)   # a split feeds pass 3
+
+
+@pytest.mark.parametrize("mode", ["barrier", "cais"])
+def test_perfsim_vs_greedy_matches_jax(mode):
+    """planner.perfsim_vs_greedy.{mode} at world 4: the schedule may differ,
+    the math may not."""
+    res = ring_run(4)
+    want = planner_case()[2]
+    out = {}
+    for planner in ("greedy", "perfsim"):
+        out[planner] = np.concatenate(
+            [r["planner"][(mode, planner)][0] for r in res], axis=1)
+        np.testing.assert_allclose(out[planner], want, **TOL)
+    assert float(np.abs(out["perfsim"] - out["greedy"]).max()) <= 1e-6
+
+
+def test_perfsim_plans_match_jax(tmp_path):
+    """The ranks plan on the global shapes repro's planner sees (a rank's
+    sequence shard times the ring, its weight shards made whole): the
+    cached keys and plans equal repro's for the same ring of 4, every rank
+    holds the same plans, and the optimized forward pairs what its plan
+    says."""
+    n, res = 4, ring_run(4)
+    plans = res[0]["planner"]["plans"][0]
+    want = {}
+    for mode in ("barrier", "cais"):
+        want.update(jax_period_plans(n, mode, tmp_path / mode))
+    assert plans.keys() == want.keys() and len(want) == 2
+    for k, w in want.items():
+        g = plans[k]
+        for f in ("pairing", "num_chunks", "num_microbatches", "backend"):
+            assert g[f] == w[f], (k, f)
+        for f in ("makespan", "greedy_makespan"):
+            assert abs(g[f] - w[f]) <= 1e-12 * abs(w[f])
+    by_mode = {p["backend"]: p for p in plans.values()}
+    for r in res:
+        assert r["planner"]["plans"][0] == plans
+        for mode, p in by_mode.items():
+            assert r["planner"][(mode, "perfsim")][1] == sorted(
+                f"{a}+{b}" for a, b in p["pairing"])
+    assert by_mode["cais"]["pairing"]
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-7b",
@@ -120,18 +235,20 @@ def test_unported_tp_paths_raise():
     odd = {"tokens": toks[:, :31], "labels": toks[:, :31]}
     with pytest.raises(NotImplementedError, match="A11"):
         lm.loss(odd)
-    with pytest.raises(NotImplementedError, match="A13"):
-        TPConfig(mode="cais", planner="perfsim")
+    # the perfsim planner is ported: its config builds
+    assert TPConfig(mode="cais", planner="perfsim").planner == "perfsim"
     # paged serving runs on a ring (tests/test_torch_serve_tp.py); serving
-    # over dense caches, the dense engine and the perfsim serve plan do not
+    # over dense caches and the dense engine do not
     with pytest.raises(NotImplementedError, match="A11, A12"):
         lm.prefill(toks)
     with pytest.raises(NotImplementedError, match="A11, A12"):
         lm.decode_step(toks[:, :1], [], torch.zeros(2, dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="A11, A12"):
         DenseEngine(lm, cfg, lm.rt, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tp_mod.TPContext(group, backend="cais", planner="perfsim")
+    assert tp_mod.TPContext(group, backend="cais",
+                            planner="perfsim").planner == "perfsim"
+    with pytest.raises(ValueError, match="unknown planner"):
+        tp_mod.TPContext(group, backend="cais", planner="persim")
 
 
 def test_tp_model_defaults_to_the_card():

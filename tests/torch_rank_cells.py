@@ -5,6 +5,8 @@
 compare what the ranks return against JAX and against unsharded math."""
 from __future__ import annotations
 
+import json
+import os
 import sys
 
 import numpy as np
@@ -107,11 +109,66 @@ def _count_matmuls():
     return count
 
 
-def loss_cells(group, cases, tokens):
+def _plan_cache(root):
+    """Point the process-wide plan cache at ``root`` (the ranks of a spawn
+    share it, as they share ``reports/plans_torch`` on the card)."""
+    from repro_torch import plan
+
+    plan.cache._DEFAULT = plan.PlanCache(root=root)
+    return plan.cache._DEFAULT
+
+
+def _plans_on_disk(root):
+    """{cache key: plan} of every entry under ``root``."""
+    out = {}
+    for f in sorted(os.listdir(root)):
+        if f.endswith(".json"):
+            with open(os.path.join(root, f)) as fh:
+                out[f[:-5]] = json.load(fh)
+    return out
+
+
+PLANNER_KINDS = ("attn", "attn")
+
+
+def planner_cells(group, arch, trees, x, root):
+    """multidev_checks' ``planner.perfsim_vs_greedy.{barrier,cais}``: the
+    2-block period of ``trees`` (numpy block trees of ``repro``) on this
+    rank's sequence shard of ``x``, 2 microbatches, under each planner and
+    backend; returns {(mode, planner): (this rank's output shard, the
+    optimized forward's overlap_asym nodes)}, and under "plans" every
+    entry of the plan cache at ``root`` and this rank's cache counters."""
+    from repro_torch.configs import get_arch
+
+    cache = _plan_cache(root)
+    cfg = get_arch(arch).smoke()
+    blocks = [_block_shard(cfg, t, group) for t in trees]
+    xs = _rows(x, group.rank, group.size, 1)
+    out = {}
+    for mode in ("barrier", "cais"):
+        for planner in ("greedy", "perfsim"):
+            tpc = tp_mod.TPContext(group, backend=mode,
+                                   cais=prim.CAISConfig(num_chunks=2),
+                                   planner=planner)
+            y, _ = tp_mod.sp_period(tpc, xs, blocks, cfg, PLANNER_KINDS,
+                                    num_microbatches=2)
+            period, _ = tp_mod.build_period(tpc, xs, blocks, cfg,
+                                            PLANNER_KINDS,
+                                            num_microbatches=2)
+            out[(mode, planner)] = (y.numpy(), sorted(
+                nd.name for nd in period.graph.nodes
+                if nd.op == "overlap_asym"))
+    group.all_reduce(torch.zeros(1))     # every rank has written its plans
+    out["plans"] = (_plans_on_disk(root), cache.stats, cache.memo_hits)
+    return out
+
+
+def loss_cells(group, cases, tokens, planner=None):
     """``LM.loss`` on this rank for every (arch, mode, microbatches) case,
     with the bridged JAX parameters of ``cases[arch]``; returns
     {(arch, mode, mb): (loss, matmul calls made, calls derived from the
-    optimized period graphs, overlap_asym nodes)}."""
+    optimized period graphs, overlap_asym nodes)}, and with ``planner``
+    (the arguments of :func:`planner_cells`) its cells under "planner"."""
     from repro_torch import bridge
     from repro_torch.configs import get_arch
     from repro_torch.models import LM
@@ -148,18 +205,23 @@ def loss_cells(group, cases, tokens):
                     overlaps += sum(nd.op == "overlap_asym"
                                     for nd in g.nodes)
                 res[(arch, mode, mb)] = (loss, made, derived, overlaps)
+    if planner is not None:
+        res["planner"] = planner_cells(group, *planner)
     return res
 
 
-def grad_cells(group, cases, tokens, runs, norm_tree):
+def grad_cells(group, cases, tokens, runs, norm_tree, plan_root=None):
     """``LM.loss`` and its backward on this rank for every (arch, mode,
-    microbatches) run, with the bridged JAX parameters of ``cases[arch]``:
-    returns {run: (loss, {param: this rank's grad}, matmul calls made,
-    calls derived from the optimized forward and training graphs, flash
-    calls made, flash calls derived, overlap_asym executions, overlap_asym
-    nodes of those graphs, cross-direction overlap_asym nodes, the (M, K, N,
-    layout) of every matmul call with a transposed operand)}, and under
-    "norm" the ring's ``global_norm`` of ``norm_tree`` (:func:`norm_cell`)."""
+    microbatches[, planner]) run, with the bridged JAX parameters of
+    ``cases[arch]``: returns {run: (loss, {param: this rank's grad}, matmul
+    calls made, calls derived from the planned forward and training graphs
+    (:func:`repro_torch.core.tp.build_period`), flash calls made, flash
+    calls derived, overlap_asym executions, overlap_asym nodes of those
+    graphs, cross-direction overlap_asym nodes, the (M, K, N, layout) of
+    every matmul call with a transposed operand, the microbatches the
+    period ran)}, and under "norm" the ring's ``global_norm`` of
+    ``norm_tree`` (:func:`norm_cell`). A perfsim run plans through a cache
+    at ``plan_root``."""
     from repro_torch import bridge
     from repro_torch.configs import get_arch
     from repro_torch.core.backends import get_backend
@@ -196,14 +258,19 @@ def grad_cells(group, cases, tokens, runs, norm_tree):
             return _inner(*a, **kw)
 
         be.overlap_asymmetric = counted
+    if plan_root is not None:
+        _plan_cache(plan_root)
     tok = _t(tokens)
     B, S = tokens.shape
     res = {}
-    for arch, mode, mb in runs:
+    for run in runs:
+        arch, mode, mb = run[:3]
+        planner = run[3] if len(run) > 3 else "greedy"
         cfg = get_arch(arch).smoke()
         rt = Runtime(compute_dtype="float32", loss_chunk=SMOKE.loss_chunk,
                      remat=False,
-                     tp=TPConfig(mode=mode, chunks=2, microbatches=mb))
+                     tp=TPConfig(mode=mode, chunks=2, microbatches=mb,
+                                 planner=planner))
         lm = LM(cfg, rt, device="cpu", seed=None, group=group)
         bridge.load_jax_params(lm, cases[arch])
         lm.requires_grad_(True)
@@ -215,24 +282,24 @@ def grad_cells(group, cases, tokens, runs, norm_tree):
         made = (count[0], flash[0], asym[0])
         tpc = tp_mod.TPContext.from_config(rt.tp, group)
         P = len(cfg.layer_pattern)
+        x = torch.empty(B, S // group.size, cfg.d_model, device="meta")
         derived = fderived = pairs = cross = 0
         for p in range(cfg.num_layers // P):
-            base, _ = tp_mod._period_graph(tpc, lm.blocks[p * P:(p + 1) * P],
-                                           cfg, cfg.layer_pattern)
-            merged = tp_mod.microbatch_period_graph(base, mb)
-            fwd = dataflow.optimize(merged)
-            _, bwd = tp_mod.training_graph(merged, cfg.norm)
-            for g in (fwd, bwd):
-                derived += tp_mod.matmul_calls(g, tpc, B // mb, S,
+            period, _ = tp_mod.build_period(
+                tpc, x, lm.blocks[p * P:(p + 1) * P], cfg, cfg.layer_pattern,
+                norm_kind=cfg.norm)
+            _, bwd, _ = period.training()
+            for g in (period.graph, bwd):
+                derived += tp_mod.matmul_calls(g, tpc, B // period.mb, S,
                                                cfg.d_model, 4)
                 fderived += tp_mod.flash_calls(g)
                 pairs += sum(nd.op == "overlap_asym" for nd in g.nodes)
-            cross += len(tp_mod.cross_direction_pairs(merged, bwd))
-        res[(arch, mode, mb)] = (
+            cross += len(tp_mod.cross_direction_pairs(period.merged, bwd))
+        res[run] = (
             float(loss.detach()),
             {n: p.grad.numpy() for n, p in lm.named_parameters()},
             made[0], derived, made[1], fderived, made[2], pairs, cross,
-            sorted(transposed))
+            sorted(transposed), period.mb)
     res["norm"] = norm_cell(group, norm_tree)
     return res
 
@@ -293,7 +360,11 @@ def _view(v):
     return KVView(*(_t(a) for a in v))
 
 
-def serve_tp_cells(group, block, serve, engine):
+SERVE_RUNS = (("barrier", "greedy"), ("cais", "greedy"),
+              ("cais", "perfsim"))
+
+
+def serve_tp_cells(group, block, serve, engine, plan_root=None):
     """Every serving-over-the-ring case on this rank.
 
     ``block``: (arch, numpy block tree, {S: x}): ``sp_block`` in the
@@ -302,9 +373,12 @@ def serve_tp_cells(group, block, serve, engine):
     the forward and in the backward, matmul calls made and derived from the
     forward and training graphs).
     ``serve``: {arch: (overrides, numpy params)} and the schedule, a list of
-    (tokens, (bt, pos, ctx, last)): ``LM.serve_step`` per (arch, mode):
-    (logits per step, final pools, gemm_ar dispatches, matmul calls made
-    and derived, flash calls made and derived).
+    (tokens, (bt, pos, ctx, last)): ``LM.serve_step`` per (arch, mode[,
+    "perfsim"]) of :data:`SERVE_RUNS`: (logits per step, final pools,
+    gemm_ar dispatches, matmul calls made and derived, flash calls made and
+    derived); the perfsim run, made only with a ``plan_root``, plans
+    through a cache there, whose counters it returns under ("plans",
+    arch): (JSON-key hits, misses, memo hits).
     ``engine``: (arch, overrides, numpy params, prompts, max_new, serve
     config kwargs): the ring ``Engine``'s greedy tokens and every step's
     logits."""
@@ -354,9 +428,13 @@ def serve_tp_cells(group, block, serve, engine):
     cases, schedule = serve
     for arch, (over, params) in cases.items():
         cfg = get_arch(arch).smoke().scaled(**over)
-        for mode in ("barrier", "cais"):
+        for mode, planner in SERVE_RUNS:
+            if planner == "perfsim" and plan_root is None:
+                continue
+            if planner == "perfsim":
+                cache = _plan_cache(plan_root)
             rt = Runtime(compute_dtype="float32",
-                         tp=TPConfig(mode=mode, chunks=2))
+                         tp=TPConfig(mode=mode, chunks=2, planner=planner))
             lm = LM(cfg, rt, device="cpu", seed=None, group=group)
             bridge.load_jax_params(lm, params)
             tpc = tp_mod.TPContext.from_config(rt.tp, group)
@@ -376,9 +454,13 @@ def serve_tp_cells(group, block, serve, engine):
                         dataflow.optimize(g), tpc, B, S, cfg.d_model, 4)
                 logits.append(lg.numpy())
                 counts.append((ar[0], mm[0], derived, flash[0]))
-            out[("serve", arch, mode)] = (
-                logits, [{k: v.numpy() for k, v in p.items()}
-                         for p in pools], counts)
+            key = ("serve", arch, mode) + (
+                (planner,) if planner != "greedy" else ())
+            out[key] = (logits, [{k: v.numpy() for k, v in p.items()}
+                                 for p in pools], counts)
+            if planner == "perfsim":
+                out[("plans", arch)] = (cache.hits, cache.misses,
+                                        cache.memo_hits)
 
     arch, over, params, prompts, max_new, sc_kw = engine
     cfg = get_arch(arch).smoke().scaled(**over)
