@@ -126,6 +126,32 @@ Phases (any failure exits non-zero):
      its kv head replicated and sliced on each rank), ``cais`` f32, its
      scripted logits over 4 prefill chunks (past the 512 window) within
      ``LOGIT_TOL`` of one device's.
+ 11. MoE: mixtral-8x7b at its published widths (8 experts top-2, capacity
+     factor 1.25, group 512, window 4096) cut from 32 to MOE_LAYERS layers,
+     random weights from seed 0, f32 params. (a) Served on one device
+     through ``repro_torch.launch.serve --layers``: phase 5's traffic in
+     bf16, flash once a layer a step (decode on split-KV, prefill on
+     wgmma), TTFT and per-token p50 and the peak printed; then a scripted
+     f32 ``serve_step`` schedule (a prefill chunk of 128 for the 4 rows,
+     MOE_DECODE_STEPS decode steps) on the card and on the CPU (plain
+     versions). (b) One training step, batch MOE_BATCH of MOE_SEQ tokens
+     (a rank's 512 tokens are one published routing group, so ring and one
+     device route the same groups): one device in f32 first (as phase 9),
+     then 4 gloo ranks, experts sharded by whole expert (2 a rank), each MoE
+     block one period graph route → a2a_ffn → unroute: ``barrier`` f32,
+     ``cais`` f32 and bf16, and ``cais`` f32 under the perfsim planner (the
+     split ``auto`` gives 1). Routing is discrete, so every MoE comparison
+     compares routing first (each (token, layer)'s two experts and capacity
+     slots, against the CPU in (a) and one device's group in (b)) and
+     prints the count of differences: a difference is allowed only at a
+     reference probability gap (top-1/top-2 or top-2/top-3) below
+     ROUTE_TOL, and the logits (a) and the grad norm, grads, m, v and
+     parameters (b) are held element-wise, as in phases 4 and 9, only where
+     the routing agreed; bf16 runs by the loss rule alone. The launches
+     must equal the graphs' counts, the expert all-to-all and its adjoint
+     must run through the backend with the matmul kernel inside, and every
+     call shape must be among phase 3's (which adds mixtral's attention
+     cores and every expert and attention GEMM of the ring's step).
 Phase 3 also holds matmul_rmsnorm against its plain version at the TPU
 kernel's test shapes, at every shape phase 8 calls (b a column slice of
 ``wkv_a`` for the KV latent) and at N 8192, and flash attention at the MLA
@@ -230,6 +256,25 @@ REPL_ARCH, REPL_LAYERS, REPL_CHUNKS = "gemma3-1b", 6, 4
 # ||one - f32||: held per step at BF16_LOGIT_FACTOR times ||one - f32||
 # (Frobenius norms over the rows)
 BF16_LOGIT_FACTOR = 4.0
+# phase 11: MoE, mixtral-8x7b at full width cut to MOE_LAYERS layers (its
+# f32 training state, 46.7 B parameters whole, does not fit one card).
+# Training batch 1 of MOE_SEQ tokens: a rank's shard of 512 tokens is the
+# published routing group, so the ring routes the groups one device does
+# (capacity 160 on both sides); every run at 1 microbatch ("auto" never
+# splits an MoE period)
+MOE_ARCH, MOE_LAYERS, MOE_BATCH, MOE_SEQ = "mixtral-8x7b", 2, 1, 2048
+MOE_RUNS = [("barrier", 1, "float32"), ("cais", 1, "float32"),
+            ("cais", 1, "bfloat16"), ("cais", "auto", "float32", "perfsim")]
+# routing is discrete: two f32 computations of the same router input that
+# differ by summation order (the CPU and the card, the ring and one device)
+# may choose another expert where the router's probabilities of the
+# token's top-1/top-2 or top-2/top-3 experts lie closer than this; a
+# routing difference is allowed only there, and element-wise holds are made
+# only where the routing agreed
+ROUTE_TOL = 1e-4
+# phase 11 (a): the scripted f32 serve_step schedule, one prefill chunk for
+# every row then decode steps
+MOE_DECODE_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -370,18 +415,25 @@ def get_tp_cfg():
     return get_arch(TP_ARCH)
 
 
-def tp_core_case(cfg, B: int, dtype, seed: int):
-    """The attention core as a rank of phase 6 calls it: TP_SEQ causal
+def tp_core_case(cfg, B: int, dtype, seed: int, seq: int = TP_SEQ,
+                 window: int = 0):
+    """The attention core as a rank of phase 6 calls it: ``seq`` causal
     positions, H/TP_WORLD query heads over Hkv/TP_WORLD kv heads."""
     g = torch.Generator().manual_seed(seed)
     H, Hkv = cfg.num_heads // TP_WORLD, cfg.num_kv_heads // TP_WORLD
     dh = cfg.resolved_head_dim
-    mk = lambda h: torch.randn(B, TP_SEQ, h, dh, generator=g).to("cuda",
-                                                                 dtype)
-    pos = torch.arange(TP_SEQ, dtype=torch.int32,
-                       device="cuda").expand(B, TP_SEQ).contiguous()
+    mk = lambda h: torch.randn(B, seq, h, dh, generator=g).to("cuda", dtype)
+    pos = torch.arange(seq, dtype=torch.int32,
+                       device="cuda").expand(B, seq).contiguous()
     return dict(q=mk(H), k=mk(Hkv), v=mk(Hkv), q_positions=pos,
-                kv_positions=pos, window=0)
+                kv_positions=pos, window=window)
+
+
+def get_moe_cfg():
+    """mixtral-8x7b at its published widths, cut to MOE_LAYERS layers."""
+    from repro_torch.configs import get_arch
+
+    return get_arch(MOE_ARCH).scaled(num_layers=MOE_LAYERS)
 
 
 def get_mla_cfg():
@@ -535,6 +587,21 @@ def phase_kernels(cfg, fa, ref) -> list:
                     f"ring_{arch.split('-')[0]}_{name}", serving_case(
                         rank_cfg, Sq, q0=q0, ctx=ctx, dtype=dtype,
                         seed=Sq + p0), fa, ref))
+    # phase 11: mixtral-8x7b served on one device (32 q / 8 kv heads, its
+    # 4096 window past every position) in bf16 and in the scripted f32
+    # steps, and the ring's attention core (a rank's 8 q / 2 kv heads over
+    # the gathered MOE_SEQ tokens)
+    moe = get_moe_cfg()
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(check_kernel_case("moe_decode", serving_case(
+            moe, 1, q0=[699, 649, 0, 612], ctx=[700, 650, 0, 613],
+            dtype=dtype, seed=5), fa, ref))
+        rows.append(check_kernel_case("moe_prefill_chunk", serving_case(
+            moe, PREFILL_CHUNK, q0=[640, 0, 0, 512], ctx=[700, 128, 0, 640],
+            dtype=dtype, seed=6), fa, ref))
+        rows.append(check_kernel_case("moe_tp_core", tp_core_case(
+            moe, MOE_BATCH, dtype, seed=7, seq=MOE_SEQ, window=moe.window),
+            fa, ref))
     return rows
 
 
@@ -657,7 +724,57 @@ def phase_matmul(mmk, ref) -> list:
                                        serve_traffic()):
         rows.append(check_matmul_case("serve_repl", M, K, N, torch.float32,
                                       mmk, ref))
+    # phase 11's ring training step: the attention ring GEMMs and, per
+    # local expert, the expert GEMMs of the all-to-all and their backward
+    for dtype in (torch.float32, torch.bfloat16):
+        for M, K, N, lay in moe_matmul_shapes(get_moe_cfg(),
+                                              str(dtype)[6:]):
+            rows.append(check_matmul_case("moe", M, K, N, dtype, mmk, ref,
+                                          layout=lay))
     return rows
+
+
+def moe_matmul_shapes(cfg, dtype: str, world: int = TP_WORLD,
+                      batch: int = MOE_BATCH, seq: int = MOE_SEQ,
+                      runs=None) -> list:
+    """(M, K, N, layout) of every matmul call one rank makes in phase 11's
+    training step in the runs of compute type ``dtype``, by the graphs' own
+    arithmetic (mb 1): the attention block's ring GEMMs as in phases 6 and
+    9 (barrier over the gathered b·S rows; cais gather steps of b·S_loc/c
+    rows, c as the cais planner picks it, reduce steps of b·S_loc/2), the
+    backward's grad all-gather through woᵀ and grad reduce-scatter through
+    the concatenated (wq+wk+wv)ᵀ (nt), the attention weight grads over the
+    b·S rows (tn); and per local expert of the all-to-all, on its cap rows
+    (cap from a rank's b·S_loc tokens): the up, gate and down GEMMs (nn,
+    run again by the expert VJP), dh = dy·w_downᵀ and dx = du·w_upᵀ +
+    dg·w_gateᵀ (nt), the weight grads xᵀ·du, xᵀ·dg and hᵀ·dy (tn)."""
+    from repro_torch.core import primitives as prim
+    from repro_torch.core.backends import CAISBackend
+    from repro_torch.models.ffn import capacity
+
+    runs = MOE_RUNS if runs is None else runs
+    n, d, dh = world, cfg.d_model, cfg.resolved_head_dim
+    kv_tp = n if cfg.num_kv_heads % n == 0 else 1
+    fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // kv_tp
+    f, s_loc = cfg.d_ff, seq // n
+    rows, cap = batch * seq, capacity(batch * s_loc, cfg)
+    itemsize = {"float32": 4, "bfloat16": 2}[dtype]
+    shapes = {(cap, d, f, "nn"), (cap, f, d, "nn"), (cap, d, f, "nt"),
+              (cap, f, d, "nt"), (f, cap, d, "tn"), (d, cap, f, "tn"),
+              (rows, d, fq, "nt"), (fq, rows, d, "tn"), (d, rows, fq, "tn"),
+              (d, rows, fkv, "tn")}
+    for mode in {r[0] for r in runs if r[2] == dtype}:
+        if mode == "barrier":
+            m_ag = m_rs = rows
+        else:
+            c = prim._pick_chunks(s_loc, CAISBackend.plan_chunks(
+                rows * d * itemsize, n))
+            two = n % 2 == 0 and s_loc % 2 == 0
+            m_ag, m_rs = batch * s_loc // c, batch * s_loc // (2 if two
+                                                               else 1)
+        shapes |= {(m_ag, d, fq, "nn"), (m_ag, d, fkv, "nn"),
+                   (m_rs, fq, d, "nn"), (m_rs, fq + 2 * fkv, d, "nt")}
+    return sorted(shapes)
 
 
 def train_matmul_shapes(cfg, world: int = TP_WORLD, batch: int = TP_BATCH,
@@ -1263,13 +1380,18 @@ def phase_mla_serve(cfg, fa, mln, mmk):
 
 class RefStore:
     """The one-device step's gradients, AdamW ``m`` and ``v`` and updated
-    parameters, in four flat f32 files in a temporary directory (the
+    parameters, one flat f32 file each in a temporary directory (the
     memory-mapped page cache, shared with the rank processes, which read
-    only their shards). Picklable: the ranks open the files by name."""
+    only their shards). Picklable: the ranks open the files by name.
+    ``quantities`` may keep the gradients alone: phase 11's four would be
+    50.6 GB, past what a chip call may write to its disk (45 GiB, phase 9's
+    store included); its m, v and parameters are then AdamW's first step
+    of those gradients (:func:`first_step`)."""
 
     QUANTITIES = ("grad", "m", "v", "param")
 
-    def __init__(self, shapes: dict, root: str):
+    def __init__(self, shapes: dict, root: str, quantities=QUANTITIES):
+        self.quantities = tuple(quantities)
         self.shapes = dict(shapes)
         self.offsets, n = {}, 0
         for name, shape in self.shapes.items():
@@ -1281,7 +1403,7 @@ class RefStore:
         return str(Path(self.root) / f"{q}.f32")
 
     def create(self) -> None:
-        for q in self.QUANTITIES:
+        for q in self.quantities:
             with open(self.path(q), "wb") as f:
                 f.truncate(4 * self.numel)
 
@@ -1302,14 +1424,93 @@ class RefStore:
             .view(self.shapes[name])
 
 
-def train_batch():
+def train_batch(cfg=None, seq: int = TP_SEQ, batch: int = TP_BATCH):
     """Phase 9's batch: step 0 of ``data.pipeline.make_batch`` at train_4k's
-    length, its global batch of 256 cut to TP_BATCH."""
+    length, its global batch of 256 cut to TP_BATCH (phase 11: ``seq`` and
+    ``batch`` of ``cfg``)."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, make_batch
 
-    shape = ShapeConfig("train_4k", TP_SEQ, TP_BATCH, "train")
-    return make_batch(get_tp_cfg(), shape, 0, DataConfig(SEED))
+    shape = ShapeConfig("train_4k", seq, batch, "train")
+    return make_batch(cfg or get_tp_cfg(), shape, 0, DataConfig(SEED))
+
+
+def routing_probe():
+    """Wrap the MoE dispatch (``models.ffn._top2_dispatch``, which the
+    one-device ``moe_forward`` and the ring's ``route_fn`` call) so that
+    each call's routing is recorded on the host: per token
+    (expert 1, its slot, expert 2, its slot), −1 for a dropped choice's
+    slot, and the token's three largest router probabilities. Returns
+    (records, restore)."""
+    from repro_torch.models import ffn
+
+    inner = ffn._top2_dispatch
+    rec = []
+
+    def recorded(probs, capacity):
+        out = inner(probs, capacity)
+        rec.append(compact_routing(probs, out[0]))
+        return out
+
+    def restore():
+        ffn._top2_dispatch = inner
+
+    ffn._top2_dispatch = recorded
+    return rec, restore
+
+
+def compact_routing(probs, dispatch) -> tuple:
+    """((T, 4) int32 (e1, slot1, e2, slot2), (T, 3) f32 top-3 router
+    probabilities) of one dispatch call, tokens in group-major order."""
+    p = probs.detach().float().reshape(-1, probs.shape[-1])
+    d = dispatch.reshape(p.shape[0], p.shape[1], -1)
+    e1 = torch.argmax(p, -1)
+    e2 = torch.argmax(p.scatter(1, e1[:, None], -1.0), -1)
+    t = torch.arange(p.shape[0], device=p.device)
+
+    def slot(e):
+        row = d[t, e]
+        return torch.where(row.any(-1), row.float().argmax(-1), -1)
+
+    routing = torch.stack([e1, slot(e1), e2, slot(e2)], 1).int()
+    top3 = p.sort(-1, descending=True).values[:, :3]
+    return routing.cpu().numpy(), top3.cpu().numpy()
+
+
+def routing_differences(got: list, want: list) -> dict:
+    """The (token, layer) pairs whose routing differs between ``got`` and
+    the reference ``want`` (lists of :func:`compact_routing` records, in
+    the same order): ``choice``, the pairs whose two experts differ;
+    ``slots``, the pairs with the same experts in other capacity slots (a
+    choice elsewhere in the group moves them); ``worst_gap``, the largest
+    reference gap (top-1/top-2 or top-2/top-3, the smaller) among the
+    choice differences; ``first``, the index of the first record with a
+    difference (None where all agree)."""
+    import numpy as np
+
+    out = dict(choice=0, slots=0, worst_gap=None, first=None)
+    for i, ((g, _), (w, top3)) in enumerate(zip(got, want)):
+        ch = (g[:, 0] != w[:, 0]) | (g[:, 2] != w[:, 2])
+        sl = ~ch & ((g[:, 1] != w[:, 1]) | (g[:, 3] != w[:, 3]))
+        out["choice"] += int(ch.sum())
+        out["slots"] += int(sl.sum())
+        if ch.any():
+            gap = np.minimum(top3[:, 0] - top3[:, 1],
+                             top3[:, 1] - top3[:, 2])[ch]
+            out["worst_gap"] = max(out["worst_gap"] or 0.0, float(gap.max()))
+        if out["first"] is None and (ch.any() or sl.any()):
+            out["first"] = i
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} routing records against "
+                             f"{len(want)}")
+    return out
+
+
+def routing_rule(diff: dict) -> bool:
+    """Routing agrees, or every expert choice that differs sits at a
+    reference probability gap below ROUTE_TOL."""
+    return diff["choice"] == 0 and diff["slots"] == 0 or (
+        diff["worst_gap"] is not None and diff["worst_gap"] < ROUTE_TOL)
 
 
 def _on_card(device) -> bool:
@@ -1332,11 +1533,13 @@ def _peak_gib(device) -> Optional[float]:
         if _on_card(device) else None
 
 
-def train_reference(batch, root: str, cfg, device="cuda") -> tuple:
+def train_reference(batch, root: str, cfg, device="cuda",
+                    quantities=RefStore.QUANTITIES) -> tuple:
     """The one-device step, f32, remat on, the per-block path: its loss,
     grad norm, time and peak memory, the one-device bf16 loss (forward
-    only), and a :class:`RefStore` of its gradients, m, v and parameters.
-    Frees the card before it returns."""
+    only), an MoE's routing in the step's forward (:func:`routing_probe`),
+    and a :class:`RefStore` of its gradients, m, v and parameters. Frees
+    the card before it returns."""
     from repro_torch.models import LM
     from repro_torch.optim import adamw, constant_schedule
     from repro_torch.runtime import Runtime
@@ -1353,21 +1556,26 @@ def train_reference(batch, root: str, cfg, device="cuda") -> tuple:
                 clip_norm=TRAIN_CLIP)
     state = init_state(lm, opt)
     step = make_train_step(lm, opt, rt)
+    routes, restore = routing_probe()
     _peak_start(device)
     t0 = time.monotonic()
-    state, metrics = step(state, batch)
-    _sync(device)
+    try:
+        state, metrics = step(state, batch)
+        _sync(device)
+    finally:
+        restore()
     step_s = time.monotonic() - t0
     peak = _peak_gib(device)
     params = dict(lm.named_parameters())
-    store = RefStore({k: tuple(p.shape) for k, p in params.items()}, root)
+    store = RefStore({k: tuple(p.shape) for k, p in params.items()}, root,
+                     quantities)
     store.create()
     t0 = time.monotonic()
     grads = {k: p.grad for k, p in params.items()}
-    store.write("grad", grads)
-    store.write("m", state["opt"]["m"])
-    store.write("v", state["opt"]["v"])
-    store.write("param", params)
+    for q, src in (("grad", grads), ("m", state["opt"]["m"]),
+                   ("v", state["opt"]["v"]), ("param", params)):
+        if q in quantities:
+            store.write(q, src)
     maxabs = {q: {k: float(t.abs().max()) for k, t in src.items()}
               for q, src in (("grad", grads), ("m", state["opt"]["m"]),
                              ("v", state["opt"]["v"]))}
@@ -1375,7 +1583,8 @@ def train_reference(batch, root: str, cfg, device="cuda") -> tuple:
     ref = dict(loss=float(metrics["loss"]),
                grad_norm=float(metrics["grad_norm"]), loss_bf16=loss_bf16,
                step_s=step_s, peak_gib=peak, write_s=write_s, maxabs=maxabs,
-               store_gb=4 * 4 * store.numel / 1e9)
+               store_gb=4 * len(quantities) * store.numel / 1e9,
+               routing=routes[:cfg.num_layers])
     del lm, state, step, opt, params, grads, metrics, tok
     if _on_card(device):
         torch.cuda.empty_cache()
@@ -1489,19 +1698,43 @@ def param_limit(g_ref, p_ref, delta):
     return TRAIN_LR * du + tight, tight, a <= delta
 
 
-def train_errors(lm, state, store, ref, r: int, n: int, cfg) -> tuple:
+def first_step(g_ref, p0, grad_norm: float) -> tuple:
+    """AdamW's first step from the one-device gradient ``g_ref`` (a chunk,
+    f32) and the initial parameter ``p0``, clipped by the one-device grad
+    norm: (m, v, parameter) as the one-device step holds them, through the
+    port's own ``adamw`` with the clip applied here (the chunk is not the
+    whole model)."""
+    from repro_torch.optim import adamw, constant_schedule
+
+    opt = adamw(constant_schedule(TRAIN_LR), eps=TRAIN_EPS,
+                clip_norm=float("inf"))
+    p = {"x": p0.float().clone()}
+    state = opt.init(p)
+    scale = min(1.0, TRAIN_CLIP / max(grad_norm, 1e-9))
+    p, state = opt.apply(p, {"x": g_ref * scale}, state, 0)
+    return state["m"]["x"], state["v"]["x"], p["x"]
+
+
+def train_errors(lm, state, store, ref, r: int, n: int, cfg,
+                 init=None) -> tuple:
     """This rank's f32 gradients, m, v and parameters against the one-device
     step's shards, CHUNK elements at a time (the card holds four ranks'
     models and states): per parameter (max|Δ|, bound) for grad, m and v,
     (max|Δ|, max err/limit) for the parameter (:func:`param_limit`, from
     the gradient bound times the one-device clip scale), and the count of
-    parameter elements past the tight bound where the sign may differ."""
+    parameter elements past the tight bound where the sign may differ.
+    Where the store keeps the gradients alone, the one-device m, v and
+    parameters are :func:`first_step` of them from this rank's initial
+    shard ``init`` (the one-device model's, drawn from the same seed)."""
     errs, at_sign = {}, 0
     clip = min(1.0, TRAIN_CLIP / ref["grad_norm"])
     for k, p in lm.named_parameters():
         mine = {"grad": p.grad, "m": state["opt"]["m"][k],
                 "v": state["opt"]["v"][k], "param": p.detach()}
-        want = {q: _ref_shard(store, q, k, r, n, cfg) for q in mine}
+        want = {q: _ref_shard(store, q, k, r, n, cfg)
+                for q in store.quantities}
+        if "param" not in want:
+            want["p0"] = init[k].reshape(-1)
         mine = {q: t.reshape(-1) for q, t in mine.items()}
         bound = {q: TRAIN_RTOL * ref["maxabs"][q][k]
                  for q in ("grad", "m", "v")}
@@ -1509,6 +1742,9 @@ def train_errors(lm, state, store, ref, r: int, n: int, cfg) -> tuple:
         for lo in range(0, mine["grad"].numel(), CHUNK):
             sl = slice(lo, lo + CHUNK)
             w = {q: t[sl].to(p.device) for q, t in want.items()}
+            if "p0" in w:
+                w["m"], w["v"], w["param"] = first_step(
+                    w["grad"], w.pop("p0"), ref["grad_norm"])
             for q in ("grad", "m", "v"):
                 worst[q] = max(worst[q], float(
                     (mine[q][sl].float() - w[q]).abs().max()))
@@ -1553,6 +1789,8 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
     torch.backends.cuda.matmul.allow_tf32 = False
     n, r = group.size, group.rank
     B, S = batch["tokens"].shape
+    P = len(cfg.layer_pattern)
+    periods = cfg.num_layers // P
     lm = LM(cfg, Runtime(compute_dtype="float32"), device=device, seed=SEED,
             group=group)
     if _on_card(device):
@@ -1568,6 +1806,20 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
             return _inner(*a, **k)
 
         be.overlap_asymmetric = counted
+    # the expert all-to-all and its adjoint through the backends, with the
+    # matmul launches made inside them (the expert GEMMs)
+    a2a = {"a2a_expert_ffn": [0, 0], "grad_a2a_expert_ffn": [0, 0]}
+    for name in ("barrier", "cais"):
+        be = get_backend(name)
+        for meth in a2a:
+            def wrapped(*a, _inner=getattr(be, meth), _m=meth, **k):
+                before = mmk.launches
+                out = _inner(*a, **k)
+                a2a[_m][0] += 1
+                a2a[_m][1] += mmk.launches - before
+                return out
+            setattr(be, meth, wrapped)
+    routes, _ = routing_probe()
     calls = {}
 
     def shapes(a, b, _inner=ops.matmul, **k):
@@ -1598,6 +1850,9 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
         fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
         calls.clear()
         probe_reset(probe)
+        routes.clear()
+        for v in a2a.values():
+            v[0] = v[1] = 0
         t0 = time.monotonic()
         state, metrics = step(state, batch)
         _sync(device)
@@ -1609,8 +1864,9 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
         tpc = tp_mod.TPContext.from_config(rt.tp, group)
         x = torch.empty(B, S // n, cfg.d_model, dtype=rt.dtype,
                         device="meta")
-        period, _ = tp_mod.build_period(tpc, x, [lm.blocks[0]], cfg,
-                                        ("attn",), norm_kind=cfg.norm)
+        period, _ = tp_mod.build_period(tpc, x, lm.blocks[:P], cfg,
+                                        cfg.layer_pattern,
+                                        norm_kind=cfg.norm)
         _, bwd, bwd_planner = period.training()
         fwd, mb = period.graph, period.mb
         per = sum(tp_mod.matmul_calls(g, tpc, B // mb, S, cfg.d_model,
@@ -1638,8 +1894,7 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
                                                   "backward", "chunks")}),
                 graphs_pair_the_plan=sorted(pairs) == planned,
                 executed_is_the_plan=executed == {
-                    p: c * cfg.num_layers
-                    for p, c in Counter(planned).items()},
+                    p: c * periods for p, c in Counter(planned).items()},
                 host_s=times,
                 cache=dict(cache.stats, memo_hits=cache.memo_hits))
         row = dict(
@@ -1647,13 +1902,24 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
             dtype=dtype, loss=float(metrics["loss"]),
             grad_norm=float(metrics["grad_norm"]), wall_s=wall,
             peak_gib=peak, matmul_launches=launches[0],
-            matmul_derived=per * cfg.num_layers, matmul_layouts=layouts,
+            matmul_derived=per * periods, matmul_layouts=layouts,
             matmul_variants=mmk.variant_totals(layouts),
             flash_launches=launches[1],
-            flash_derived=fper * cfg.num_layers,
+            flash_derived=fper * periods,
             flash_variants=dict(fa.launches_by_variant),
             overlap_asym=launches[2],
-            overlap_asym_nodes=len(pairs) * cfg.num_layers,
+            overlap_asym_nodes=len(pairs) * periods,
+            # a2a_ffn / bwd_a2a_ffn: backend dispatches and the matmul
+            # launches inside them, against the graphs' nodes and counts
+            a2a=[a2a["a2a_expert_ffn"], a2a["grad_a2a_expert_ffn"]],
+            a2a_derived=[[
+                sum(nd.op == op for g in (fwd, bwd) for nd in g.nodes)
+                * periods,
+                sum(n * getattr(nd.fn, attr) for g in (fwd, bwd)
+                    for nd in g.nodes if nd.op == op) * periods]
+                for op, attr in (("a2a_ffn", "matmul_calls"),
+                                 ("bwd_a2a_ffn", "vjp_matmul_calls"))],
+            routing=routes[:cfg.num_layers],
             cross_direction_pairs=cross,
             call_shapes=sorted([*k, v] for k, v in calls.items()),
             plans=plans,
@@ -1663,7 +1929,8 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
         if dtype == "float32":
             if _on_card(device):
                 torch.cuda.empty_cache()
-            errs, at_sign = train_errors(lm, state, store, ref, r, n, cfg)
+            errs, at_sign = train_errors(lm, state, store, ref, r, n, cfg,
+                                         init)
             row.update(errs=errs, params_at_sign_bound=at_sign)
         out.append(row)
         del state, opt, step, metrics
@@ -1708,7 +1975,18 @@ def plan_cache_at(root):
             os.environ[var] = saved
 
 
-def phase_train() -> dict:
+def phase_train(cfg=None, batch=None, runs=None, label: str = "phase 9",
+                quantities=RefStore.QUANTITIES) -> dict:
+    """One training step on TP_WORLD gloo ranks against one device (phase
+    9: internlm2-1.8b, TRAIN_RUNS; phase 11 (b): mixtral-8x7b cut to
+    MOE_LAYERS layers, MOE_RUNS). An MoE run is held to one device under
+    the routing rule: its routing against the one-device forward's (a
+    rank's shard is one group of one device); element-wise holds (grad
+    norm, grads, m, v, parameters) and the f32 loss tolerance only where
+    every rank's routing agreed, and where it did not the differences must
+    sit at gaps below ROUTE_TOL and the loss within BF16_LOSS_RTOL. Its
+    expert all-to-all and adjoint must have run through the backend as
+    often as the graphs hold them, with the matmul kernel inside."""
     import gc
     import tempfile
 
@@ -1716,34 +1994,76 @@ def phase_train() -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    batch, cfg = train_batch(), get_tp_cfg()
+    cfg = cfg or get_tp_cfg()
+    batch = batch if batch is not None else train_batch()
+    runs = runs or TRAIN_RUNS
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ref_") as root:
         import shutil
 
         free = shutil.disk_usage(root).free
-        need = 16 * cfg.param_count()
+        need = 4 * len(quantities) * cfg.param_count()
         if free < need + 2**30:
-            raise AssertionError(f"phase 9 keeps the one-device reference "
+            raise AssertionError(f"{label} keeps the one-device reference "
                                  f"on the host: {need / 1e9:.1f} GB under "
                                  f"{root}, which has {free / 1e9:.1f} GB")
-        ref, store = train_reference(batch, root, cfg)
+        ref, store = train_reference(batch, root, cfg,
+                                     quantities=quantities)
         log(f"  one device f32 (remat, per-block path): loss "
             f"{ref['loss']:.7f}, grad norm {ref['grad_norm']:.7f}, step "
             f"{ref['step_s']:.2f}s, peak {ref['peak_gib']} GiB; bf16 "
             f"loss (forward) {ref['loss_bf16']:.7f}; reference kept on the "
             f"host: {ref['store_gb']:.1f} GB in {ref['write_s']:.1f}s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        free_b, total_b = torch.cuda.mem_get_info()
+        log(f"  before the ranks: this process holds "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, the card "
+            f"has {free_b / 2**30:.2f} of {total_b / 2**30:.2f} GiB free")
         t0 = time.monotonic()
         with plan_cache_at(Path(root) / "plans"):
-            ranks = run_ranks(train_rank, TP_WORLD, batch, TRAIN_RUNS, store,
-                              ref, cfg, device="cuda", timeout=1200)
+            ranks = run_ranks(train_rank, TP_WORLD, batch, runs, store,
+                              {k: v for k, v in ref.items()
+                               if k != "routing"}, cfg, device="cuda",
+                              timeout=1200)
         wall = time.monotonic() - t0
-    rows, total_mm, total_fa, shapes, failed = [], 0, 0, set(), []
-    for i, run in enumerate(TRAIN_RUNS):
+    B, S = batch["tokens"].shape
+    rows, failed = train_checks(cfg, ref, ranks, runs, B * S // TP_WORLD)
+    if failed:
+        raise AssertionError(f"{label}: failed {failed}")
+    total_mm = sum(p["matmul_launches"] for rk in ranks for p in rk)
+    total_fa = sum(p["flash_launches"] for rk in ranks for p in rk)
+    shapes = {tuple(c[:5]) for rk in ranks for p in rk
+              for c in p["call_shapes"]}
+    log(f"  {TP_WORLD} ranks, {len(runs)} steps in {wall:.1f}s (spawn "
+        "and weights included; gloo stages every hop through the host, so "
+        "these are not TP speeds); launches over all ranks and runs: "
+        f"matmul {total_mm}, flash {total_fa}")
+    return dict(runs=rows, reference={k: v for k, v in ref.items()
+                                      if k not in ("maxabs", "routing")},
+                matmul_launches=total_mm, flash_launches=total_fa,
+                wall_s=wall, call_shapes=sorted(shapes))
+
+
+def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
+    """Each run's checks of :func:`phase_train` on what the ranks returned,
+    logged: (rows, failed (run, check) pairs). ``T`` is a rank's tokens (an
+    MoE rank's routing group)."""
+    moe = cfg.moe is not None
+    rows, failed = [], []
+    for i, run in enumerate(runs):
         per = [rk[i] for rk in ranks]
         head = per[0]
         f32 = head["dtype"] == "float32"
+        route = None
+        if moe:       # rank r routes one device's group r
+            route = [routing_differences(p["routing"], [
+                (w[r * T:(r + 1) * T], top[r * T:(r + 1) * T])
+                for w, top in ref["routing"]]) for r, p in enumerate(per)]
+        agreed = route is None or all(
+            d["choice"] == 0 and d["slots"] == 0 for d in route)
+        held = f32 and agreed
         ref_loss = ref["loss"] if f32 else ref["loss_bf16"]
-        rtol = F32_LOSS_RTOL if f32 else BF16_LOSS_RTOL
+        rtol = F32_LOSS_RTOL if held else BF16_LOSS_RTOL
         rel = abs(head["loss"] - ref_loss) / abs(ref_loss)
         gn_rel = abs(head["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
         checks = {
@@ -1770,9 +2090,17 @@ def phase_train() -> dict:
                 all(p["cross_direction_pairs"] for p in per)
                 if head["mb"] > 1 and head["planner"] == "greedy" else True),
         }
+        if moe:
+            checks["a2a_ffn / bwd_a2a_ffn through the backend, expert "
+                   "GEMMs on the matmul kernel"] = all(
+                p["a2a"] == p["a2a_derived"] and min(min(p["a2a"])) > 0
+                for p in per)
+            if f32:
+                checks[f"routing differences at gaps < {ROUTE_TOL:g}"] = \
+                    all(routing_rule(d) for d in route)
         if head["plans"] is not None:
             checks.update(plan_checks(per))
-        if f32:
+        if held:
             checks[f"grad norm within {TRAIN_RTOL:g}"] = gn_rel <= TRAIN_RTOL
             for q in ("grad", "m", "v"):
                 checks[f"every {q} within {TRAIN_RTOL:g} max|ref|"] = all(
@@ -1781,9 +2109,6 @@ def phase_train() -> dict:
             checks["params within the first-step bound"] = all(
                 e["param"][1] <= 1.0 for p in per
                 for e in p["errs"].values())
-        shapes |= {tuple(c[:5]) for p in per for c in p["call_shapes"]}
-        total_mm += sum(p["matmul_launches"] for p in per)
-        total_fa += sum(p["flash_launches"] for p in per)
         worst = {}
         if f32:
             for q in ("grad", "m", "v"):
@@ -1792,9 +2117,10 @@ def phase_train() -> dict:
             worst["param_err_over_limit"] = max(
                 e["param"][1] for p in per for e in p["errs"].values())
         row = dict({k: v for k, v in head.items()
-                    if k not in ("errs", "call_shapes")},
+                    if k not in ("errs", "call_shapes", "routing")},
                    rel_to_one_device=rel, grad_norm_rel=gn_rel,
                    one_device=ref_loss, worst_over_bound=worst,
+                   elementwise_held=held, routing_differences=route,
                    params_at_sign_bound=[p.get("params_at_sign_bound")
                                          for p in per],
                    wall_s=[p["wall_s"] for p in per],
@@ -1813,19 +2139,19 @@ def phase_train() -> dict:
             f"({len(head['cross_direction_pairs'])} cross-direction nodes a "
             f"period); step {max(row['wall_s']):.2f}s; peak "
             f"{row['peak_gib']} GiB by rank; wire: {head['wire']}")
+        if moe:
+            log(f"    routing against one device (choice / slot-only "
+                f"differences, worst gap by rank): "
+                + json.dumps([[d["choice"], d["slots"], d["worst_gap"]]
+                              for d in route])
+                + f"; element-wise holds {'made' if held else 'not made'}; "
+                f"a2a_ffn, bwd_a2a_ffn [dispatches, matmul launches inside] "
+                f"{json.dumps(head['a2a'])} (graphs "
+                f"{json.dumps(head['a2a_derived'])})")
         if head["plans"] is not None:
             log(f"    perfsim plans (rank 0): {json.dumps(head['plans'])}")
         failed += [(run, k) for k, v in checks.items() if not v]
-    if failed:
-        raise AssertionError(f"phase 9: failed {failed}")
-    log(f"  {TP_WORLD} ranks, {len(TRAIN_RUNS)} steps in {wall:.1f}s (spawn "
-        "and weights included; gloo stages every hop through the host, so "
-        "these are not TP speeds); launches over all ranks and runs: "
-        f"matmul {total_mm}, flash {total_fa}")
-    return dict(runs=rows, reference={k: v for k, v in ref.items()
-                                      if k != "maxabs"},
-                matmul_launches=total_mm, flash_launches=total_fa,
-                wall_s=wall, call_shapes=sorted(shapes))
+    return rows, failed
 
 
 # ---------------------------------------------------------------------------
@@ -2336,11 +2662,182 @@ def phase_serve_tp() -> dict:
                 flash_shapes=sorted(fa_shapes))
 
 
+# ---------------------------------------------------------------------------
+# phase 11: MoE (mixtral-8x7b at full width, MOE_LAYERS layers)
+# ---------------------------------------------------------------------------
+
+
+def moe_scripted_steps(cfg, tr: dict) -> list:
+    """Phase 11 (a)'s scripted ``serve_step`` schedule over ``tr["requests"]``
+    rows, the block tables of :func:`scripted_steps` (the engine's Skv): one
+    prefill chunk of ``tr["chunk"]`` tokens for every row, then
+    MOE_DECODE_STEPS decode steps; tokens from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 12)
+    B, C, W = tr["requests"], tr["chunk"], serve_width(tr)
+    bt = np.arange(B * W, dtype=np.int32).reshape(B, W)
+    tok = lambda *s: rng.integers(1, cfg.vocab_size, s).astype(np.int32)
+    pos = np.broadcast_to(np.arange(C, dtype=np.int32), (B, C)).copy()
+    steps = [(tok(B, C), (bt, pos, np.full(B, C, np.int32),
+                          np.full(B, C - 1, np.int32)))]
+    for t in range(MOE_DECODE_STEPS):
+        p = C + t
+        steps.append((tok(B, 1), (bt, np.full((B, 1), p, np.int32),
+                                  np.full(B, p + 1, np.int32),
+                                  np.zeros(B, np.int32))))
+    return steps
+
+
+def phase_moe_serve(cfg, fa) -> dict:
+    """Phase 11 (a): ``cfg`` (mixtral-8x7b cut to MOE_LAYERS layers) served on
+    one device through ``repro_torch.launch.serve`` (bf16 compute, f32
+    params, phase 5's traffic), flash attention once a layer a step (decode
+    on split-KV, prefill chunks on wgmma); then the scripted f32 schedule
+    (:func:`moe_scripted_steps`) on the card (the kernels) and on the CPU
+    (the plain versions): routing compared first, logits within LOGIT_TOL
+    for the steps before the first routing difference."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.runtime import Runtime
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls = {}
+    core = record_calls(ops, calls)
+    routes, restore = routing_probe()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = 0                            # count the main path only
+        fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+        t0 = time.monotonic()
+        eng, reqs = serve.main([
+            "--arch", MOE_ARCH, "--layers", str(MOE_LAYERS), "--device",
+            "cuda", "--requests", str(REQUESTS), "--prompt-len",
+            str(PROMPT_MAX), "--prompt-len-min", str(PROMPT_MIN),
+            "--max-new", str(MAX_NEW), "--prefill-chunk", str(PREFILL_CHUNK),
+            "--block-size", str(BLOCK_SIZE), "--seed", "0"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches, variants = fa.launches, dict(fa.launches_by_variant)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        report = dict(eng.last_report, steps=eng.steps)
+        engine_calls = dict(calls)
+        # the scripted f32 schedule: on the card, then on the CPU
+        lm = eng.model
+        lm.rt = Runtime(compute_dtype="float32")
+        steps = moe_scripted_steps(cfg, serve_traffic())
+        routes.clear()
+        fa.launches = 0
+        fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+        t0 = time.monotonic()
+        card, _ = run_scripted(lm, steps, BLOCK_SIZE)
+        card_s = time.monotonic() - t0
+        script = (fa.launches, dict(fa.launches_by_variant))
+        card_routes = list(routes)
+        routes.clear()
+        cpu = LM(cfg, Runtime(compute_dtype="float32"), device="cpu",
+                 seed=None)
+        cpu.load_state_dict(lm.state_dict())
+        del eng, lm
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        want, _ = run_scripted(cpu, steps, BLOCK_SIZE)
+        cpu_s = time.monotonic() - t0
+        cpu_routes = list(routes)
+        del cpu
+    finally:
+        ops.flash_attention = core
+        restore()
+    L = cfg.num_layers
+    G = cfg.num_heads // cfg.num_kv_heads
+    decode = sum(n for key, n in engine_calls.items()
+                 if key[1] * G <= fa.SPLIT_MAX_ROWS)
+    diff = routing_differences(card_routes, cpu_routes)
+    held = len(steps) if diff["first"] is None else diff["first"] // L
+    errs = [float(np.abs(c - w).max()) for c, w in zip(card, want)]
+    over = [float((np.abs(c - w) / (LOGIT_TOL["atol"] + LOGIT_TOL["rtol"]
+                                    * np.abs(w))).max())
+            for c, w in zip(card, want)]
+    checks = {
+        "every request finished": all(
+            r.done and len(r.out_tokens) == MAX_NEW for r in reqs),
+        "tokens inside the vocabulary": all(
+            0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
+        "engine: flash once a layer a step": launches == report["steps"] * L
+        > 0,
+        "engine: decode on split-KV, prefill on wgmma": variants == dict(
+            splitkv=decode, wgmma=launches - decode, ffma=0)
+        and 0 < decode < launches,
+        "scripted f32: flash once a layer a step, decode on split-KV, "
+        "prefill on ffma": script == (len(steps) * L, dict(
+            splitkv=MOE_DECODE_STEPS * L, wgmma=0, ffma=L)),
+        "routing: one record a layer a step on both":
+            len(card_routes) == len(cpu_routes) == len(steps) * L,
+        f"routing differences at gaps < {ROUTE_TOL:g}": routing_rule(diff),
+        "finite logits": all(np.isfinite(c).all() for c in card),
+        "logits within LOGIT_TOL where the routing agreed": held > 0 and all(
+            o <= 1.0 for o in over[:held]),
+    }
+    log(f"  engine: {len(reqs)} requests in {report['steps']} steps, "
+        f"{wall:.2f}s; TTFT p50 {report['ttft_p50_ms']:.1f} ms, per-token "
+        f"p50 {report['per_token_p50_ms']:.1f} ms; flash {launches} = "
+        f"{report['steps']} x {L} {json.dumps(variants)}; peak {peak:.2f} "
+        "GiB")
+    log(f"  scripted f32 ({len(steps)} steps: a prefill chunk of "
+        f"{PREFILL_CHUNK} for {REQUESTS} rows, {MOE_DECODE_STEPS} decode "
+        f"steps): card {card_s:.2f}s, CPU {cpu_s:.2f}s; routing (choice / "
+        f"slot-only differences, worst gap): {diff['choice']} / "
+        f"{diff['slots']} / {diff['worst_gap']}; logits held for {held} of "
+        f"{len(steps)} steps, max |d| by step {json.dumps(errs)}, err / "
+        f"LOGIT_TOL {json.dumps(over)}; flash {script[0]} "
+        f"{json.dumps(script[1])}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 11 (a): failed {failed}")
+    return dict(report=report, launches=launches + script[0],
+                flash_variants=variants, peak_gib=peak, wall_s=wall,
+                routing=diff, logits_held_steps=held, logits_max_abs=errs,
+                logits_err_over_tol=over, card_s=card_s, cpu_s=cpu_s,
+                call_shapes=sorted([*k, v] for k, v in calls.items()))
+
+
+def phase_moe(fa) -> dict:
+    """Phase 11: (a) :func:`phase_moe_serve`; (b) one training step of the
+    same model on TP_WORLD gloo ranks sharing the card against one device
+    (:func:`phase_train` with MOE_RUNS), batch MOE_BATCH of MOE_SEQ tokens
+    from ``make_batch``."""
+    cfg = get_moe_cfg()
+    log(f"  {MOE_ARCH} cut to {cfg.num_layers} of 32 layers at full width "
+        f"(d {cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads "
+        f"of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, capacity "
+        f"factor {cfg.moe.capacity_factor}, group {cfg.moe.group_size}, "
+        f"window {cfg.window}): {cfg.param_count() / 1e9:.3f} B parameters")
+    log("  (a) one device, the paged Engine")
+    serve = phase_moe_serve(cfg, fa)
+    log(f"  (b) one training step, {TP_WORLD} gloo ranks (E_loc "
+        f"{cfg.moe.num_experts // TP_WORLD}) against one device, batch "
+        f"{MOE_BATCH} x {MOE_SEQ}")
+    train = phase_train(cfg, train_batch(cfg, MOE_SEQ, MOE_BATCH), MOE_RUNS,
+                        "phase 11 (b)", quantities=("grad",))
+    return dict(serve=serve, train=train)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    # four ranks share the card in phases 6, 9, 10 and 11; growable
+    # segments keep each one's cached blocks from fragmenting the 80 GB
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_arch
     from repro_torch.hw import H100
@@ -2469,13 +2966,29 @@ def main() -> int:
                              f"did not check: {unchecked}")
     log("  serve_tp " + json.dumps(serve_tp))
 
+    log(f"phase 11: MoE, {MOE_ARCH} at full width cut to {MOE_LAYERS} "
+        f"layers: served on one device, and one training step on "
+        f"{TP_WORLD} TP ranks on one card over gloo against one device")
+    log("  " + smi)
+    moe = phase_moe(fa)
+    unchecked = [("flash_attention", s) for s in moe["serve"]["call_shapes"]
+                 if tuple(s[:-1]) not in checked_fa]
+    checked = {(r["shape"]["M"], r["shape"]["K"], r["shape"]["N"],
+                r["dtype"], r["layout"]) for r in mm_rows}
+    unchecked += [("matmul", s) for s in moe["train"]["call_shapes"]
+                  if tuple(s) not in checked]
+    if unchecked:
+        raise AssertionError(f"phase 11 called kernels at shapes phase 3 "
+                             f"did not check: {unchecked}")
+    log("  moe " + json.dumps(moe))
+
     log("kernel cases " + json.dumps({"flash_attention": rows,
                                       "matmul": mm_rows,
                                       "matmul_rmsnorm": mln_rows}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f}s")
     # flash_attention's record reads the paged serving path's most frequent
     # call, a decode step in bf16, with its launches on every path (phases
-    # 5, 6, 8, 9 and 10); matmul's reads the ring step that carries most
+    # 5, 6, 8, 9, 10 and 11); matmul's reads the ring step that carries most
     # of phase 6's GEMM work, the gate/up chunk of the cais schedule, in f32
     # (the FFMA kernel: f32 runs are four of phase 6's five; the same step
     # in bf16, the wgmma variant, is printed on the line before it);
@@ -2514,13 +3027,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:86",
          "launches": rep["launches"] + tp["flash_launches"]
          + mla["launches"]["flash_attention"] + train["flash_launches"]
-         + serve_tp["flash_launches"],
+         + serve_tp["flash_launches"] + moe["serve"]["launches"]
+         + moe["train"]["flash_launches"],
          **record(head)},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:56",
          "launches": tp["matmul_launches"] + train["matmul_launches"]
-         + serve_tp["matmul_launches"],
+         + serve_tp["matmul_launches"] + moe["train"]["matmul_launches"],
          **record(mm_head)},
         {"name": "matmul_rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul_rmsnorm.cu",

@@ -1,9 +1,9 @@
 """Architecture configuration: the port's copy of ``repro/configs/base.py``.
 
-Only what the ported archs need is here: the dense attention archs and MLA
-(minicpm3-4b); the other family sub-configs (SSM, RG-LRU, enc-dec, VLM)
-arrive with the slices that port those families. ``moe`` is kept as a field
-so the FFN can refuse an MoE config by name. Not here yet (ROADMAP A15):
+Only what the ported archs need is here: the dense attention archs, MLA
+(minicpm3-4b) and MoE (mixtral-8x7b); the other family sub-configs (SSM,
+RG-LRU, enc-dec, VLM) arrive with the slices that port those families. Not
+here yet (ROADMAP A15):
 ``num_prefix_tokens``, ``vision_width`` and ``sub_quadratic``. Every field
 the two packages share is equal for every ported arch, full and smoke
 (``tests/test_torch_train.py``). ``ShapeConfig`` and ``SHAPES`` are copies.
@@ -25,6 +25,21 @@ class MLAConfig:
     qk_nope_head_dim: int = 64
     qk_rope_head_dim: int = 32
     v_head_dim: int = 64
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Capacity-bounded top-k MoE (GShard-style dispatch, experts sharded
+    over the TP ring)."""
+
+    num_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    # Arctic: a small dense FFN runs in parallel (residual) with the MoE.
+    dense_residual_d_ff: int = 0
+    # Token group size for the dispatch einsum (bounds the one-hot tensor).
+    group_size: int = 512
+    router_jitter: float = 0.0
 
 
 # Block kinds usable in `layer_pattern`:
@@ -52,7 +67,7 @@ class ArchConfig:
     window: int = 0  # sliding window for "swa" blocks
 
     mla: Optional[MLAConfig] = None
-    moe: Optional[object] = None  # MoE is not ported yet (ROADMAP A10)
+    moe: Optional[MoEConfig] = None
 
     norm: str = "rmsnorm"  # gemma-style rmsnorm (the only kind ported)
     act: str = "silu"  # gated MLP activation: silu | gelu (tanh-approximate)
@@ -92,12 +107,23 @@ class ArchConfig:
         dh = self.resolved_head_dim
         return d * dh * (2 * H + 2 * self.num_kv_heads)         # wq wk wv wo
 
+    def _ffn_param_count(self) -> int:
+        """Parameters of one block's FFN: the gated MLP (w_up, w_gate,
+        w_down), or the MoE router (d, E), E experts' gated MLPs and the
+        dense residual MLP where there is one."""
+        d = self.d_model
+        m = self.moe
+        if m is None:
+            return 3 * d * self.d_ff
+        return (d * m.num_experts + m.num_experts * 3 * d * self.d_ff
+                + 3 * d * m.dense_residual_d_ff)
+
     def param_count(self) -> int:
         """Parameters of the decoder: embedding (+ untied head), per-layer
-        norms, mixer and gated MLP, final norm (``repro``'s count of the
-        same init shapes)."""
+        norms, mixer and FFN (every expert counted), final norm
+        (``repro``'s count of the same init shapes)."""
         d = self.d_model
-        mlp = 3 * d * self.d_ff  # gated: w_up, w_gate, w_down
+        mlp = self._ffn_param_count()
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         blocks = sum(self._mixer_param_count(k) + mlp + 2 * d
                      for k in self.layer_kinds())
@@ -124,6 +150,11 @@ class ArchConfig:
             kw["mla"] = MLAConfig(
                 q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=8,
                 qk_rope_head_dim=8, v_head_dim=8)
+        if self.moe:
+            kw["moe"] = dataclasses.replace(
+                self.moe, num_experts=min(self.moe.num_experts, 4),
+                group_size=16,
+                dense_residual_d_ff=64 if self.moe.dense_residual_d_ff else 0)
         return self.scaled(**kw)
 
 

@@ -1,6 +1,6 @@
 """Arch registry of the port: the dense attention archs (paged serving,
-the TP training forward) and minicpm3-4b (MLA, served through the dense
-engine). The other archs of ``repro``'s registry are named here so that
+the TP training forward), minicpm3-4b (MLA, served through the dense
+engine) and mixtral-8x7b (MoE). The other archs of ``repro``'s registry are named here so that
 asking for one says it is not ported yet."""
 from __future__ import annotations
 
@@ -9,13 +9,15 @@ from repro_torch.configs.deepseek_7b import DEEPSEEK_7B
 from repro_torch.configs.gemma3_1b import GEMMA3_1B
 from repro_torch.configs.internlm2_1_8b import INTERNLM2_1_8B
 from repro_torch.configs.minicpm3_4b import MINICPM3_4B
+from repro_torch.configs.mixtral_8x7b import MIXTRAL_8X7B
 
 ARCHS = {a.name: a for a in (DEEPSEEK_7B, INTERNLM2_1_8B, GEMMA3_1B,
-                             MINICPM3_4B)}
+                             MINICPM3_4B, MIXTRAL_8X7B)}
 
-# in repro's registry, waiting for their model families (ROADMAP A10, A15)
+# in repro's registry, waiting for their model families or, arctic-480b,
+# for its optimizer, adafactor (ROADMAP A15)
 NOT_PORTED = ("paligemma-3b", "mamba2-130m", "whisper-tiny",
-              "recurrentgemma-2b", "mixtral-8x7b", "arctic-480b")
+              "recurrentgemma-2b", "arctic-480b")
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -18,9 +18,9 @@ on a group larger than one).
 
 Methods run on one rank with its local shards and take the
 :class:`repro_torch.sharding.TPGroup` where JAX took the axis name. The
-backward collective ``grad_ag_gemm`` (the ``bwd_ag_gemm`` IR op of a
-training graph) is here; the expert all-to-all and its adjoint and the
-hierarchical (2D-mesh) compositions raise (ROADMAP A10, A14).
+backward collectives ``grad_ag_gemm`` and ``grad_a2a_expert_ffn`` (the
+``bwd_ag_gemm`` and ``bwd_a2a_ffn`` IR ops of a training graph) are here;
+the hierarchical (2D-mesh) compositions raise (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -75,7 +75,9 @@ class CollectiveBackend:
 
     # -- EP ---------------------------------------------------------------
     def a2a_expert_ffn(self, send, ffn, group: TPGroup, cais: CAISConfig):
-        return prim.a2a_expert_ffn(send, ffn, group, cais)
+        """(n, C, d) routed chunks -> (n, C, d) expert outputs (see
+        :func:`repro_torch.core.primitives.a2a_expert_ffn`)."""
+        raise NotImplementedError
 
     # -- fused sub-layer chain -------------------------------------------
     def fused_rs_ln_ag(self, x, w1, ln_scale, w2, group: TPGroup,
@@ -130,9 +132,21 @@ class CollectiveBackend:
         g = group.all_gather(d, 1)
         return prim.mm(g, wT), g
 
-    def grad_a2a_expert_ffn(self, *_, **__):
-        raise NotImplementedError("the expert all-to-all's adjoint is not "
-                                  "ported yet (ROADMAP A10)")
+    def grad_a2a_expert_ffn(self, send, gy, bwd_row, group: TPGroup,
+                            cais: CAISConfig):
+        """Adjoint of ``a2a_expert_ffn`` (the ``bwd_a2a_ffn`` IR op):
+        re-run the dispatch all-to-all for ``send`` and for the output
+        cotangent ``gy`` (the forward's routed chunks are not stashed),
+        apply the per-row expert VJP ``bwd_row(chunk, gy_row) -> (d_chunk,
+        dw_tuple)`` at the owning rank, then all-to-all the chunk
+        cotangents back to their senders. Expert weight grads stay at the
+        owner, summed over the arriving rows. Default: monolithic
+        all-to-alls (the barrier schedule)."""
+        if group.size == 1:
+            return prim.rows_vjp(send, gy, bwd_row)
+        d_rows, dws = prim.rows_vjp(group.all_to_all(send),
+                                     group.all_to_all(gy), bwd_row)
+        return group.all_to_all(d_rows), dws
 
     # -- hierarchical (2D-mesh) compositions: ROADMAP A14 ------------------
     hier_ag_gemm_multi = hier_gemm_rs = hier_gemm_ar = _hier_not_ported
@@ -159,6 +173,9 @@ class BarrierBackend(CollectiveBackend):
 
     def gemm_ar(self, x, w, group, cais):
         return prim.barrier_gemm_ar(x, w, group)
+
+    def a2a_expert_ffn(self, send, ffn, group, cais):
+        return prim.barrier_a2a_expert_ffn(send, ffn, group)
 
     def overlap_asymmetric(self, rs_args, ag_args, group, cais):
         x_rs, w_rs = rs_args
@@ -235,6 +252,9 @@ class CAISBackend(CollectiveBackend):
             return prim.barrier_gemm_ar(x, w, group)
         return prim.gemm_ar(x, w, group, cais)
 
+    def a2a_expert_ffn(self, send, ffn, group, cais):
+        return prim.a2a_expert_ffn(send, ffn, group, cais)
+
     def fused_rs_ln_ag(self, x, w1, ln_scale, w2, group, cais,
                        norm="rmsnorm", residual=None):
         cais = self.resolve(cais, self.seam_bytes(x, w1), group.size)
@@ -270,6 +290,12 @@ class CAISBackend(CollectiveBackend):
         cais = self.resolve(cais, _nbytes(d) * n, n)
         g = prim.ring_all_gather(d, group, cais)
         return prim.mm(g, wT), g
+
+    def grad_a2a_expert_ffn(self, send, gy, bwd_row, group, cais):
+        # interleaved per-offset ± schedule mirroring the forward a2a; the
+        # chunking is structural (one (row, cotangent) pair per offset), so
+        # nothing is planned here
+        return prim.grad_a2a_expert_ffn(send, gy, bwd_row, group, cais)
 
 
 # ---------------------------------------------------------------------------

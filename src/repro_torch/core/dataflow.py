@@ -24,8 +24,11 @@ Pass 3 takes the greedy policy or a planner: ``optimize(g, planner=...)``
 with ``"perfsim"`` or a :class:`repro_torch.plan.search.PerfsimPlanner`
 scores candidate pairings by simulated makespan (:mod:`repro_torch.plan`),
 and ``pair_asymmetric(g, pairing=...)`` replays a decided pairing. The
-expert-routing ops (``route``, ``unroute``, ``a2a_ffn``) and their adjoint
-``bwd_a2a_ffn`` are valid IR but their collective is ROADMAP A10.
+expert all-to-all ``a2a_ffn`` and its adjoint ``bwd_a2a_ffn`` run through
+the backend's ``a2a_expert_ffn`` / ``grad_a2a_expert_ffn``; the adjoint
+takes the per-row expert VJP from the node fn's ``vjp`` attribute where it
+has one (the period graph's expert fn, whose backward GEMMs go through the
+matmul kernel), and from ``torch.autograd`` of the fn otherwise.
 
 Tensor layout conventions per value: ``seq`` (B, S_loc, d)
 sequence-sharded · ``feat`` (B, S, d_loc) feature-sharded · ``full``
@@ -39,7 +42,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.primitives import CAISConfig, mm
+from repro_torch.core.primitives import CAISConfig, mm, rows_vjp
 
 # ---------------------------------------------------------------------------
 # IR
@@ -553,8 +556,9 @@ def execute(g: Graph, values: Dict[str, torch.Tensor],
             else:
                 env[n.outputs[0]] = res
         elif n.op == "a2a_ffn":
-            raise NotImplementedError("the expert all-to-all (a2a_ffn) is "
-                                      "not ported yet (ROADMAP A10)")
+            fn = (lambda chunk, _n=n, _ws=tuple(ws): _n.fn(chunk, *_ws))
+            env[n.name] = (be.a2a_expert_ffn(ins[0], fn, group, cais)
+                           if dist else torch.stack([fn(r) for r in ins[0]]))
         elif n.op == "ag_gemm":
             env[n.name] = (be.ag_gemm(ins[0], ws[0], group, cais)
                            if dist else mm(ins[0], ws[0]))
@@ -615,9 +619,16 @@ def execute(g: Graph, values: Dict[str, torch.Tensor],
                         if dist else (mm(ins[0], ws[0]), ins[0]))
             env[n.outputs[0]], env[n.outputs[1]] = dx_, dyf
         elif n.op == "bwd_a2a_ffn":
-            raise NotImplementedError("the expert all-to-all's adjoint "
-                                      "(bwd_a2a_ffn) is not ported yet "
-                                      "(ROADMAP A10)")
+            # adjoint of a2a_ffn: re-dispatch (send row, cotangent row)
+            # pairs to the expert owners, the per-row VJP of the expert fn
+            # there, d(recv) back to the senders; the owner keeps its local
+            # expert-weight grads. outputs = (d_send, dw...)
+            row_vjp = _row_vjp(n.fn, tuple(ws))
+            dsend, dws_ = (be.grad_a2a_expert_ffn(ins[0], ins[1], row_vjp,
+                                                  group, cais)
+                           if dist else rows_vjp(ins[0], ins[1], row_vjp))
+            for name, val in zip(n.outputs, (dsend,) + tuple(dws_)):
+                env[name] = val
         else:
             raise ValueError(n.op)
     return tuple(env[o] for o in g.outputs)
@@ -803,6 +814,21 @@ def _fn_vjp(fn: Callable, k_in: int, k_w: int,
         return grads if len(grads) > 1 else grads[0]
     vjp_fn.wrapped = fn       # what the adjoint recomputes (launch counts)
     return vjp_fn
+
+
+def _row_vjp(fn: Callable, ws: tuple) -> Callable:
+    """The per-row VJP ``(chunk, gy) -> (d_chunk, dw_tuple)`` of an
+    ``a2a_ffn`` node's fn ``fn(chunk, *ws)``: ``fn.vjp(chunk, gy, *ws)``
+    where the fn brings one, else ``torch.autograd.grad`` of the fn."""
+    own = getattr(fn, "vjp", None)
+    if own is not None:
+        return lambda chunk, gy: own(chunk, gy, *ws)
+    vjp = _fn_vjp(fn, 1, len(ws), (True,))
+
+    def row(chunk, gy):
+        grads = vjp(chunk, gy, *ws)
+        return grads[0], tuple(grads[1:])
+    return row
 
 
 def _concat_last(*gs):

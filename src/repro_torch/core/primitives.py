@@ -15,6 +15,10 @@ permutes interleaved with partial GEMMs:
   * :func:`fused_rs_ln_ag` — GEMM-RS + LN + AG-GEMM in one pipeline;
   * :func:`overlap_asymmetric` — an independent GEMM-RS and AG-GEMM in
     lockstep on opposite ring directions;
+  * :func:`a2a_expert_ffn` — the expert all-to-all (EP): per offset the
+    dispatch permute of one chunk and the combine permute of the previous
+    expert result travel opposite directions together, with the expert
+    GEMMs between them, and :func:`grad_a2a_expert_ffn`, its adjoint;
   * ``barrier_*``     — the baselines: one monolithic collective around the
     GEMM.
 
@@ -254,18 +258,127 @@ def ring_reduce_scatter(x: torch.Tensor, group: TPGroup,
 
 
 # ---------------------------------------------------------------------------
-# Expert all-to-all (EP): not ported yet
+# CAIS expert all-to-all: decomposed dispatch/compute/combine pipeline (EP)
 # ---------------------------------------------------------------------------
 
 
-def _moe_not_ported(*_, **__):
-    raise NotImplementedError("the expert all-to-all schedules are not "
-                              "ported yet (ROADMAP A10)")
+def barrier_a2a_expert_ffn(send: torch.Tensor, ffn, group: TPGroup
+                           ) -> torch.Tensor:
+    """EP baseline: monolithic dispatch all-to-all → expert FFN → combine
+    all-to-all (three isolated phases).
+
+    send: (n, C, d), ``send[j]`` this rank's tokens routed to the experts
+    rank j owns; ffn: (C, d) -> (C, d), this rank's experts. Returns
+    (n, C, d): ``out[j] = FFN_j(send[j])`` (owner j's experts applied)."""
+    recv = group.all_to_all(send)
+    h = torch.stack([ffn(row) for row in recv])
+    return group.all_to_all(h)
 
 
-barrier_a2a_expert_ffn = _moe_not_ported
-a2a_expert_ffn = _moe_not_ported
-grad_a2a_expert_ffn = _moe_not_ported
+def _a2a_offset(o: int, bidirectional: bool) -> int:
+    """The ring offset of step ``o`` (1..n-1): o, or alternating
+    +1, −1, +2, −2, … so that consecutive dispatches balance the two
+    directions."""
+    if not bidirectional:
+        return o
+    return (o + 1) // 2 if o % 2 else -(o // 2)
+
+
+def _offset_perm(n: int, offset: int) -> Sequence[Tuple[int, int]]:
+    return [(s, (s + offset) % n) for s in range(n)]
+
+
+def a2a_expert_ffn(send: torch.Tensor, ffn, group: TPGroup,
+                   cais: CAISConfig = CAISConfig()) -> torch.Tensor:
+    """CAIS-decomposed expert all-to-all; same contract as
+    :func:`barrier_a2a_expert_ffn`.
+
+    The local chunk computes at once (no wire). Then per offset o = 1..n−1
+    one ``batch_isend_irecv`` carries the dispatch of chunk o (+off) and the
+    combine of the previous offset's expert result back to its sender
+    (−off, the opposite direction), and the expert FFN runs on the chunk
+    that arrived: dispatch and combine occupy opposite link directions every
+    step, the asymmetric overlap of paper Fig. 9e applied to EP. JAX issues
+    the two permutes of an offset in one step and lets XLA overlap the
+    combine with the next dispatch; here that pairing is explicit, and the
+    last combine goes alone."""
+    n = group.size
+    if n == 1:
+        return torch.stack([ffn(row) for row in send])
+    i = group.rank
+    results = torch.empty_like(send)
+    results[i] = ffn(send[i])
+    pending = None          # (expert result, its offset, its origin row)
+    for o in range(1, n):
+        off = _a2a_offset(o, cais.bidirectional)
+        dst = (i + off) % n
+        xs, perms = [send[dst]], [_offset_perm(n, off)]
+        if pending is not None:
+            xs.append(pending[0])
+            perms.append(_offset_perm(n, -pending[1]))
+        got = group.ppermute_many(xs, perms)
+        if pending is not None:
+            results[pending[2]] = got[1]     # my tokens, from rank (i+off')
+        pending = (ffn(got[0]), off, dst)    # owner-i experts on (i−off)'s
+    results[pending[2]] = group.ppermute(pending[0],
+                                         _offset_perm(n, -pending[1]))
+    return results
+
+
+def grad_a2a_expert_ffn(send: torch.Tensor, gy: torch.Tensor, bwd_row,
+                        group: TPGroup, cais: CAISConfig = CAISConfig()):
+    """CAIS-decomposed adjoint of :func:`a2a_expert_ffn`, interleaved as the
+    forward: per offset the grad dispatch (+off) carries the (send row,
+    output cotangent row) pair to the owning expert, the per-row expert VJP
+    runs on the pair that arrived, and the chunk cotangent of the previous
+    offset returns to its sender (−off) in the same batch.
+
+    ``bwd_row(chunk, gy_row) -> (d_chunk, dw_tuple)`` is the per-row expert
+    VJP, returning fresh grads. Expert weight grads accumulate (in place)
+    at the owner and never ride a collective. Returns ``(d_send, dw_tuple)``, ``d_send`` shaped like
+    ``send``."""
+    n = group.size
+    if n == 1:
+        return rows_vjp(send, gy, bwd_row)
+    i = group.rank
+    d0, dws = bwd_row(send[i], gy[i])
+    d_send = torch.empty_like(send)
+    d_send[i] = d0
+    pending = None
+    for o in range(1, n):
+        off = _a2a_offset(o, cais.bidirectional)
+        dst = (i + off) % n
+        perm = _offset_perm(n, off)
+        xs, perms = [send[dst], gy[dst]], [perm, perm]
+        if pending is not None:
+            xs.append(pending[0])
+            perms.append(_offset_perm(n, -pending[1]))
+        got = group.ppermute_many(xs, perms)
+        if pending is not None:
+            d_send[pending[2]] = got[2]
+        d_chunk, dw_o = bwd_row(got[0], got[1])      # my experts' VJP
+        for acc, dw in zip(dws, dw_o):
+            acc.add_(dw)
+        pending = (d_chunk, off, dst)
+    d_send[pending[2]] = group.ppermute(pending[0],
+                                        _offset_perm(n, -pending[1]))
+    return d_send, dws
+
+
+def rows_vjp(send: torch.Tensor, gy: torch.Tensor, bwd_row):
+    """``bwd_row`` over every row (JAX's ``vmap``), the weight grads summed
+    over the rows in place: (d_send, dw_tuple). ``bwd_row`` returns fresh
+    grads, so the first row's accumulate the rest."""
+    d_rows, dws = [], None
+    for c, g in zip(send, gy):
+        d, dw = bwd_row(c, g)
+        d_rows.append(d)
+        if dws is None:
+            dws = dw
+        else:
+            for acc, w in zip(dws, dw):
+                acc.add_(w)
+    return torch.stack(d_rows), dws
 
 
 # ---------------------------------------------------------------------------

@@ -39,10 +39,19 @@ pairing of the forward, the training and the serve graphs, from the global
 shapes ``repro``'s planner sees (:func:`global_weight_shapes`): the same
 plans, cache keys included, as ``repro``'s.
 
-Not here yet: the MoE period (ROADMAP A10) and
-``graph_backward=False`` on a ring (A15: JAX falls back to autodiff of the
-executed forward, through its collectives; the port has no autodiff through
-the ring collectives).
+An MoE block's expert path is the period graph's ``route`` → ``a2a_ffn``
+→ ``unroute`` nodes (:func:`_moe_graph_fns`): each rank routes its sequence
+shard's tokens as one group, the backend's expert all-to-all carries them to
+the experts' owners (experts sharded by whole expert, E/tp a rank) and back,
+and every expert GEMM, forward and backward, goes through the matmul kernel.
+Each rank's aux loss is its shard's; :func:`sp_period` returns their mean
+over the ring. The router and a dense-residual MLP are replicated, so their
+grads are summed over the ring; an expert's grads are complete at its owner.
+
+Not here yet: ``graph_backward=False`` on a ring (A15: JAX falls back to
+autodiff of the executed forward, through its collectives; the port has no
+autodiff through the ring collectives), and an MoE serve period (JAX's
+``_blocks_step`` runs MoE serving under GSPMD, which has no counterpart).
 """
 from __future__ import annotations
 
@@ -155,10 +164,17 @@ def param_shard_dim(name: str, cfg, tp: int) -> Optional[int]:
     """The dimension along which parameter ``name`` (a key of the port's
     ``LM`` state dict) is split over a TP ring of ``tp``, or None where it
     is replicated: the specs of the period-graph fragment, ``(None, M)``
-    columns for wq/wk/wv/w_up/w_gate, ``(M, None)`` rows for wo/w_down."""
+    columns for wq/wk/wv/w_up/w_gate, ``(M, None)`` rows for wo/w_down. An
+    MoE's experts split by whole expert (dim 0, ``e_spec``) where
+    E % tp == 0 and replicate otherwise; its router and dense-residual MLP
+    replicate."""
     if tp <= 1 or not name.startswith("blocks."):
         return None
     leaf = name.split(".", 2)[2]
+    if cfg.moe is not None and leaf.startswith("ffn."):
+        if leaf in ("ffn.w_up", "ffn.w_gate", "ffn.w_down"):
+            return 0 if cfg.moe.num_experts % tp == 0 else None
+        return None
     if leaf in ("mixer.wq", "ffn.w_up", "ffn.w_gate"):
         return 1
     if leaf in ("mixer.wk", "mixer.wv"):
@@ -235,6 +251,34 @@ def _dense_block_nodes(core_fn: Callable, has_gate: bool, act: str,
     return nodes, f"{p}r2"
 
 
+def _moe_block_nodes(core_fn: Callable, route_fn: Callable,
+                     expert_fn: Callable, unroute_fn: Callable,
+                     expert_weights: tuple,
+                     dense_fn: Optional[Callable] = None,
+                     dense_weights: tuple = (), p: str = "",
+                     src: str = "x"):
+    """One MoE block as a graph fragment: returns (nodes, out_value,
+    aux_value). ``expert_weights``/``dense_weights`` are the (namespaced)
+    weight keys of the expert FFN / dense-residual MLP."""
+    nodes = _attention_block_nodes(core_fn, p, src) + [
+        df.Node(f"{p}ln2", "layernorm", (f"{p}r1",), (f"{p}scale2",)),
+        df.Node(f"{p}moe_route", "route", (f"{p}ln2",), (f"{p}router",),
+                outputs=(f"{p}send", f"{p}combine", f"{p}aux"), fn=route_fn),
+        df.Node(f"{p}eout", "a2a_ffn", (f"{p}send",), expert_weights,
+                fn=expert_fn),
+        df.Node(f"{p}y", "unroute", (f"{p}eout", f"{p}combine", f"{p}ln2"),
+                fn=unroute_fn),
+    ]
+    top = f"{p}y"
+    if dense_fn is not None:
+        nodes.append(df.Node(f"{p}dmlp", "custom", (f"{p}ln2",),
+                             dense_weights, fn=dense_fn))
+        nodes.append(df.Node(f"{p}ymoe", "add", (top, f"{p}dmlp")))
+        top = f"{p}ymoe"
+    nodes.append(df.Node(f"{p}r2", "residual", (top, f"{p}r1")))
+    return nodes, f"{p}r2", f"{p}aux"
+
+
 def dense_block_graph(core_fn: Callable, has_gate: bool, act: str
                       ) -> df.Graph:
     """One Graph for a whole dense transformer block; after ``optimize()``
@@ -256,6 +300,22 @@ def dense_period_graph(core_fns: Sequence[Callable], has_gate: bool,
                                      src=src)
         nodes += ns
     return df.Graph(nodes, outputs=(src,))
+
+
+def moe_block_graph(core_fn: Callable, route_fn: Callable,
+                    expert_fn: Callable, unroute_fn: Callable,
+                    expert_weights: tuple,
+                    dense_fn: Optional[Callable] = None,
+                    dense_weights: tuple = ()) -> df.Graph:
+    """One Graph for a whole MoE block: the expert path runs as ``route →
+    a2a_ffn → unroute`` nodes, ``a2a_ffn`` dispatched through
+    ``CollectiveBackend.a2a_expert_ffn``; ``dense_fn`` adds the Arctic-style
+    dense-residual MLP as a ``custom`` node. Pass 2 fuses the attention-out
+    RS → residual → LN2 → router seam into ``fused_rs_ln``."""
+    nodes, out, aux = _moe_block_nodes(core_fn, route_fn, expert_fn,
+                                       unroute_fn, expert_weights,
+                                       dense_fn, dense_weights)
+    return df.Graph([df.Node("x", "input")] + nodes, outputs=(out, aux))
 
 
 def _local_heads(cfg, tp: int):
@@ -308,42 +368,188 @@ def _attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
 
 
 def _block_weights(params, p: str, dtype) -> Dict[str, torch.Tensor]:
-    """A dense block's weights under period-graph keys ``{p}<leaf>``."""
+    """A block's weights under period-graph keys ``{p}<leaf>``: an MoE
+    block's router stays f32, its dense-residual MLP is ``d_up``,
+    ``d_gate``, ``d_down``."""
     m, f = params.mixer, params.ffn
-    return {
+    w = {
         p + "scale1": params.norm1.scale.to(dtype),
         p + "wq": m.wq.to(dtype), p + "wk": m.wk.to(dtype),
         p + "wv": m.wv.to(dtype), p + "wo": m.wo.to(dtype),
         p + "scale2": params.norm2.scale.to(dtype),
-        p + "w_up": f.w_up.to(dtype), p + "w_gate": f.w_gate.to(dtype),
-        p + "w_down": f.w_down.to(dtype),
     }
+    if getattr(f, "router", None) is not None:
+        w[p + "router"] = f.router                      # stays float32
+    w.update({p + "w_up": f.w_up.to(dtype), p + "w_gate": f.w_gate.to(dtype),
+              p + "w_down": f.w_down.to(dtype)})
+    dense = getattr(f, "dense", None)
+    if dense is not None:
+        w.update({p + "d_up": dense.w_up.to(dtype),
+                  p + "d_gate": dense.w_gate.to(dtype),
+                  p + "d_down": dense.w_down.to(dtype)})
+    return w
+
+
+def _act_vjp(act: str, g: torch.Tensor, da: torch.Tensor):
+    """(act(g), d g) for the cotangent ``da`` of act(g): the elementwise
+    VJP by ``torch.autograd``."""
+    from repro_torch.models.layers import activation
+
+    with torch.enable_grad():
+        gl = g.detach().requires_grad_()
+        a = activation(act, gl)
+        (dg,) = torch.autograd.grad(a, gl, da)
+    return a.detach(), dg
+
+
+def _moe_graph_fns(cfg, ring: int, rank: int = 0):
+    """Closures of the MoE expert path (route / expert compute / unroute):
+    the IR node fns of :func:`sp_period`'s graph, and composed directly by
+    :func:`sp_moe_ffn`. ``ring`` is the all-to-all ring's size and ``rank``
+    this rank's place on it. Owner mapping: rank j owns experts
+    [j·E_loc, (j+1)·E_loc) when E ≥ ring; when E < ring expert e lives on
+    rank e·(ring/E) (replicated weights sliced by the owner, zero-capacity
+    padding elsewhere).
+
+    ``route_fn`` routes the rank's B·S_loc tokens as ONE group (capacity
+    from T = B·S_loc) with f32 router logits. The dispatch and combine
+    einsums are torch ops (JAX's are plain ``jnp``); every expert GEMM goes
+    through :func:`repro_torch.core.primitives.mm`, one call per local
+    expert and weight, and ``expert_fn.vjp`` is the per-row VJP the
+    ``bwd_a2a_ffn`` node runs: the two forward GEMMs recomputed, then
+    dx = dy·wᵀ (``nt``) and dw = xᵀ·dy (``tn``) on the kernel too."""
+    from repro_torch.models.ffn import _top2_dispatch, capacity, router_probs
+    from repro_torch.models.layers import activation
+
+    m = cfg.moe
+    E = m.num_experts
+    E_loc = max(E // ring, 1)
+    act = cfg.act
+
+    def route_fn(xn, router):
+        B, S_loc, d = xn.shape
+        t = xn.reshape(B * S_loc, d)
+        T = t.shape[0]
+        probs = router_probs(t, router)
+        cap = capacity(T, cfg)
+        dispatch, combine, aux = _top2_dispatch(probs[None], cap)
+        dispatch, combine = dispatch[0], combine[0]     # (T, E, cap)
+        # send[j]: (E_loc·cap, d) tokens for the experts rank j owns
+        de = torch.einsum("tec,td->ecd", dispatch.to(t.dtype), t)
+        if E >= ring:
+            send = de.reshape(ring, E_loc * cap, d)
+        else:
+            # owner(e) = e·(ring/E); other ranks get zero-capacity padding
+            send = t.new_zeros((ring, cap, d))
+            send[::ring // E] = de
+        return send, combine, aux.float()[None]
+
+    def owned(ws):
+        if E >= ring:
+            return ws
+        e = rank // (ring // E)     # replicated weights: this owner's expert
+        return tuple(w[e:e + 1] for w in ws)
+
+    def expert_fn(chunk, wu, wg, wd):
+        # chunk: (E_loc·cap, d) → each local expert's gated FFN on its rows
+        wu, wg, wd = owned((wu, wg, wd))
+        c = chunk.contiguous().reshape(E_loc, -1, chunk.shape[-1])
+        out = [prim.mm(activation(act, prim.mm(c[e], wg[e]))
+                       * prim.mm(c[e], wu[e]), wd[e])
+               for e in range(E_loc)]
+        return torch.stack(out).reshape(chunk.shape)
+
+    def expert_vjp(chunk, gy, wu, wg, wd):
+        full = (wu, wg, wd)
+        wu, wg, wd = owned(full)
+        d = chunk.shape[-1]
+        # the cotangent may arrive as a strided view (an einsum's VJP)
+        c = chunk.contiguous().reshape(E_loc, -1, d)
+        gyc = gy.contiguous().reshape(E_loc, -1, d)
+        # the weight grads are written in place, an expert at a time (at
+        # full width one expert's three are 0.7 GB in f32)
+        dws = tuple(torch.zeros_like(w) for w in full)
+        e0 = 0 if E >= ring else rank // (ring // E)
+        dc = torch.empty_like(c)
+        for e in range(E_loc):
+            u, g = prim.mm(c[e], wu[e]), prim.mm(c[e], wg[e])
+            dh = prim.mm(gyc[e], wd[e].T)
+            a, dg = _act_vjp(act, g, dh * u)
+            du = dh * a
+            dws[2][e0 + e] = prim.mm((a * u).T, gyc[e])
+            dws[0][e0 + e] = prim.mm(c[e].T, du)
+            dws[1][e0 + e] = prim.mm(c[e].T, dg)
+            dc[e] = prim.mm(du, wu[e].T) + prim.mm(dg, wg[e].T)
+        return dc.reshape(chunk.shape), dws
+
+    expert_fn.vjp = expert_vjp
+    expert_fn.matmul_calls = 3 * E_loc          # a row, forward
+    expert_fn.vjp_matmul_calls = 8 * E_loc      # a row, its VJP
+
+    def unroute_fn(ret, combine, xn):
+        B, S_loc, d = xn.shape
+        cap = combine.shape[-1]
+        eout = ret.reshape(E, cap, d) if E >= ring else ret[::ring // E]
+        y = torch.einsum("tec,ecd->td", combine.to(ret.dtype), eout)
+        return y.reshape(B, S_loc, d)
+
+    return route_fn, expert_fn, unroute_fn
+
+
+def _dense_residual_fn(act: str) -> Callable:
+    """The dense-residual MLP of an Arctic-style MoE block as a ``custom``
+    node fn (local math; its weights replicate, so a rank applies them to
+    its own sequence shard)."""
+    from repro_torch.models.layers import activation
+
+    def dense_fn(xn, du, dg, dd):
+        return (activation(act, xn @ dg) * (xn @ du)) @ dd
+
+    return dense_fn
 
 
 def _block_graph_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
                           src: str, dtype=torch.float32,
                           seq_sharded: bool = True):
-    """One dense block (a :class:`repro_torch.models.transformer.Block`
-    holding this rank's shards) as a period-graph fragment: nodes chained
-    from value ``src``, every node name and weight key namespaced
-    ``b{idx}.``. Returns (nodes, out_value, weights)."""
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE period graphs are not ported yet "
-                                  "(ROADMAP A10)")
+    """One block (a :class:`repro_torch.models.transformer.Block` holding
+    this rank's shards) as a period-graph fragment: nodes chained from value
+    ``src``, every node name and weight key namespaced ``b{idx}.``. Returns
+    (nodes, out_value, aux_value or None, weights)."""
     p = f"b{idx}."
     window = cfg.window if kind == "swa" else 0
     core = _attention_core_fn(cfg, tpc.tp, window=window,
                               rank=tpc.group.rank)
-    nodes, out = _dense_block_nodes(core, True, cfg.act, p=p, src=src,
-                                    seq_sharded=seq_sharded)
-    return nodes, out, _block_weights(params, p, dtype)
+    weights = _block_weights(params, p, dtype)
+    if cfg.moe is None:
+        nodes, out = _dense_block_nodes(core, True, cfg.act, p=p, src=src,
+                                        seq_sharded=seq_sharded)
+        return nodes, out, None, weights
+    if not seq_sharded:
+        raise ValueError("MoE blocks run only on the sequence-sharded "
+                         "period path")
+    if cfg.moe.num_experts % tpc.route_ring:
+        raise ValueError("the period graph's MoE path requires "
+                         "E % route_ring == 0 (see tp_applicable)")
+    route_fn, expert_fn, unroute_fn = _moe_graph_fns(
+        cfg, tpc.route_ring, tpc.group.rank)
+    e_keys = (p + "w_up", p + "w_gate", p + "w_down")
+    dense = cfg.moe.dense_residual_d_ff > 0
+    d_keys = (p + "d_up", p + "d_gate", p + "d_down") if dense else ()
+    nodes, out, aux = _moe_block_nodes(
+        core, route_fn, expert_fn, unroute_fn, e_keys,
+        _dense_residual_fn(cfg.act) if dense else None, d_keys, p=p,
+        src=src)
+    return nodes, out, aux, weights
 
 
 # a period-graph weight key's leaf -> the Block parameter it holds
 _WEIGHT_PARAMS = {"scale1": "norm1.scale", "scale2": "norm2.scale",
                   "wq": "mixer.wq", "wk": "mixer.wk", "wv": "mixer.wv",
                   "wo": "mixer.wo", "w_up": "ffn.w_up",
-                  "w_gate": "ffn.w_gate", "w_down": "ffn.w_down"}
+                  "w_gate": "ffn.w_gate", "w_down": "ffn.w_down",
+                  "router": "ffn.router", "d_up": "ffn.dense.w_up",
+                  "d_gate": "ffn.dense.w_gate",
+                  "d_down": "ffn.dense.w_down"}
 
 
 def replicated_weights(weights, cfg, tp: int,
@@ -352,8 +558,10 @@ def replicated_weights(weights, cfg, tp: int,
     sums over a ring of ``tp``, to be all-reduced. Sequence-sharded, every
     weight each rank holds whole (:func:`param_shard_dim` None: the norm
     scales, and wk/wv when ``num_kv_heads % tp != 0``): each rank sums over
-    its own sequence shard. In the replicated layout every rank sees the
-    whole batch and sequence, so a norm scale's grad is complete; replicated
+    its own sequence shard (an MoE's router and dense MLP too; its experts
+    are sharded, and an expert's grads are complete at its owner). In the
+    replicated layout every rank sees the whole batch and sequence, so a
+    norm scale's grad is complete; replicated
     wk/wv still are partial, since a rank's attention reads only the kv
     heads its q heads use (JAX's replicated-layout backward sums none of
     them, which undercounts wk/wv there: ROADMAP C)."""
@@ -368,18 +576,22 @@ def replicated_weights(weights, cfg, tp: int,
 def _period_graph(tpc: TPContext, params_seq, cfg, kinds: Sequence[str],
                   dtype=torch.float32, seq_sharded: bool = True):
     """The single-chain period graph :func:`sp_period` executes: every block
-    chained through per-block ``b{i}.`` namespaces from input ``x``.
-    Returns (graph, weights dict)."""
+    chained through per-block ``b{i}.`` namespaces from input ``x``, its
+    outputs the period output and then each MoE block's aux value. Returns
+    (graph, weights dict)."""
     nodes = [df.Node("x", "input")]
     weights: Dict[str, torch.Tensor] = {}
+    aux_vals = []
     src = "x"
     for i, (params, kind) in enumerate(zip(params_seq, kinds)):
-        ns, src, w = _block_graph_fragment(tpc, params, cfg, kind, i, src,
-                                           dtype=dtype,
-                                           seq_sharded=seq_sharded)
+        ns, src, aux, w = _block_graph_fragment(
+            tpc, params, cfg, kind, i, src, dtype=dtype,
+            seq_sharded=seq_sharded)
         nodes += ns
         weights.update(w)
-    return df.Graph(nodes, outputs=(src,)), weights
+        if aux is not None:
+            aux_vals.append(aux)
+    return df.Graph(nodes, outputs=(src,) + tuple(aux_vals)), weights
 
 
 def microbatch_period_graph(base: df.Graph, num_microbatches: int
@@ -423,14 +635,22 @@ def resolve_microbatches(tpc: TPContext, x: torch.Tensor,
 def _core_comp_hints(cfg, kinds: Sequence[str], batch: int, seq: int
                      ) -> Dict[str, float]:
     """Planner ``comp_hints`` of a single-chain period graph: the FLOPs of
-    each attention core (``b{i}.o``), which the lowering cannot read off
-    GEMM weight shapes (``batch`` a chain's rows, ``seq`` the full
-    sequence). Dense only: the routed expert FFN's hint comes with MoE
-    (ROADMAP A10)."""
-    from repro_torch.models.counting import attention_core_flops
+    each attention core (``b{i}.o``) and routed expert FFN (``b{i}.eout``),
+    which the lowering cannot read off GEMM weight shapes (``batch`` a
+    chain's rows, ``seq`` the full sequence). As in ``repro``, the expert
+    hint is keyed on a block kind ``"moe"``, which no layer pattern holds
+    (an MoE block's kind is its attention's), so an MoE period's plan, like
+    ``repro``'s, prices its expert FFNs at zero (ROADMAP C)."""
+    from repro_torch.models.counting import (attention_core_flops,
+                                             expert_ffn_flops)
 
     flops = attention_core_flops(cfg, batch, seq)
-    return {f"b{i}.o": flops for i in range(len(kinds))}
+    hints = {f"b{i}.o": flops for i in range(len(kinds))}
+    if cfg.moe is not None:
+        ef = expert_ffn_flops(cfg, batch, seq)
+        hints.update({f"b{i}.eout": ef
+                      for i, k in enumerate(kinds) if k == "moe"})
+    return hints
 
 
 def global_weight_shapes(weights, cfg, tp: int) -> Dict[str, tuple]:
@@ -570,31 +790,51 @@ class Period:
     norm: str
     plan: Optional[object] = None   # the forward's perfsim Plan, or None
     bwd_planner: Optional[Callable] = None  # TrainingGraph -> planner
+    n_aux: int = 0          # aux outputs a chain (one an MoE block)
 
     def chains(self):
         return ["x"] if self.mb == 1 else [f"mb{i}.x" for i in range(self.mb)]
 
-    def forward(self, x: torch.Tensor, ws) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ws):
+        """(the period output, this rank's aux loss): the aux is each MoE
+        block's aux summed, each the mean over the chains (a split period
+        routes each chain with its own capacity, as in JAX), a 0-d f32
+        tensor; 0 for a dense period."""
         values = dict(zip(self.chains(), torch.chunk(x, self.mb, dim=0)))
         res = df.execute(self.graph, values, dict(zip(self.names, ws)),
                          group=self.tpc.group, cais=self.tpc.cais,
                          norm=self.norm, backend=self.tpc.backend)
-        return res[0] if self.mb == 1 else torch.cat(res, dim=0)
+        per = 1 + self.n_aux
+        out = res[0] if self.mb == 1 else torch.cat(
+            [res[i * per] for i in range(self.mb)], dim=0)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j in range(self.n_aux):
+            aux = aux + sum(res[i * per + 1 + j]
+                            for i in range(self.mb)).reshape(()) / self.mb
+        return out, aux
 
     def training(self):
         """(TrainingGraph, the optimized training graph, its planner or
         None) of this period."""
         return training_graph(self.merged, self.norm, self.bwd_planner)
 
-    def backward(self, x: torch.Tensor, ws, gy: torch.Tensor):
-        """(dx, per-weight grads in the weights' types) for output cotangent
-        ``gy``: the training graph executed on this rank."""
+    def backward(self, x: torch.Tensor, ws, gy: torch.Tensor,
+                 gaux: Optional[torch.Tensor] = None):
+        """(dx, per-weight grads in the weights' types) for the cotangents
+        ``gy`` of the output and ``gaux`` of this rank's aux loss: the
+        training graph executed on this rank, seeded per chain with its
+        slice of ``gy`` and, for each aux output, ``gaux`` / mb (the
+        forward's mean over the chains)."""
         tg, bwd, _ = self.training()
         wmap = df.derived_weights(bwd, dict(zip(self.names, ws)))
         chains = self.chains()
         vals = dict(zip(chains, torch.chunk(x, self.mb, dim=0)))
-        vals.update(zip(tg.grad_inputs, (
-            g.contiguous() for g in torch.chunk(gy, self.mb, dim=0))))
+        seeds = []
+        ga = (torch.zeros(1, dtype=torch.float32, device=x.device)
+              if gaux is None else gaux.reshape(1).float()) / self.mb
+        for g in torch.chunk(gy, self.mb, dim=0):
+            seeds += [g.contiguous()] + [ga] * self.n_aux
+        vals.update(zip(tg.grad_inputs, seeds))
         res = df.execute(bwd, vals, wmap, group=self.tpc.group,
                          cais=self.tpc.cais, norm=self.norm,
                          backend=self.tpc.backend)
@@ -615,7 +855,8 @@ class Period:
 class _PeriodFunction(torch.autograd.Function):
     """The counterpart of ``repro``'s ``jax.custom_vjp`` around a period:
     the forward executes the optimized period graph and saves (x, weights)
-    only; the backward is :meth:`Period.backward`."""
+    only, returning (output, this rank's aux loss); the backward is
+    :meth:`Period.backward`."""
 
     @staticmethod
     def forward(ctx, period: Period, x, *ws):
@@ -624,10 +865,33 @@ class _PeriodFunction(torch.autograd.Function):
         return period.forward(x, ws)
 
     @staticmethod
-    def backward(ctx, gy):
+    def backward(ctx, gy, gaux):
         x, *ws = ctx.saved_tensors
-        dx, dws = ctx.period.backward(x, ws, gy)
+        dx, dws = ctx.period.backward(x, ws, gy, gaux)
         return (None, dx, *dws)
+
+
+class _RingMean(torch.autograd.Function):
+    """The mean over the ring of each rank's aux loss, which every rank
+    then holds (JAX's ``jnp.mean`` of the aux sharded over the ring). Its
+    backward gives each rank g / tp with no collective: every rank seeds the
+    same cotangent of the same replicated loss, and its own aux enters the
+    mean with weight 1/tp."""
+
+    @staticmethod
+    def forward(ctx, aux, group):
+        ctx.n = group.size
+        return group.all_reduce(aux) / group.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def ring_mean(aux: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """Each rank's ``aux`` averaged over ``group``, differentiable
+    (:class:`_RingMean`)."""
+    return _RingMean.apply(aux, group) if group.size > 1 else aux
 
 
 def build_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
@@ -648,8 +912,9 @@ def build_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     hints = _core_comp_hints(cfg, kinds, int(x.shape[0]), seq)
     view = (_plan_view(tpc, weights, cfg, kinds, x, o.seq_sharded, hints)
             if tpc.planner == "perfsim" else None)
+    n_aux = len(base.outputs) - 1
     mb, planner, plan = _plan_period(tpc, base, x, o.num_microbatches,
-                                     moe=False, view=view,
+                                     moe=n_aux > 0, view=view,
                                      seq_sharded=o.seq_sharded)
     merged = microbatch_period_graph(base, mb)
     bwd = (functools.partial(_bwd_planner, tpc, view=view, mb=mb)
@@ -657,7 +922,7 @@ def build_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     period = Period(tpc, merged, df.optimize(merged, planner=planner),
                     list(weights),
                     replicated_weights(weights, cfg, tpc.tp, o.seq_sharded),
-                    mb, o.norm_kind, plan, bwd)
+                    mb, o.norm_kind, plan, bwd, n_aux)
     return period, weights
 
 
@@ -675,8 +940,11 @@ def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     (:func:`build_period`). x: (B, S/tp, d) sequence-sharded, or with
     ``seq_sharded=False`` (the decode/ragged layout, dense blocks only)
     (B, S, d) whole on every rank, the sequence positions ``arange(S)``.
-    Returns (period output, shaped as x, aux loss), the aux loss 0 for dense
-    periods.
+    Returns (period output, shaped as x, aux loss): the aux loss is the
+    mean over the ring of each rank's (its shard's MoE statistics; the
+    same value on every rank), 0 for dense periods. ``"auto"`` never splits
+    an MoE period; an explicit split routes each chain with its own
+    capacity and reports the mean of the chains' aux, as JAX's does.
 
     Where autograd records (x or a weight requires grad), the period runs
     as :class:`_PeriodFunction`, whose backward is graph-built
@@ -686,16 +954,17 @@ def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     period, weights = build_period(tpc, x, params_seq, cfg, kinds,
                                    opts=_sp_opts(opts, kw))
     ws = tuple(weights.values())
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in (x,) + ws)):
-        return period.forward(x, ws), aux
-    if not tpc.graph_backward:
+        out, aux = period.forward(x, ws)
+    elif not tpc.graph_backward:
         raise NotImplementedError(
             "TPConfig(graph_backward=False) on a TP ring needs autodiff "
             "through the ring collectives, which the port does not have "
             "yet (ROADMAP A15); use the graph-built backward")
-    return _PeriodFunction.apply(period, x, *ws), aux
+    else:
+        out, aux = _PeriodFunction.apply(period, x, *ws)
+    return out, (ring_mean(aux, tpc.group) if period.n_aux else aux)
 
 
 def sp_block(tpc: TPContext, x: torch.Tensor, params, cfg,
@@ -706,9 +975,35 @@ def sp_block(tpc: TPContext, x: torch.Tensor, params, cfg,
                      opts=_sp_opts(opts, kw))
 
 
-def sp_moe_ffn(*_, **__):
-    raise NotImplementedError("the MoE FFN over the TP ring is not ported "
-                              "yet (ROADMAP A10)")
+def sp_moe_ffn(tpc: TPContext, x: torch.Tensor, norm_scale: torch.Tensor,
+               params, cfg, norm_kind: str = "rmsnorm"):
+    """The MoE FFN sub-layer with the backend's expert all-to-all, outside
+    a period graph (forward): each rank routes its sequence shard's tokens
+    to the experts' owners through the :func:`_moe_graph_fns` closures.
+    ``params`` is this rank's :class:`repro_torch.models.ffn.MoE`: experts
+    sharded by whole expert where E % ring == 0, all E replicated where
+    E < ring (ring % E == 0; expert e on rank e·(ring/E), the others
+    computing on zero-capacity padding). x: (B, S/tp, d) sequence-sharded.
+    Returns (FFN(LN(x)), the aux loss's mean over the ring); the residual
+    is the caller's."""
+    from repro_torch.models.ffn import mlp_forward
+    from repro_torch.models.layers import apply_norm
+
+    E, ring = cfg.moe.num_experts, tpc.route_ring
+    if not (E % ring == 0 or ring % E == 0):
+        raise ValueError(f"{E} experts do not map onto a ring of {ring}")
+    route_fn, expert_fn, unroute_fn = _moe_graph_fns(cfg, ring,
+                                                     tpc.group.rank)
+    xn = apply_norm(norm_kind, x, norm_scale)
+    send, combine, aux = route_fn(xn, params.router)
+    ws = tuple(w.to(x.dtype) for w in (params.w_up, params.w_gate,
+                                       params.w_down))
+    ret = tpc.backend.a2a_expert_ffn(
+        send, lambda chunk: expert_fn(chunk, *ws), tpc.group, tpc.cais)
+    out = unroute_fn(ret, combine, xn)
+    if params.dense is not None:
+        out = out + mlp_forward(params.dense, xn, cfg.act)
+    return out, ring_mean(aux.reshape(()), tpc.group)
 
 
 def _serve_attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
@@ -723,7 +1018,8 @@ def _serve_attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
     heads; replicated ones are written alike on every rank and sliced to the
     rank's heads for the core."""
     from repro_torch.models.attention import (attention_core, paged_lookup,
-                                              paged_update)
+                                              paged_update,
+                                              padding_rows_as_jax)
     from repro_torch.models.layers import apply_rope
 
     dh = cfg.resolved_head_dim
@@ -739,6 +1035,7 @@ def _serve_attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
         kk, vv = _rank_kv(kk, vv, cfg, tp, rank)
         o = attention_core(q, kk, vv, q_positions=qpos, kv_positions=kv_pos,
                            causal=True, window=window)
+        o = padding_rows_as_jax(o, vv, qpos)
         return o.reshape(B_, S, H_loc * dh), kp, vp
 
     core.flash_calls = 1
@@ -879,10 +1176,11 @@ def tp_applicable(cfg, kind: str, tp: int,
 def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
                  d_model: int, itemsize: int) -> int:
     """The matmul-kernel calls one rank makes executing the optimized
-    dense period ``graph``, a forward, training or serve graph (its backward
+    period ``graph``, a forward, training or serve graph (its backward
     ops, the ``_dw``/``_gemm_t`` customs and ``gemm_rs`` over derived
-    weights included), derived from its nodes alone: ``batch`` is each
-    chain's batch, ``seq`` the full sequence, so every gathered or
+    weights included; an expert all-to-all runs its expert fn, or the fn's
+    VJP, on each of the ring's rows), derived from its nodes alone:
+    ``batch`` is each chain's batch, ``seq`` the full sequence, so every gathered or
     replicated activation is (batch, seq, d_model) of ``itemsize`` bytes.
     ``barrier`` issues one GEMM per weight; ``cais`` one per weight per
     micro-chunk per ring step on the gather side and one per hop (two per
@@ -916,7 +1214,11 @@ def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
     calls = 0
     for node in graph.nodes:
         k = len(node.weights)
-        if node.op in ("gemm_col", "gemm_row", "bwd_ag_gemm"):
+        if node.op == "a2a_ffn":    # the expert fn on each of the n rows
+            calls += n * node.fn.matmul_calls
+        elif node.op == "bwd_a2a_ffn":
+            calls += n * node.fn.vjp_matmul_calls
+        elif node.op in ("gemm_col", "gemm_row", "bwd_ag_gemm"):
             calls += 1      # bwd_ag_gemm: one GEMM over the gathered grad
         elif node.op == "custom" and node.fn in (df._dw, df._gemm_t):
             calls += 1      # a weight gradient, or a dx through wᵀ

@@ -7,6 +7,7 @@ DenseEngine, on one device. Counterpart of ``repro/launch/serve.py``.
     python -m repro_torch.launch.serve --arch minicpm3-4b
     python -m repro_torch.launch.serve --smoke --device cpu
     python -m repro_torch.launch.serve --arch minicpm3-4b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch mixtral-8x7b --layers 2
     python -m repro_torch.launch.serve --load poisson --rate 16 \
         --report reports/serve_latency.json
 
@@ -14,7 +15,9 @@ The flags are ``repro``'s, plus ``--device`` (default ``cuda``: the launcher
 fails where there is no card unless told ``--device cpu``) and the serving
 shape: ``--prompt-len-min`` (prompt lengths drawn from
 [min, ``--prompt-len``]), ``--prefill-chunk`` and ``--block-size``. Only
-``--mesh none`` is ported: JAX's meshes have a data-parallel axis (``debug``
+``--mesh none`` is ported. ``--layers N`` cuts the depth to the first N
+layers at the published widths (mixtral-8x7b's 46.7 B parameters do not
+fit one card; 2 layers do). JAX's meshes have a data-parallel axis (``debug``
 is 2 x 4), ROADMAP A14. Serving over a TP ring runs the ``Engine`` on a
 model built with ``group=`` on every rank
 (:func:`repro_torch.launch.ranks.run_ranks`).
@@ -59,6 +62,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--report", default="")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the first N layers (0: all)")
     return ap
 
 
@@ -70,6 +75,8 @@ def main(argv: Optional[List[str]] = None
             f"--mesh {args.mesh}: meshes with a data-parallel axis are not "
             "ported yet (ROADMAP A14)")
     cfg = get_arch(args.arch)
+    if args.layers:
+        cfg = cfg.scaled(num_layers=args.layers)
     rt = runtime_for(cfg)
     if args.smoke:
         cfg = cfg.smoke()

@@ -117,11 +117,26 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     key j is visible to query i iff
     kv_pos[j] >= 0 and, when causal, kv_pos[j] <= q_pos[i] and (window 0 or)
     kv_pos[j] > q_pos[i] - window. A query with no visible key yields zeros
-    (JAX's finite mask gives the mean of v there; such rows are padding and
-    reach neither a logit nor the pool)."""
+    (JAX's finite mask gives the mean of v there); the paged paths, where
+    such queries are the padding, put JAX's value back
+    (:func:`padding_rows_as_jax`)."""
     return ops.flash_attention(q, k, v, q_positions=q_positions,
                                kv_positions=kv_positions, causal=causal,
                                window=window, scale=scale)
+
+
+def padding_rows_as_jax(o: torch.Tensor, v: torch.Tensor,
+                        q_positions: torch.Tensor) -> torch.Tensor:
+    """``o`` (B,Sq,H,dv) of a paged step with each padding query (position
+    < 0, which sees no key) set to what JAX's finite mask gives it: a
+    uniform softmax over all Skv gathered keys, the mean of its kv head's
+    ``v`` (B,Skv,Hkv,dv). A live query always sees its own key. Padding
+    rows reach the logits through an MoE's routing, where they take
+    capacity as in JAX."""
+    H, Hkv = o.shape[2], v.shape[2]
+    vmean = v.float().mean(dim=1).repeat_interleave(H // Hkv, dim=1)
+    return torch.where((q_positions < 0)[..., None, None],
+                       vmean[:, None].to(o.dtype), o)
 
 
 class Attention(nn.Module):
@@ -195,6 +210,7 @@ def attention_paged(params: Attention, x: torch.Tensor, pool: Pool,
                                   view.context_lens)
     o = attention_core(q, kk, vv, q_positions=view.positions,
                        kv_positions=kv_pos, causal=True, window=window)
+    o = padding_rows_as_jax(o, vv, view.positions)
     return o.reshape(B, S, -1) @ params.wo.to(dtype), pool
 
 

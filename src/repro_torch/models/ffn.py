@@ -1,8 +1,29 @@
-"""Dense FFN blocks (gated MLP). Counterpart of the dense part
-of ``repro/models/ffn.py``; MoE is ROADMAP A10."""
+"""FFN blocks: the gated MLP and the capacity-bounded top-k MoE, the
+counterpart of ``repro/models/ffn.py``.
+
+MoE follows the GShard/Mesh-TF formulation: tokens are reshaped into
+``(groups, group_size)`` and dispatched to experts with a one-hot
+capacity-bounded dispatch tensor. On one device the dispatch, expert and
+combine einsums are torch ops, as JAX's are plain ``jnp`` (no Pallas kernel
+computes them); on a TP ring the experts are sharded by whole expert and the
+expert path runs through the period graph's ``route`` → ``a2a_ffn`` →
+``unroute`` nodes (:mod:`repro_torch.core.tp`), whose expert GEMMs go through
+the matmul kernel.
+
+Routing is discrete: the top-2 choice and the capacity slots come from
+argmax and cumsum, so the router logits are computed in f32 (the router
+weight stays f32 whatever the parameter type, TF32 off) and ``torch.argmax``
+keeps ``jnp.argmax``'s first-maximum rule. The masks are ``F.one_hot`` of
+integer indices and carry no gradient, so autograd of
+:func:`_top2_dispatch` is ``jax.vjp`` of JAX's: the aux loss reaches the
+router logits only through the mean router probability.
+"""
 from __future__ import annotations
 
+from typing import Tuple, Union
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
@@ -26,19 +47,58 @@ class MLP(nn.Module):
             dense_init_(w, generator)
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE FFN is not ported yet (ROADMAP A10)")
+class MoE(nn.Module):
+    """The router (d, E), f32 whatever ``dtype``; the experts' gated MLPs
+    stacked on a leading expert axis, w_up/w_gate (E_loc, d, d_ff) and
+    w_down (E_loc, d_ff, d); and, for a dense-residual MoE (Arctic), the
+    dense MLP ``dense`` beside them. ``num_local`` is the experts this rank
+    holds (all E on one device)."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
+                 device: torch.device, num_local: int):
+        super().__init__()
+        d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+        mk = lambda *s, dt=dtype: nn.Parameter(
+            torch.empty(s, dtype=dt, device=device), requires_grad=False)
+        self.router = mk(d, E, dt=torch.float32)
+        self.w_up = mk(num_local, d, f)
+        self.w_down = mk(num_local, f, d)
+        self.w_gate = mk(num_local, d, f)
+        dr = cfg.moe.dense_residual_d_ff
+        self.dense = MLP(d, dr, dtype, device) if dr else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        d, f = self.w_up.shape[1], self.w_up.shape[2]
+        dense_init_(self.router, generator)
+        dense_init_(self.w_up, generator, fan_in=d)
+        dense_init_(self.w_down, generator, fan_in=f)
+        dense_init_(self.w_gate, generator, fan_in=d)
+        if self.dense is not None:
+            self.dense.reset_parameters(generator)
+
+
+def _gated_only(cfg: ArchConfig) -> None:
     if not gated(cfg.act):
         raise NotImplementedError(f"non-gated MLP ({cfg.act!r}) is not ported "
                                   "yet")
 
 
+def local_experts(cfg: ArchConfig, tp: int) -> int:
+    """The experts a rank of a ring of ``tp`` holds: E/tp where they shard
+    by whole expert (E % tp == 0), all E otherwise (replicated; the E < tp
+    owner mapping of :func:`repro_torch.core.tp.sp_moe_ffn`)."""
+    E = cfg.moe.num_experts
+    return E // tp if tp > 1 and E % tp == 0 else E
+
+
 def init_ffn(cfg: ArchConfig, dtype: torch.dtype, device: torch.device,
-             tp: int = 1) -> MLP:
+             tp: int = 1) -> Union[MLP, MoE]:
     """The FFN parameters; on a TP ring of ``tp`` ranks one rank's shards
-    (w_up/w_gate by columns, w_down by rows)."""
-    _dense_only(cfg)
+    (w_up/w_gate by columns, w_down by rows; an MoE's experts by whole
+    expert, its router and dense MLP whole)."""
+    _gated_only(cfg)
+    if cfg.moe is not None:
+        return MoE(cfg, dtype, device, local_experts(cfg, tp))
     return MLP(cfg.d_model, cfg.d_ff // tp, dtype, device)
 
 
@@ -49,8 +109,106 @@ def mlp_forward(params: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
     return h @ params.w_down.to(dtype)
 
 
-def ffn_forward(params: MLP, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Unified FFN entry (dense only). The JAX version also returns the MoE
-    aux loss, which is 0 for every dense FFN."""
-    _dense_only(cfg)
-    return mlp_forward(params, x, cfg.act)
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+def capacity(tokens: int, cfg: ArchConfig) -> int:
+    """The expert buffer slots for a group of ``tokens``, in JAX's
+    operation order (another float order can truncate to another value)."""
+    m = cfg.moe
+    return max(1, int(tokens * m.top_k / m.num_experts * m.capacity_factor))
+
+
+def _top2_dispatch(probs: torch.Tensor, capacity: int):
+    """GShard top-2 dispatch. probs: (G, g, E) f32.
+
+    Returns (dispatch (G,g,E,C) bool, combine (G,g,E,C) f32, aux_loss). The
+    aux loss's gradient reaches the logits only through ``density_proxy``
+    (the mean router probability); the one-hot factors carry none, which is
+    the Switch/GShard straight-through convention of ``repro``'s."""
+    G, g, E = probs.shape
+    idx1 = torch.argmax(probs, -1)
+    mask1 = F.one_hot(idx1, E).to(probs.dtype)
+    probs_wo1 = probs * (1.0 - mask1)
+    idx2 = torch.argmax(probs_wo1, -1)
+    mask2 = F.one_hot(idx2, E).to(probs.dtype)
+
+    # load-balancing auxiliary loss (Switch/GShard)
+    density = torch.mean(mask1, dim=1)              # (G, E) fraction routed
+    density_proxy = torch.mean(probs, dim=1)        # (G, E) mean router prob
+    aux = torch.mean(density * density_proxy) * (E * E)
+
+    # capacity-bounded positions inside each expert buffer
+    pos1 = torch.cumsum(mask1, dim=1) * mask1 - mask1          # 0-based
+    mask1 = mask1 * (pos1 < capacity)
+    # second choice queues behind all first choices
+    count1 = torch.sum(mask1, dim=1, keepdim=True)
+    pos2 = (torch.cumsum(mask2, dim=1) * mask2 - mask2) + count1
+    mask2 = mask2 * (pos2 < capacity)
+
+    gate1 = torch.sum(probs * mask1, -1)
+    gate2 = torch.sum(probs * mask2, -1)
+    denom = torch.clamp(gate1 + gate2, min=1e-9)
+    gate1, gate2 = gate1 / denom, gate2 / denom
+
+    def onehot_pos(pos, mask):
+        # (G,g,E) position -> (G,g,E,C) one-hot, zeroed where not routed;
+        # wherever pos >= capacity the mask is already 0, so the clamp (which
+        # F.one_hot needs: jax.nn.one_hot gives zeros out of range) changes
+        # nothing
+        oh = F.one_hot(pos.long().clamp(0, capacity - 1), capacity)
+        return oh.to(probs.dtype) * mask[..., None]
+
+    d1 = onehot_pos(pos1, mask1)
+    d2 = onehot_pos(pos2, mask2)
+    combine = gate1[..., None, None] * d1 + gate2[..., None, None] * d2
+    dispatch = (d1 + d2) > 0.0
+    return dispatch, combine, aux
+
+
+def router_probs(t: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """softmax of the f32 router logits of tokens ``t`` (..., d)."""
+    return torch.softmax(t.float() @ router, dim=-1)
+
+
+def moe_forward(params: MoE, x: torch.Tensor, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out, aux_loss), every expert on this device. Tokens
+    route in groups of ``group_size`` over the batch-major flattening,
+    halved until the group divides B·S (decode steps, odd batches);
+    padding tokens route with the rest, as in JAX."""
+    m = cfg.moe
+    B, S, d = x.shape
+    dtype = x.dtype
+    g = min(m.group_size, B * S)
+    while (B * S) % g:  # shrink until it divides (small/odd batches)
+        g //= 2
+    G = (B * S) // g
+    xt = x.reshape(G, g, d)
+    probs = router_probs(xt, params.router)
+    dispatch, combine, aux = _top2_dispatch(probs, capacity(g, cfg))
+
+    # dispatch: tokens -> expert buffers (E, G, C, d)
+    einp = torch.einsum("gsec,gsd->egcd", dispatch.to(dtype), xt)
+    h = torch.einsum("egcd,edf->egcf", einp, params.w_up.to(dtype))
+    gate = torch.einsum("egcd,edf->egcf", einp, params.w_gate.to(dtype))
+    h = activation(cfg.act, gate) * h
+    eout = torch.einsum("egcf,efd->egcd", h, params.w_down.to(dtype))
+    out = torch.einsum("gsec,egcd->gsd", combine.to(dtype), eout)
+    out = out.reshape(B, S, d)
+    if params.dense is not None:
+        out = out + mlp_forward(params.dense, x, cfg.act)
+    return out, aux.float()
+
+
+def ffn_forward(params: Union[MLP, MoE], x: torch.Tensor, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unified FFN entry: returns (out, aux_loss), the aux loss 0 for a
+    dense MLP."""
+    _gated_only(cfg)
+    if cfg.moe is not None:
+        return moe_forward(params, x, cfg)
+    return mlp_forward(params, x, cfg.act), torch.zeros(
+        (), dtype=torch.float32, device=x.device)

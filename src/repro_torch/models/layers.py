@@ -16,10 +16,12 @@ from torch import nn
 # ---------------------------------------------------------------------------
 
 
-def dense_init_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """Truncated-normal fan-in init (fan-in = ``w.shape[0]``, the ``d_in``
-    axis), cut at two standard deviations."""
-    std = 1.0 / math.sqrt(max(w.shape[0], 1))
+def dense_init_(w: torch.Tensor, generator: torch.Generator,
+                fan_in: int = 0) -> torch.Tensor:
+    """Truncated-normal fan-in init, cut at two standard deviations; the
+    fan-in is ``w.shape[0]`` (the ``d_in`` axis) unless ``fan_in`` names it
+    (an expert stack (E, d_in, d_out) passes d_in)."""
+    std = 1.0 / math.sqrt(max(fan_in or w.shape[0], 1))
     return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                  generator=generator)
 

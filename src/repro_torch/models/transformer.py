@@ -1,6 +1,8 @@
 """Decoder-only LM assembled from an ArchConfig: the training forward and
 loss, prefill/decode over dense caches, and the paged serving path, of
-``repro/models/transformer.py``.
+``repro/models/transformer.py``. The FFN is a gated MLP or an MoE
+(:mod:`repro_torch.models.ffn`), whose load-balancing aux loss enters
+``LM.loss`` with weight ``AUX_LOSS_WEIGHT``.
 
 JAX scans the stack over pattern periods with parameters stacked per
 period; here the blocks are an ``nn.ModuleList`` in layer order and the
@@ -13,8 +15,10 @@ explicit backend in ``rt.tp.mode``) each rank holds its shards of the TP
 weights, the embedded activation is cut to this rank's sequence shard, every
 period runs as one dataflow graph (:func:`repro_torch.core.tp.sp_period`)
 and stays sequence-sharded between periods, and the loss's (sum, count) is
-all-reduced over the ring. Paged serving (``serve_step``) on a ring keeps
-the activation whole on every rank and runs each period as one serve graph
+all-reduced over the ring; an MoE period's aux loss is the mean over the
+ring of each rank's, the aux of its own shard. Paged serving
+(``serve_step``) on a ring keeps the activation whole on every rank and
+runs each period as one serve graph
 (:func:`repro_torch.core.tp.sp_serve_period`) against the rank's KV pools;
 the embedding and head are whole on every rank, so every rank computes the
 same logits. On one device there is no TP context and every block takes the
@@ -132,8 +136,7 @@ def block_forward(kind: str, params: Block, x: torch.Tensor,
                                prefix_len=prefix_len, norm_kind=cfg.norm)
     x = x + _mixer_forward(kind, params.mixer, params.norm1(x), cfg,
                            prefix_len)
-    x = _ffn_residual(params, x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _ffn_block(params, x, cfg)
 
 
 def _mixer_forward(kind: str, mixer, h: torch.Tensor, cfg: ArchConfig,
@@ -148,11 +151,21 @@ def _window(kind: str, cfg: ArchConfig) -> int:
     return cfg.window if kind == "swa" else 0
 
 
+def _ffn_block(params: Block, x: torch.Tensor, cfg: ArchConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + FFN(norm2(x)), the FFN's aux loss)."""
+    if not _has_ffn(cfg):
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    out, aux = ffn_mod.ffn_forward(params.ffn, params.norm2(x), cfg)
+    return x + out, aux
+
+
 def _ffn_residual(params: Block, x: torch.Tensor,
                   cfg: ArchConfig) -> torch.Tensor:
-    if _has_ffn(cfg):
-        x = x + ffn_mod.ffn_forward(params.ffn, params.norm2(x), cfg)
-    return x
+    """x + FFN(norm2(x)) on a serving path, which drops the aux loss (an
+    MoE routes every token of the step, padding included, as JAX's
+    ``serve_step`` does)."""
+    return _ffn_block(params, x, cfg)[0]
 
 
 def _blocks_forward(kinds: Sequence[str], blocks: Sequence[Block],
@@ -311,9 +324,13 @@ def _blocks_step(kinds: Sequence[str], blocks: Sequence[Block],
         for blk, pool in zip(blocks, pools):
             x, _ = block_step(blk, x, pool, view, cfg)
         return x, list(pools)
-    if cfg.moe is not None or not all(
-            _whole_block_applicable(cfg, k, tpc.tp, tpc.route_ring)
-            for k in kinds):
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE serving over a TP ring is not ported yet (JAX "
+            "runs it under GSPMD, which has no counterpart here); serve it "
+            "on one device")
+    if not all(_whole_block_applicable(cfg, k, tpc.tp, tpc.route_ring)
+               for k in kinds):
         raise NotImplementedError(
             f"{cfg.name}: serving blocks {tuple(kinds)} that are not "
             f"whole-block TP-applicable at tp={tpc.tp} is not ported yet "
@@ -445,12 +462,21 @@ class LM(nn.Module):
                 torch.Generator(device=device).manual_seed(seed))
             return
         # the same weights as the one-device model from this seed: draw them
-        # whole, keep this rank's shards
+        # whole, keep this rank's shards. Ranks that share one card (gloo on
+        # CUDA) take turns, so the card holds one whole model at a time
         from repro_torch.bridge import shard_state_dict
 
-        full = LM(cfg, rt, device=device, seed=seed)
-        self.load_state_dict(shard_state_dict(full.state_dict(), cfg,
-                                              group.rank, tp))
+        turns = group.backend == "gloo" and device.type == "cuda"
+        for turn in range(tp if turns else 1):
+            if not turns or turn == group.rank:
+                full = LM(cfg, rt, device=device, seed=seed)
+                self.load_state_dict(shard_state_dict(
+                    full.state_dict(), cfg, group.rank, tp))
+                del full
+                if turns:
+                    torch.cuda.empty_cache()
+            if turns:
+                group.all_reduce(torch.zeros(1))    # the turn's end
 
     @property
     def tp(self) -> int:

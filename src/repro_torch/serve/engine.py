@@ -86,8 +86,10 @@ def _sample_token(logits_row: np.ndarray, seed: int, rid: int,
 
 def paged_supported(model, cfg: Optional[ArchConfig]) -> bool:
     """Can this (model, arch) serve through the paged path? Requires
-    attention-only mixers, a dense FFN and a model with ``serve_step``."""
-    if cfg is None or not hasattr(model, "serve_step") or cfg.moe is not None:
+    attention-only mixers (the pools hold K/V blocks; MLA caches a latent)
+    and a model with ``serve_step``; the FFN may be dense or MoE, as in
+    JAX."""
+    if cfg is None or not hasattr(model, "serve_step"):
         return False
     return all(k in ("attn", "swa") for k in cfg.layer_kinds())
 

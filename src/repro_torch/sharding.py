@@ -5,7 +5,9 @@ Counterpart of ``repro/sharding.py`` for the one mesh the port runs: a flat
 bodies become per-rank code on a :class:`TPGroup`: ``lax.axis_index`` is
 :attr:`TPGroup.rank`, ``lax.ppermute`` is :meth:`TPGroup.ppermute` (one
 ``batch_isend_irecv``), ``lax.all_gather``/``psum_scatter``/``psum`` along a
-dimension are :meth:`all_gather`/:meth:`reduce_scatter`/:meth:`all_reduce`.
+dimension are :meth:`all_gather`/:meth:`reduce_scatter`/:meth:`all_reduce`,
+and ``lax.all_to_all`` over a leading axis of the ring's size is
+:meth:`all_to_all`.
 
 The group runs on NCCL when every rank has its own GPU and on gloo
 otherwise. Gloo moves host memory only, so with gloo a CUDA tensor is
@@ -104,6 +106,20 @@ class TPGroup:
         out = wire.new_empty((wire.shape[0] // self.size, *wire.shape[1:]))
         _reduce_scatter_single(out, wire, group=self.pg)
         return out.to(x.device).movedim(0, dim).contiguous()
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Row ``j`` of ``x`` (leading axis of the ring's size) to rank
+        ``j``; row ``j`` of the result is what rank ``j`` sent this rank
+        (``lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)``)."""
+        if self.size == 1:
+            return x
+        if x.shape[0] != self.size:
+            raise ValueError(f"all_to_all needs a leading axis of "
+                             f"{self.size}, got {tuple(x.shape)}")
+        wire = self._wire(x).contiguous()
+        out = torch.empty_like(wire)
+        dist.all_to_all_single(out, wire, group=self.pg)
+        return out.to(x.device)
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over ranks (``lax.psum``); returns a new tensor."""

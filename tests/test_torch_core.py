@@ -189,8 +189,9 @@ def test_unported_paths_raise_with_their_roadmap_item():
         [(n.name, n.op) for n in want.nodes]
     with pytest.raises(NotImplementedError, match="A14"):
         init_tp_group(4, 0, init_method="file:///nowhere", dp=2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        backends.get_backend("cais").a2a_expert_ffn(None, None, None, None)
+    with pytest.raises(NotImplementedError, match="A14"):
+        backends.get_backend("cais").hier_a2a_expert_ffn(None, None, None,
+                                                         None)
     with pytest.raises(NotImplementedError, match="A14"):
         backends.get_backend("barrier").hier_gemm_rs(None, None, None, None)
     assert backends.available_backends() == ["auto", "barrier", "cais"]

@@ -187,7 +187,7 @@ def test_entry_points_default_to_cuda():
 
 def test_not_ported_archs_and_mesh_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_arch("mixtral-8x7b")
+        get_arch("arctic-480b")
     cfg = get_arch("deepseek-7b").smoke()
     lm = LM(cfg, SMOKE, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):

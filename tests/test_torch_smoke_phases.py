@@ -1,4 +1,4 @@
-"""``chip_smoke.py``'s phases 9 and 10 on the CPU at smoke size.
+"""``chip_smoke.py``'s phases 9, 10 and 11 on the CPU at smoke size.
 
 Phase 9: the one-device
 reference step and its host store, and the rank body on a gloo ring of 4,
@@ -15,9 +15,19 @@ Phase 10: the one-device serving references and the rank body on a gloo
 ring of 4 (internlm2-1.8b, and gemma3-1b's replicated kv head and window),
 with a small traffic: every check the phase makes on the card except the
 launch counters and variants, and every matmul call shape among those
-``serve_matmul_shapes`` predicts for phase 3."""
+``serve_matmul_shapes`` predicts for phase 3.
+
+Phase 11: (b) the MoE training step (mixtral-8x7b smoke, batch 1 of 64
+tokens, so a rank's 16 tokens are the smoke routing group) with every check
+``train_checks`` makes on the card except the launch counters, the routing
+of every rank equal to one device's, the backend's expert all-to-all
+dispatches equal to the graphs', and every matmul call among those
+``moe_matmul_shapes`` predicts; (a) the scripted serving schedule through
+``serve_step`` with its routing recorded once a layer a step."""
 import sys
 import tempfile
+
+import numpy as np
 from pathlib import Path
 
 import pytest
@@ -129,3 +139,69 @@ def test_phase10_on_the_cpu(phase10, i):
     if row["tokens"] is not None:
         assert row["steps"] == row["engine_steps"] + len(
             CS.scripted_steps(cfg, TRAFFIC, CS.SCRIPTED_CHUNKS))
+
+
+@pytest.fixture(scope="module")
+def phase11():
+    cfg = get_arch(CS.MOE_ARCH).smoke()
+    batch = CS.train_batch(cfg, 64, 1)
+    with tempfile.TemporaryDirectory() as root:
+        ref, store = CS.train_reference(batch, root, cfg, "cpu",
+                                        quantities=("grad",))
+        with CS.plan_cache_at(Path(root) / "plans"):
+            ranks = run_ranks(CS.train_rank, 4, batch, CS.MOE_RUNS, store,
+                              {k: v for k, v in ref.items()
+                               if k != "routing"}, cfg, "cpu",
+                              device="cpu", timeout=600)
+    rows, _ = CS.train_checks(cfg, ref, ranks, CS.MOE_RUNS, 16)
+    return cfg, ranks, rows
+
+
+@pytest.mark.parametrize("i", range(len(CS.MOE_RUNS)),
+                         ids=["-".join(map(str, r)) for r in CS.MOE_RUNS])
+def test_phase11_training_on_the_cpu(phase11, i):
+    cfg, ranks, rows = phase11
+    row, run = rows[i], CS.MOE_RUNS[i]
+    bad = [k for k, v in row["checks"].items() if not v and not k.startswith(
+        LAUNCH_CHECKS + ("transposed layouts", "a2a_ffn"))]
+    assert not bad
+    assert row["mb"] == 1
+    if run[2] == "float32":
+        assert row["elementwise_held"]
+        assert all(d["choice"] == d["slots"] == 0
+                   for d in row["routing_differences"])
+    predicted = set(CS.moe_matmul_shapes(cfg, run[2], world=4, batch=1,
+                                         seq=64, runs=[run]))
+    for rk in ranks:
+        p = rk[i]
+        assert sum(c[-1] for c in p["call_shapes"]) == p["matmul_derived"]
+        assert p["flash_derived"] == 3 * cfg.num_layers
+        assert {(M, K, N, lay) for M, K, N, _, lay, _ in p["call_shapes"]} \
+            <= predicted
+        assert [a[0] for a in p["a2a"]] == [a[0] for a in p["a2a_derived"]] \
+            == [2 * cfg.num_layers, cfg.num_layers]
+
+
+def test_phase11_scripted_serving_on_the_cpu():
+    from repro_torch.models import LM
+    from repro_torch.runtime import Runtime
+
+    cfg = get_arch(CS.MOE_ARCH).smoke()
+    steps = CS.moe_scripted_steps(cfg, TRAFFIC)
+    assert len(steps) == 1 + CS.MOE_DECODE_STEPS
+    lm = LM(cfg, Runtime(compute_dtype="float32"), device="cpu", seed=0)
+    routes, restore = CS.routing_probe()
+    try:
+        a, _ = CS.run_scripted(lm, steps, TRAFFIC["block"])
+        first = list(routes)
+        routes.clear()
+        b, _ = CS.run_scripted(lm, steps, TRAFFIC["block"])
+    finally:
+        restore()
+    assert len(first) == len(routes) == len(steps) * cfg.num_layers
+    diff = CS.routing_differences(routes, first)
+    assert diff == dict(choice=0, slots=0, worst_gap=None, first=None)
+    assert CS.routing_rule(diff)
+    for x, y in zip(a, b):
+        assert np.isfinite(x).all()
+        np.testing.assert_array_equal(x, y)

@@ -484,3 +484,165 @@ def serve_tp_cells(group, block, serve, engine, plan_root=None):
                      eng.last_report["steps"])
     out["_jax_imported"] = "jax" in sys.modules
     return out
+
+
+# ---------------------------------------------------------------------------
+# MoE over the ring (tests/test_torch_moe.py)
+# ---------------------------------------------------------------------------
+
+
+def _a2a_cells(group, a):
+    """The expert all-to-all and its adjoint through each schedule, the
+    expert fn and its VJP those of the period graph (``_moe_graph_fns``),
+    on this rank's send rows and its whole experts of ``a["wu"]`` etc."""
+    n, r = group.size, group.rank
+    _, expert_fn, _ = tp_mod._moe_graph_fns(a["cfg"], n, r)
+    ws = tuple(_rows(a[k], r, n, 0) for k in ("wu", "wg", "wd"))
+    send, gy = _t(a["send"][r]), _t(a["gy"][r])
+    row = dataflow._row_vjp(expert_fn, ws)
+    out = {}
+    for name, be, bidir in (("barrier", "barrier", True),
+                            ("cais", "cais", True),
+                            ("cais_uni", "cais", False)):
+        be = backends.get_backend(be)
+        cais = prim.CAISConfig(bidirectional=bidir)
+        out[f"a2a.{name}"] = be.a2a_expert_ffn(
+            send, lambda c: expert_fn(c, *ws), group, cais).numpy()
+        d, dws = be.grad_a2a_expert_ffn(send, gy, row, group, cais)
+        out[f"grad.{name}"] = (d.numpy(), [w.numpy() for w in dws])
+    return out
+
+
+def _moe_lm_cells(group, cfg, params, tokens, count, flash):
+    """LM.loss, its graph-built backward and ``sync_grads`` on this rank for
+    barrier and cais; {mode: (loss, {param: grad}, matmul calls made,
+    derived from the graphs, flash calls made, derived, backend a2a
+    dispatches (forward, backward))}."""
+    from repro_torch import bridge
+    from repro_torch.models import LM
+    from repro_torch.runtime import SMOKE, Runtime, TPConfig
+
+    a2a = {"a2a_expert_ffn": 0, "grad_a2a_expert_ffn": 0}
+    for name in ("barrier", "cais"):
+        be = backends.get_backend(name)
+        for meth in a2a:
+            def counted(*a, _inner=getattr(be, meth), _m=meth, **kw):
+                a2a[_m] += 1
+                return _inner(*a, **kw)
+            setattr(be, meth, counted)
+    tok = _t(tokens)
+    B, S = tokens.shape
+    out = {}
+    for mode in ("barrier", "cais"):
+        rt = Runtime(compute_dtype="float32", loss_chunk=SMOKE.loss_chunk,
+                     remat=False, tp=TPConfig(mode=mode, chunks=2))
+        lm = LM(cfg, rt, device="cpu", seed=None, group=group)
+        bridge.load_jax_params(lm, params)
+        lm.requires_grad_(True)
+        count[0] = flash[0] = 0
+        for k in a2a:
+            a2a[k] = 0
+        loss = lm.loss({"tokens": tok, "labels": tok})
+        loss.backward()
+        lm.sync_grads()
+        made = (count[0], flash[0], a2a["a2a_expert_ffn"],
+                a2a["grad_a2a_expert_ffn"])
+        tpc = tp_mod.TPContext.from_config(rt.tp, group)
+        x = torch.empty(B, S // group.size, cfg.d_model, device="meta")
+        derived = fderived = 0
+        P = len(cfg.layer_pattern)
+        for p in range(cfg.num_layers // P):
+            period, _ = tp_mod.build_period(
+                tpc, x, lm.blocks[p * P:(p + 1) * P], cfg, cfg.layer_pattern,
+                norm_kind=cfg.norm)
+            for g in (period.graph, period.training()[1]):
+                derived += tp_mod.matmul_calls(g, tpc, B, S, cfg.d_model, 4)
+                fderived += tp_mod.flash_calls(g)
+        out[mode] = (float(loss.detach()),
+                     {k: p.grad.numpy() for k, p in lm.named_parameters()},
+                     made[0], derived, made[1], fderived, made[2:])
+    return out
+
+
+def _moe_ce_cell(group, cfg, params, tokens):
+    """The cais ring's cross-entropy (the aux loss's weight set to 0) of
+    ``LM.loss`` (multidev_checks' ``moe.auto_vs_cais_ce``)."""
+    from repro_torch import bridge
+    from repro_torch.models import LM, transformer
+    from repro_torch.runtime import SMOKE, Runtime, TPConfig
+
+    rt = Runtime(compute_dtype="float32", loss_chunk=SMOKE.loss_chunk,
+                 tp=TPConfig(mode="cais", chunks=2))
+    lm = LM(cfg, rt, device="cpu", seed=None, group=group)
+    bridge.load_jax_params(lm, params)
+    saved, transformer.AUX_LOSS_WEIGHT = transformer.AUX_LOSS_WEIGHT, 0.0
+    try:
+        tok = _t(tokens)
+        return float(lm.loss({"tokens": tok, "labels": tok}))
+    finally:
+        transformer.AUX_LOSS_WEIGHT = saved
+
+
+def _moe_e_lt_tp_cell(group, cfg, tree, x):
+    """``sp_moe_ffn`` with fewer experts than ranks (multidev_checks'
+    ``sp_moe_ffn.e_lt_tp``): every rank holds the whole (replicated)
+    experts of ``tree`` and its sequence shard of ``x``; returns its output
+    shard."""
+    from repro_torch.models.ffn import MoE
+
+    moe = MoE(cfg, torch.float32, torch.device("cpu"),
+              cfg.moe.num_experts)
+    with torch.no_grad():
+        for k in ("router", "w_up", "w_gate", "w_down"):
+            getattr(moe, k).copy_(_t(tree["ffn"][k]))
+    tpc = tp_mod.TPContext(group, backend="cais",
+                           cais=prim.CAISConfig(num_chunks=2))
+    out, aux = tp_mod.sp_moe_ffn(tpc, _rows(x, group.rank, group.size, 1),
+                                 _t(tree["norm2"]["scale"]), moe, cfg)
+    return out.numpy(), float(aux)
+
+
+def _moe_step_cell(group, cfg, params, batch, lr):
+    """One AdamW train step (``make_train_step``) of the cais ring; returns
+    (loss, grad norm, {param: this rank's updated value})."""
+    from repro_torch import bridge
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw, constant_schedule
+    from repro_torch.runtime import SMOKE, Runtime, TPConfig
+    from repro_torch.train.step import init_state, make_train_step
+
+    rt = Runtime(compute_dtype="float32", loss_chunk=SMOKE.loss_chunk,
+                 remat=False, tp=TPConfig(mode="cais", chunks=2))
+    lm = LM(cfg, rt, device="cpu", seed=None, group=group)
+    bridge.load_jax_params(lm, params)
+    opt = adamw(constant_schedule(lr))
+    state = init_state(lm, opt)
+    state, m = make_train_step(lm, opt, rt)(state, batch)
+    return (float(m["loss"]), float(m["grad_norm"]),
+            {k: p.detach().numpy().copy()
+             for k, p in lm.named_parameters()})
+
+
+def moe_cells(group, data):
+    """Every MoE cell of ``tests/test_torch_moe.py`` on one spawn: "a2a" (the
+    expert all-to-all), "lm" (LM.loss and grads, barrier and cais), "ce"
+    (the cais cross-entropy), and where ``data`` holds them "e_lt_tp" and
+    "step"."""
+    count = _count_matmuls()
+    flash = [0]
+    inner_fa = ops.flash_attention
+
+    def fa_counted(*a, **kw):
+        flash[0] += 1
+        return inner_fa(*a, **kw)
+
+    ops.flash_attention = fa_counted
+    out = {"a2a": _a2a_cells(group, data["a2a"]),
+           "lm": _moe_lm_cells(group, *data["lm"], count, flash),
+           "ce": _moe_ce_cell(group, *data["ce"])}
+    if "e_lt_tp" in data:
+        out["e_lt_tp"] = _moe_e_lt_tp_cell(group, *data["e_lt_tp"])
+    if "step" in data:
+        out["step"] = _moe_step_cell(group, *data["step"])
+    out["_jax_imported"] = "jax" in sys.modules
+    return out
