@@ -101,6 +101,12 @@ Phases (any failure exits non-zero):
      the plans, their simulated makespans against greedy's, the cache's
      hits, misses and memo hits and the planner's host seconds. Step times
      are printed with the note that gloo stages every hop through the host.
+     Then the same step on the 2D mesh of the same ranks (tp_in 2 x tp_out
+     2, whose composite index cuts the flat ring's shards): ``cais`` mb 2
+     in f32, held by the same rules, the launches the 2D graphs' (the
+     hierarchical compositions), and the loss's difference from the flat
+     ``cais`` mb 2 run printed (the 2D ``barrier`` run is left out to keep
+     the script inside its time limit).
  10. paged serving over the ring: internlm2-1.8b at full width and depth,
      random weights from seed 0, f32 params, phase 5's traffic (4 requests
      of 600-700 prompt tokens, 16 new tokens, prefill chunk 128, block 16)
@@ -125,7 +131,9 @@ Phases (any failure exits non-zero):
      gemma3-1b cut to one period (5 sliding-window layers and a global one;
      its kv head replicated and sliced on each rank), ``cais`` f32, its
      scripted logits over 4 prefill chunks (past the 512 window) within
-     ``LOGIT_TOL`` of one device's.
+     ``LOGIT_TOL`` of one device's. Between them, ``cais`` f32 on the 2D
+     mesh (data axis 1: the hierarchical ``gemm_ar``, the admission clock
+     agreed over the whole TP group), held as the flat runs.
  11. MoE: mixtral-8x7b at its published widths (8 experts top-2, capacity
      factor 1.25, group 512, window 4096) cut from 32 to MOE_LAYERS layers,
      random weights from seed 0, f32 params. (a) Served on one device
@@ -152,6 +160,22 @@ Phases (any failure exits non-zero):
      must run through the backend with the matmul kernel inside, and every
      call shape must be among phase 3's (which adds mixtral's attention
      cores and every expert and attention GEMM of the ring's step).
+ 12. data parallelism and the 2D mesh, 4 gloo ranks sharing the card: (a)
+     internlm2-1.8b (DP_LAYERS layers) on data 2 x model 2, global batch
+     DP_BATCH x 4096 (a replica's rows from ``replica_rows``), ``cais`` mb 2
+     and ``barrier`` mb 1 in f32, held to the one-device step of the whole
+     batch by phase 9's rules; then each replica's grads of a step (summed
+     over the TP group only) summed over the data axis in int8 by
+     ``optim.compression.compressed_psum``, within COMPRESS_RTOL of the
+     exact sum's max. (b) grouped EP: mixtral-8x7b cut to GEP_LAYERS layer
+     on tp_in 2 x tp_out 2, 4 whole experts a rank (replicated across
+     tp_in), ``cais`` f32 mb 1, batch 1 of MOE_SEQ, held as phase 11 (b)
+     (routing first), every concrete expert all-to-all and adjoint on the
+     tp_out ring. (c) ``python -m repro_torch.launch.train --arch
+     DEBUG_ARCH --smoke --mesh debug`` (8 ranks, data 2 x model 4) in
+     ``barrier`` and ``cais``: rank 0's losses within 1e-5 of ``--mesh
+     none``'s. Phase 3 checks the matmul shapes of (a) and (b) and of the
+     2D runs of phases 9 and 10.
 Phase 3 also holds matmul_rmsnorm against its plain version at the TPU
 kernel's test shapes, at every shape phase 8 calls (b a column slice of
 ``wkv_a`` for the KV latent) and at N 8192, and flash attention at the MLA
@@ -219,6 +243,11 @@ TRAIN_RUNS = [("barrier", 1, "float32"), ("cais", 2, "float32"),
               # the perfsim planner picks the split and both directions'
               # pairs (the others plan greedily)
               ("cais", "auto", "float32", "perfsim")]
+# phase 9 on a 2D (tp_in 2 x tp_out 2) mesh of the same 4 ranks: the same
+# shards (the composite index is the flat rank), the hierarchical schedules
+TRAIN_2D_RUNS = [("cais", 2, "float32", "greedy", "2x2")]
+# the meshes a run may name (repro_torch.sharding.init_mesh's arguments)
+MESHES = {"flat": {}, "2x2": dict(tp_in=2, tp_out=2), "dp2": dict(dp=2)}
 TRAIN_LR = 1e-4
 # AdamW's eps and clip norm (its defaults), named for the parameter bound
 TRAIN_EPS, TRAIN_CLIP = 1e-8, 1.0
@@ -245,7 +274,9 @@ MLN_EPS = 1e-6
 # its one kv head replicated and sliced on every rank), cais f32, over
 # REPL_CHUNKS chunks, so that positions pass its 512 window
 SERVE_TP_RUNS = [("barrier", "float32"), ("cais", "float32"),
-                 ("cais", "bfloat16"), ("cais", "float32", "perfsim")]
+                 ("cais", "bfloat16"), ("cais", "float32", "perfsim"),
+                 # the 2D mesh with data axis 1 (the hierarchical gemm_ar)
+                 ("cais", "float32", "greedy", "2x2")]
 SCRIPTED_CHUNKS = 2
 REPL_ARCH, REPL_LAYERS, REPL_CHUNKS = "gemma3-1b", 6, 4
 # bf16 ring logits against the one-device bf16 logits: both round every
@@ -275,6 +306,25 @@ ROUTE_TOL = 1e-4
 # phase 11 (a): the scripted f32 serve_step schedule, one prefill chunk for
 # every row then decode steps
 MOE_DECODE_STEPS = 2
+# phase 12 (a): data 2 x model 2, internlm2-1.8b at full width cut to
+# DP_LAYERS of 24 layers (phases 6, 9 and 10 run all 24 and leave the
+# script little of its time limit; a rank holds its half of the blocks and
+# the whole
+# embedding and head, with grads, m and v), global batch DP_BATCH of TP_SEQ
+# so that each replica's 2 rows split into 2 microbatches; then the int8
+# compressed sum of a step's per-replica grads over the data axis within
+# COMPRESS_RTOL of the exact sum (JAX's compression.int8_close bound)
+DP_LAYERS, DP_BATCH = 6, 4
+DP_RUNS = [("cais", 2, "float32", "greedy", "dp2"),
+           ("barrier", 1, "float32", "greedy", "dp2")]
+COMPRESS_RTOL = 0.05
+# phase 12 (b): grouped EP, mixtral-8x7b at full width cut to GEP_LAYERS
+# layer on the 2D mesh (4 whole experts a rank over tp_out, replicated
+# across tp_in), batch 1 of MOE_SEQ tokens (a rank's 512 the routing group)
+GEP_LAYERS = 1
+GEP_RUNS = [("cais", 1, "float32", "greedy", "2x2")]
+# phase 12 (c): the launcher on JAX's debug mesh (8 ranks, data 2 x model 4)
+DEBUG_ARCH, DEBUG_STEPS = "deepseek-7b", 3
 
 
 def log(msg: str) -> None:
@@ -415,6 +465,12 @@ def get_tp_cfg():
     return get_arch(TP_ARCH)
 
 
+def get_dp_cfg():
+    """Phase 12 (a)'s model: internlm2-1.8b at full width, DP_LAYERS
+    layers."""
+    return get_tp_cfg().scaled(num_layers=DP_LAYERS)
+
+
 def tp_core_case(cfg, B: int, dtype, seed: int, seq: int = TP_SEQ,
                  window: int = 0):
     """The attention core as a rank of phase 6 calls it: ``seq`` causal
@@ -434,6 +490,13 @@ def get_moe_cfg():
     from repro_torch.configs import get_arch
 
     return get_arch(MOE_ARCH).scaled(num_layers=MOE_LAYERS)
+
+
+def get_gep_cfg():
+    """Phase 12 (b)'s model: mixtral-8x7b at full width, GEP_LAYERS layer."""
+    from repro_torch.configs import get_arch
+
+    return get_arch(MOE_ARCH).scaled(num_layers=GEP_LAYERS)
 
 
 def get_mla_cfg():
@@ -605,28 +668,37 @@ def phase_kernels(cfg, fa, ref) -> list:
     return rows
 
 
-def tp_matmul_shapes(cfg, itemsize: int) -> list:
+def tp_matmul_shapes(cfg, itemsize: int, world: int = TP_WORLD,
+                     batch: int = TP_BATCH, seq: int = TP_SEQ,
+                     ring: Optional[int] = None, mbs=(1, 2)) -> list:
     """(M, K, N) of every matmul call of phase 6 on one rank in a type of
     ``itemsize`` bytes, by the schedules' own arithmetic: barrier GEMMs over
-    the gathered sequence; cais ring steps of B·S_loc/c rows on the gather
-    side (c as the cais planner picks it) and of B·S_loc/2 on the
-    bidirectional reduce side; one S_loc slice a hop in overlap_asym.
-    Phase 6 checks that its calls were all among these."""
+    the gathered sequence; cais ring steps of B·S_r/c rows on the gather
+    side (c as the cais planner picks it) and of B·S_r/2 on the
+    bidirectional reduce side, S_r = S / ``ring``; one S_loc slice a hop in
+    the flat ring's overlap_asym. ``ring`` is the ring the fused schedules
+    run on: the whole TP group of ``world`` (flat), or tp_in on a 2D mesh,
+    whose weight shards are still the composite ``world``'s. Phases 6, 9
+    and 12 check that their calls were all among these."""
     from repro_torch.core import primitives as prim
     from repro_torch.core.backends import CAISBackend
 
-    n, d, dh = TP_WORLD, cfg.d_model, cfg.resolved_head_dim
-    fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // n
+    n, d, dh = world, cfg.d_model, cfg.resolved_head_dim
+    r = ring or n
+    kv_tp = n if cfg.num_kv_heads % n == 0 else 1
+    fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // kv_tp
     ff = cfg.d_ff // n
-    s_loc = TP_SEQ // n
+    s_r = seq // r
     shapes = set()
-    for mb in (1, 2):
-        b = TP_BATCH // mb
-        c = prim._pick_chunks(s_loc, CAISBackend.plan_chunks(
-            b * TP_SEQ * d * itemsize, n))
-        for m_ag, m_rs in ((b * TP_SEQ, b * TP_SEQ),      # barrier
-                           (b * s_loc // c, b * s_loc // 2),   # cais rings
-                           (b * s_loc, b * s_loc)):       # overlap_asym
+    for mb in mbs:
+        b = batch // mb
+        c = prim._pick_chunks(s_r, CAISBackend.plan_chunks(
+            b * seq * d * itemsize, r))
+        pairs = [(b * seq, b * seq),                  # barrier
+                 (b * s_r // c, b * s_r // 2)]        # cais rings
+        if r == n:
+            pairs.append((b * s_r, b * s_r))          # overlap_asym
+        for m_ag, m_rs in pairs:
             shapes |= {(m_ag, d, fq), (m_ag, d, fkv), (m_ag, d, ff),
                        (m_rs, fq, d), (m_rs, ff, d)}
     return sorted(shapes)
@@ -731,12 +803,38 @@ def phase_matmul(mmk, ref) -> list:
                                               str(dtype)[6:]):
             rows.append(check_matmul_case("moe", M, K, N, dtype, mmk, ref,
                                           layout=lay))
+    # the meshes' runs, all f32, at the shapes not checked above: phase 9's
+    # and phase 10's 2D runs (the tp_in ring's steps), phase 12 (a)'s data
+    # 2 x model 2 step (a ring of 2 on a replica's rows) and (b)'s grouped-EP
+    # step on the 2D mesh
+    seen = {(r["shape"]["M"], r["shape"]["K"], r["shape"]["N"], r["dtype"],
+             r["layout"]) for r in rows}
+    f32, cfg = torch.float32, get_tp_cfg()
+    ring = MESHES["2x2"]["tp_in"]
+    dp_tp, dp_rows = TP_WORLD // MESHES["dp2"]["dp"], DP_BATCH // 2
+    mesh_cases = [
+        ("tp_2d", [(*s, "nn") for s in tp_matmul_shapes(cfg, 4, ring=ring)]
+         + train_matmul_shapes(cfg, runs=TRAIN_2D_RUNS, ring=ring)),
+        ("serve_2d", [(*s, "nn") for s in serve_matmul_shapes(
+            cfg, serve_traffic(), ring=ring)]),
+        ("dp", [(*s, "nn") for s in tp_matmul_shapes(
+            cfg, 4, world=dp_tp, batch=dp_rows)]
+         + train_matmul_shapes(cfg, world=dp_tp, batch=dp_rows,
+                               runs=DP_RUNS)),
+        ("gep_2d", moe_matmul_shapes(get_gep_cfg(), "float32",
+                                     runs=GEP_RUNS, ring=ring))]
+    for name, shapes in mesh_cases:
+        for M, K, N, lay in shapes:
+            if (M, K, N, "float32", lay) not in seen:
+                seen.add((M, K, N, "float32", lay))
+                rows.append(check_matmul_case(name, M, K, N, f32, mmk, ref,
+                                              layout=lay))
     return rows
 
 
 def moe_matmul_shapes(cfg, dtype: str, world: int = TP_WORLD,
                       batch: int = MOE_BATCH, seq: int = MOE_SEQ,
-                      runs=None) -> list:
+                      runs=None, ring: Optional[int] = None) -> list:
     """(M, K, N, layout) of every matmul call one rank makes in phase 11's
     training step in the runs of compute type ``dtype``, by the graphs' own
     arithmetic (mb 1): the attention block's ring GEMMs as in phases 6 and
@@ -747,13 +845,16 @@ def moe_matmul_shapes(cfg, dtype: str, world: int = TP_WORLD,
     b·S rows (tn); and per local expert of the all-to-all, on its cap rows
     (cap from a rank's b·S_loc tokens): the up, gate and down GEMMs (nn,
     run again by the expert VJP), dh = dy·w_downᵀ and dx = du·w_upᵀ +
-    dg·w_gateᵀ (nt), the weight grads xᵀ·du, xᵀ·dg and hᵀ·dy (tn)."""
+    dg·w_gateᵀ (nt), the weight grads xᵀ·du, xᵀ·dg and hᵀ·dy (tn). On a
+    2D mesh (phase 12 (b)) the ring steps are tp_in's (``ring``), of
+    b·S_r rows, S_r = S / ring."""
     from repro_torch.core import primitives as prim
     from repro_torch.core.backends import CAISBackend
     from repro_torch.models.ffn import capacity
 
     runs = MOE_RUNS if runs is None else runs
     n, d, dh = world, cfg.d_model, cfg.resolved_head_dim
+    r = ring or n
     kv_tp = n if cfg.num_kv_heads % n == 0 else 1
     fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // kv_tp
     f, s_loc = cfg.d_ff, seq // n
@@ -767,18 +868,19 @@ def moe_matmul_shapes(cfg, dtype: str, world: int = TP_WORLD,
         if mode == "barrier":
             m_ag = m_rs = rows
         else:
-            c = prim._pick_chunks(s_loc, CAISBackend.plan_chunks(
-                rows * d * itemsize, n))
-            two = n % 2 == 0 and s_loc % 2 == 0
-            m_ag, m_rs = batch * s_loc // c, batch * s_loc // (2 if two
-                                                               else 1)
+            s_r = seq // r
+            c = prim._pick_chunks(s_r, CAISBackend.plan_chunks(
+                rows * d * itemsize, r))
+            two = r % 2 == 0 and s_r % 2 == 0
+            m_ag, m_rs = batch * s_r // c, batch * s_r // (2 if two else 1)
         shapes |= {(m_ag, d, fq, "nn"), (m_ag, d, fkv, "nn"),
                    (m_rs, fq, d, "nn"), (m_rs, fq + 2 * fkv, d, "nt")}
     return sorted(shapes)
 
 
 def train_matmul_shapes(cfg, world: int = TP_WORLD, batch: int = TP_BATCH,
-                        seq: int = TP_SEQ, runs=None) -> list:
+                        seq: int = TP_SEQ, runs=None,
+                        ring: Optional[int] = None) -> list:
     """(M, K, N, layout) of every matmul call with a transposed operand that
     phase 9's backward makes on one rank, by the training graph's own
     arithmetic (its forward calls are ``tp_matmul_shapes``'): per chain of
@@ -789,9 +891,12 @@ def train_matmul_shapes(cfg, world: int = TP_WORLD, batch: int = TP_BATCH,
     / 2 a hop on the bidirectional cais ring, b·S_loc paired in
     overlap_asym). A run's microbatches ``"auto"`` (the perfsim planner
     picks them) stand for every split the planner may take: 1, 2 and 4
-    where they divide the batch."""
+    where they divide the batch. On a 2D mesh the reduce-scatter ring is
+    tp_in (``ring``): b·S_r / 2 rows a hop, S_r = S / ring, and its overlap
+    pairs run the same hierarchical schedules."""
     runs = TRAIN_RUNS if runs is None else runs
     n, d, dh = world, cfg.d_model, cfg.resolved_head_dim
+    r = ring or n
     kv_tp = n if cfg.num_kv_heads % n == 0 else 1
     fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // kv_tp
     ff, s_loc = cfg.d_ff // n, seq // n
@@ -806,10 +911,10 @@ def train_matmul_shapes(cfg, world: int = TP_WORLD, batch: int = TP_BATCH,
                    (ff, rows, d, "tn"), (d, rows, ff, "tn"),
                    (fq, rows, d, "tn"), (d, rows, fq, "tn"),
                    (d, rows, fkv, "tn")}
-        m_rs = rows if mode == "barrier" else b * s_loc // 2
+        m_rs = rows if mode == "barrier" else b * (seq // r) // 2
         ks = (2 * ff, fq + 2 * fkv)
         shapes |= {(m_rs, k, d, "nt") for k in ks}
-        if mb > 1:
+        if mb > 1 and r == n:
             shapes |= {(b * s_loc, k, d, "nt") for k in ks}
     return sorted(shapes)
 
@@ -1665,17 +1770,14 @@ def plan_digests_agree(group, obj) -> bool:
     return bool((every == mine).all())
 
 
-def _ref_shard(store, q: str, name: str, r: int, n: int, cfg):
-    """Rank ``r``'s shard of the one-device tensor ``name`` of quantity
+def _ref_shard(store, q: str, name: str, group, cfg):
+    """This rank's shard on the TP group ``group`` (a flat ring or a 2D
+    mesh's composite group) of the one-device tensor ``name`` of quantity
     ``q``, flat and contiguous on the host."""
-    from repro_torch.core.tp import param_shard_dim
+    from repro_torch.core.tp import shard_param
 
-    want = store.read(q, name)
-    dim = param_shard_dim(name, cfg, n)
-    if dim is not None:
-        size = want.shape[dim] // n
-        want = want.narrow(dim, r * size, size)
-    return want.contiguous().reshape(-1)
+    return shard_param(store.read(q, name), name, cfg,
+                       group).contiguous().reshape(-1)
 
 
 CHUNK = 1 << 24     # elements a comparison moves to the card at a time
@@ -1715,8 +1817,7 @@ def first_step(g_ref, p0, grad_norm: float) -> tuple:
     return state["m"]["x"], state["v"]["x"], p["x"]
 
 
-def train_errors(lm, state, store, ref, r: int, n: int, cfg,
-                 init=None) -> tuple:
+def train_errors(lm, state, store, ref, cfg, init=None) -> tuple:
     """This rank's f32 gradients, m, v and parameters against the one-device
     step's shards, CHUNK elements at a time (the card holds four ranks'
     models and states): per parameter (max|Δ|, bound) for grad, m and v,
@@ -1731,7 +1832,7 @@ def train_errors(lm, state, store, ref, r: int, n: int, cfg,
     for k, p in lm.named_parameters():
         mine = {"grad": p.grad, "m": state["opt"]["m"][k],
                 "v": state["opt"]["v"][k], "param": p.detach()}
-        want = {q: _ref_shard(store, q, k, r, n, cfg)
+        want = {q: _ref_shard(store, q, k, lm.group, cfg)
                 for q in store.quantities}
         if "param" not in want:
             want["p0"] = init[k].reshape(-1)
@@ -1761,38 +1862,124 @@ def train_errors(lm, state, store, ref, r: int, n: int, cfg,
     return errs, at_sign
 
 
-def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
-    """One rank of phase 9: for each (mode, microbatches, dtype[, planner])
-    run, one train step (LM.loss, its graph-built backward, the ring's grad
-    sums, AdamW) from the same initial shards, with the kernels' launches
-    (set to 0 just before the step) against the counts derived from the
-    planned forward and training graphs (``tp.build_period``), every matmul
-    call's shape and layout, and in f32 this rank's gradients, m, v and
-    parameters against the one-device step's shards. A perfsim run also
-    returns its plans (split, pairings, simulated makespans against
-    greedy's), whether every rank holds the same, the overlap_asym nodes
-    its graphs executed against the plans' pairs, and the planner's host
-    time by what answered each call."""
+def _mesh_switch(lm, cfg, mesh) -> None:
+    """Run ``lm`` on ``mesh`` from now on, where its shards and data axis
+    are the ones ``lm`` holds (phases 9 and 10: the 2D mesh of the flat
+    ring's 4 ranks cuts every dense weight by the composite index, which
+    is the flat rank)."""
+    from repro_torch.core.tp import param_placement
+    from repro_torch.sharding import as_mesh
+
+    mesh = as_mesh(mesh)
+
+    def place(name, g):
+        p = param_placement(name, cfg, g)
+        return None if p is None else (p[0], p[1].size, p[1].rank)
+
+    if mesh.data.size != lm.dp or any(
+            place(k, lm.group) != place(k, mesh.tp)
+            for k, _ in lm.named_parameters()):
+        raise AssertionError("the mesh cuts other shards than the model's")
+    lm.mesh = mesh
+
+
+def _group_name(g, lm) -> str:
+    """Which of ``lm``'s groups ``g`` is: its TP group's tp_out ring, tp_in
+    ring, the whole TP group, or another."""
+    from repro_torch.sharding import CompositeGroup
+
+    tp = lm.group
+    if isinstance(tp, CompositeGroup):
+        if g is tp.tp_out:
+            return "tp_out"
+        if g is tp.tp_in:
+            return "tp_in"
+    return "tp" if g is tp else "other"
+
+
+def compress_check(lm, batch) -> dict:
+    """Phase 12 (a)'s compression: this replica's grads of a step on its
+    rows (summed over the TP group, not yet over the replicas), their int8
+    ``compressed_psum`` over the data axis against the exact sum, tensor by
+    tensor: the worst max|Δ| / max|exact| and the bytes an f32 and an int8
+    all-reduce move."""
+    from repro_torch.optim.compression import (compressed_psum,
+                                               init_error_feedback,
+                                               wire_bytes_saved)
+
+    for p in lm.parameters():
+        p.grad = None
+    rows = {k: torch.as_tensor(v).to(lm.device) for k, v in batch.items()}
+    lm.loss(rows).backward()
+    lm.sync_grads(data=False)
+    worst, name, sizes = 0.0, None, [0, 0]
+    t0 = time.monotonic()
+    for k, p in lm.named_parameters():
+        g = {k: p.grad}
+        exact = lm.data.all_reduce(p.grad)
+        red, _ = compressed_psum(g, init_error_feedback(g), lm.data,
+                                 mean=False)
+        rel = float((red[k] - exact).abs().max()
+                    / (exact.abs().max() + 1e-30))
+        if rel >= worst:
+            worst, name = rel, k
+        f32, i8 = wire_bytes_saved(g)
+        sizes[0] += f32
+        sizes[1] += i8
+        p.grad = None
+        del g, exact, red
+    return dict(worst_rel=worst, worst_param=name, f32_bytes=sizes[0],
+                int8_bytes=sizes[1], seconds=time.monotonic() - t0)
+
+
+def train_rank(group, batch, runs, store, ref, cfg, device="cuda",
+               mesh="flat", compress=False):
+    """One rank of phases 9, 11 (b) and 12 (a, b): for each (mode,
+    microbatches, dtype[, planner[, mesh]]) run, one train step (LM.loss, its
+    graph-built backward, the grad sums over the TP group and the data axis,
+    AdamW) from the same initial shards, with the kernels' launches (set to
+    0 just before the step) against the counts derived from the planned
+    forward and training graphs (``tp.build_period``), every matmul call's
+    shape and layout, and in f32 this rank's gradients, m, v and parameters
+    against the one-device step's shards. The model is built on the mesh
+    ``mesh`` (a key of MESHES, factored from the world ``group``); a run
+    naming another mesh with the same shards runs there. A replica steps on
+    its rows of ``batch``. A perfsim run also returns its plans (split,
+    pairings, simulated makespans against greedy's), whether every rank
+    holds the same, the overlap_asym nodes its graphs executed against the
+    plans' pairs, and the planner's host time by what answered each call.
+    With ``compress``, :func:`compress_check` after the runs."""
     from collections import Counter
 
     from repro_torch import plan as plan_mod
     from repro_torch.core import tp as tp_mod
     from repro_torch.core.backends import get_backend
+    from repro_torch.data.pipeline import replica_rows
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mmk
     from repro_torch.kernels import ops
     from repro_torch.models import LM
     from repro_torch.optim import adamw, constant_schedule
     from repro_torch.runtime import Runtime, TPConfig
+    from repro_torch.sharding import CompositeGroup, init_mesh
     from repro_torch.train.step import init_state, make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    n, r = group.size, group.rank
-    B, S = batch["tokens"].shape
+    meshes = {}
+
+    def mesh_of(key):      # every rank makes the same meshes in one order
+        if key not in meshes:
+            meshes[key] = group if key == "flat" else \
+                init_mesh(group, **MESHES[key])
+        return meshes[key]
+
     P = len(cfg.layer_pattern)
     periods = cfg.num_layers // P
     lm = LM(cfg, Runtime(compute_dtype="float32"), device=device, seed=SEED,
-            group=group)
+            group=mesh_of(mesh))
+    if lm.dp > 1:
+        batch = replica_rows(batch, lm.data.rank, lm.dp)
+    B, S = batch["tokens"].shape
     if _on_card(device):
         torch.cuda.empty_cache()      # the whole model drawn for the shards
     init = {k: p.detach().to("cpu", copy=True)
@@ -1808,11 +1995,18 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
         be.overlap_asymmetric = counted
     # the expert all-to-all and its adjoint through the backends, with the
     # matmul launches made inside them (the expert GEMMs)
+    # on a 2D mesh the composite group's dispatch re-enters on tp_out:
+    # the concrete dispatches are counted, and the groups they name kept
     a2a = {"a2a_expert_ffn": [0, 0], "grad_a2a_expert_ffn": [0, 0]}
+    a2a_groups = set()
     for name in ("barrier", "cais"):
         be = get_backend(name)
         for meth in a2a:
             def wrapped(*a, _inner=getattr(be, meth), _m=meth, **k):
+                g = a[2] if _m == "a2a_expert_ffn" else a[3]
+                if isinstance(g, CompositeGroup):
+                    return _inner(*a, **k)
+                a2a_groups.add(f"{_m}:{_group_name(g, lm)}")
                 before = mmk.launches
                 out = _inner(*a, **k)
                 a2a[_m][0] += 1
@@ -1834,6 +2028,10 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
     for run in runs:
         mode, mb, dtype = run[:3]
         planner = run[3] if len(run) > 3 else "greedy"
+        run_mesh = run[4] if len(run) > 4 else mesh
+        if mesh_of(run_mesh) is not lm.mesh and \
+                mesh_of(run_mesh) is not lm.group:
+            _mesh_switch(lm, cfg, mesh_of(run_mesh))
         rt = Runtime(compute_dtype=dtype, tp=TPConfig(
             mode=mode, microbatches=mb, planner=planner))
         lm.rt = rt
@@ -1851,6 +2049,7 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
         calls.clear()
         probe_reset(probe)
         routes.clear()
+        a2a_groups.clear()
         for v in a2a.values():
             v[0] = v[1] = 0
         t0 = time.monotonic()
@@ -1861,8 +2060,8 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
         layouts = dict(mmk.launches_by_variant)
         executed, times = dict(probe["executed"]), probe_times(probe)
         peak = _peak_gib(device)
-        tpc = tp_mod.TPContext.from_config(rt.tp, group)
-        x = torch.empty(B, S // n, cfg.d_model, dtype=rt.dtype,
+        tpc = tp_mod.TPContext.from_config(rt.tp, lm.group)
+        x = torch.empty(B, S // lm.tp, cfg.d_model, dtype=rt.dtype,
                         device="meta")
         period, _ = tp_mod.build_period(tpc, x, lm.blocks[:P], cfg,
                                         cfg.layer_pattern,
@@ -1899,6 +2098,7 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
                 cache=dict(cache.stats, memo_hits=cache.memo_hits))
         row = dict(
             mode=mode, mb=mb, requested_mb=run[1], planner=planner,
+            mesh=run_mesh, topology=list(tpc.topology), dp=lm.dp,
             dtype=dtype, loss=float(metrics["loss"]),
             grad_norm=float(metrics["grad_norm"]), wall_s=wall,
             peak_gib=peak, matmul_launches=launches[0],
@@ -1915,10 +2115,12 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
             a2a_derived=[[
                 sum(nd.op == op for g in (fwd, bwd) for nd in g.nodes)
                 * periods,
-                sum(n * getattr(nd.fn, attr) for g in (fwd, bwd)
-                    for nd in g.nodes if nd.op == op) * periods]
+                sum(tpc.route_ring * getattr(nd.fn, attr)
+                    for g in (fwd, bwd) for nd in g.nodes if nd.op == op)
+                * periods]
                 for op, attr in (("a2a_ffn", "matmul_calls"),
                                  ("bwd_a2a_ffn", "vjp_matmul_calls"))],
+            a2a_groups=sorted(a2a_groups),
             routing=routes[:cfg.num_layers],
             cross_direction_pairs=cross,
             call_shapes=sorted([*k, v] for k, v in calls.items()),
@@ -1929,8 +2131,7 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
         if dtype == "float32":
             if _on_card(device):
                 torch.cuda.empty_cache()
-            errs, at_sign = train_errors(lm, state, store, ref, r, n, cfg,
-                                         init)
+            errs, at_sign = train_errors(lm, state, store, ref, cfg, init)
             row.update(errs=errs, params_at_sign_bound=at_sign)
         out.append(row)
         del state, opt, step, metrics
@@ -1938,7 +2139,8 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda"):
             p.grad = None
         if _on_card(device):
             torch.cuda.empty_cache()
-    return out
+    comp = compress_check(lm, batch) if compress else None
+    return dict(runs=out, compress=comp)
 
 
 def plan_checks(per: list) -> dict:
@@ -1976,7 +2178,8 @@ def plan_cache_at(root):
 
 
 def phase_train(cfg=None, batch=None, runs=None, label: str = "phase 9",
-                quantities=RefStore.QUANTITIES) -> dict:
+                quantities=RefStore.QUANTITIES, mesh: str = "flat",
+                compress: bool = False) -> dict:
     """One training step on TP_WORLD gloo ranks against one device (phase
     9: internlm2-1.8b, TRAIN_RUNS; phase 11 (b): mixtral-8x7b cut to
     MOE_LAYERS layers, MOE_RUNS). An MoE run is held to one device under
@@ -1986,7 +2189,12 @@ def phase_train(cfg=None, batch=None, runs=None, label: str = "phase 9",
     every rank's routing agreed, and where it did not the differences must
     sit at gaps below ROUTE_TOL and the loss within BF16_LOSS_RTOL. Its
     expert all-to-all and adjoint must have run through the backend as
-    often as the graphs hold them, with the matmul kernel inside."""
+    often as the graphs hold them, with the matmul kernel inside, on tp_out
+    alone on a 2D mesh (grouped EP). The ranks build the model on ``mesh``
+    (phase 12: "dp2", "2x2"); a run may name another mesh of the same
+    shards (phase 9's "2x2" runs). With ``compress``, each replica's grads
+    are summed over the data axis in int8 (:func:`compress_check`) within
+    COMPRESS_RTOL of the exact sum."""
     import gc
     import tempfile
 
@@ -2021,13 +2229,26 @@ def phase_train(cfg=None, batch=None, runs=None, label: str = "phase 9",
             f"has {free_b / 2**30:.2f} of {total_b / 2**30:.2f} GiB free")
         t0 = time.monotonic()
         with plan_cache_at(Path(root) / "plans"):
-            ranks = run_ranks(train_rank, TP_WORLD, batch, runs, store,
-                              {k: v for k, v in ref.items()
-                               if k != "routing"}, cfg, device="cuda",
-                              timeout=1200)
+            got = run_ranks(train_rank, TP_WORLD, batch, runs, store,
+                            {k: v for k, v in ref.items()
+                             if k != "routing"}, cfg, "cuda", mesh, compress,
+                            device="cuda", timeout=1200)
         wall = time.monotonic() - t0
+    ranks = [g["runs"] for g in got]
     B, S = batch["tokens"].shape
     rows, failed = train_checks(cfg, ref, ranks, runs, B * S // TP_WORLD)
+    comp = None
+    if compress:
+        comp = [g["compress"] for g in got]
+        worst = max(c["worst_rel"] for c in comp)
+        log(f"  compressed_psum of each replica's grads over the data axis "
+            f"(int8, one scale a tensor agreed by max): worst max|d| / "
+            f"max|exact| {worst:.3e} ({comp[0]['worst_param']}), "
+            f"{comp[0]['f32_bytes'] / 1e9:.3f} GB f32 -> "
+            f"{comp[0]['int8_bytes'] / 1e9:.3f} GB int8 a rank, "
+            f"{max(c['seconds'] for c in comp):.1f}s")
+        if not worst <= COMPRESS_RTOL:
+            failed.append(("compress", f"within {COMPRESS_RTOL}"))
     if failed:
         raise AssertionError(f"{label}: failed {failed}")
     total_mm = sum(p["matmul_launches"] for rk in ranks for p in rk)
@@ -2041,7 +2262,7 @@ def phase_train(cfg=None, batch=None, runs=None, label: str = "phase 9",
     return dict(runs=rows, reference={k: v for k, v in ref.items()
                                       if k not in ("maxabs", "routing")},
                 matmul_launches=total_mm, flash_launches=total_fa,
-                wall_s=wall, call_shapes=sorted(shapes))
+                wall_s=wall, call_shapes=sorted(shapes), compress=comp)
 
 
 def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
@@ -2095,6 +2316,11 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
                    "GEMMs on the matmul kernel"] = all(
                 p["a2a"] == p["a2a_derived"] and min(min(p["a2a"])) > 0
                 for p in per)
+            ring = "tp_out" if head["mesh"] == "2x2" else "tp"
+            checks[f"every concrete a2a_ffn / bwd_a2a_ffn on {ring}"] = all(
+                p["a2a_groups"] == [f"a2a_expert_ffn:{ring}",
+                                    f"grad_a2a_expert_ffn:{ring}"]
+                for p in per)
             if f32:
                 checks[f"routing differences at gaps < {ROUTE_TOL:g}"] = \
                     all(routing_rule(d) for d in route)
@@ -2127,7 +2353,8 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
                    peak_gib=[p["peak_gib"] for p in per], checks=checks)
         rows.append(row)
         log(f"  {run[0]:>7} mb={head['mb']} (asked {run[1]}) {run[2]:>8} "
-            f"{head['planner']}: loss "
+            f"{head['planner']} mesh {head['mesh']} (topology "
+            f"{head['topology']}, dp {head['dp']}): loss "
             f"{head['loss']:.7f} (one device {ref_loss:.7f}, rel "
             f"{rel:.2e}), grad norm {head['grad_norm']:.7f} (rel "
             f"{gn_rel:.2e}); worst err/bound {json.dumps(worst)}; "
@@ -2147,7 +2374,8 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
                 + f"; element-wise holds {'made' if held else 'not made'}; "
                 f"a2a_ffn, bwd_a2a_ffn [dispatches, matmul launches inside] "
                 f"{json.dumps(head['a2a'])} (graphs "
-                f"{json.dumps(head['a2a_derived'])})")
+                f"{json.dumps(head['a2a_derived'])}) on "
+                f"{json.dumps(head['a2a_groups'])}")
         if head["plans"] is not None:
             log(f"    perfsim plans (rank 0): {json.dumps(head['plans'])}")
         failed += [(run, k) for k, v in checks.items() if not v]
@@ -2311,20 +2539,22 @@ def serve_reference(cfg, tr: dict, prompts, steps, dtypes,
     return out
 
 
-def serve_matmul_shapes(cfg, tr: dict, world: int = TP_WORLD) -> list:
+def serve_matmul_shapes(cfg, tr: dict, world: int = TP_WORLD,
+                        ring: Optional[int] = None) -> list:
     """(M, K, N) of every matmul call a rank makes in phase 10, by the serve
     graph's own arithmetic: the gemm_col GEMMs (q, k, v, up, gate) over the
     B·S rows of a step (S 1, chunk − 1, chunk); each gemm_ar's one GEMM over
     those rows (barrier, and cais where S does not split over the ring) or
-    the cais ring's partial GEMMs of B·(S/n)/2 rows (S = chunk, the
-    bidirectional halves)."""
+    the cais ring's partial GEMMs of B·(S/r)/2 rows (S = chunk, the
+    bidirectional halves; r the ring, tp_in on a 2D mesh's hierarchical
+    gemm_ar)."""
     n, d, dh = world, cfg.d_model, cfg.resolved_head_dim
     kv_tp = n if cfg.num_kv_heads % n == 0 else 1
     fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // kv_tp
     ff = cfg.d_ff // n
     B, C = tr["requests"], tr["chunk"]
     rows = {B * s for s in (1, C - 1, C)}
-    ring = {B * (C // n) // 2}
+    ring = {B * (C // (ring or n)) // 2}
     return sorted({(m, d, f) for m in rows for f in (fq, fkv, ff)}
                   | {(m, k, d) for m in rows | ring for k in (fq, ff)})
 
@@ -2341,8 +2571,9 @@ def serve_rank_cfg(cfg, world: int = TP_WORLD):
 
 def serve_tp_rank(group, tr, runs, prompts, steps, repl_steps, cfg, rcfg,
                   device="cuda"):
-    """One rank of phase 10. For each (mode, dtype[, planner]) run on
-    ``cfg`` (internlm2-1.8b): the scripted steps' logits (kept on rank 0;
+    """One rank of phase 10. For each (mode, dtype[, planner[, mesh]]) run on
+    ``cfg`` (internlm2-1.8b; a "2x2" run on the 2D mesh of the same ranks
+    and shards, data axis 1): the scripted steps' logits (kept on rank 0;
     digests on every rank) and the ring Engine's tokens, with the kernels'
     launches (set to 0 just before the run) against the counts derived from
     the optimized serve graphs, the gemm_ar dispatches, every call shape,
@@ -2359,8 +2590,10 @@ def serve_tp_rank(group, tr, runs, prompts, steps, repl_steps, cfg, rcfg,
     from repro_torch.kernels import ops
     from repro_torch.models import LM
     from repro_torch.runtime import Runtime, TPConfig
+    from repro_torch.sharding import init_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = {"flat": group}
     ar = [0]
     for name in ("barrier", "cais"):
         be = get_backend(name)
@@ -2382,7 +2615,10 @@ def serve_tp_rank(group, tr, runs, prompts, steps, repl_steps, cfg, rcfg,
     probe = plan_probe()
 
     def one_run(lm, cfg, mode, dtype, script_steps, with_engine,
-                planner="greedy"):
+                planner="greedy", mesh="flat"):
+        if mesh not in meshes:
+            meshes[mesh] = init_mesh(group, **MESHES[mesh])
+        _mesh_switch(lm, cfg, meshes[mesh])
         rt = Runtime(compute_dtype=dtype, tp=TPConfig(mode=mode,
                                                       planner=planner))
         lm.rt = rt
@@ -2424,7 +2660,7 @@ def serve_tp_rank(group, tr, runs, prompts, steps, repl_steps, cfg, rcfg,
         peak = _peak_gib(device)
         launches = (mmk.launches, fa.launches, ar[0])
         del lm.serve_step
-        tpc = tp_mod.TPContext.from_config(rt.tp, group)
+        tpc = tp_mod.TPContext.from_config(rt.tp, lm.group)
         P = len(cfg.layer_pattern)
         g, _ = tp_mod.serve_period_graph(tpc, lm.blocks[:P], cfg,
                                          cfg.layer_kinds()[:P])
@@ -2435,7 +2671,8 @@ def serve_tp_rank(group, tr, runs, prompts, steps, repl_steps, cfg, rcfg,
         decode = sum(S == 1 for _, S in bs)
         f32 = dtype == "float32"
         return dict(
-            mode=mode, dtype=dtype, planner=planner, plans=plans,
+            mode=mode, dtype=dtype, planner=planner, plans=plans, mesh=mesh,
+            topology=list(tpc.topology),
             logits=logits, digests=digests,
             tokens=tokens, steps=len(bs), engine_steps=engine_steps,
             decode_steps=decode, script_s=script_s, wall_s=wall,
@@ -2628,7 +2865,8 @@ def phase_serve_tp() -> dict:
     for row in rows:
         arch = TP_ARCH if row["tokens"] is not None else \
             f"{REPL_ARCH} ({REPL_LAYERS} layers)"
-        log(f"  {arch} {row['mode']} {row['dtype']} {row['planner']}: "
+        log(f"  {arch} {row['mode']} {row['dtype']} {row['planner']} mesh "
+            f"{row['mesh']} (topology {row['topology']}): "
             + ", ".join(f"{k} {json.dumps(row[k])}" for k in (
                 "logits_max_abs_err", "logits_err_over_tol", "logits_rel",
                 "one_device_bf16_rel_to_f32", "tokens_equal_one_device",
@@ -2829,6 +3067,110 @@ def phase_moe(fa) -> dict:
     return dict(serve=serve, train=train)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: data parallelism and the 2D mesh
+# ---------------------------------------------------------------------------
+
+
+def phase_debug_mesh() -> dict:
+    """Phase 12 (c): ``python -m repro_torch.launch.train --arch DEBUG_ARCH
+    --smoke --mesh debug`` (8 ranks on the card, data 2 x model 4), barrier
+    and cais, against ``--mesh none`` (one device, where the TP mode does
+    not enter): rank 0's losses, written unrounded by ``--history``, within
+    1e-5 of one device's at every step. The three runs go at once (each
+    rendezvous in its own directory); their seconds overlap."""
+    import tempfile
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
+    out, failed = {}, []
+
+    def start(mesh: str, mode: str, root: str) -> tuple:
+        path = Path(root) / f"{mode}.{mesh}.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               DEBUG_ARCH, "--smoke", "--mesh", mesh, "--steps",
+               str(DEBUG_STEPS), "--tp-mode", mode, "--device", "cuda",
+               "--history", str(path)]
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+        return cmd, path, proc, time.monotonic()
+
+    def finish(run) -> tuple:
+        cmd, path, proc, t0 = run
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        secs = time.monotonic() - t0
+        if proc.returncode:
+            raise AssertionError(f"phase 12 (c): {' '.join(cmd[2:])} exited "
+                                 f"{proc.returncode}:\n{stderr[-3000:]}")
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("step ")]
+        return [h["loss"] for h in json.loads(path.read_text())], lines, secs
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_debug_") as root:
+        runs = [start("none", "cais", root)] + [
+            start("debug", mode, root) for mode in ("barrier", "cais")]
+        try:
+            done = [finish(r) for r in runs]
+        finally:
+            for r in runs:
+                if r[2].poll() is None:
+                    r[2].kill()
+                    r[2].communicate()
+        (one, one_lines, one_s), debug = done[0], done[1:]
+        log(f"  --mesh none: {json.dumps(one)} ({one_s:.1f}s)")
+        for mode, (got, lines, secs) in zip(("barrier", "cais"), debug):
+            rel = [abs(a - b) / abs(b) for a, b in zip(got, one)]
+            checks = {
+                f"{DEBUG_STEPS} step lines, rank 0's alone": len(lines)
+                == len(one_lines) == DEBUG_STEPS,
+                "finite losses": all(x == x and abs(x) < 1e9
+                                     for x in got + one),
+                "--mesh debug's losses within 1e-5 of --mesh none's":
+                    len(rel) == DEBUG_STEPS and max(rel) <= 1e-5,
+            }
+            log(f"  {mode}: --mesh debug {json.dumps(got)} ({secs:.1f}s, 8 "
+                f"ranks); rel {json.dumps(rel)}; rank 0's lines: {lines}")
+            out[mode] = dict(debug=got, rel=rel, seconds=secs,
+                             checks=checks)
+            failed += [(mode, k) for k, v in checks.items() if not v]
+    out["none"] = dict(losses=one, seconds=one_s)
+    if failed:
+        raise AssertionError(f"phase 12 (c): failed {failed}")
+    return out
+
+
+def phase_topology() -> dict:
+    """Phase 12: (a) one training step on a data 2 x model 2 mesh (DP_RUNS)
+    against one device, then the int8 compressed sum of each replica's
+    grads; (b) grouped EP, one training step on the 2D mesh (GEP_RUNS)
+    against one device, routing compared first; (c) the launcher's
+    ``--mesh debug``."""
+    cfg = get_dp_cfg()
+    log(f"  (a) {TP_ARCH} cut to {DP_LAYERS} of 24 layers at full width "
+        f"({cfg.param_count() / 1e9:.3f} B parameters), data 2 x model 2, "
+        f"global batch {DP_BATCH} x {TP_SEQ} (a replica's {DP_BATCH // 2} "
+        "rows)")
+    dp = phase_train(cfg, train_batch(cfg, TP_SEQ, DP_BATCH), DP_RUNS,
+                     "phase 12 (a)", mesh="dp2", compress=True)
+    gcfg = get_gep_cfg()
+    log(f"  (b) grouped EP: {MOE_ARCH} cut to {GEP_LAYERS} layer at full "
+        f"width ({gcfg.param_count() / 1e9:.3f} B parameters) on tp_in 2 x "
+        f"tp_out 2, {gcfg.moe.num_experts // 2} whole experts a rank, batch "
+        f"{MOE_BATCH} x {MOE_SEQ}")
+    gep = phase_train(gcfg, train_batch(gcfg, MOE_SEQ, MOE_BATCH), GEP_RUNS,
+                      "phase 12 (b)", quantities=("grad",), mesh="2x2")
+    log(f"  (c) python -m repro_torch.launch.train --arch {DEBUG_ARCH} "
+        f"--smoke --mesh debug against --mesh none, {DEBUG_STEPS} steps")
+    debug = phase_debug_mesh()
+    return dict(dp=dp, grouped_ep=gep, debug_mesh=debug)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -2941,16 +3283,24 @@ def main() -> int:
     log(f"phase 9: one {TP_ARCH} training step at full width and depth, "
         f"{TP_WORLD} TP ranks on one card over gloo, against one device")
     log("  " + smi)
-    train = phase_train()
+    train = phase_train(runs=TRAIN_RUNS + TRAIN_2D_RUNS)
     checked = {(r["shape"]["M"], r["shape"]["K"], r["shape"]["N"],
                 r["dtype"], r["layout"]) for r in mm_rows}
     unchecked = [s for s in train["call_shapes"] if tuple(s) not in checked]
     if unchecked:
         raise AssertionError(f"phase 9 called matmul at shapes phase 3 did "
                              f"not check: {unchecked}")
+    flat = next(r for r in train["runs"] if r["mesh"] == "flat"
+                and (r["mode"], r["requested_mb"], r["dtype"], r["planner"])
+                == ("cais", 2, "float32", "greedy"))
+    for r in train["runs"]:
+        if r["mesh"] != "flat":
+            log(f"  2D {r['mode']} mb {r['mb']}: loss {r['loss']:.7f}, the "
+                f"flat cais mb 2 f32 run's {flat['loss']:.7f} (difference "
+                f"{r['loss'] - flat['loss']:.3e})")
     log("  train " + json.dumps(train))
 
-    log(f"phase 10: paged serving of {TP_ARCH} at full width and depth and "
+    log(f"phase 10: paged serving of {TP_ARCH} at full width and depth, and "
         f"{REPL_ARCH} cut to {REPL_LAYERS} layers, {TP_WORLD} TP ranks on one "
         "card over gloo, against one device")
     log("  " + smi)
@@ -2981,6 +3331,17 @@ def main() -> int:
         raise AssertionError(f"phase 11 called kernels at shapes phase 3 "
                              f"did not check: {unchecked}")
     log("  moe " + json.dumps(moe))
+
+    log("phase 12: data parallelism and the 2D mesh on 4 gloo ranks sharing "
+        "the card (and the launcher's 8), against one device")
+    log("  " + smi)
+    topo = phase_topology()
+    unchecked = [(k, s) for k in ("dp", "grouped_ep")
+                 for s in topo[k]["call_shapes"] if tuple(s) not in checked]
+    if unchecked:
+        raise AssertionError(f"phase 12 called matmul at shapes phase 3 did "
+                             f"not check: {unchecked}")
+    log("  topo " + json.dumps(topo))
 
     log("kernel cases " + json.dumps({"flash_attention": rows,
                                       "matmul": mm_rows,
@@ -3028,13 +3389,16 @@ def main() -> int:
          "launches": rep["launches"] + tp["flash_launches"]
          + mla["launches"]["flash_attention"] + train["flash_launches"]
          + serve_tp["flash_launches"] + moe["serve"]["launches"]
-         + moe["train"]["flash_launches"],
+         + moe["train"]["flash_launches"] + topo["dp"]["flash_launches"]
+         + topo["grouped_ep"]["flash_launches"],
          **record(head)},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:56",
          "launches": tp["matmul_launches"] + train["matmul_launches"]
-         + serve_tp["matmul_launches"] + moe["train"]["matmul_launches"],
+         + serve_tp["matmul_launches"] + moe["train"]["matmul_launches"]
+         + topo["dp"]["matmul_launches"]
+         + topo["grouped_ep"]["matmul_launches"],
          **record(mm_head)},
         {"name": "matmul_rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul_rmsnorm.cu",

@@ -12,9 +12,13 @@ the ``num_layers % len(layer_pattern)`` trailing blocks in
 ``rem[j]`` is layer ``n_full * P + j``. Both layouts keep weights as
 ``(d_in, d_out)``, so nothing is transposed.
 
-For a model on a TP ring, :func:`shard_state_dict` keeps rank ``r``'s slice
-of each TP weight, by the specs of the period-graph fragment
-(:func:`repro_torch.core.tp.param_shard_dim`).
+For a model on a TP group (a flat ring or a 2D mesh's composite group),
+:func:`shard_for_group` keeps this rank's slice of each TP weight, by the
+specs of the period-graph fragment: the TP weights by the (composite)
+index, an MoE's experts by whole expert over tp_out on a 2D mesh (grouped
+EP, :func:`repro_torch.core.tp.param_placement`). JAX's parameter store
+splits a grouped expert's hidden dimension over tp_in instead
+(``repro/launch/specs.py``); the values are the same (ROADMAP C).
 """
 from __future__ import annotations
 
@@ -79,33 +83,23 @@ def state_dict_from_jax(params: Mapping, cfg: ArchConfig
     return {k: _tensor(v) for k, v in flat.items()}
 
 
-def shard_state_dict(sd: Mapping[str, torch.Tensor], cfg: ArchConfig,
-                     rank: int, n: int) -> Dict[str, torch.Tensor]:
-    """Rank ``rank``'s state dict on a TP ring of ``n``: each TP weight cut
-    to its contiguous slice along its shard dimension, the rest kept
-    whole."""
-    from repro_torch.core.tp import param_shard_dim
+def shard_for_group(sd: Mapping[str, torch.Tensor], cfg: ArchConfig,
+                    group) -> Dict[str, torch.Tensor]:
+    """This rank's state dict on the TP group ``group`` (a flat ring or a
+    2D mesh's composite group; None or a group of one keeps it whole), by
+    :func:`repro_torch.core.tp.param_placement`."""
+    from repro_torch.core.tp import shard_param
 
-    out = {}
-    for name, t in sd.items():
-        dim = param_shard_dim(name, cfg, n)
-        if dim is not None:
-            if t.shape[dim] % n:
-                raise ValueError(f"{name}: dim {dim} of {tuple(t.shape)} "
-                                 f"does not split over {n} ranks")
-            size = t.shape[dim] // n
-            t = t.narrow(dim, rank * size, size).contiguous()
-        out[name] = t
-    return out
+    return {name: shard_param(t, name, cfg, group).contiguous()
+            for name, t in sd.items()}
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping) -> None:
     """Copy ``repro`` parameters (numpy pytree) into the port's ``LM``, in
     its parameter type and on its device, sharded for its TP rank; every
     key must match."""
-    sd = state_dict_from_jax(params, model.cfg)
-    if model.tp > 1:
-        sd = shard_state_dict(sd, model.cfg, model.group.rank, model.tp)
+    sd = shard_for_group(state_dict_from_jax(params, model.cfg), model.cfg,
+                         model.group)
     own = model.state_dict()
     missing, extra = own.keys() - sd.keys(), sd.keys() - own.keys()
     if missing or extra:

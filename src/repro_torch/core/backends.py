@@ -19,8 +19,18 @@ on a group larger than one).
 Methods run on one rank with its local shards and take the
 :class:`repro_torch.sharding.TPGroup` where JAX took the axis name. The
 backward collectives ``grad_ag_gemm`` and ``grad_a2a_expert_ffn`` (the
-``bwd_ag_gemm`` and ``bwd_a2a_ffn`` IR ops of a training graph) are here;
-the hierarchical (2D-mesh) compositions raise (ROADMAP A14).
+``bwd_ag_gemm`` and ``bwd_a2a_ffn`` IR ops of a training graph) are here.
+
+On a 2D mesh the group is a :class:`repro_torch.sharding.CompositeGroup`
+(JAX's ``("tp_in", "tp_out")`` axis tuple) and every public method
+dispatches to its ``hier_*`` composition, as JAX's do: the inter-node legs
+run through the ``_outer_*`` hooks (monolithic on ``barrier``;
+ring-decomposed and chunk-planned against ``hw.inter_tier()`` on ``cais``)
+and the backend's own fused schedules run on the intra-node ring
+(``group.tp_in``). AG gathers the outer axis first, so its concatenation is
+this node's contiguous block; RS scatters the inner axis first
+(docs/topology.md). The expert all-to-all of grouped EP and its adjoint
+run on ``group.tp_out`` only.
 """
 from __future__ import annotations
 
@@ -34,12 +44,7 @@ from repro_torch.core import coordination
 from repro_torch.core import primitives as prim
 from repro_torch.core.primitives import CAISConfig
 from repro_torch.hw import H100
-from repro_torch.sharding import TPGroup
-
-
-def _hier_not_ported(*_, **__):
-    raise NotImplementedError("hierarchical (2D-mesh) compositions are not "
-                              "ported yet (ROADMAP A14)")
+from repro_torch.sharding import CompositeGroup, TPGroup
 
 
 class CollectiveBackend:
@@ -129,6 +134,8 @@ class CollectiveBackend:
         Returns ``(d @ wT gathered, d gathered)``: the second feeds the
         weight-gradient GEMM, so the gather runs once. Default: one
         monolithic all-gather (the barrier schedule)."""
+        if self.hierarchical(group):
+            return self.hier_grad_ag_gemm(d, wT, group, cais)
         g = group.all_gather(d, 1)
         return prim.mm(g, wT), g
 
@@ -142,16 +149,95 @@ class CollectiveBackend:
         cotangents back to their senders. Expert weight grads stay at the
         owner, summed over the arriving rows. Default: monolithic
         all-to-alls (the barrier schedule)."""
+        if self.hierarchical(group):
+            return self.hier_grad_a2a_expert_ffn(send, gy, bwd_row, group,
+                                                 cais)
         if group.size == 1:
             return prim.rows_vjp(send, gy, bwd_row)
         d_rows, dws = prim.rows_vjp(group.all_to_all(send),
                                      group.all_to_all(gy), bwd_row)
         return group.all_to_all(d_rows), dws
 
-    # -- hierarchical (2D-mesh) compositions: ROADMAP A14 ------------------
-    hier_ag_gemm_multi = hier_gemm_rs = hier_gemm_ar = _hier_not_ported
-    hier_a2a_expert_ffn = hier_overlap_asymmetric = _hier_not_ported
-    hier_grad_ag_gemm = _hier_not_ported
+    # -- hierarchical (2D-mesh) compositions -------------------------------
+    # ``group`` is a CompositeGroup: ``group.tp_in`` the fast tp_in ring,
+    # ``group.tp_out`` the slow tp_out one (the composite index is tp_in
+    # major, so the outer index is minor)
+
+    @staticmethod
+    def hierarchical(group) -> bool:
+        """True when ``group`` is a 2D mesh's composite TP group."""
+        return isinstance(group, CompositeGroup)
+
+    def _inner_all_gather(self, x, group: TPGroup, cais: CAISConfig):
+        """Intra-node all-gather leg (dim 1) of hierarchical AR."""
+        return group.all_gather(x, 1)
+
+    def _outer_all_gather(self, x, group: TPGroup, cais: CAISConfig):
+        """Inter-node all-gather leg (dim 1)."""
+        return group.all_gather(x, 1)
+
+    def _outer_reduce_scatter(self, x, group: TPGroup, cais: CAISConfig):
+        """Inter-node reduce-scatter leg (dim 1)."""
+        return group.reduce_scatter(x, 1)
+
+    def hier_ag_gemm_multi(self, x, ws, group, cais: CAISConfig):
+        """AG→GEMM on the composite group: gather the slow inter-node axis
+        first (its index is minor, so the concatenation is this node's
+        contiguous block), then the backend's fused schedule on tp_in."""
+        xg = self._outer_all_gather(x, group.tp_out, cais)
+        return self.ag_gemm_multi(xg, tuple(ws), group.tp_in, cais)
+
+    def hier_gemm_rs(self, x, w, group, cais: CAISConfig):
+        """GEMM→RS on the composite group: the backend's fused intra-node
+        reduce-scatter first, then the inter-node exchange on 1/tp_in of
+        the payload."""
+        y = self.gemm_rs(x, w, group.tp_in, cais)
+        return self._outer_reduce_scatter(y, group.tp_out, cais)
+
+    def hier_gemm_ar(self, x, w, group, cais: CAISConfig):
+        """GEMM→AR: intra-node reduce-scatter → inter-node exchange →
+        all-gather back out through both tiers. A ragged sequence that
+        cannot scatter over the whole composite ring takes the monolithic
+        allreduce over the whole TP group."""
+        if int(x.shape[1]) % max(group.size, 1) != 0:
+            return prim.barrier_gemm_ar(x, w, group)
+        y = self.hier_gemm_rs(x, w, group, cais)
+        y = self._outer_all_gather(y, group.tp_out, cais)
+        return self._inner_all_gather(y, group.tp_in, cais)
+
+    def hier_a2a_expert_ffn(self, send, ffn, group, cais: CAISConfig):
+        """Grouped-EP expert all-to-all: experts replicate across tp_in and
+        shard over tp_out only, so the dispatch and combine never cross the
+        intra-node ring (``send`` is (tp_out, C, d))."""
+        return self.a2a_expert_ffn(send, ffn, group.tp_out, cais)
+
+    def hier_grad_ag_gemm(self, d, wT, group, cais: CAISConfig):
+        """Adjoint gather through both tiers: inter-node first, intra-node
+        second (the forward hierarchical AG's order)."""
+        g = self._outer_all_gather(d, group.tp_out, cais)
+        g = self._inner_all_gather(g, group.tp_in, cais)
+        return prim.mm(g, wT), g
+
+    def hier_grad_a2a_expert_ffn(self, send, gy, bwd_row, group,
+                                 cais: CAISConfig):
+        """Grouped-EP adjoint: the grad dispatch and combine run on tp_out
+        only, as the forward's; the per-owner expert grads are completed by
+        the period backward's sum over tp_in."""
+        return self.grad_a2a_expert_ffn(send, gy, bwd_row, group.tp_out,
+                                        cais)
+
+    def hier_overlap_asymmetric(self, rs_args, ag_args, group,
+                                cais: CAISConfig):
+        """The lockstep dual-stream schedule is a one-ring construct; on a
+        2D mesh the two sides run as their hierarchical compositions, one
+        after the other."""
+        x_rs, w_rs = rs_args
+        x_ag, w_ag = ag_args
+        rs_out = self.gemm_rs(x_rs, w_rs, group, cais)
+        multi = isinstance(w_ag, (tuple, list))
+        ag_out = self.ag_gemm_multi(x_ag, tuple(w_ag) if multi else (w_ag,),
+                                    group, cais)
+        return rs_out, (ag_out if multi else ag_out[0])
 
 
 # ---------------------------------------------------------------------------
@@ -165,19 +251,30 @@ class BarrierBackend(CollectiveBackend):
     name = "barrier"
 
     def ag_gemm_multi(self, x, ws, group, cais):
+        if self.hierarchical(group):
+            return self.hier_ag_gemm_multi(x, ws, group, cais)
         xg = group.all_gather(x, 1)
         return tuple(prim.mm(xg, w) for w in ws)
 
     def gemm_rs(self, x, w, group, cais):
+        if self.hierarchical(group):
+            return self.hier_gemm_rs(x, w, group, cais)
         return prim.barrier_gemm_rs(x, w, group)
 
     def gemm_ar(self, x, w, group, cais):
+        # on a 2D mesh too, ONE opaque allreduce over the whole TP group:
+        # the baseline's defining phase structure
         return prim.barrier_gemm_ar(x, w, group)
 
     def a2a_expert_ffn(self, send, ffn, group, cais):
+        if self.hierarchical(group):
+            return self.hier_a2a_expert_ffn(send, ffn, group, cais)
         return prim.barrier_a2a_expert_ffn(send, ffn, group)
 
     def overlap_asymmetric(self, rs_args, ag_args, group, cais):
+        if self.hierarchical(group):
+            return self.hier_overlap_asymmetric(rs_args, ag_args, group,
+                                                cais)
         x_rs, w_rs = rs_args
         x_ag, w_ag = ag_args
         rs_out = prim.barrier_gemm_rs(x_rs, w_rs, group)
@@ -219,15 +316,19 @@ class CAISBackend(CollectiveBackend):
         return _planned_chunks(int(payload_bytes), ring, bidirectional, hw)
 
     @staticmethod
-    def resolve(cais: CAISConfig, gathered_bytes: float,
-                ring: int) -> CAISConfig:
+    def resolve(cais: CAISConfig, gathered_bytes: float, ring: int,
+                inter: bool = False) -> CAISConfig:
         """Fill in num_chunks from the α-β plan when the config leaves it
         open. ``gathered_bytes`` is the full payload the collective moves
-        around the ring."""
+        around the ring; ``inter=True`` plans the leg against the
+        inter-node tier of ``cais.hw`` (a 2D mesh's slow axis)."""
         if cais.num_chunks is not None or ring <= 1:
             return cais
+        hw = cais.hw
+        if inter:
+            hw = (hw or H100).inter_tier()
         c = _planned_chunks(int(gathered_bytes), ring, cais.bidirectional,
-                            cais.hw)
+                            hw)
         return dataclasses.replace(cais, num_chunks=c)
 
     @staticmethod
@@ -237,15 +338,42 @@ class CAISBackend(CollectiveBackend):
         return int(x.shape[0]) * int(x.shape[1]) * int(w1.shape[1]) * \
             x.element_size()
 
+    # the inter-node legs of the hierarchical compositions: ring-decomposed,
+    # chunk-planned against the inter-node tier of ``cais.hw``
+    def _inner_all_gather(self, x, group, cais):
+        return prim.ring_all_gather(x, group, cais)
+
+    def _outer_all_gather(self, x, group, cais):
+        ring = group.size
+        if ring <= 1:
+            return x
+        cais = self.resolve(cais, _nbytes(x) * ring, ring, inter=True)
+        return prim.ring_all_gather(x, group, cais)
+
+    def _outer_reduce_scatter(self, x, group, cais):
+        ring = group.size
+        if ring <= 1:
+            return x
+        if int(x.shape[1]) % ring != 0:
+            return group.reduce_scatter(x, 1)
+        cais = self.resolve(cais, _nbytes(x), ring, inter=True)
+        return prim.ring_reduce_scatter(x, group, cais)
+
     def ag_gemm_multi(self, x, ws, group, cais):
+        if self.hierarchical(group):
+            return self.hier_ag_gemm_multi(x, ws, group, cais)
         n = group.size
         cais = self.resolve(cais, _nbytes(x) * n, n)
         return prim.ag_gemm_multi(x, tuple(ws), group, cais)
 
     def gemm_rs(self, x, w, group, cais):
+        if self.hierarchical(group):
+            return self.hier_gemm_rs(x, w, group, cais)
         return prim.gemm_rs(x, w, group, cais)
 
     def gemm_ar(self, x, w, group, cais):
+        if self.hierarchical(group):
+            return self.hier_gemm_ar(x, w, group, cais)
         # a ragged/decode sequence (S % ring != 0) cannot split around the
         # ring, so this collective falls back to the monolithic allreduce
         if int(x.shape[1]) % group.size != 0:
@@ -253,10 +381,19 @@ class CAISBackend(CollectiveBackend):
         return prim.gemm_ar(x, w, group, cais)
 
     def a2a_expert_ffn(self, send, ffn, group, cais):
+        if self.hierarchical(group):
+            return self.hier_a2a_expert_ffn(send, ffn, group, cais)
         return prim.a2a_expert_ffn(send, ffn, group, cais)
 
     def fused_rs_ln_ag(self, x, w1, ln_scale, w2, group, cais,
                        norm="rmsnorm", residual=None):
+        if self.hierarchical(group):
+            # the base composition over this backend's gemm_rs /
+            # ag_gemm_multi: each tier plans its own leg inside those
+            outs, z = super().fused_rs_ln_ag_multi(
+                x, w1, ln_scale, (w2,), group, cais, norm=norm,
+                residual=residual)
+            return outs[0], z
         cais = self.resolve(cais, self.seam_bytes(x, w1), group.size)
         return prim.fused_rs_ln_ag(x, w1, ln_scale, w2, group, cais,
                                    norm=norm, residual=residual)
@@ -265,24 +402,32 @@ class CAISBackend(CollectiveBackend):
                              norm="rmsnorm", residual=None):
         # the gathered z payload governs both legs; with num_chunks
         # resolved, the base composition over this backend's gemm_rs /
-        # ag_gemm_multi is the schedule
-        cais = self.resolve(cais, self.seam_bytes(x, w1), group.size)
+        # ag_gemm_multi is the schedule (on a 2D mesh each tier plans its
+        # own leg)
+        if not self.hierarchical(group):
+            cais = self.resolve(cais, self.seam_bytes(x, w1), group.size)
         return super().fused_rs_ln_ag_multi(x, w1, ln_scale, tuple(ws2),
                                             group, cais, norm=norm,
                                             residual=residual)
 
     def fused_rs_ln(self, x, w1, ln_scale, group, cais, norm="rmsnorm",
                     residual=None):
-        cais = self.resolve(cais, self.seam_bytes(x, w1), group.size)
+        if not self.hierarchical(group):
+            cais = self.resolve(cais, self.seam_bytes(x, w1), group.size)
         return super().fused_rs_ln(x, w1, ln_scale, group, cais, norm=norm,
                                    residual=residual)
 
     def overlap_asymmetric(self, rs_args, ag_args, group, cais):
+        if self.hierarchical(group):
+            return self.hier_overlap_asymmetric(rs_args, ag_args, group,
+                                                cais)
         # no planning: the lockstep schedule moves one S_loc slice per hop
         # on each stream — its chunking is structural
         return prim.overlap_asymmetric(rs_args, ag_args, group, cais)
 
     def grad_ag_gemm(self, d, wT, group, cais):
+        if self.hierarchical(group):
+            return self.hier_grad_ag_gemm(d, wT, group, cais)
         # decomposed bidirectional ring gather of the cotangent, then the
         # GEMM against the transposed shard: the grad-side mirror of the
         # forward pull alignment
@@ -292,6 +437,9 @@ class CAISBackend(CollectiveBackend):
         return prim.mm(g, wT), g
 
     def grad_a2a_expert_ffn(self, send, gy, bwd_row, group, cais):
+        if self.hierarchical(group):
+            return self.hier_grad_a2a_expert_ffn(send, gy, bwd_row, group,
+                                                 cais)
         # interleaved per-offset ± schedule mirroring the forward a2a; the
         # chunking is structural (one (row, cotangent) pair per offset), so
         # nothing is planned here

@@ -29,7 +29,7 @@ period (:func:`repro_torch.core.dataflow.build_training_graph`), runs pass 3
 on the merged forward+backward graph (so one chain's backward grad
 reduce-scatter may pair with another chain's forward gather), executes it
 on this rank, sums each weight's per-use grads and all-reduces those that
-are partial over the ring (:func:`replicated_weights`: in the replicated
+are partial over the ring (:func:`grad_groups`: in the replicated
 layout every rank sees the whole batch and sequence, so only replicated
 wk/wv, read a few heads a rank, are).
 
@@ -47,6 +47,14 @@ and every expert GEMM, forward and backward, goes through the matmul kernel.
 Each rank's aux loss is its shard's; :func:`sp_period` returns their mean
 over the ring. The router and a dense-residual MLP are replicated, so their
 grads are summed over the ring; an expert's grads are complete at its owner.
+
+On a 2D mesh (``tp_in`` x ``tp_out``) the group is the mesh's
+:class:`repro_torch.sharding.CompositeGroup`: every shard index is the
+composite index ``i_in·tp_out + i_out``, the backends run their
+hierarchical compositions, and an MoE's experts are grouped (grouped EP):
+sharded by whole expert over tp_out and replicated across tp_in, so the
+expert all-to-all crosses tp_out only and the expert grads are summed over
+tp_in (:func:`grad_groups`, JAX's ``grad_psum_axes``).
 
 Not here yet: ``graph_backward=False`` on a ring (A15: JAX falls back to
 autodiff of the executed forward, through its collectives; the port has no
@@ -69,7 +77,7 @@ from repro_torch.core.backends import (CAISBackend, CollectiveBackend,
                                        get_backend)
 from repro_torch.core.primitives import CAISConfig
 from repro_torch.hw import H100, HWSpec
-from repro_torch.sharding import TPGroup
+from repro_torch.sharding import CompositeGroup, TPGroup
 
 PLANNERS = ("greedy", "perfsim")
 
@@ -122,12 +130,31 @@ class TPContext:
 
     @property
     def tp(self) -> int:
+        """Total TP degree (the flat ring's size, or tp_in·tp_out)."""
         return self.group.size
 
     @property
+    def is_2d(self) -> bool:
+        return isinstance(self.group, CompositeGroup)
+
+    @property
+    def route_group(self) -> TPGroup:
+        """The ring the MoE expert all-to-all crosses: the slow tp_out ring
+        on a 2D mesh (grouped EP: experts replicate across tp_in), the
+        whole TP ring on a flat one (JAX's ``route_axis``)."""
+        return self.group.tp_out if self.is_2d else self.group
+
+    @property
     def route_ring(self) -> int:
-        """The expert-sharding ring: the whole (flat) TP ring."""
-        return self.tp
+        """Size of :attr:`route_group` (the expert-sharding degree)."""
+        return self.route_group.size
+
+    @property
+    def topology(self):
+        """(n_inner, n_outer) ring sizes; (tp, 1) on a flat ring."""
+        if self.is_2d:
+            return (self.group.tp_in.size, self.group.tp_out.size)
+        return (self.tp, 1)
 
 
 @dataclass(frozen=True)
@@ -160,19 +187,22 @@ def _sp_opts(opts: Optional[SPOptions], legacy: dict) -> SPOptions:
 # ---------------------------------------------------------------------------
 
 
+_EXPERT_LEAVES = ("ffn.w_up", "ffn.w_gate", "ffn.w_down")
+
+
 def param_shard_dim(name: str, cfg, tp: int) -> Optional[int]:
     """The dimension along which parameter ``name`` (a key of the port's
-    ``LM`` state dict) is split over a TP ring of ``tp``, or None where it
-    is replicated: the specs of the period-graph fragment, ``(None, M)``
+    ``LM`` state dict) is split over a flat TP ring of ``tp``, or None where
+    it is replicated: the specs of the period-graph fragment, ``(None, M)``
     columns for wq/wk/wv/w_up/w_gate, ``(M, None)`` rows for wo/w_down. An
     MoE's experts split by whole expert (dim 0, ``e_spec``) where
     E % tp == 0 and replicate otherwise; its router and dense-residual MLP
-    replicate."""
+    replicate. On any group, :func:`param_placement`."""
     if tp <= 1 or not name.startswith("blocks."):
         return None
     leaf = name.split(".", 2)[2]
     if cfg.moe is not None and leaf.startswith("ffn."):
-        if leaf in ("ffn.w_up", "ffn.w_gate", "ffn.w_down"):
+        if leaf in _EXPERT_LEAVES:
             return 0 if cfg.moe.num_experts % tp == 0 else None
         return None
     if leaf in ("mixer.wq", "ffn.w_up", "ffn.w_gate"):
@@ -182,6 +212,38 @@ def param_shard_dim(name: str, cfg, tp: int) -> Optional[int]:
     if leaf in ("mixer.wo", "ffn.w_down"):
         return 0
     return None
+
+
+def param_placement(name: str, cfg, group: Optional[TPGroup]):
+    """(dim, the group whose ranks split it) of parameter ``name`` on the
+    TP group ``group``, or None where every rank holds it whole. On a flat
+    ring, :func:`param_shard_dim` over the ring. On a 2D mesh's composite
+    group the TP weights split over the composite index, and an MoE's
+    experts by whole expert over tp_out (grouped EP: replicated across
+    tp_in) where E % tp_out == 0."""
+    if group is None or group.size <= 1 or not name.startswith("blocks."):
+        return None
+    if isinstance(group, CompositeGroup) and cfg.moe is not None \
+            and name.split(".", 2)[2] in _EXPERT_LEAVES:
+        if cfg.moe.num_experts % group.tp_out.size:
+            return None
+        return 0, group.tp_out
+    dim = param_shard_dim(name, cfg, group.size)
+    return None if dim is None else (dim, group)
+
+
+def shard_param(t: torch.Tensor, name: str, cfg, group) -> torch.Tensor:
+    """This rank's slice of the whole parameter ``t`` by
+    :func:`param_placement` (``t`` itself where it is not split)."""
+    place = param_placement(name, cfg, group)
+    if place is None:
+        return t
+    dim, g = place
+    if t.shape[dim] % g.size:
+        raise ValueError(f"{name}: dim {dim} of {tuple(t.shape)} does not "
+                         f"split over {g.size} ranks")
+    size = t.shape[dim] // g.size
+    return t.narrow(dim, g.rank * size, size)
 
 
 # ---------------------------------------------------------------------------
@@ -531,7 +593,7 @@ def _block_graph_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
         raise ValueError("the period graph's MoE path requires "
                          "E % route_ring == 0 (see tp_applicable)")
     route_fn, expert_fn, unroute_fn = _moe_graph_fns(
-        cfg, tpc.route_ring, tpc.group.rank)
+        cfg, tpc.route_ring, tpc.route_group.rank)
     e_keys = (p + "w_up", p + "w_gate", p + "w_down")
     dense = cfg.moe.dense_residual_d_ff > 0
     d_keys = (p + "d_up", p + "d_gate", p + "d_down") if dense else ()
@@ -552,25 +614,33 @@ _WEIGHT_PARAMS = {"scale1": "norm1.scale", "scale2": "norm2.scale",
                   "d_down": "ffn.dense.w_down"}
 
 
-def replicated_weights(weights, cfg, tp: int,
-                       seq_sharded: bool = True) -> frozenset:
+def grad_groups(weights, cfg, group: TPGroup,
+                seq_sharded: bool = True) -> Dict[str, TPGroup]:
     """The keys of a period graph's ``weights`` whose gradients are partial
-    sums over a ring of ``tp``, to be all-reduced. Sequence-sharded, every
-    weight each rank holds whole (:func:`param_shard_dim` None: the norm
-    scales, and wk/wv when ``num_kv_heads % tp != 0``): each rank sums over
-    its own sequence shard (an MoE's router and dense MLP too; its experts
-    are sharded, and an expert's grads are complete at its owner). In the
-    replicated layout every rank sees the whole batch and sequence, so a
-    norm scale's grad is complete; replicated
-    wk/wv still are partial, since a rank's attention reads only the kv
-    heads its q heads use (JAX's replicated-layout backward sums none of
-    them, which undercounts wk/wv there: ROADMAP C)."""
+    sums over ranks of the TP group ``group``, each with the group to
+    all-reduce it over: JAX's ``grad_psum_axes``, every TP axis a weight's
+    spec does not name. Sequence-sharded, every weight a rank holds whole
+    (the norm scales, wk/wv when ``num_kv_heads % tp != 0``, an MoE's
+    router and dense MLP) sums over the whole TP group; on a 2D mesh the
+    grouped experts, split over tp_out only, sum over tp_in
+    (``group.tp_in``); a weight split over the whole group sums over
+    nothing. In the replicated layout every rank sees the whole batch and
+    sequence, so a norm scale's grad is complete; replicated wk/wv still
+    are partial, since a rank's attention reads only the kv heads its q
+    heads use (JAX's replicated-layout backward sums none of them, which
+    undercounts wk/wv there: ROADMAP C)."""
     kv = ("wk", "wv")
-    return frozenset(
-        k for k in weights
-        if param_shard_dim("blocks.0." + _WEIGHT_PARAMS[k.split(".", 1)[1]],
-                           cfg, tp) is None
-        and (seq_sharded or k.split(".", 1)[1] in kv))
+    out: Dict[str, TPGroup] = {}
+    for k in weights:
+        leaf = k.split(".", 1)[1]
+        place = param_placement("blocks.0." + _WEIGHT_PARAMS[leaf], cfg,
+                                group)
+        if place is None:
+            if seq_sharded or leaf in kv:
+                out[k] = group
+        elif place[1] is not group and isinstance(group, CompositeGroup):
+            out[k] = group.tp_in        # grouped EP: replicated over tp_in
+    return out
 
 
 def _period_graph(tpc: TPContext, params_seq, cfg, kinds: Sequence[str],
@@ -608,12 +678,15 @@ def resolve_microbatches(tpc: TPContext, x: torch.Tensor,
                          requested: Union[int, str, None] = None,
                          moe: bool = False, seq_sharded: bool = True) -> int:
     """The effective period-graph batch split for this rank's activation
-    ``x`` ((B, S/tp, d) sequence-sharded, or (B, S, d) replicated).
-    ``requested=None`` defers to ``tpc.num_microbatches``; ``"auto"`` asks
+    ``x`` ((B, S/tp, d) sequence-sharded, or (B, S, d) replicated; B is the
+    data replica's batch, JAX's ``B // dp``). ``requested=None`` defers to
+    ``tpc.num_microbatches``; ``"auto"`` asks
     :func:`repro_torch.core.coordination.plan_microbatches` with the batch
-    and the full-activation payload. The result is clamped to the largest
-    value that divides the batch (1 = unsplit); ``"auto"`` never splits an
-    MoE period."""
+    and the full-activation payload; on a 2D mesh against the tp_out ring
+    with the inter-tier α-β model and the per-node payload (the outer
+    exchange moves 1/tp_in of the gathered activation). The result is
+    clamped to the largest value that divides the batch (1 = unsplit);
+    ``"auto"`` never splits an MoE period."""
     req = tpc.num_microbatches if requested is None else requested
     b_loc = max(int(x.shape[0]), 1)
     if req == "auto":
@@ -621,9 +694,16 @@ def resolve_microbatches(tpc: TPContext, x: torch.Tensor,
             return 1
         seq = int(x.shape[1]) * (tpc.tp if seq_sharded else 1)
         payload = b_loc * seq * int(x.shape[2]) * x.element_size()
-        mb = coordination.plan_microbatches(
-            b_loc, float(payload), tpc.tp,
-            bidirectional=tpc.cais.bidirectional, hw=tpc.hw)
+        n_in, n_out = tpc.topology
+        if n_out > 1:
+            mb = coordination.plan_microbatches(
+                b_loc, float(payload) / max(n_in, 1), n_out,
+                bidirectional=tpc.cais.bidirectional,
+                hw=tpc.hw.inter_tier())
+        else:
+            mb = coordination.plan_microbatches(
+                b_loc, float(payload), tpc.tp,
+                bidirectional=tpc.cais.bidirectional, hw=tpc.hw)
     else:
         mb = int(req)
     mb = max(1, min(mb, b_loc))
@@ -653,18 +733,19 @@ def _core_comp_hints(cfg, kinds: Sequence[str], batch: int, seq: int
     return hints
 
 
-def global_weight_shapes(weights, cfg, tp: int) -> Dict[str, tuple]:
+def global_weight_shapes(weights, cfg, group: TPGroup
+                         ) -> Dict[str, tuple]:
     """The unsharded shape of each period-graph weight, which is what
     ``repro``'s planner sees (its weights enter ``shard_map`` whole): a
-    rank's shard with its :func:`param_shard_dim` multiplied back by
-    ``tp``."""
+    rank's shard with its :func:`param_placement` dimension multiplied back
+    by the size of the group that splits it."""
     out = {}
     for k, w in weights.items():
         shape = list(w.shape)
-        dim = param_shard_dim(
-            "blocks.0." + _WEIGHT_PARAMS[k.split(".", 1)[1]], cfg, tp)
-        if dim is not None:
-            shape[dim] *= tp
+        place = param_placement(
+            "blocks.0." + _WEIGHT_PARAMS[k.split(".", 1)[1]], cfg, group)
+        if place is not None:
+            shape[place[0]] *= place[1].size
         out[k] = tuple(shape)
     return out
 
@@ -692,9 +773,9 @@ def _plan_view(tpc: TPContext, weights, cfg, kinds: Sequence[str],
                hints: Dict[str, float]) -> _PlanView:
     seq = int(x.shape[1]) * (tpc.tp if seq_sharded else 1)
     x_shape = (int(x.shape[0]), seq, int(x.shape[2]))
-    wshapes = global_weight_shapes(weights, cfg, tpc.tp)
+    wshapes = global_weight_shapes(weights, cfg, tpc.group)
     static = (tuple(kinds), seq_sharded, x_shape, _shape_items(wshapes),
-              x.element_size(), tpc.tp, tpc.mode, tpc.hw,
+              x.element_size(), tpc.tp, tpc.topology, tpc.mode, tpc.hw,
               _shape_items(hints))
     return _PlanView(x_shape, wshapes, x.element_size(), hints, static)
 
@@ -727,7 +808,8 @@ def _plan_period(tpc: TPContext, base: df.Graph, x,
     plan, pairer = plan_mod.period_planner(
         base, x_shape=view.x_shape, weight_shapes=view.weight_shapes,
         dtype_bytes=view.dtype_bytes, tp=tpc.tp, backend=tpc.mode,
-        mb_candidates=cands, hw=tpc.hw, cache=plan_mod.default_cache(),
+        mb_candidates=cands, hw=tpc.hw, n_outer=tpc.topology[1],
+        cache=plan_mod.default_cache(),
         comp_hints=view.hints, memo_key=("period", cands) + view.static)
     return plan.num_microbatches, pairer, plan
 
@@ -757,7 +839,8 @@ def _bwd_planner(tpc: TPContext, tg: "df.TrainingGraph", view: _PlanView,
     return plan_mod.PerfsimPlanner(
         value_shapes=vshapes, weight_shapes=wshapes,
         dtype_bytes=view.dtype_bytes,
-        fabric=plan_mod.fabric_from_hw(tpc.hw, max(tpc.tp, 2)),
+        fabric=plan_mod.fabric_from_hw(tpc.hw, max(tpc.tp, 2),
+                                       n_outer=tpc.topology[1]),
         backend=tpc.mode, num_microbatches=mb,
         cache=plan_mod.default_cache(), comp_hints=bh or None,
         memo_key=("train", mb) + view.static)
@@ -785,7 +868,8 @@ class Period:
     merged: df.Graph        # the microbatch-merged graph before optimize
     graph: df.Graph         # the optimized forward
     names: Sequence[str]    # weight keys, in the order of the weight args
-    replicated: frozenset   # keys whose grads are all-reduced over the ring
+    grad_groups: Dict[str, TPGroup]  # keys whose grads are all-reduced,
+    #                                  and over which group
     mb: int
     norm: str
     plan: Optional[object] = None   # the forward's perfsim Plan, or None
@@ -846,8 +930,8 @@ class Period:
             dw = parts[0] if parts else torch.zeros_like(w)
             for p_ in parts[1:]:
                 dw = dw + p_
-            if k in self.replicated:
-                dw = self.tpc.group.all_reduce(dw)
+            if k in self.grad_groups:
+                dw = self.grad_groups[k].all_reduce(dw)
             dws.append(dw.to(w.dtype))
         return dx.to(x.dtype), dws
 
@@ -921,7 +1005,7 @@ def build_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
            if view is not None else None)
     period = Period(tpc, merged, df.optimize(merged, planner=planner),
                     list(weights),
-                    replicated_weights(weights, cfg, tpc.tp, o.seq_sharded),
+                    grad_groups(weights, cfg, tpc.group, o.seq_sharded),
                     mb, o.norm_kind, plan, bwd, n_aux)
     return period, weights
 
@@ -950,7 +1034,7 @@ def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     as :class:`_PeriodFunction`, whose backward is graph-built
     (``tpc.graph_backward``, the default; ``False`` raises, ROADMAP A15).
     In the replicated layout the norm scales' grads are complete on each
-    rank and are not summed over the ring (:func:`replicated_weights`)."""
+    rank and are not summed over the ring (:func:`grad_groups`)."""
     period, weights = build_period(tpc, x, params_seq, cfg, kinds,
                                    opts=_sp_opts(opts, kw))
     ws = tuple(weights.values())
@@ -983,9 +1067,10 @@ def sp_moe_ffn(tpc: TPContext, x: torch.Tensor, norm_scale: torch.Tensor,
     ``params`` is this rank's :class:`repro_torch.models.ffn.MoE`: experts
     sharded by whole expert where E % ring == 0, all E replicated where
     E < ring (ring % E == 0; expert e on rank e·(ring/E), the others
-    computing on zero-capacity padding). x: (B, S/tp, d) sequence-sharded.
-    Returns (FFN(LN(x)), the aux loss's mean over the ring); the residual
-    is the caller's."""
+    computing on zero-capacity padding); on a 2D mesh the ring is tp_out
+    (grouped EP). x: (B, S/tp, d) sequence-sharded. Returns (FFN(LN(x)),
+    the aux loss's mean over the TP group); the residual is the
+    caller's."""
     from repro_torch.models.ffn import mlp_forward
     from repro_torch.models.layers import apply_norm
 
@@ -993,7 +1078,7 @@ def sp_moe_ffn(tpc: TPContext, x: torch.Tensor, norm_scale: torch.Tensor,
     if not (E % ring == 0 or ring % E == 0):
         raise ValueError(f"{E} experts do not map onto a ring of {ring}")
     route_fn, expert_fn, unroute_fn = _moe_graph_fns(cfg, ring,
-                                                     tpc.group.rank)
+                                                     tpc.route_group.rank)
     xn = apply_norm(norm_kind, x, norm_scale)
     send, combine, aux = route_fn(xn, params.router)
     ws = tuple(w.to(x.dtype) for w in (params.w_up, params.w_gate,
@@ -1105,15 +1190,16 @@ def serve_planner(tpc: TPContext, cfg, kinds: Sequence[str], weights,
             shape = list(pool[kk].shape)
             shape[2] *= kv_tp
             vshapes[f"b{i}.{name}"] = tuple(shape)
-    wshapes = global_weight_shapes(weights, cfg, tpc.tp)
+    wshapes = global_weight_shapes(weights, cfg, tpc.group)
     hints = _core_comp_hints(cfg, kinds, int(x.shape[0]), int(x.shape[1]))
     static = ("serve", tuple(kinds), _shape_items(vshapes),
-              _shape_items(wshapes), x.element_size(), tpc.tp, tpc.mode,
-              tpc.hw, _shape_items(hints))
+              _shape_items(wshapes), x.element_size(), tpc.tp, tpc.topology,
+              tpc.mode, tpc.hw, _shape_items(hints))
     return plan_mod.PerfsimPlanner(
         value_shapes=vshapes, weight_shapes=wshapes,
         dtype_bytes=x.element_size(),
-        fabric=plan_mod.fabric_from_hw(tpc.hw, max(tpc.tp, 2)),
+        fabric=plan_mod.fabric_from_hw(tpc.hw, max(tpc.tp, 2),
+                                       n_outer=tpc.topology[1]),
         backend=tpc.mode, cache=plan_mod.default_cache(), comp_hints=hints,
         memo_key=static)
 
@@ -1179,18 +1265,23 @@ def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
     period ``graph``, a forward, training or serve graph (its backward
     ops, the ``_dw``/``_gemm_t`` customs and ``gemm_rs`` over derived
     weights included; an expert all-to-all runs its expert fn, or the fn's
-    VJP, on each of the ring's rows), derived from its nodes alone:
-    ``batch`` is each chain's batch, ``seq`` the full sequence, so every gathered or
-    replicated activation is (batch, seq, d_model) of ``itemsize`` bytes.
-    ``barrier`` issues one GEMM per weight; ``cais`` one per weight per
-    micro-chunk per ring step on the gather side and one per hop (two per
-    hop bidirectionally) on the reduce side. A ``gemm_col`` is one GEMM; a
-    ``gemm_ar`` is the reduce side's partial GEMMs (``cais``) or one GEMM
-    (``barrier``, and ``cais``'s monolithic fallback where ``seq`` does not
-    split over the ring)."""
+    VJP, on each of the route ring's rows), derived from its nodes alone:
+    ``batch`` is each chain's batch, ``seq`` the full sequence, so every
+    gathered or replicated activation is (batch, seq, d_model) of
+    ``itemsize`` bytes. ``barrier`` issues one GEMM per weight; ``cais``
+    one per weight per micro-chunk per ring step on the gather side and
+    one per hop (two per hop bidirectionally) on the reduce side. A
+    ``gemm_col`` is one GEMM; a ``gemm_ar`` is the reduce side's partial
+    GEMMs (``cais``) or one GEMM (``barrier``, and ``cais``'s monolithic
+    fallback where ``seq`` does not split over the ring). On a 2D mesh the
+    GEMMs are the fused schedules' on the tp_in ring (the outer legs move
+    data only): its gather side over the sequence gathered across tp_out,
+    its reduce side to shards of seq/tp_in; the overlap pair runs its two
+    sides one after the other."""
     n = tpc.tp
-    s_loc = seq // n
-    if n == 1 or tpc.mode == "barrier":
+    ring = tpc.topology[0]          # the ring the fused GEMM schedules use
+    s_loc = seq // ring
+    if ring == 1 or tpc.mode == "barrier":
         def ag(k):
             return k
 
@@ -1199,25 +1290,26 @@ def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
     elif isinstance(tpc.backend, CAISBackend):
         c = tpc.cais.num_chunks
         if c is None:
-            c = CAISBackend.plan_chunks(batch * seq * d_model * itemsize, n,
-                                        tpc.cais.bidirectional, tpc.cais.hw)
+            c = CAISBackend.plan_chunks(batch * seq * d_model * itemsize,
+                                        ring, tpc.cais.bidirectional,
+                                        tpc.cais.hw)
         c = prim._pick_chunks(s_loc, c)
 
         def ag(k):
-            return n * c * k
+            return ring * c * k
 
         def rs():
-            two = tpc.cais.bidirectional and n % 2 == 0 and s_loc % 2 == 0
-            return 2 * n if two else n
+            two = tpc.cais.bidirectional and ring % 2 == 0 and s_loc % 2 == 0
+            return 2 * ring if two else ring
     else:
         raise ValueError(f"no call count for backend {tpc.mode!r}")
     calls = 0
     for node in graph.nodes:
         k = len(node.weights)
-        if node.op == "a2a_ffn":    # the expert fn on each of the n rows
-            calls += n * node.fn.matmul_calls
+        if node.op == "a2a_ffn":    # the expert fn on each route-ring row
+            calls += tpc.route_ring * node.fn.matmul_calls
         elif node.op == "bwd_a2a_ffn":
-            calls += n * node.fn.vjp_matmul_calls
+            calls += tpc.route_ring * node.fn.vjp_matmul_calls
         elif node.op in ("gemm_col", "gemm_row", "bwd_ag_gemm"):
             calls += 1      # bwd_ag_gemm: one GEMM over the gathered grad
         elif node.op == "custom" and node.fn in (df._dw, df._gemm_t):
@@ -1229,10 +1321,16 @@ def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
         elif node.op in ("fused_rs_ln_ag", "fused_rs_ln_ag_multi"):
             calls += rs() + ag(k - 2)
         elif node.op == "overlap_asym":
-            calls += (1 + k - 1) if tpc.mode == "barrier" or n == 1 \
-                else n + n * (k - 1)
+            if tpc.is_2d:
+                calls += rs() + ag(k - 1)
+            else:
+                calls += (1 + k - 1) if tpc.mode == "barrier" or n == 1 \
+                    else n + n * (k - 1)
         elif node.op == "gemm_ar":
-            calls += rs() if seq % n == 0 else 1
+            if tpc.mode == "barrier" or seq % n:
+                calls += 1
+            else:
+                calls += rs()
     return calls
 
 

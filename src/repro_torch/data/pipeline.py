@@ -4,9 +4,11 @@ tokens for the same (seed, step).
 
 Batches are generated from a PRNG keyed on (seed, step): any step's batch is
 reproducible without replaying the stream. Each process may materialize only
-its slice of the global batch (``host_slice``). The encoder and prefix-image
-inputs of the enc-dec and VLM families arrive with those families (ROADMAP
-A15).
+its slice of the global batch (``host_slice``): on a mesh with a data axis
+of ``dp`` replicas, replica ``d`` takes rows ``[d·B/dp, (d+1)·B/dp)``
+(:func:`replica_slice`), as JAX's ``BATCH_AXES`` sharding gives them. The
+encoder and prefix-image inputs of the enc-dec and VLM families arrive with
+those families (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -43,6 +45,23 @@ def make_batch(cfg: ArchConfig, shape: ShapeConfig, step: int,
     if host_slice is not None:
         toks = toks[host_slice]
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def replica_slice(global_batch: int, index: int, dp: int) -> slice:
+    """The rows of a global batch of ``global_batch`` that data replica
+    ``index`` of ``dp`` takes."""
+    if global_batch % dp:
+        raise ValueError(f"a global batch of {global_batch} does not split "
+                         f"over {dp} data replicas")
+    b = global_batch // dp
+    return slice(index * b, (index + 1) * b)
+
+
+def replica_rows(batch: Dict[str, np.ndarray], index: int, dp: int
+                 ) -> Dict[str, np.ndarray]:
+    """Data replica ``index``'s rows of every array of a global batch."""
+    sl = replica_slice(next(iter(batch.values())).shape[0], index, dp)
+    return {k: v[sl] for k, v in batch.items()}
 
 
 def iterate(cfg: ArchConfig, shape: ShapeConfig, start_step: int = 0,

@@ -3,9 +3,11 @@
 ``run_ranks(fn, world, *args)`` spawns ``world`` processes (the ``spawn``
 start method: nothing of the parent's state is inherited), joins each to one
 TP group (:func:`repro_torch.sharding.init_tp_group`), calls
-``fn(group, *args)`` there and returns the results in rank order. ``fn``
-must be importable by name, and its arguments and results picklable. A rank
-that raises makes ``run_ranks`` raise with that rank's traceback.
+``fn(group, *args)`` there and returns the results in rank order; ``fn``
+may factor ``group`` into a mesh (:func:`repro_torch.sharding.init_mesh`,
+every rank alike). ``fn`` must be importable by name, and its arguments and
+results picklable. A rank that raises makes ``run_ranks`` raise with that
+rank's traceback.
 
 All ranks run on this host, so the gloo transport is bound to the loopback
 interface unless ``GLOO_SOCKET_IFNAME`` says otherwise, and each rank's CPU

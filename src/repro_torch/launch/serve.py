@@ -17,10 +17,12 @@ shape: ``--prompt-len-min`` (prompt lengths drawn from
 [min, ``--prompt-len``]), ``--prefill-chunk`` and ``--block-size``. Only
 ``--mesh none`` is ported. ``--layers N`` cuts the depth to the first N
 layers at the published widths (mixtral-8x7b's 46.7 B parameters do not
-fit one card; 2 layers do). JAX's meshes have a data-parallel axis (``debug``
-is 2 x 4), ROADMAP A14. Serving over a TP ring runs the ``Engine`` on a
-model built with ``group=`` on every rank
-(:func:`repro_torch.launch.ranks.run_ranks`).
+fit one card; 2 layers do). JAX's launcher meshes have a data-parallel axis
+(``debug`` is 2 x 4), and serving with one is not ported (JAX's period-graph
+serve path is dp 1 too). Serving over a TP ring or a 2D mesh with data axis
+1 runs the ``Engine`` on a model built with ``group=`` on every rank
+(:func:`repro_torch.launch.ranks.run_ranks`,
+:func:`repro_torch.sharding.init_mesh`).
 """
 from __future__ import annotations
 
@@ -72,8 +74,8 @@ def main(argv: Optional[List[str]] = None
     args = parser().parse_args(argv)
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: meshes with a data-parallel axis are not "
-            "ported yet (ROADMAP A14)")
+            f"--mesh {args.mesh}: serving on a mesh with a data-parallel "
+            "axis is not ported; serve on a TP group (LM(..., group=...))")
     cfg = get_arch(args.arch)
     if args.layers:
         cfg = cfg.scaled(num_layers=args.layers)

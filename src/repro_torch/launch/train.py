@@ -1,27 +1,35 @@
-"""Training launcher: the Trainer on one device. Counterpart of
-``repro/launch/train.py``.
+"""Training launcher: the Trainer on one device, or on JAX's 2 x 4 debug
+mesh. Counterpart of ``repro/launch/train.py``.
 
     python -m repro_torch.launch.train --arch internlm2-1.8b
     python -m repro_torch.launch.train --arch deepseek-7b --smoke \
         --device cpu --steps 3
+    python -m repro_torch.launch.train --arch deepseek-7b --smoke \
+        --mesh debug --tp-mode cais --device cpu --steps 3
 
 The flags are ``repro``'s plus ``--device`` (default ``cuda``: the launcher
-fails where there is no card unless told ``--device cpu``). Only
-``--mesh none`` is ported (a 2D mesh is ROADMAP A14), and ``--ckpt-dir``
+fails where there is no card unless told ``--device cpu``). ``--mesh debug``
+spawns 8 local ranks (:func:`repro_torch.launch.ranks.run_ranks`; gloo where
+they share a card) on a ``data`` 2 x ``model`` 4 mesh
+(:func:`repro_torch.launch.mesh.make_debug_mesh`): each replica trains on
+its half of every global batch, the grads are summed over the replicas,
+and rank 0 prints the lines; it needs an explicit ``--tp-mode`` (``barrier``
+or ``cais``: ``auto``'s torch counterpart is ROADMAP A5). ``--mesh
+single|multi`` raise (they need a multi-host launcher), and ``--ckpt-dir``
 raises until checkpointing is ported (A15). ``--smoke`` trains the reduced
 config on a 4 x 128 shape in f32 without remat, as ``repro``'s. Every step
-prints a ``step N loss ...`` line. The tensor-parallel training step on a
-ring of processes is ``repro_torch.train.step.make_train_step`` on an ``LM``
-built with a group (``chip_smoke.py`` phase 9).
+prints a ``step N loss ...`` line; ``--history PATH`` also writes the
+steps' losses unrounded as JSON.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import List, Optional
+import json
+from typing import List, Optional, Union
 
 from repro_torch.configs import SHAPES_BY_NAME, ShapeConfig, get_arch
-from repro_torch.core.backends import available_backends
+from repro_torch.core.backends import available_backends, get_backend
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.models import build_model
 from repro_torch.optim import cosine_schedule, make_optimizer
@@ -47,14 +55,20 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config + tiny shape (CPU-runnable)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--history", default="",
+                    help="write every step's loss (rank 0's) as JSON here")
     return ap
 
 
-def main(argv: Optional[List[str]] = None) -> Trainer:
-    args = parser().parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh}: meshes are not "
-                                  "ported yet (ROADMAP A14); use --mesh none")
+@dataclasses.dataclass
+class MeshRun:
+    """What ``--mesh debug`` returns: rank 0's step history and every
+    rank's."""
+    history: List[dict]
+    ranks: List[List[dict]]
+
+
+def _setup(args):
     cfg = get_arch(args.arch)
     rt = dataclasses.replace(runtime_for(cfg),
                              tp=TPConfig(mode=args.tp_mode))
@@ -65,15 +79,66 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
                                  loss_chunk=64)
     else:
         shape = SHAPES_BY_NAME[args.shape]
-    model = build_model(cfg, rt, device=args.device, seed=args.seed)
+    return cfg, rt, shape
+
+
+def _trainer(args, group=None, log: bool = True) -> Trainer:
+    cfg, rt, shape = _setup(args)
+    model = build_model(cfg, rt, device=args.device, seed=args.seed,
+                        group=group)
     opt = make_optimizer(cfg.optimizer,
                          cosine_schedule(args.lr, args.warmup, args.steps))
     tc = TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
-                       ckpt_every=args.ckpt_every, log_every=1,
+                       ckpt_every=args.ckpt_every,
+                       log_every=1 if log else 0,
                        microbatches=args.microbatches)
-    trainer = Trainer(model, opt, cfg, shape, rt, tc, DataConfig(args.seed))
+    return Trainer(model, opt, cfg, shape, rt, tc, DataConfig(args.seed))
+
+
+def _debug_rank(world, args) -> List[dict]:
+    """One rank of ``--mesh debug``: the Trainer on the debug mesh; rank 0
+    prints the step lines."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    trainer = _trainer(args, make_debug_mesh(world), log=world.rank == 0)
     trainer.run()
+    return trainer.history
+
+
+def main(argv: Optional[List[str]] = None) -> Union[Trainer, MeshRun]:
+    args = parser().parse_args(argv)
+    if args.mesh in ("single", "multi"):
+        from repro_torch.launch.mesh import make_production_mesh
+
+        make_production_mesh(multi_pod=args.mesh == "multi")
+    if args.ckpt_dir:
+        raise NotImplementedError("checkpointing is not ported yet "
+                                  "(checkpoint/store.py, ROADMAP A15)")
+    if args.mesh == "debug":
+        from repro_torch.launch.mesh import DEBUG_SHAPE
+        from repro_torch.launch.ranks import run_ranks
+        from repro_torch.runtime import resolve_device
+
+        if not get_backend(args.tp_mode).explicit:
+            raise NotImplementedError(
+                f"--mesh debug --tp-mode {args.tp_mode}: the framework-"
+                "scheduled mode's torch counterpart (DTensor) is not ported "
+                "(ROADMAP A5); use --tp-mode barrier or cais")
+        resolve_device(args.device)       # no card: fail before spawning
+        ranks = run_ranks(_debug_rank, DEBUG_SHAPE[0] * DEBUG_SHAPE[1], args,
+                          device=args.device, timeout=3600)
+        _write_history(args.history, ranks[0])
+        return MeshRun(history=ranks[0], ranks=ranks)
+    trainer = _trainer(args)
+    trainer.run()
+    _write_history(args.history, trainer.history)
     return trainer
+
+
+def _write_history(path: str, history: List[dict]) -> None:
+    if path:
+        with open(path, "w") as f:
+            json.dump(history, f)
 
 
 if __name__ == "__main__":

@@ -10,5 +10,7 @@ from repro_torch.runtime import Runtime
 
 
 def build_model(cfg: ArchConfig, rt: Runtime = Runtime(), *, device=None,
-                seed: Optional[int] = 0) -> LM:
-    return LM(cfg, rt, device=device, seed=seed)
+                seed: Optional[int] = 0, group=None) -> LM:
+    """The ``LM`` of ``cfg``; ``group`` a TP ring or a mesh
+    (:class:`repro_torch.sharding.Mesh`), as JAX's ``mesh=``."""
+    return LM(cfg, rt, device=device, seed=seed, group=group)

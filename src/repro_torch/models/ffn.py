@@ -20,7 +20,7 @@ router logits only through the mean router probability.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -92,13 +92,16 @@ def local_experts(cfg: ArchConfig, tp: int) -> int:
 
 
 def init_ffn(cfg: ArchConfig, dtype: torch.dtype, device: torch.device,
-             tp: int = 1) -> Union[MLP, MoE]:
+             tp: int = 1, route_ring: Optional[int] = None
+             ) -> Union[MLP, MoE]:
     """The FFN parameters; on a TP ring of ``tp`` ranks one rank's shards
     (w_up/w_gate by columns, w_down by rows; an MoE's experts by whole
-    expert, its router and dense MLP whole)."""
+    expert over ``route_ring``, default ``tp``: on a 2D mesh tp_out, the
+    grouped-EP placement; its router and dense MLP whole)."""
     _gated_only(cfg)
     if cfg.moe is not None:
-        return MoE(cfg, dtype, device, local_experts(cfg, tp))
+        return MoE(cfg, dtype, device, local_experts(
+            cfg, tp if route_ring is None else route_ring))
     return MLP(cfg.d_model, cfg.d_ff // tp, dtype, device)
 
 

@@ -24,6 +24,17 @@ the embedding and head are whole on every rank, so every rank computes the
 same logits. On one device there is no TP context and every block takes the
 per-block path, as in JAX.
 
+On a mesh (``LM(..., group=mesh)``, a :class:`repro_torch.sharding.Mesh`)
+the TP group is the mesh's: a flat ring, or on a 2D (``tp_in`` x
+``tp_out``) mesh the composite group, whose rank is the composite index
+that cuts the sequence and the shards, and whose MoE experts are grouped
+(E/tp_out whole experts a rank). A ``data`` axis holds replicas: each takes
+its rows of the global batch, the loss is the mean over the global batch
+(the masked CE sum and the token count all-reduced over the TP group and
+``data``; an MoE's aux loss the mean over both), and
+:meth:`LM.sync_grads` sums every grad over ``data``. Serving with a data
+axis is not ported (JAX's period-graph serve path is dp 1 too).
+
 Training: ``forward`` and ``loss`` are differentiable once the parameters
 require grad (``repro_torch.train.step.init_state`` sets that; the model is
 built frozen, for serving). On a ring each period's backward is graph-built
@@ -41,7 +52,7 @@ on one device only (JAX's mixer never shards MLA) and have no paged path
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -54,7 +65,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.layers import Norm, embed_init_, softcap
 from repro_torch.runtime import Runtime, resolve_device
-from repro_torch.sharding import TPGroup
+from repro_torch.sharding import (CompositeGroup, Mesh, TPGroup, as_mesh,
+                                  dp_size, tp_axes, tp_size)
 
 # ---------------------------------------------------------------------------
 # Blocks
@@ -71,7 +83,8 @@ class Block(nn.Module):
     (whole on every rank: MLA is never sharded)."""
 
     def __init__(self, kind: str, cfg: ArchConfig, dtype: torch.dtype,
-                 device: torch.device, tp: int = 1):
+                 device: torch.device, tp: int = 1,
+                 route_ring: Optional[int] = None):
         super().__init__()
         if kind not in ("attn", "swa", "mla"):
             raise NotImplementedError(f"{kind!r} blocks are not ported yet")
@@ -82,7 +95,7 @@ class Block(nn.Module):
         self.norm2 = self.ffn = None
         if _has_ffn(cfg):
             self.norm2 = Norm(cfg.norm, cfg.d_model, dtype, device)
-            self.ffn = ffn_mod.init_ffn(cfg, dtype, device, tp)
+            self.ffn = ffn_mod.init_ffn(cfg, dtype, device, tp, route_ring)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.mixer.reset_parameters(generator)
@@ -377,11 +390,14 @@ def init_stack_pools(cfg: ArchConfig, num_blocks: int, block_size: int,
 def chunked_ce_loss(x: torch.Tensor, embed_or_head: torch.Tensor,
                     labels: torch.Tensor, mask: torch.Tensor,
                     cfg: ArchConfig, rt: Runtime, tied: bool,
-                    group: Optional[TPGroup] = None) -> torch.Tensor:
+                    group: Optional[TPGroup] = None,
+                    data: Optional[TPGroup] = None) -> torch.Tensor:
     """Mean cross-entropy with logits computed per sequence chunk (bounds
     the (B, chunk, V) logits). x: (B, S, d) — on a TP ring this rank's
     sequence shard, with the matching slices of ``labels`` and ``mask``;
-    the (sum, count) pair is then all-reduced over ``group``."""
+    the (sum, count) pair is then all-reduced over ``group`` and over the
+    ``data`` axis, so the loss is the mean over the global batch (a mean of
+    replica means would differ wherever the masks do)."""
     B, S, _ = x.shape
     chunk = min(rt.loss_chunk, S)
     while S % chunk:
@@ -399,21 +415,24 @@ def chunked_ce_loss(x: torch.Tensor, embed_or_head: torch.Tensor,
         mc = mask[:, s0:s0 + chunk].float()
         tot = tot + ((lse - gold) * mc).sum()
         cnt = cnt + mc.sum()
-    if group is not None and group.size > 1:
-        tot, cnt = _RingSum.apply(torch.stack([tot, cnt]), group)
+    groups = tuple(g for g in (group, data) if g is not None and g.size > 1)
+    if groups:
+        tot, cnt = _RingSum.apply(torch.stack([tot, cnt]), groups)
     return tot / torch.clamp(cnt, min=1.0)
 
 
 class _RingSum(torch.autograd.Function):
-    """The loss's all-reduce of (sum, count) over the ring, differentiable
-    with an identity backward: every rank seeds the same cotangent of the
-    same replicated loss, which is already each rank's cotangent of its own
-    partial sum (an all-reduce there would make every grad tp times too
-    large)."""
+    """The loss's all-reduce of (sum, count) over each of ``groups`` (the
+    TP ring, then the data axis), differentiable with an identity backward:
+    every rank seeds the same cotangent of the same replicated loss, which
+    is already each rank's cotangent of its own partial sum (an all-reduce
+    there would make every grad tp times too large)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        return group.all_reduce(x)
+    def forward(ctx, x, groups):
+        for g in groups:
+            x = g.all_reduce(x)
+        return x
 
     @staticmethod
     def backward(ctx, g):
@@ -435,23 +454,29 @@ class LM(nn.Module):
     ``rt.param_dtype``; activations run in ``rt.compute_dtype``. With
     ``seed`` set, the weights are drawn from a ``torch.Generator`` on that
     device; with ``seed=None`` they are left uninitialised, for a caller
-    that loads a state dict (``repro_torch.bridge``). With a ``group`` of
-    more than one rank the model holds this rank's shards of the TP weights
-    (the same weights as the one-device model from the same seed)."""
+    that loads a state dict (``repro_torch.bridge``). ``group`` is a TP
+    ring or a :class:`repro_torch.sharding.Mesh`; with a TP group of more
+    than one rank the model holds this rank's shards of the TP weights (the
+    same weights as the one-device model from the same seed), and every
+    replica of a data axis holds the same."""
 
     def __init__(self, cfg: ArchConfig, rt: Runtime = Runtime(), *,
                  device=None, seed: Optional[int] = 0,
-                 group: Optional[TPGroup] = None):
+                 group: Optional[Union[TPGroup, Mesh]] = None):
         super().__init__()
         device = resolve_device(device)
-        self.cfg, self.rt, self.group = cfg, rt, group
+        self.cfg, self.rt = cfg, rt
+        self.mesh = as_mesh(group)
         tp = self.tp
+        route_ring = (self.group.tp_out.size
+                      if isinstance(self.group, CompositeGroup) else tp)
         dtype = rt.pdtype
         param = lambda *s: nn.Parameter(
             torch.empty(s, dtype=dtype, device=device), requires_grad=False)
         self.embed = param(cfg.vocab_size, cfg.d_model)
         self.blocks = nn.ModuleList(
-            Block(kind, cfg, dtype, device, tp) for kind in cfg.layer_kinds())
+            Block(kind, cfg, dtype, device, tp, route_ring)
+            for kind in cfg.layer_kinds())
         self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
         self.lm_head = None if cfg.tie_embeddings \
             else param(cfg.d_model, cfg.vocab_size)
@@ -464,24 +489,39 @@ class LM(nn.Module):
         # the same weights as the one-device model from this seed: draw them
         # whole, keep this rank's shards. Ranks that share one card (gloo on
         # CUDA) take turns, so the card holds one whole model at a time
-        from repro_torch.bridge import shard_state_dict
+        from repro_torch.bridge import shard_for_group
 
-        turns = group.backend == "gloo" and device.type == "cuda"
-        for turn in range(tp if turns else 1):
-            if not turns or turn == group.rank:
+        world = self.mesh.world
+        turns = world.backend == "gloo" and device.type == "cuda"
+        for turn in range(world.size if turns else 1):
+            if not turns or turn == world.rank:
                 full = LM(cfg, rt, device=device, seed=seed)
-                self.load_state_dict(shard_state_dict(
-                    full.state_dict(), cfg, group.rank, tp))
+                self.load_state_dict(shard_for_group(
+                    full.state_dict(), cfg, self.group))
                 del full
                 if turns:
                     torch.cuda.empty_cache()
             if turns:
-                group.all_reduce(torch.zeros(1))    # the turn's end
+                world.all_reduce(torch.zeros(1))    # the turn's end
+
+    @property
+    def group(self) -> Optional[TPGroup]:
+        """The TP group: the flat ring, or a 2D mesh's composite group."""
+        return tp_axes(self.mesh)
+
+    @property
+    def data(self) -> Optional[TPGroup]:
+        """The data-parallel axis (None without a mesh)."""
+        return None if self.mesh is None else self.mesh.data
 
     @property
     def tp(self) -> int:
-        """The TP ring size this model's weights are sharded over."""
-        return 1 if self.group is None else self.group.size
+        """The TP degree this model's weights are sharded over."""
+        return tp_size(self.mesh)
+
+    @property
+    def dp(self) -> int:
+        return dp_size(self.mesh)
 
     @property
     def device(self) -> torch.device:
@@ -515,24 +555,35 @@ class LM(nn.Module):
                                remat=self.rt.remat and tpc is None)
         return self.final_norm(x), aux
 
-    def sharded_names(self) -> frozenset:
-        """The parameters this rank holds a shard of (the rest every rank of
-        the ring holds whole)."""
-        from repro_torch.core.tp import param_shard_dim
+    def split_groups(self) -> Dict[str, TPGroup]:
+        """{parameter: the group whose ranks split it} for the parameters
+        this rank holds a shard of (the TP group, or tp_out for a 2D mesh's
+        grouped experts); every rank of the TP group holds the rest
+        whole."""
+        from repro_torch.core.tp import param_placement
 
-        return frozenset(n for n, _ in self.named_parameters()
-                         if param_shard_dim(n, self.cfg, self.tp) is not None)
+        out = {}
+        for n, _ in self.named_parameters():
+            place = param_placement(n, self.cfg, self.group)
+            if place is not None:
+                out[n] = place[1]
+        return out
 
-    def sync_grads(self) -> None:
-        """Sum over the ring, once, the grads of the parameters outside the
-        period graphs (embedding, head, final norm): each rank's are the
-        partial sums of its sequence shard. The period graphs' replicated
-        weights are summed in their own backward. A no-op on one device."""
-        if self.tp == 1:
-            return
-        for name, p in self.named_parameters():
-            if not name.startswith("blocks.") and p.grad is not None:
-                p.grad = self.group.all_reduce(p.grad)
+    def sync_grads(self, data: bool = True) -> None:
+        """Sum, once, the grads of the parameters outside the period graphs
+        (embedding, head, final norm) over the whole TP group: each rank's
+        are the partial sums of its sequence shard (the period graphs' own
+        weights are summed in their backward). Then, unless ``data`` is
+        False, every grad over the data axis: each replica's is its rows'
+        part of the global batch's. A no-op on one device."""
+        if self.tp > 1:
+            for name, p in self.named_parameters():
+                if not name.startswith("blocks.") and p.grad is not None:
+                    p.grad = self.group.all_reduce(p.grad)
+        if data and self.dp > 1:
+            for p in self.parameters():
+                if p.grad is not None:
+                    p.grad = self.data.all_reduce(p.grad)
 
     def _seq_shard(self, S: int) -> slice:
         if S % self.tp:
@@ -544,8 +595,10 @@ class LM(nn.Module):
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token cross-entropy (+ the weighted aux loss) of
-        ``batch`` ({"tokens", "labels"[, "mask"]}, each (B, S)). The same
-        value on every rank of a TP ring."""
+        ``batch`` ({"tokens", "labels"[, "mask"]}, each (B, S)): on a mesh
+        with a data axis, this replica's rows of the global batch
+        (:func:`repro_torch.data.pipeline.replica_rows`), and the loss the
+        global batch's. The same value on every rank of the mesh."""
         tokens, labels = batch["tokens"], batch["labels"]
         mask = batch.get("mask")
         if mask is None:
@@ -557,7 +610,9 @@ class LM(nn.Module):
             labels, mask = labels[:, sl], mask[:, sl]
         head, tied = self._head()
         ce = chunked_ce_loss(x, head, labels, mask, self.cfg, self.rt, tied,
-                             self.group)
+                             self.group, self.data)
+        if self.dp > 1 and self.cfg.moe is not None:
+            aux = tp_mod.ring_mean(aux, self.data)
         return ce + AUX_LOSS_WEIGHT * aux
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -566,7 +621,7 @@ class LM(nn.Module):
 
     # ----- serving over dense caches -----
     def _one_device(self, what: str) -> None:
-        if self.tp > 1:
+        if self.tp > 1 or self.dp > 1:
             raise NotImplementedError(f"{what} over a TP ring is not ported "
                                       "yet (ROADMAP A11, A12)")
 
@@ -620,6 +675,11 @@ class LM(nn.Module):
             raise NotImplementedError(
                 f"{self.cfg.name}: only attention blocks have a paged path; "
                 "serve the others through the dense engine")
+        if self.dp > 1:
+            raise NotImplementedError(
+                "serving on a mesh with a data axis is not ported (JAX's "
+                "period-graph serve path is dp 1 as well): serve on the TP "
+                "group alone")
         tpc = _tp_context(self.rt, self.group)
         x = self._embed(tokens, self.rt.dtype)
         x, pools = stack_step(self.blocks, x, pools, view, self.cfg, tpc)

@@ -1,3 +1,8 @@
+from repro_torch.optim.compression import (
+    compressed_psum,
+    init_error_feedback,
+    wire_bytes_saved,
+)
 from repro_torch.optim.optimizers import (
     Optimizer,
     adamw,
@@ -11,4 +16,5 @@ from repro_torch.optim.optimizers import (
 __all__ = [
     "Optimizer", "adamw", "make_optimizer", "cosine_schedule",
     "constant_schedule", "clip_by_global_norm", "global_norm",
+    "compressed_psum", "init_error_feedback", "wire_bytes_saved",
 ]

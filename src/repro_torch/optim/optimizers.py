@@ -11,9 +11,10 @@ Counterpart of ``repro/optim/optimizers.py``, with its interface:
 update follows JAX's formula as written: the clip inside ``apply``, the
 bias corrections from ``step + 1``, weight decay on every leaf, ``m`` and
 ``v`` in f32. ``torch.optim.AdamW`` rounds its update differently, so it is
-not used. On a TP ring, ``apply`` and :func:`global_norm` take the ring and
-the names of the leaves it shards: each logical element is counted once,
-so every rank clips by the same norm. ``apply`` updates the given
+not used. On a TP ring, ``apply`` and :func:`global_norm` take a map from
+each leaf this rank holds a shard of to the group that splits it: each
+logical element is counted once, so every rank clips by the same norm.
+``apply`` updates the given
 parameters and state in place and returns them (JAX returns new arrays;
 in place, the card holds one copy of the model and its state, as JAX's
 buffer donation would): the same values. Adafactor (only the largest MoE
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -61,31 +62,40 @@ def constant_schedule(lr: float) -> Schedule:
 # ---------------------------------------------------------------------------
 
 
-def global_norm(tree: Params, group=None,
-                sharded: Iterable[str] = ()) -> torch.Tensor:
+def global_norm(tree: Params,
+                sharded: Optional[Mapping] = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32, leaves in key order
-    (JAX's pytree order). On a ring (``group``), the leaves named in
-    ``sharded`` hold this rank's shard: their squares are summed over the
-    ring, and each replicated leaf counts once."""
-    sharded = frozenset(sharded)
+    (JAX's pytree order). ``sharded`` maps each leaf that holds this rank's
+    shard to the group that splits it (the TP group, or on a 2D mesh tp_out
+    for grouped experts, which tp_in replicates): each group's leaves have
+    their squares summed over that group, and every other leaf, which the
+    ranks hold whole, counts once. Replicas over a data axis hold the same
+    grads and are never summed."""
     sq = {k: torch.sum(torch.square(x.float())) for k, x in tree.items()}
     keys = sorted(sq)
-    if group is None or group.size == 1:
+    split = {k: g for k, g in (sharded or {}).items()
+             if k in sq and g is not None and g.size > 1}
+    if not split:
         return torch.sqrt(torch.sum(torch.stack([sq[k] for k in keys])))
-    part = [sq[k] for k in keys if k in sharded]
-    rep = [sq[k] for k in keys if k not in sharded]
-    zero = torch.zeros((), dtype=torch.float32,
-                       device=next(iter(tree.values())).device)
-    total = group.all_reduce(torch.sum(torch.stack(part)) if part else zero)
+    groups = []
+    for k in keys:
+        if k in split and all(split[k] is not g for g in groups):
+            groups.append(split[k])
+    rep = [sq[k] for k in keys if k not in split]
+    total = None
+    for g in groups:
+        part = g.all_reduce(torch.sum(torch.stack(
+            [sq[k] for k in keys if split.get(k) is g])))
+        total = part if total is None else total + part
     if rep:
         total = total + torch.sum(torch.stack(rep))
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Params, max_norm: float, group=None,
-                        sharded: Iterable[str] = ()
+def clip_by_global_norm(grads: Params, max_norm: float,
+                        sharded: Optional[Mapping] = None
                         ) -> Tuple[Params, torch.Tensor]:
-    norm = global_norm(grads, group, sharded)
+    norm = global_norm(grads, sharded)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}, \
         norm
@@ -94,6 +104,10 @@ def clip_by_global_norm(grads: Params, max_norm: float, group=None,
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
+
+# elements of a leaf AdamW updates at a time (64 MB of f32 temporaries): a
+# grouped-EP rank's expert leaf is 235 M elements
+APPLY_CHUNK = 1 << 24
 
 
 @dataclass(frozen=True)
@@ -112,13 +126,13 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "v": {k: zeros(p) for k, p in params.items()}}
 
     def apply(params: Params, grads: Params, state, step, *,
-              group=None, sharded: Iterable[str] = ()):
+              sharded: Optional[Mapping] = None):
         """One update of ``params`` and ``state`` in place; returns them as
-        (params, state). ``group`` and ``sharded`` (the leaves this rank
-        holds a shard of) make the clip's norm the ring's
+        (params, state). ``sharded`` (each leaf this rank holds a shard of,
+        to the group that splits it) makes the clip's norm the ring's
         (:func:`global_norm`). The clip is applied leaf by leaf, as
         :func:`clip_by_global_norm` computes it."""
-        norm = global_norm(grads, group, sharded)
+        norm = global_norm(grads, sharded)
         scale = torch.clamp(clip_norm / torch.clamp(norm, min=1e-9), max=1.0)
         t = _f32(step) + 1
         c1 = 1.0 - b1 ** t
@@ -127,13 +141,21 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         new_p, new_m, new_v = {}, {}, {}
         with torch.no_grad():
             for k, p in params.items():
-                g = (grads[k].float() * scale).to(grads[k].dtype).float()
-                m = state["m"][k].mul_(b1).add_((1 - b1) * g)
-                v = state["v"][k].mul_(b2).add_((1 - b2) * g * g)
-                u = (m / c1) / (torch.sqrt(v / c2) + eps)
-                u = u + weight_decay * p.float()
-                new_p[k] = p.copy_((p.float() - lr_t * u).to(p.dtype))
-                new_m[k], new_v[k] = m, v
+                m, v = state["m"][k], state["v"][k]
+                flat = [t.view(-1) for t in (p, m, v)]
+                gk = grads[k].reshape(-1)
+                # elementwise, so a chunk at a time gives the same values;
+                # the temporaries stay a chunk's, not a leaf's
+                for lo in range(0, p.numel(), APPLY_CHUNK):
+                    pc, mc, vc = (t[lo:lo + APPLY_CHUNK] for t in flat)
+                    g = (gk[lo:lo + APPLY_CHUNK].float() * scale).to(
+                        gk.dtype).float()
+                    mc.mul_(b1).add_((1 - b1) * g)
+                    vc.mul_(b2).add_((1 - b2) * g * g)
+                    u = (mc / c1) / (torch.sqrt(vc / c2) + eps)
+                    u = u + weight_decay * pc.float()
+                    pc.copy_((pc.float() - lr_t * u).to(pc.dtype))
+                new_p[k], new_m[k], new_v[k] = p, m, v
         return new_p, {"m": new_m, "v": new_v}
 
     return Optimizer(init, apply, "adamw")

@@ -16,11 +16,15 @@ drawn with a ``torch.Generator`` seeded from (seed, rid, token_index) alone,
 so a request's tokens do not depend on what it was batched with.
 
 Tensor parallelism: the ``Engine`` serves on the model's own TP ring
-(``LM(..., group=...)``, the counterpart of JAX's ``mesh=``). Every rank runs
-the same scheduler on the same requests, with the clock it admits by agreed
-over the ring, so the ranks assemble the same batches, get the same logits
-and sample the same tokens. ``mesh=`` itself still refuses anything but
-``None`` (a data-parallel or 2D mesh is ROADMAP A14), and ``DenseEngine``
+(``LM(..., group=...)``, the counterpart of JAX's ``mesh=``): a flat ring, or
+a 2D mesh with data axis 1, whose composite TP group runs the hierarchical
+``gemm_ar`` (JAX's ``sp_serve_period`` on ``tp_axes``). Every rank runs the
+same scheduler on the same requests, with the clock it admits by agreed
+over the whole TP group, so the ranks assemble the same batches, get the
+same logits and sample the same tokens. ``mesh=`` itself still refuses
+anything but ``None`` (the model carries its group; serving with a data
+axis is not ported, as JAX's period-graph serve path is dp 1), and
+``DenseEngine``
 on a ring raises: MLA is not whole-block TP-applicable, and ``prefill`` /
 ``decode_step`` on a ring are ROADMAP A11/A12. Not ported either: the
 prefix/extras inputs of the enc-dec and VLM families.
@@ -100,9 +104,9 @@ def _engine_device(model, mesh, device) -> torch.device:
     device = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError(
-            "serving over a mesh is not ported (a data-parallel or 2D mesh "
-            "is ROADMAP A14); tensor-parallel serving runs on the model's own "
-            "ring, LM(..., group=...)")
+            "an engine takes no mesh: tensor-parallel serving runs on the "
+            "model's own TP group, LM(..., group=ring or 2D mesh with data "
+            "axis 1)")
     if model.device.type != device.type:
         raise ValueError(f"model lies on {model.device}, engine runs on "
                          f"{device}")
@@ -110,8 +114,8 @@ def _engine_device(model, mesh, device) -> torch.device:
 
 
 def _ring_clock(group, now: float, device: torch.device) -> float:
-    """One clock for every rank of the model's ring (the mean of the ranks'
-    readings, summed on the model's device, as NCCL needs), so that
+    """One clock for every rank of the model's TP group (the mean of the
+    ranks' readings, summed on the model's device, as NCCL needs), so that
     admission by arrival time cannot differ between ranks; ``now`` itself
     off a ring."""
     if group is None or group.size <= 1:

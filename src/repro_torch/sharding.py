@@ -1,7 +1,6 @@
-"""The tensor-parallel process group of the port.
+"""The process groups of the port: the TP ring and the device mesh.
 
-Counterpart of ``repro/sharding.py`` for the one mesh the port runs: a flat
-``model`` ring of ``size`` ranks, one process each. JAX's ``shard_map``
+Counterpart of ``repro/sharding.py``. One process a rank; JAX's ``shard_map``
 bodies become per-rank code on a :class:`TPGroup`: ``lax.axis_index`` is
 :attr:`TPGroup.rank`, ``lax.ppermute`` is :meth:`TPGroup.ppermute` (one
 ``batch_isend_irecv``), ``lax.all_gather``/``psum_scatter``/``psum`` along a
@@ -12,11 +11,25 @@ and ``lax.all_to_all`` over a leading axis of the ring's size is
 The group runs on NCCL when every rank has its own GPU and on gloo
 otherwise. Gloo moves host memory only, so with gloo a CUDA tensor is
 staged through the host on its way (``staged`` says so); the compute stays
-on the card. A data-parallel axis or a 2D (``tp_in`` x ``tp_out``) mesh is
-ROADMAP A14 and raises.
+on the card.
+
+A mesh (:func:`init_mesh`) factors the world into a ``data`` axis and the
+TP axes: a flat ``model`` ring (JAX's ``make_mesh((dp, tp), ("data",
+"model"))``) or the hierarchical ``tp_in`` x ``tp_out`` pair (JAX's
+``make_tp_mesh``: a fast intra-node ring times a slow inter-node axis).
+The rank layout is JAX's: global rank ``d·tp + i_in·tp_out + i_out``, and
+the composite TP index ``i_in·tp_out + i_out``, tp_in major
+(``shard_map_axis_index``). :class:`Mesh` holds the ``data`` axis and the
+whole TP group, which on a 2D mesh is a :class:`CompositeGroup`: its rank
+is the composite index, its monolithic collectives run over all
+tp_in·tp_out ranks in that order (JAX's collectives over the ``("tp_in",
+"tp_out")`` tuple), and it carries the ``tp_in`` and ``tp_out`` rings that
+the backends' hierarchical compositions run on
+(:mod:`repro_torch.core.backends`).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -33,14 +46,18 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) \
 
 
 class TPGroup:
-    """This rank's view of the TP ring: its rank, the ring size, and the
-    collectives along one tensor dimension. ``pg`` is the process group
-    (``None`` for a ring of one, where every collective is the identity)."""
+    """This rank's view of one ring (a mesh axis): its rank, the ring size,
+    and the collectives along one tensor dimension. ``pg`` is the process
+    group (``None`` for a ring of one, where every collective is the
+    identity); ``ranks`` are the members' global ranks in group order (the
+    peers of point-to-point ops are global ranks on any group)."""
 
-    def __init__(self, rank: int, size: int, backend: str, pg=None):
+    def __init__(self, rank: int, size: int, backend: str, pg=None,
+                 ranks: Optional[Sequence[int]] = None):
         if not 0 <= rank < size:
             raise ValueError(f"rank {rank} outside a group of {size}")
         self.rank, self.size, self.backend, self.pg = rank, size, backend, pg
+        self.ranks = tuple(range(size) if ranks is None else ranks)
 
     def __repr__(self) -> str:
         return (f"TPGroup(rank={self.rank}, size={self.size}, "
@@ -69,11 +86,11 @@ class TPGroup:
             wire = self._wire(x)
             recv = torch.zeros_like(wire)
             if dst:
-                ops.append(dist.P2POp(dist.isend, wire, dst[0], self.pg,
-                                      tag))
+                ops.append(dist.P2POp(dist.isend, wire, self.ranks[dst[0]],
+                                      self.pg, tag))
             if src:
-                ops.append(dist.P2POp(dist.irecv, recv, src[0], self.pg,
-                                      tag))
+                ops.append(dist.P2POp(dist.irecv, recv, self.ranks[src[0]],
+                                      self.pg, tag))
             outs.append(recv)
         if ops:
             for work in dist.batch_isend_irecv(ops):
@@ -130,17 +147,141 @@ class TPGroup:
         return wire.to(x.device)
 
 
+class CompositeGroup(TPGroup):
+    """The whole TP group of a 2D mesh: rank = the composite index
+    ``i_in·tp_out + i_out``, size tp_in·tp_out, collectives over all its
+    ranks in composite order; ``tp_in`` is this rank's tp_in ring and
+    ``tp_out`` its tp_out ring."""
+
+    def __init__(self, rank: int, size: int, backend: str, pg,
+                 ranks: Sequence[int], tp_in: TPGroup, tp_out: TPGroup):
+        super().__init__(rank, size, backend, pg, ranks)
+        self.tp_in, self.tp_out = tp_in, tp_out
+
+    def __repr__(self) -> str:
+        return (f"CompositeGroup(rank={self.rank}, tp_in={self.tp_in.size}, "
+                f"tp_out={self.tp_out.size}, backend={self.backend!r})")
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """This rank's groups on a ``data`` x TP mesh: the ``data`` axis, ``tp``
+    the whole TP group (a :class:`CompositeGroup` on a 2D mesh, which holds
+    the ``tp_in`` and ``tp_out`` rings), ``world`` every rank. ``tp_in``
+    and ``tp_out`` read the rings; on a flat mesh ``tp_in`` is the whole
+    TP ring and ``tp_out`` a ring of one."""
+
+    data: TPGroup
+    tp: TPGroup
+    world: TPGroup
+
+    @property
+    def is_2d(self) -> bool:
+        return isinstance(self.tp, CompositeGroup)
+
+    @property
+    def tp_in(self) -> TPGroup:
+        return self.tp.tp_in if self.is_2d else self.tp
+
+    @property
+    def tp_out(self) -> TPGroup:
+        return self.tp.tp_out if self.is_2d else TPGroup(0, 1, "none")
+
+
+def as_mesh(group) -> Optional[Mesh]:
+    """``group`` as a :class:`Mesh`: a flat TP ring is a mesh with data
+    axis 1; None stays None."""
+    if group is None or isinstance(group, Mesh):
+        return group
+    return Mesh(data=TPGroup(0, 1, "none"), tp=group, world=group)
+
+
+def tp_axes(mesh: Optional[Mesh]):
+    """The TP group of ``mesh`` (JAX's ``tp_axes``: the composite group on a
+    2D mesh, the flat ring otherwise); None without a mesh."""
+    mesh = as_mesh(mesh)
+    return None if mesh is None else mesh.tp
+
+
+def tp_size(mesh: Optional[Mesh]) -> int:
+    """Total TP degree: the flat ring's size, or tp_in·tp_out."""
+    mesh = as_mesh(mesh)
+    return 1 if mesh is None else mesh.tp.size
+
+
+def dp_size(mesh: Optional[Mesh]) -> int:
+    """The data axis's size (1 without one)."""
+    mesh = as_mesh(mesh)
+    return 1 if mesh is None else mesh.data.size
+
+
+def _subgroup(world: TPGroup, member_lists, backend: str) -> TPGroup:
+    """Every rank creates every group of ``member_lists`` (global ranks, in
+    group order), in the same order, as torch.distributed requires; returns
+    this rank's. Groups of one need no process group."""
+    mine = None
+    for members in member_lists:
+        members = list(members)
+        pg = None
+        if len(members) > 1:
+            pg = (world.pg if len(members) == world.size
+                  else dist.new_group(members, backend=backend))
+        if world.rank in members:
+            mine = TPGroup(members.index(world.rank), len(members),
+                           backend if pg is not None else "none", pg,
+                           members)
+    return mine
+
+
+def init_mesh(world: TPGroup, *, dp: int = 1, tp_in: Optional[int] = None,
+              tp_out: Optional[int] = None) -> Mesh:
+    """Factor the ``world`` group (from :func:`init_tp_group`) into a mesh:
+    ``data`` of ``dp`` and the TP axes of ``world.size // dp`` ranks, a flat
+    ``model`` ring when ``tp_in`` and ``tp_out`` are both None (JAX's
+    ``make_mesh((dp, tp), ("data", "model"))``), else the 2D ``tp_in`` x
+    ``tp_out`` pair (JAX's ``make_tp_mesh(tp_in, tp_out, dp)``; one of the
+    two may be None and is then the rest of the TP degree). Global rank
+    ``d·tp + i_in·tp_out + i_out``. Every rank of ``world`` must call it
+    with the same arguments."""
+    n = world.size
+    if dp < 1 or n % dp:
+        raise ValueError(f"a data axis of {dp} does not divide {n} ranks")
+    tp = n // dp
+    two_d = tp_in is not None or tp_out is not None
+    if tp_in is None:
+        tp_in = tp // (tp_out or 1)
+    if tp_out is None:
+        tp_out = tp // tp_in
+    if tp_in * tp_out != tp:
+        raise ValueError(f"tp_in {tp_in} x tp_out {tp_out} != the TP degree "
+                         f"{tp} of {n} ranks over data {dp}")
+    be = world.backend
+    g = lambda d, i, o: d * tp + i * tp_out + o     # noqa: E731
+    data = _subgroup(world, [[g(d, i, o) for d in range(dp)]
+                             for i in range(tp_in) for o in range(tp_out)], be)
+    whole = _subgroup(world, [[g(d, i, o) for i in range(tp_in)
+                               for o in range(tp_out)] for d in range(dp)], be)
+    if two_d:
+        inner = _subgroup(world, [[g(d, i, o) for i in range(tp_in)]
+                                  for d in range(dp) for o in range(tp_out)],
+                          be)
+        outer = _subgroup(world, [[g(d, i, o) for o in range(tp_out)]
+                                  for d in range(dp) for i in range(tp_in)],
+                          be)
+        whole = CompositeGroup(whole.rank, whole.size, whole.backend,
+                               whole.pg, whole.ranks, inner, outer)
+    return Mesh(data=data, tp=whole, world=world)
+
+
 def init_tp_group(world: int, rank: int, *, init_method: str,
-                  backend: Optional[str] = None, dp: int = 1,
+                  backend: Optional[str] = None,
                   device=None) -> TPGroup:
-    """Join the ``world``-rank TP ring as ``rank``. ``init_method`` is the
-    rendezvous (``file://<path>`` or ``tcp://localhost:<port>``).
-    ``backend=None`` picks NCCL when every rank can have its own GPU (the
-    device is CUDA and the host has ``world`` of them) and gloo otherwise."""
-    if dp != 1:
-        raise NotImplementedError("a data-parallel axis or a 2D mesh is not "
-                                  "ported yet (ROADMAP A14); the port runs "
-                                  "one flat TP ring")
+    """Join the ``world``-rank group as ``rank``: the flat TP ring over
+    every rank, which :func:`init_mesh` factors into a mesh.
+    ``init_method`` is the rendezvous (``file://<path>`` or
+    ``tcp://localhost:<port>``). ``backend=None`` picks NCCL when every
+    rank can have its own GPU (the device is CUDA and the host has
+    ``world`` of them) and gloo otherwise."""
     if world == 1:
         return TPGroup(0, 1, "none")
     if backend is None:

@@ -12,8 +12,11 @@ Gradients come from ``loss.backward()``; on a TP ring every period's
 backward is graph-built (``repro_torch.core.tp.sp_period``), and
 :meth:`repro_torch.models.transformer.LM.sync_grads` sums the replicated
 embedding's, head's and final norm's grads over the ring once the
-microbatches are done. After a step each parameter's ``.grad`` holds the
-step's averaged (unclipped) gradient.
+microbatches are done, and on a mesh with a data axis every grad over the
+replicas (each replica's batch is its rows of the global batch:
+:func:`repro_torch.data.pipeline.replica_rows`); then the global norm, the
+clip and AdamW, the same on every rank. After a step each parameter's
+``.grad`` holds the step's averaged (unclipped) gradient.
 """
 from __future__ import annotations
 
@@ -43,8 +46,7 @@ def make_train_step(model, opt: Optimizer, rt: Runtime,
                     microbatches: int = 1):
     """Build the train step (gradient accumulation over ``microbatches``
     equal slices of the batch's leading axis)."""
-    group = model.group if model.tp > 1 else None
-    sharded = model.sharded_names()
+    sharded = model.split_groups()
 
     def train_step(state: State, batch) -> Tuple[State, Dict[str, Any]]:
         params = state["params"]
@@ -68,9 +70,9 @@ def make_train_step(model, opt: Optimizer, rt: Runtime,
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             grads[k] = g / microbatches if microbatches > 1 else g
         loss = loss / microbatches
-        gnorm = global_norm(grads, group, sharded)
+        gnorm = global_norm(grads, sharded)
         _, new_opt = opt.apply(params, grads, state["opt"], state["step"],
-                               group=group, sharded=sharded)
+                               sharded=sharded)
         metrics = {"loss": loss, "grad_norm": gnorm, "step": state["step"]}
         for k, p in params.items():
             p.grad = grads[k]

@@ -2,7 +2,8 @@
 preemption handling and logging of ``repro/train/trainer.py``.
 
 The data pipeline is keyed on (seed, step), so any step's batch is replayed
-exactly. Checkpoint/restart (``ckpt_dir``) waits for the port of
+exactly; on a mesh with a data axis each replica draws its rows of the
+global batch. Checkpoint/restart (``ckpt_dir``) waits for the port of
 ``checkpoint/store.py`` (ROADMAP A15) and raises.
 """
 from __future__ import annotations
@@ -12,7 +13,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.data.pipeline import DataConfig, make_batch, replica_slice
 from repro_torch.ft.watchdog import Heartbeat, PreemptionGuard, StepWatchdog
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.runtime import Runtime
@@ -24,7 +25,7 @@ class TrainerConfig:
     total_steps: int = 100
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 50
-    log_every: int = 10
+    log_every: int = 10             # 0: no step lines
     microbatches: int = 1
     straggler_threshold: float = 2.5
     heartbeat_path: Optional[str] = None
@@ -48,6 +49,10 @@ class Trainer:
                                       "(checkpoint/store.py, ROADMAP A15)")
         self.train_step = make_train_step(self.model, self.opt, self.rt,
                                           self.cfg.microbatches)
+        dp = getattr(self.model, "dp", 1)
+        self.rows = (replica_slice(self.shape.global_batch,
+                                   self.model.data.rank, dp)
+                     if dp > 1 else None)
         self.watchdog = StepWatchdog(threshold=self.cfg.straggler_threshold)
         self.history: List[Dict[str, float]] = []
         self.events: List[str] = []
@@ -69,7 +74,8 @@ class Trainer:
             with PreemptionGuard() as guard:
                 for step in range(int(state["step"]), self.cfg.total_steps):
                     t0 = self._clock()
-                    batch = make_batch(self.arch, self.shape, step, self.data)
+                    batch = make_batch(self.arch, self.shape, step, self.data,
+                                       host_slice=self.rows)
                     state, metrics = self.train_step(state, batch)
                     loss = float(metrics["loss"])
                     dt = self._clock() - t0
@@ -80,7 +86,8 @@ class Trainer:
 
                     self.history.append(
                         {"step": step, "loss": loss, "dt": dt})
-                    if step % self.cfg.log_every == 0:
+                    if self.cfg.log_every and \
+                            step % self.cfg.log_every == 0:
                         print(f"step {step:6d} loss {loss:8.4f} "
                               f"dt {dt*1e3:7.1f}ms", flush=True)
                     if guard.requested:

@@ -27,7 +27,7 @@ from repro_torch.core import backends, coordination  # noqa: E402
 from repro_torch.core import dataflow as df  # noqa: E402
 from repro_torch.core import tp as tp_mod  # noqa: E402
 from repro_torch.launch.ranks import run_ranks  # noqa: E402
-from repro_torch.sharding import TPGroup, init_tp_group  # noqa: E402
+from repro_torch.sharding import TPGroup, init_mesh, init_tp_group  # noqa
 
 TOL = 1e-6
 
@@ -187,13 +187,37 @@ def test_unported_paths_raise_with_their_roadmap_item():
     want = jdf.optimize(jdf.sublayer_graph(), planner="perfsim")
     assert [(n.name, n.op) for n in got.nodes] == \
         [(n.name, n.op) for n in want.nodes]
-    with pytest.raises(NotImplementedError, match="A14"):
-        init_tp_group(4, 0, init_method="file:///nowhere", dp=2)
-    with pytest.raises(NotImplementedError, match="A14"):
-        backends.get_backend("cais").hier_a2a_expert_ffn(None, None, None,
-                                                         None)
-    with pytest.raises(NotImplementedError, match="A14"):
-        backends.get_backend("barrier").hier_gemm_rs(None, None, None, None)
+    # meshes are ported (A14): a world of one factors into a 2D mesh whose
+    # composite group the hier_* compositions run on, each equal to the
+    # plain math on a group of one
+    mesh = init_mesh(init_tp_group(1, 0, init_method="file:///nowhere"),
+                     dp=1, tp_in=1, tp_out=1)
+    assert mesh.is_2d and mesh.tp.size == mesh.data.size == 1
+    g = mesh.tp
+    rng = np.random.default_rng(0)
+    x, w = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((2, 4, 6), (6, 5)))
+    cais = backends.CAISConfig(num_chunks=2)
+    for name in ("barrier", "cais"):
+        be = backends.get_backend(name)
+        assert be.hierarchical(g) and not be.hierarchical(TPGroup(0, 1,
+                                                                  "none"))
+        for got in (be.hier_ag_gemm_multi(x, (w,), g, cais)[0],
+                    be.hier_gemm_rs(x, w, g, cais),
+                    be.hier_gemm_ar(x, w, g, cais),
+                    be.hier_grad_ag_gemm(x, w, g, cais)[0],
+                    be.hier_overlap_asymmetric((x, w), (x, w), g, cais)[1]):
+            torch.testing.assert_close(got, x @ w, rtol=1e-6, atol=1e-6)
+        send = x.reshape(1, 8, 6)       # one row: the tp_out ring of one
+        out = be.hier_a2a_expert_ffn(send, lambda c: c @ w, g, cais)
+        torch.testing.assert_close(out, send @ w)
+        d, dws = be.hier_grad_a2a_expert_ffn(
+            send, out, lambda c, gy: (gy @ w.T, (c.T @ gy,)), g, cais)
+        torch.testing.assert_close(d, out @ w.T)
+    # the production meshes need a multi-host launcher
+    from repro_torch.launch.mesh import make_production_mesh
+    with pytest.raises(NotImplementedError, match="multi-host|many hosts"):
+        make_production_mesh()
     assert backends.available_backends() == ["auto", "barrier", "cais"]
     assert not backends.get_backend("auto").explicit
 

@@ -1,4 +1,4 @@
-"""``chip_smoke.py``'s phases 9, 10 and 11 on the CPU at smoke size.
+"""``chip_smoke.py``'s phases 9, 10, 11 and 12 on the CPU at smoke size.
 
 Phase 9: the one-device
 reference step and its host store, and the rank body on a gloo ring of 4,
@@ -9,7 +9,8 @@ gradients, m, v and parameters against the reference within the phase's
 own bounds, the matmul and flash calls against the graph-derived counts,
 overlap_asym as the graphs say with a cross-direction pair at 2
 microbatches, and every transposed matmul call among the shapes phase 3
-checks.
+checks; its two runs on the 2D (tp_in 2 x tp_out 2) mesh of the same ranks
+too.
 
 Phase 10: the one-device serving references and the rank body on a gloo
 ring of 4 (internlm2-1.8b, and gemma3-1b's replicated kv head and window),
@@ -23,7 +24,14 @@ tokens, so a rank's 16 tokens are the smoke routing group) with every check
 of every rank equal to one device's, the backend's expert all-to-all
 dispatches equal to the graphs', and every matmul call among those
 ``moe_matmul_shapes`` predicts; (a) the scripted serving schedule through
-``serve_step`` with its routing recorded once a layer a step."""
+``serve_step`` with its routing recorded once a layer a step.
+
+Phase 12: (a) the data 2 x model 2 training step (internlm2-1.8b smoke,
+batch 4 of 32) held to one device as phase 9's runs, and each replica's
+grads summed in int8 over the data axis within COMPRESS_RTOL; (b) grouped
+EP on the 2D mesh (mixtral-8x7b smoke, batch 1 of 64) held as phase 11's,
+every concrete expert all-to-all and adjoint on tp_out. Phase 12 (c), the
+launcher's ``--mesh debug``, is ``tests/test_torch_train.py``'s."""
 import sys
 import tempfile
 
@@ -45,6 +53,17 @@ if str(ROOT) not in sys.path:     # the ranks import the rank body by name
 import chip_smoke as CS  # noqa: E402
 
 
+# the card's phase 9 leaves the 2D barrier run out for time; at smoke size
+# it is rehearsed here
+PHASE9_RUNS = (CS.TRAIN_RUNS + [("barrier", 1, "float32", "greedy", "2x2")]
+               + CS.TRAIN_2D_RUNS)
+
+
+def _ring(run):
+    """The ring a run's fused schedules use: tp_in on the 2D mesh."""
+    return CS.MESHES["2x2"]["tp_in"] if run[4:] == ("2x2",) else None
+
+
 @pytest.fixture(scope="module")
 def phase9():
     cfg = get_arch("internlm2-1.8b").smoke()
@@ -53,16 +72,16 @@ def phase9():
     with tempfile.TemporaryDirectory() as root:
         ref, store = CS.train_reference(batch, root, cfg, "cpu")
         with CS.plan_cache_at(Path(root) / "plans"):
-            ranks = run_ranks(CS.train_rank, 4, batch, CS.TRAIN_RUNS, store,
-                              ref, cfg, "cpu", device="cpu", timeout=600)
-    return cfg, ref, ranks
+            got = run_ranks(CS.train_rank, 4, batch, PHASE9_RUNS, store,
+                            ref, cfg, "cpu", device="cpu", timeout=600)
+    return cfg, ref, [g["runs"] for g in got]
 
 
-@pytest.mark.parametrize("i", range(len(CS.TRAIN_RUNS)),
-                         ids=["-".join(map(str, r)) for r in CS.TRAIN_RUNS])
+@pytest.mark.parametrize("i", range(len(PHASE9_RUNS)),
+                         ids=["-".join(map(str, r)) for r in PHASE9_RUNS])
 def test_phase9_on_the_cpu(phase9, i):
     cfg, ref, ranks = phase9
-    dtype = CS.TRAIN_RUNS[i][2]
+    dtype = PHASE9_RUNS[i][2]
     per = [rk[i] for rk in ranks]
     mb = per[0]["mb"]
     f32 = dtype == "float32"
@@ -71,7 +90,8 @@ def test_phase9_on_the_cpu(phase9, i):
     rtol = CS.F32_LOSS_RTOL if f32 else CS.BF16_LOSS_RTOL
     assert abs(per[0]["loss"] - want) <= rtol * abs(want)
     predicted = {tuple(s) for s in CS.train_matmul_shapes(
-        cfg, world=4, batch=2, seq=32, runs=[CS.TRAIN_RUNS[i]])}
+        cfg, world=4, batch=2, seq=32, runs=[PHASE9_RUNS[i]],
+        ring=_ring(PHASE9_RUNS[i]))}
     for p in per:
         assert sum(c[-1] for c in p["call_shapes"]) == p["matmul_derived"]
         assert p["flash_derived"] == 3 * mb * cfg.num_layers
@@ -129,7 +149,10 @@ def test_phase10_on_the_cpu(phase10, i):
            if not v and not k.startswith(LAUNCH_CHECKS)]
     assert not bad
     c = cfg if i < len(CS.SERVE_TP_RUNS) else rcfg
-    predicted = set(CS.serve_matmul_shapes(c, TRAFFIC))
+    run = CS.SERVE_TP_RUNS[i] if i < len(CS.SERVE_TP_RUNS) else ()
+    predicted = set(CS.serve_matmul_shapes(
+        c, TRAFFIC, ring=CS.MESHES["2x2"]["tp_in"] if run[3:] == ("2x2",)
+        else None))
     for rk in ranks:
         p = rk[0][i] if i < len(CS.SERVE_TP_RUNS) else rk[1]
         assert sum(s[-1] for s in p["matmul_shapes"]) == p["matmul_derived"]
@@ -149,10 +172,11 @@ def phase11():
         ref, store = CS.train_reference(batch, root, cfg, "cpu",
                                         quantities=("grad",))
         with CS.plan_cache_at(Path(root) / "plans"):
-            ranks = run_ranks(CS.train_rank, 4, batch, CS.MOE_RUNS, store,
-                              {k: v for k, v in ref.items()
-                               if k != "routing"}, cfg, "cpu",
-                              device="cpu", timeout=600)
+            got = run_ranks(CS.train_rank, 4, batch, CS.MOE_RUNS, store,
+                            {k: v for k, v in ref.items()
+                             if k != "routing"}, cfg, "cpu",
+                            device="cpu", timeout=600)
+    ranks = [g["runs"] for g in got]
     rows, _ = CS.train_checks(cfg, ref, ranks, CS.MOE_RUNS, 16)
     return cfg, ranks, rows
 
@@ -205,3 +229,82 @@ def test_phase11_scripted_serving_on_the_cpu():
     for x, y in zip(a, b):
         assert np.isfinite(x).all()
         np.testing.assert_array_equal(x, y)
+
+
+def _phase12(cfg, batch, runs, mesh, quantities=CS.RefStore.QUANTITIES,
+             compress=False):
+    """A phase 12 training cell at smoke size: (rows as ``train_checks``
+    makes them, what every rank returned)."""
+    with tempfile.TemporaryDirectory() as root:
+        ref, store = CS.train_reference(batch, root, cfg, "cpu",
+                                        quantities=quantities)
+        with CS.plan_cache_at(Path(root) / "plans"):
+            got = run_ranks(CS.train_rank, 4, batch, runs, store,
+                            {k: v for k, v in ref.items()
+                             if k != "routing"}, cfg, "cpu", mesh, compress,
+                            device="cpu", timeout=600)
+    B, S = batch["tokens"].shape
+    rows, _ = CS.train_checks(cfg, ref, [g["runs"] for g in got], runs,
+                              B * S // 4)
+    return rows, got
+
+
+@pytest.fixture(scope="module")
+def phase12a():
+    cfg = get_arch("internlm2-1.8b").smoke()
+    batch = CS.train_batch(cfg, 32, CS.DP_BATCH)
+    return cfg, _phase12(cfg, batch, CS.DP_RUNS, "dp2", compress=True)
+
+
+@pytest.mark.parametrize("i", range(len(CS.DP_RUNS)),
+                         ids=["-".join(map(str, r)) for r in CS.DP_RUNS])
+def test_phase12_dp_on_the_cpu(phase12a, i):
+    cfg, (rows, got) = phase12a
+    row, run = rows[i], CS.DP_RUNS[i]
+    bad = [k for k, v in row["checks"].items()
+           if not v and not k.startswith(LAUNCH_CHECKS + ("transposed",))]
+    assert not bad
+    assert row["elementwise_held"] and row["dp"] == 2
+    assert row["topology"] == [2, 1]
+    predicted = {tuple(s) for s in CS.train_matmul_shapes(
+        cfg, world=2, batch=CS.DP_BATCH // 2, seq=32, runs=[run])}
+    predicted |= {(*s, "nn") for s in CS.tp_matmul_shapes(
+        cfg, 4, world=2, batch=CS.DP_BATCH // 2, seq=32)}
+    for g in got:
+        p = g["runs"][i]
+        assert sum(c[-1] for c in p["call_shapes"]) == p["matmul_derived"]
+        assert {(M, K, N, lay) for M, K, N, _, lay, _ in p["call_shapes"]} \
+            <= predicted
+    comp = [g["compress"] for g in got]
+    assert all(0 < c["worst_rel"] <= CS.COMPRESS_RTOL for c in comp)
+    assert comp[0]["f32_bytes"] == 4 * comp[0]["int8_bytes"] > 0
+
+
+@pytest.fixture(scope="module")
+def phase12b():
+    cfg = get_arch(CS.MOE_ARCH).smoke()
+    batch = CS.train_batch(cfg, 64, 1)
+    return cfg, _phase12(cfg, batch, CS.GEP_RUNS, "2x2", ("grad",))
+
+
+def test_phase12_grouped_ep_on_the_cpu(phase12b):
+    cfg, (rows, got) = phase12b
+    row, run = rows[0], CS.GEP_RUNS[0]
+    bad = [k for k, v in row["checks"].items() if not v and not k.startswith(
+        LAUNCH_CHECKS + ("transposed layouts", "a2a_ffn / bwd_a2a_ffn "
+                         "through"))]
+    assert not bad
+    assert "every concrete a2a_ffn / bwd_a2a_ffn on tp_out" in row["checks"]
+    assert row["elementwise_held"] and row["topology"] == [2, 2]
+    assert all(d["choice"] == d["slots"] == 0
+               for d in row["routing_differences"])
+    predicted = set(CS.moe_matmul_shapes(cfg, "float32", world=4, batch=1,
+                                         seq=64, runs=[run],
+                                         ring=CS.MESHES["2x2"]["tp_in"]))
+    for g in got:
+        p = g["runs"][0]
+        assert sum(c[-1] for c in p["call_shapes"]) == p["matmul_derived"]
+        assert {(M, K, N, lay) for M, K, N, _, lay, _ in p["call_shapes"]} \
+            <= predicted
+        assert [a[0] for a in p["a2a"]] == [a[0] for a in p["a2a_derived"]] \
+            == [2 * cfg.num_layers, cfg.num_layers]

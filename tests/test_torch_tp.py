@@ -207,7 +207,8 @@ def test_shard_state_dict_reassembles():
     cfg = get_arch("internlm2-1.8b").smoke()
     full = LM(cfg, SMOKE, device="cpu", seed=0).state_dict()
     for n in (2, 4):
-        shards = [bridge.shard_state_dict(full, cfg, r, n) for r in range(n)]
+        shards = [bridge.shard_for_group(full, cfg, TPGroup(r, n, "none"))
+                  for r in range(n)]
         for name, t in full.items():
             parts = [s[name] for s in shards]
             assert all(p.is_contiguous() for p in parts)

@@ -599,9 +599,20 @@ def test_launcher_runs_three_steps():
                         "1"])
     falling = [float(ln.split()[3]) for ln in lines]
     assert falling[2] < falling[0]
-    with pytest.raises(NotImplementedError, match="A14"):
+    # --mesh debug (A14): 8 ranks on data 2 x model 4; rank 0's lines, and
+    # its losses those of --mesh none (a replica's half of every batch, the
+    # grads summed over the replicas)
+    argv = ["--arch", "deepseek-7b", "--smoke", "--device", "cpu", "--steps",
+            "2", "--tp-mode", "cais"]
+    one, _ = _launch(argv)
+    run, _ = _launch(argv + ["--mesh", "debug"])
+    assert len(run.ranks) == 8 and len(run.history) == 2
+    for h in run.ranks:
+        for a, b in zip(h, one.history):
+            assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
+    with pytest.raises(NotImplementedError, match="hosts"):
         train_launch.main(["--arch", "deepseek-7b", "--smoke", "--device",
-                           "cpu", "--mesh", "debug"])
+                           "cpu", "--mesh", "single"])
     with pytest.raises(NotImplementedError, match="A15"):
         train_launch.main(["--arch", "deepseek-7b", "--smoke", "--device",
                            "cpu", "--ckpt-dir", "x"])

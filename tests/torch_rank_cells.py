@@ -312,7 +312,7 @@ def norm_cell(group, tree):
     n, r = group.size, group.rank
     local = {"a": _rows(tree["a"], r, n, 0), "b": _t(tree["b"]),
              "c": _rows(tree["c"], r, n, 2)}
-    return float(global_norm(local, group, sharded=("a", "c")))
+    return float(global_norm(local, sharded={"a": group, "c": group}))
 
 
 # ---------------------------------------------------------------------------
