@@ -40,24 +40,23 @@ Phases (any failure exits non-zero):
      flash-attention kernel must have run once per layer per step, every
      prefill chunk through the wgmma variant and every decode step through
      split-KV, at call shapes phase 3 checked;
-  6. the tensor-parallel training forward: internlm2-1.8b at full width and
-     depth (24 layers), batch 2 of 4096 tokens from a numpy seed, random
-     weights from seed 0, ``LM.loss`` on one device (the per-block path)
+  6. the tensor-parallel training forward: internlm2-1.8b at full width cut to
+     TP_LAYERS of its 24 layers, batch 2 of 4096 tokens from a numpy seed,
+     random weights from seed 0, ``LM.loss`` on one device (the per-block path)
      and on a ring of 4 ranks sharing the card over gloo (each rank its own
-     process holding its weight shards; gloo moves host memory, so every
-     ring hop is staged through the host, which makes this phase a check
-     of correctness and not of TP speed): ``barrier`` and ``cais`` with 1
-     and 2 microbatches in f32, and ``cais`` with 2 microbatches in bf16.
-     The f32 losses must lie within 1e-4 relative of the one-device f32
-     loss, the bf16 loss within ``BF16_LOSS_RTOL`` of the one-device bf16
-     loss, and the f32 final hidden states of the cais 2-microbatch run
-     within ``HIDDEN_TOL`` of one device's; every rank's matmul launches
-     must equal the count derived from its optimized period graphs, all of
-     them through the wgmma variant in the bf16 run and the FFMA kernel in
-     f32, its flash launches one per layer per microbatch (wgmma in bf16,
-     ffma in f32), every matmul
-     call shape must be among those phase 3 checked, and a 2-microbatch run
-     must execute ``overlap_asym``.
+     process holding its weight shards; gloo moves host memory, so every ring
+     hop is staged through the host, which makes this phase a check of
+     correctness and not of TP speed): ``barrier`` and ``cais`` with 1 and 2
+     microbatches in f32, and ``cais`` with 2 microbatches in bf16. The f32
+     losses must lie within 1e-4 relative of the one-device f32 loss, the bf16
+     loss within ``BF16_LOSS_RTOL`` of the one-device bf16 loss, and the f32
+     final hidden states of the cais 2-microbatch run within ``HIDDEN_TOL`` of
+     one device's; every rank's matmul launches must equal the count derived
+     from its optimized period graphs, all of them through the wgmma variant in
+     the bf16 run and the FFMA kernel in f32, its flash launches one per layer
+     per microbatch (wgmma in bf16, ffma in f32), every matmul call shape must
+     be among those phase 3 checked, and a 2-microbatch run must execute
+     ``overlap_asym``.
   7. minicpm3-4b (MLA) at full width cut to 2 layers, f32: ``LM.prefill``
      and three ``LM.decode_step`` calls on the CPU (plain versions) and on
      the card (the kernels) must give logits within ``LOGIT_TOL``, and the
@@ -72,68 +71,65 @@ Phases (any failure exits non-zero):
      every decode step's through split-K, flash attention once a layer in
      the prefill through the wgmma variant, and every call shape of both
      must be among those phase 3 checked;
-  9. one training step of internlm2-1.8b at full width and depth: batch 2 of
-     4096 tokens (train_4k's length, its global batch of 256 cut to 2) from
-     ``data.pipeline.make_batch``, seed 0, random weights from seed 0,
-     AdamW at a constant lr ``TRAIN_LR``. First the one-device step (f32,
-     remat on, the per-block path), whose loss, grad norm, gradients, m, v
-     and updated parameters are kept in files on the host while the card is
-     freed; then one spawn of 4 gloo ranks sharing the card runs the step
-     through ``train.step.make_train_step`` (LM.loss, each period's
-     graph-built backward, the ring's grad sums, AdamW) for ``barrier`` with
-     1 microbatch and ``cais`` with 2, in f32, ``cais`` with 2 in bf16, and
-     ``cais`` in f32 under ``planner="perfsim"`` with the split ``auto``
-     (the planner picks the split and both directions' pairings).
-     Each run's loss must lie within 1e-4 (f32) or ``BF16_LOSS_RTOL`` (bf16)
-     of one device's; in f32 the grad norm within ``TRAIN_RTOL``, every
-     gradient, m and v within ``TRAIN_RTOL`` times the one-device tensor's
-     max, and every parameter within the first-step bound (2 lr where the
-     one-device gradient lies within its bound of zero, where Adam's sign
-     may differ; 1e-3 lr elsewhere; plus 1e-6 |p|); every rank's matmul and
-     flash launches must equal the counts derived from the optimized
-     forward and training graphs, the transposed layouts must run on wgmma
-     in bf16 and FFMA in f32, overlap_asym must execute as the graphs say,
-     with a backward node paired with a forward one at 2 microbatches, and
-     every matmul call shape and layout must be among those phase 3
-     checked. The perfsim run must also hold one plan on every rank (a
-     digest gathered over the ring), graphs that pair what the plans say,
-     and executed overlap_asym nodes that are the plans' pairs; it prints
-     the plans, their simulated makespans against greedy's, the cache's
-     hits, misses and memo hits and the planner's host seconds. Step times
-     are printed with the note that gloo stages every hop through the host.
-     Then the same step on the 2D mesh of the same ranks (tp_in 2 x tp_out
-     2, whose composite index cuts the flat ring's shards): ``cais`` mb 2
-     in f32, held by the same rules, the launches the 2D graphs' (the
-     hierarchical compositions), and the loss's difference from the flat
-     ``cais`` mb 2 run printed (the 2D ``barrier`` run is left out to keep
-     the script inside its time limit).
- 10. paged serving over the ring: internlm2-1.8b at full width and depth,
-     random weights from seed 0, f32 params, phase 5's traffic (4 requests
-     of 600-700 prompt tokens, 16 new tokens, prefill chunk 128, block 16)
-     through the paged ``Engine``, and a scripted ``serve_step`` schedule (2
-     prefill chunks of 128 for the 4 rows, a mixed step of 127 tokens, 4
+  9. one training step of internlm2-1.8b at full width, TP_LAYERS layers: batch
+     2 of 4096 tokens (train_4k's length, its global batch of 256 cut to 2)
+     from ``data.pipeline.make_batch``, seed 0, random weights from seed 0,
+     AdamW at a constant lr ``TRAIN_LR``. First the one-device step (f32, remat
+     on, the per-block path), whose loss, grad norm, gradients, m, v and
+     updated parameters are kept in files on the host while the card is freed;
+     then one spawn of 4 gloo ranks sharing the card runs the step through
+     ``train.step.make_train_step`` (LM.loss, each period's graph-built
+     backward, the ring's grad sums, AdamW) for ``barrier`` with 1 microbatch
+     and ``cais`` with 2, in f32, ``cais`` with 2 in bf16, and ``cais`` in f32
+     under ``planner="perfsim"`` with the split ``auto`` (the planner picks the
+     split and both directions' pairings). Each run's loss must lie within 1e-4
+     (f32) or ``BF16_LOSS_RTOL`` (bf16) of one device's; in f32 the grad norm
+     within ``TRAIN_RTOL``, every gradient, m and v within ``TRAIN_RTOL`` times
+     the one-device tensor's max, and every parameter within the first-step
+     bound (2 lr where the one-device gradient lies within its bound of zero,
+     where Adam's sign may differ; 1e-3 lr elsewhere; plus 1e-6 |p|); every
+     rank's matmul and flash launches must equal the counts derived from the
+     optimized forward and training graphs, the transposed layouts must run on
+     wgmma in bf16 and FFMA in f32, overlap_asym must execute as the graphs
+     say, with a backward node paired with a forward one at 2 microbatches, and
+     every matmul call shape and layout must be among those phase 3 checked.
+     The perfsim run must also hold one plan on every rank (a digest gathered
+     over the ring), graphs that pair what the plans say, and executed
+     overlap_asym nodes that are the plans' pairs; it prints the plans, their
+     simulated makespans against greedy's, the cache's hits, misses and memo
+     hits and the planner's host seconds. Step times are printed with the note
+     that gloo stages every hop through the host. Then the same step on the 2D
+     mesh of the same ranks (tp_in 2 x tp_out 2, whose composite index cuts the
+     flat ring's shards): ``cais`` mb 2 in f32, held by the same rules, the
+     launches the 2D graphs' (the hierarchical compositions), and the loss's
+     difference from the flat ``cais`` mb 2 run printed (the 2D ``barrier`` run
+     is left out to keep the script inside its time limit).
+ 10. paged serving over the ring: internlm2-1.8b at full width, TP_LAYERS
+     layers, random weights from seed 0, f32 params, phase 5's traffic (4
+     requests of 600-700 prompt tokens, 16 new tokens, prefill chunk 128, block
+     16) through the paged ``Engine``, and a scripted ``serve_step`` schedule
+     (2 prefill chunks of 128 for the 4 rows, a mixed step of 127 tokens, 4
      decode steps). First on one device in f32 and bf16 compute, its tokens,
      top-2 margins and logits kept on the host while the card is freed; then
-     one spawn of 4 gloo ranks sharing the card (each holding its weight
-     shards and its kv heads' pools) runs ``barrier`` f32, ``cais`` f32,
-     ``cais`` bf16 and ``cais`` f32 under the perfsim planner (its logits
-     bitwise the greedy ``cais`` f32 run's, its plans pairing nothing, its
-     planning host time a step printed): the f32 logits must lie within
-     ``LOGIT_TOL`` of one device's, the bf16 ones within
-     ``BF16_LOGIT_FACTOR`` times one device's bf16 distance from its f32
-     logits, every rank's logits bitwise equal and
+     one spawn of 4 gloo ranks sharing the card (each holding its weight shards
+     and its kv heads' pools) runs ``barrier`` f32, ``cais`` f32, ``cais`` bf16
+     and ``cais`` f32 under the perfsim planner (its logits bitwise the greedy
+     ``cais`` f32 run's, its plans pairing nothing, its planning host time a
+     step printed): the f32 logits must lie within ``LOGIT_TOL`` of one
+     device's, the bf16 ones within ``BF16_LOGIT_FACTOR`` times one device's
+     bf16 distance from its f32 logits, every rank's logits bitwise equal and
      its tokens identical, the f32 tokens one device's (or, from a request's
      first difference, a one-device top-2 margin below ``LOGIT_TOL``), the
      matmul launches equal to ``matmul_calls`` of the optimized serve graphs,
      flash once a layer a step (decode on split-KV, prefill on wgmma in bf16
      and FFMA in f32), two ``gemm_ar`` a layer a step dispatched through the
      backend, and every call shape of both kernels among phase 3's. Then
-     gemma3-1b cut to one period (5 sliding-window layers and a global one;
-     its kv head replicated and sliced on each rank), ``cais`` f32, its
-     scripted logits over 4 prefill chunks (past the 512 window) within
-     ``LOGIT_TOL`` of one device's. Between them, ``cais`` f32 on the 2D
-     mesh (data axis 1: the hierarchical ``gemm_ar``, the admission clock
-     agreed over the whole TP group), held as the flat runs.
+     gemma3-1b cut to one period (5 sliding-window layers and a global one; its
+     kv head replicated and sliced on each rank), ``cais`` f32, its scripted
+     logits over 4 prefill chunks (past the 512 window) within ``LOGIT_TOL`` of
+     one device's. Between them, ``cais`` f32 on the 2D mesh (data axis 1: the
+     hierarchical ``gemm_ar``, the admission clock agreed over the whole TP
+     group), held as the flat runs.
  11. MoE: mixtral-8x7b at its published widths (8 experts top-2, capacity
      factor 1.25, group 512, window 4096) cut from 32 to MOE_LAYERS layers,
      random weights from seed 0, f32 params. (a) Served on one device
@@ -176,6 +172,26 @@ Phases (any failure exits non-zero):
      ``barrier`` and ``cais``: rank 0's losses within 1e-5 of ``--mesh
      none``'s. Phase 3 checks the matmul shapes of (a) and (b) and of the
      2D runs of phases 9 and 10.
+ 13. TP training past whole blocks, 4 gloo ranks sharing the card, every
+     run f32 through phase 9's machinery (one-device reference first, one
+     spawn) and held by its rules: (a) minicpm3-4b (MLA) at its published
+     widths cut to MLA_TRAIN_LAYERS layers, batch MLA_TRAIN_BATCH x
+     MLA_TRAIN_SEQ from ``make_batch``: first, on one device, the grads of
+     every layer's q_norm, kv_norm, wq_a and wkv_a with matmul_rmsnorm's
+     kernel against the same backward with its plain version, within
+     TRAIN_RTOL and not zero (the kernel's VJP is torch math); then the
+     ring, ``cais`` mb 2 and ``barrier`` mb 1, each MLA mixer run replicated over the gathered rows and each FFN
+     through ``sp_ffn``'s one-sub-layer graph and its graph-built backward:
+     matmul launches the graphs' count, matmul_rmsnorm twice and flash once
+     a layer a forward.
+     (b) internlm2-1.8b cut to RAGGED_LAYERS layers, one spawn, two
+     batches: TP_BATCH x RAGGED_SEQ (S % 4 = 1), ``cais`` in the
+     replicated layout (every gemm_ar dispatched through the backend as
+     the graphs hold it), and TP_BATCH x TP_SEQ ``cais`` mb 2 with
+     ``sequence_parallel`` off and on, the off loss within SP_LOSS_RTOL of
+     the on loss and of the one-device loss. Every call shape of the three
+     kernels must be among phase 3's (which adds the sp_ffn ring steps, the
+     ragged step's GEMMs and its attention core).
 Phase 3 also holds matmul_rmsnorm against its plain version at the TPU
 kernel's test shapes, at every shape phase 8 calls (b a column slice of
 ``wkv_a`` for the KV latent) and at N 8192, and flash attention at the MLA
@@ -194,7 +210,12 @@ import time
 from pathlib import Path
 from typing import Optional
 
-import torch
+# a spawned rank's start-up, split: when its interpreter reached this
+# module, and when torch was imported (train_legs logs both)
+T_MODULE = time.time()
+import torch  # noqa: E402
+
+T_TORCH = time.time()
 
 ROOT = Path(__file__).resolve().parent
 
@@ -222,6 +243,11 @@ P_ROUNDING = 2.0 ** -8
 ARCH = "gemma3-1b"
 # phase 6: the tensor-parallel training forward (train_4k's length)
 TP_ARCH, TP_WORLD, TP_BATCH, TP_SEQ, SEED = "internlm2-1.8b", 4, 2, 4096, 0
+# phases 6, 9 and 10 run internlm2-1.8b at full width cut to TP_LAYERS of
+# its 24 layers: at all 24 the script took 1120-1264 s of its 1200 s limit
+# on an NVIDIA H100 80GB HBM3 at 700 W, most of it in these three phases'
+# gloo rings (a layer costs the same checks at any depth)
+TP_LAYERS = 6
 TP_RUNS = [("barrier", 1, "float32"), ("barrier", 2, "float32"),
            ("cais", 1, "float32"), ("cais", 2, "float32"),
            ("cais", 2, "bfloat16")]
@@ -307,9 +333,7 @@ ROUTE_TOL = 1e-4
 # every row then decode steps
 MOE_DECODE_STEPS = 2
 # phase 12 (a): data 2 x model 2, internlm2-1.8b at full width cut to
-# DP_LAYERS of 24 layers (phases 6, 9 and 10 run all 24 and leave the
-# script little of its time limit; a rank holds its half of the blocks and
-# the whole
+# DP_LAYERS of 24 layers (a rank holds its half of the blocks and the whole
 # embedding and head, with grads, m and v), global batch DP_BATCH of TP_SEQ
 # so that each replica's 2 rows split into 2 microbatches; then the int8
 # compressed sum of a step's per-replica grads over the data axis within
@@ -325,9 +349,36 @@ GEP_LAYERS = 1
 GEP_RUNS = [("cais", 1, "float32", "greedy", "2x2")]
 # phase 12 (c): the launcher on JAX's debug mesh (8 ranks, data 2 x model 4)
 DEBUG_ARCH, DEBUG_STEPS = "deepseek-7b", 3
+# phase 13: TP training past whole blocks, 4 gloo ranks sharing the card.
+# (a) minicpm3-4b (MLA: on the ring its mixer runs replicated over the
+# gathered rows, its FFN through sp_ffn's one-sub-layer graph) at its
+# published widths cut to MLA_TRAIN_LAYERS of 62 layers, batch
+# MLA_TRAIN_BATCH x MLA_TRAIN_SEQ: the MLA shapes phase 3 checks (latent
+# norms at M 4096, flash B 4, S 1024, dh 96, dv 64)
+MLA_TRAIN_LAYERS, MLA_TRAIN_BATCH, MLA_TRAIN_SEQ = 2, 4, 1024
+MLA_TRAIN_RUNS = [("cais", 2, "float32"), ("barrier", 1, "float32")]
+# (b) internlm2-1.8b cut to RAGGED_LAYERS of 24 layers: batch TP_BATCH x
+# RAGGED_SEQ (S % 4 = 1: the replicated layout, every out/down projection a
+# gemm_ar), and batch TP_BATCH x TP_SEQ with sequence_parallel off and on
+# (off: the activation whole between periods; the same values)
+RAGGED_LAYERS, RAGGED_SEQ = 2, 4093
+RAGGED_RUNS = [("cais", 1, "float32")]
+SP_RUNS = [("cais", 2, "float32", "greedy", "flat", False),
+           ("cais", 2, "float32", "greedy", "flat", True)]
+# the sequence_parallel=False loss against the flag-on step's and the
+# one-device step's: the same f32 math on the same rows (the sequence-
+# sharded step matched one device bitwise), so bitwise or within this
+SP_LOSS_RTOL = 1e-6
+
+
+T_START: Optional[float] = None     # main() sets it
 
 
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's heading (``"phase N: ..."``) with the
+    seconds since the script began."""
+    if T_START is not None and msg.startswith("phase "):
+        msg += f" [at {time.monotonic() - T_START:.1f}s]"
     print(msg, flush=True)
 
 
@@ -460,9 +511,11 @@ def tpu_case(BH: int, S: int, d: int, dtype, seed: int):
 
 
 def get_tp_cfg():
+    """Phases 6, 9 and 10's model: internlm2-1.8b at full width, TP_LAYERS
+    layers."""
     from repro_torch.configs import get_arch
 
-    return get_arch(TP_ARCH)
+    return get_arch(TP_ARCH).scaled(num_layers=TP_LAYERS)
 
 
 def get_dp_cfg():
@@ -503,6 +556,12 @@ def get_mla_cfg():
     from repro_torch.configs import get_arch
 
     return get_arch(MLA_ARCH)
+
+
+def get_mla_train_cfg():
+    """Phase 13 (a)'s model: minicpm3-4b at full width, MLA_TRAIN_LAYERS
+    layers."""
+    return get_mla_cfg().scaled(num_layers=MLA_TRAIN_LAYERS)
 
 
 def mla_core_case(cfg, dtype, seed: int):
@@ -665,6 +724,11 @@ def phase_kernels(cfg, fa, ref) -> list:
         rows.append(check_kernel_case("moe_tp_core", tp_core_case(
             moe, MOE_BATCH, dtype, seed=7, seq=MOE_SEQ, window=moe.window),
             fa, ref))
+    # phase 13 (b)'s ragged step: a rank's 4 q / 2 kv heads over the whole
+    # RAGGED_SEQ tokens of both rows (the replicated layout, f32)
+    rows.append(check_kernel_case("ragged_tp_core", tp_core_case(
+        get_tp_cfg(), TP_BATCH, torch.float32, seed=8, seq=RAGGED_SEQ), fa,
+        ref))
     return rows
 
 
@@ -822,7 +886,11 @@ def phase_matmul(mmk, ref) -> list:
          + train_matmul_shapes(cfg, world=dp_tp, batch=dp_rows,
                                runs=DP_RUNS)),
         ("gep_2d", moe_matmul_shapes(get_gep_cfg(), "float32",
-                                     runs=GEP_RUNS, ring=ring))]
+                                     runs=GEP_RUNS, ring=ring)),
+        # phase 13: minicpm3-4b's sp_ffn ring steps and their backward,
+        # and internlm2-1.8b's ragged step (gemm_ar partials whole)
+        ("sp_ffn", sp_ffn_matmul_shapes(get_mla_train_cfg())),
+        ("ragged", ragged_matmul_shapes(cfg))]
     for name, shapes in mesh_cases:
         for M, K, N, lay in shapes:
             if (M, K, N, "float32", lay) not in seen:
@@ -916,6 +984,63 @@ def train_matmul_shapes(cfg, world: int = TP_WORLD, batch: int = TP_BATCH,
         shapes |= {(m_rs, k, d, "nt") for k in ks}
         if mb > 1 and r == n:
             shapes |= {(b * s_loc, k, d, "nt") for k in ks}
+    return sorted(shapes)
+
+
+def sp_ffn_matmul_shapes(cfg, batch: int = MLA_TRAIN_BATCH,
+                         seq: int = MLA_TRAIN_SEQ,
+                         runs=MLA_TRAIN_RUNS) -> list:
+    """(M, K, N, layout) of every matmul call of phase 13 (a)'s ring steps,
+    which are the FFNs' (an MLA mixer runs replicated, with torch's own
+    products): per run's chain of b = batch / mb rows, the forward's up/gate
+    and down GEMMs as :func:`tp_matmul_shapes` counts them for the run's
+    mode (barrier over the gathered b·S rows; cais gather steps of b·S_r/c,
+    reduce steps of b·S_r/2, and at mb > 1 the overlap pair's b·S_r rows a
+    hop), and the backward's as :func:`train_matmul_shapes` does (the FFN's
+    of them: the grad gathers through w_downᵀ, the grad reduce-scatters
+    through (w_up+w_gate)ᵀ, the weight grads)."""
+    from repro_torch.core import primitives as prim
+    from repro_torch.core.backends import CAISBackend
+
+    n, d, ff = TP_WORLD, cfg.d_model, cfg.d_ff // TP_WORLD
+    s_r = seq // n
+    shapes = set()
+    for mode, mb, *_ in runs:
+        b = batch // mb
+        if mode == "barrier":
+            pairs = [(b * seq, b * seq)]
+        else:
+            c = prim._pick_chunks(s_r, CAISBackend.plan_chunks(
+                b * seq * d * 4, n))
+            pairs = [(b * s_r // c, b * s_r // 2)]
+            if mb > 1:
+                pairs.append((b * s_r, b * s_r))
+        for m_ag, m_rs in pairs:
+            shapes |= {(m_ag, d, ff, "nn"), (m_rs, ff, d, "nn")}
+    shapes |= {s_ for s_ in train_matmul_shapes(cfg, batch=batch, seq=seq,
+                                                runs=runs)
+               if ff in s_[:3] or s_[1] == 2 * ff}
+    return sorted(shapes)
+
+
+def ragged_matmul_shapes(cfg, world: int = TP_WORLD, batch: int = TP_BATCH,
+                         seq: int = RAGGED_SEQ) -> list:
+    """(M, K, N, layout) of every matmul call one rank makes in phase 13
+    (b)'s ragged step, by the replicated-activation graph's arithmetic over
+    the B·S rows (S % ring != 0, so each gemm_ar is cais's monolithic
+    fallback: one GEMM, then the all-reduce): the column GEMMs q, k, v, up
+    and gate (nn), their adjoints' gemm_ar through wᵀ (nt) and weight
+    grads xᵀ·dy (tn); the gemm_ar partials of wo and w_down (nn), their
+    adjoints' dx = dy·wᵀ (nt) and weight grads (tn)."""
+    n, d, dh = world, cfg.d_model, cfg.resolved_head_dim
+    kv_tp = n if cfg.num_kv_heads % n == 0 else 1
+    fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // kv_tp
+    ff, rows = cfg.d_ff // n, batch * seq
+    shapes = set()
+    for f in (fq, fkv, ff):
+        shapes |= {(rows, d, f, "nn"), (rows, f, d, "nt"), (d, rows, f, "tn")}
+    for f in (fq, ff):
+        shapes |= {(rows, f, d, "nn"), (rows, d, f, "nt"), (f, rows, d, "tn")}
     return sorted(shapes)
 
 
@@ -1911,7 +2036,7 @@ def compress_check(lm, batch) -> dict:
         p.grad = None
     rows = {k: torch.as_tensor(v).to(lm.device) for k, v in batch.items()}
     lm.loss(rows).backward()
-    lm.sync_grads(data=False)
+    lm.sync_grads(rows["tokens"].shape[1], data=False)
     worst, name, sizes = 0.0, None, [0, 0]
     t0 = time.monotonic()
     for k, p in lm.named_parameters():
@@ -1932,23 +2057,30 @@ def compress_check(lm, batch) -> dict:
                 int8_bytes=sizes[1], seconds=time.monotonic() - t0)
 
 
-def train_rank(group, batch, runs, store, ref, cfg, device="cuda",
-               mesh="flat", compress=False):
-    """One rank of phases 9, 11 (b) and 12 (a, b): for each (mode,
-    microbatches, dtype[, planner[, mesh]]) run, one train step (LM.loss, its
-    graph-built backward, the grad sums over the TP group and the data axis,
-    AdamW) from the same initial shards, with the kernels' launches (set to
-    0 just before the step) against the counts derived from the planned
-    forward and training graphs (``tp.build_period``), every matmul call's
-    shape and layout, and in f32 this rank's gradients, m, v and parameters
-    against the one-device step's shards. The model is built on the mesh
-    ``mesh`` (a key of MESHES, factored from the world ``group``); a run
-    naming another mesh with the same shards runs there. A replica steps on
-    its rows of ``batch``. A perfsim run also returns its plans (split,
-    pairings, simulated makespans against greedy's), whether every rank
-    holds the same, the overlap_asym nodes its graphs executed against the
-    plans' pairs, and the planner's host time by what answered each call.
-    With ``compress``, :func:`compress_check` after the runs."""
+def train_legs(group, legs, cfg, device="cuda", mesh="flat",
+               compress=False, spawned: Optional[float] = None) -> list:
+    """One rank of the training phases: for each leg (batch, runs, store,
+    ref) and each of its (mode, microbatches, dtype[, planner[, mesh[,
+    sequence_parallel]]]) runs, one train step (LM.loss, its graph-built
+    backward, the grad sums over the TP group and the data axis, AdamW) from
+    the same initial shards of one model, with the kernels' launches (set
+    to 0 just before the step) against the counts derived from the planned
+    forward and training graphs the step ran (``tp.recording``,
+    ``tp.step_launches``: whole periods, per-block graphs, one-sub-layer
+    graphs and replicated MLA mixers alike), every kernel call's shape
+    (and a matmul's layout), the backend's ``gemm_ar`` dispatches, and in
+    f32 this rank's gradients, m, v
+    and parameters against the one-device step's shards (the leg's
+    ``store``). The model is built on the mesh ``mesh`` (a key of MESHES,
+    factored from the world ``group``); a run naming another mesh with the
+    same shards runs there. A replica steps on its rows of the batch. A
+    perfsim run also returns its plans (split, pairings, simulated
+    makespans against greedy's), whether every rank holds the same, the
+    overlap_asym nodes its graphs executed against the plans' pairs, and
+    the planner's host time by what answered each call. With ``compress``,
+    :func:`compress_check` after each leg's runs. ``spawned``: the host's
+    clock (``time.time``) when the ranks were started, for their start-up
+    time. Returns one dict(runs, compress) a leg."""
     from collections import Counter
 
     from repro_torch import plan as plan_mod
@@ -1957,14 +2089,20 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda",
     from repro_torch.data.pipeline import replica_rows
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import matmul_rmsnorm as mln
     from repro_torch.kernels import ops
     from repro_torch.models import LM
+    from repro_torch.models.transformer import activation_layout
     from repro_torch.optim import adamw, constant_schedule
     from repro_torch.runtime import Runtime, TPConfig
     from repro_torch.sharding import CompositeGroup, init_mesh
     from repro_torch.train.step import init_state, make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    startup_s = None if spawned is None else time.time() - spawned
+    reached = None if spawned is None else (T_MODULE - spawned,
+                                            T_TORCH - T_MODULE)
+    t_setup = time.monotonic()
     meshes = {}
 
     def mesh_of(key):      # every rank makes the same meshes in one order
@@ -1973,18 +2111,13 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda",
                 init_mesh(group, **MESHES[key])
         return meshes[key]
 
-    P = len(cfg.layer_pattern)
-    periods = cfg.num_layers // P
     lm = LM(cfg, Runtime(compute_dtype="float32"), device=device, seed=SEED,
             group=mesh_of(mesh))
-    if lm.dp > 1:
-        batch = replica_rows(batch, lm.data.rank, lm.dp)
-    B, S = batch["tokens"].shape
     if _on_card(device):
         torch.cuda.empty_cache()      # the whole model drawn for the shards
     init = {k: p.detach().to("cpu", copy=True)
             for k, p in lm.named_parameters()}
-    asym = [0]
+    asym, gemm_ar = [0], [0]
     for name in ("barrier", "cais"):
         be = get_backend(name)
 
@@ -1992,7 +2125,12 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda",
             asym[0] += 1
             return _inner(*a, **k)
 
+        def counted_ar(*a, _inner=be.gemm_ar, **k):
+            gemm_ar[0] += 1
+            return _inner(*a, **k)
+
         be.overlap_asymmetric = counted
+        be.gemm_ar = counted_ar
     # the expert all-to-all and its adjoint through the backends, with the
     # matmul launches made inside them (the expert GEMMs)
     # on a 2D mesh the composite group's dispatch re-enters on tp_out:
@@ -2023,124 +2161,159 @@ def train_rank(group, batch, runs, store, ref, cfg, device="cuda",
         return _inner(a, b, **k)
 
     ops.matmul = shapes
+    norm_calls, flash_calls = {}, {}
+
+    def norm_shapes(a, b, scale, _inner=ops.matmul_rmsnorm, **k):
+        key = (*a.shape, b.shape[1], b.stride(0),
+               str(a.dtype).replace("torch.", ""))
+        norm_calls[key] = norm_calls.get(key, 0) + 1
+        return _inner(a, b, scale, **k)
+
+    ops.matmul_rmsnorm = norm_shapes
+    record_calls(ops, flash_calls)
     probe = plan_probe()
-    out = []
-    for run in runs:
-        mode, mb, dtype = run[:3]
-        planner = run[3] if len(run) > 3 else "greedy"
-        run_mesh = run[4] if len(run) > 4 else mesh
-        if mesh_of(run_mesh) is not lm.mesh and \
-                mesh_of(run_mesh) is not lm.group:
-            _mesh_switch(lm, cfg, mesh_of(run_mesh))
-        rt = Runtime(compute_dtype=dtype, tp=TPConfig(
-            mode=mode, microbatches=mb, planner=planner))
-        lm.rt = rt
-        with torch.no_grad():
-            for k, p in lm.named_parameters():
-                p.copy_(init[k])
-        opt = adamw(constant_schedule(TRAIN_LR), eps=TRAIN_EPS,
-                    clip_norm=TRAIN_CLIP)
-        state = init_state(lm, opt)
-        step = make_train_step(lm, opt, rt)
-        _peak_start(device)
-        mmk.launches = fa.launches = asym[0] = 0
-        mmk.launches_by_variant = dict.fromkeys(mmk.COUNTERS, 0)
-        fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
-        calls.clear()
-        probe_reset(probe)
-        routes.clear()
-        a2a_groups.clear()
-        for v in a2a.values():
-            v[0] = v[1] = 0
-        t0 = time.monotonic()
-        state, metrics = step(state, batch)
-        _sync(device)
-        wall = time.monotonic() - t0
-        launches = (mmk.launches, fa.launches, asym[0])
-        layouts = dict(mmk.launches_by_variant)
-        executed, times = dict(probe["executed"]), probe_times(probe)
-        peak = _peak_gib(device)
-        tpc = tp_mod.TPContext.from_config(rt.tp, lm.group)
-        x = torch.empty(B, S // lm.tp, cfg.d_model, dtype=rt.dtype,
-                        device="meta")
-        period, _ = tp_mod.build_period(tpc, x, lm.blocks[:P], cfg,
-                                        cfg.layer_pattern,
-                                        norm_kind=cfg.norm)
-        _, bwd, bwd_planner = period.training()
-        fwd, mb = period.graph, period.mb
-        per = sum(tp_mod.matmul_calls(g, tpc, B // mb, S, cfg.d_model,
-                                      rt.dtype.itemsize)
-                  for g in (fwd, bwd))
-        fper = sum(tp_mod.flash_calls(g) for g in (fwd, bwd))
-        pairs = [nd.name for g in (fwd, bwd) for nd in g.nodes
-                 if nd.op == "overlap_asym"]
-        cross = tp_mod.cross_direction_pairs(period.merged, bwd)
-        plans = None
-        if planner == "perfsim":
-            fp, bp = period.plan, bwd_planner.plan
-            plans = dict(
-                mb=mb, forward=[list(p) for p in fp.pairing],
-                backward=[list(p) for p in bp.pairing],
-                chunks=[fp.num_chunks, bp.num_chunks],
-                makespan_ms=[fp.makespan * 1e3, bp.makespan * 1e3],
-                greedy_makespan_ms=[fp.greedy_makespan * 1e3,
-                                    bp.greedy_makespan * 1e3])
-            planned = sorted(f"{a}+{b}" for a, b in fp.pairing + bp.pairing)
-            cache = plan_mod.default_cache()
-            plans.update(
-                same_on_every_rank=plan_digests_agree(
-                    group, {k: plans[k] for k in ("mb", "forward",
-                                                  "backward", "chunks")}),
-                graphs_pair_the_plan=sorted(pairs) == planned,
-                executed_is_the_plan=executed == {
-                    p: c * periods for p, c in Counter(planned).items()},
-                host_s=times,
-                cache=dict(cache.stats, memo_hits=cache.memo_hits))
-        row = dict(
-            mode=mode, mb=mb, requested_mb=run[1], planner=planner,
-            mesh=run_mesh, topology=list(tpc.topology), dp=lm.dp,
-            dtype=dtype, loss=float(metrics["loss"]),
-            grad_norm=float(metrics["grad_norm"]), wall_s=wall,
-            peak_gib=peak, matmul_launches=launches[0],
-            matmul_derived=per * periods, matmul_layouts=layouts,
-            matmul_variants=mmk.variant_totals(layouts),
-            flash_launches=launches[1],
-            flash_derived=fper * periods,
-            flash_variants=dict(fa.launches_by_variant),
-            overlap_asym=launches[2],
-            overlap_asym_nodes=len(pairs) * periods,
-            # a2a_ffn / bwd_a2a_ffn: backend dispatches and the matmul
-            # launches inside them, against the graphs' nodes and counts
-            a2a=[a2a["a2a_expert_ffn"], a2a["grad_a2a_expert_ffn"]],
-            a2a_derived=[[
-                sum(nd.op == op for g in (fwd, bwd) for nd in g.nodes)
-                * periods,
-                sum(tpc.route_ring * getattr(nd.fn, attr)
-                    for g in (fwd, bwd) for nd in g.nodes if nd.op == op)
-                * periods]
-                for op, attr in (("a2a_ffn", "matmul_calls"),
-                                 ("bwd_a2a_ffn", "vjp_matmul_calls"))],
-            a2a_groups=sorted(a2a_groups),
-            routing=routes[:cfg.num_layers],
-            cross_direction_pairs=cross,
-            call_shapes=sorted([*k, v] for k, v in calls.items()),
-            plans=plans,
-            wire=group.backend + (", staged through the host"
-                                  if group.staged(metrics["grad_norm"])
-                                  else ""))
-        if dtype == "float32":
+    setup_s = time.monotonic() - t_setup     # the model drawn, its shards
+    legs_out = []
+    for batch, runs, store, ref in legs:
+        if lm.dp > 1:
+            batch = replica_rows(batch, lm.data.rank, lm.dp)
+        B, S = batch["tokens"].shape
+        out = []
+        for run in runs:
+            t_run = time.monotonic()
+            mode, mb, dtype = run[:3]
+            planner = run[3] if len(run) > 3 else "greedy"
+            run_mesh = run[4] if len(run) > 4 else mesh
+            sp = run[5] if len(run) > 5 else True
+            if mesh_of(run_mesh) is not lm.mesh and \
+                    mesh_of(run_mesh) is not lm.group:
+                _mesh_switch(lm, cfg, mesh_of(run_mesh))
+            rt = Runtime(compute_dtype=dtype, tp=TPConfig(
+                mode=mode, microbatches=mb, planner=planner,
+                sequence_parallel=sp))
+            lm.rt = rt
+            with torch.no_grad():
+                for k, p in lm.named_parameters():
+                    p.copy_(init[k])
+            opt = adamw(constant_schedule(TRAIN_LR), eps=TRAIN_EPS,
+                        clip_norm=TRAIN_CLIP)
+            state = init_state(lm, opt)
+            step = make_train_step(lm, opt, rt)
+            _peak_start(device)
+            mmk.launches = fa.launches = mln.launches = asym[0] = 0
+            gemm_ar[0] = 0
+            mmk.launches_by_variant = dict.fromkeys(mmk.COUNTERS, 0)
+            fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+            for c in (calls, norm_calls, flash_calls):
+                c.clear()
+            probe_reset(probe)
+            routes.clear()
+            a2a_groups.clear()
+            for v in a2a.values():
+                v[0] = v[1] = 0
+            t0 = time.monotonic()
+            with tp_mod.recording() as rec:
+                state, metrics = step(state, batch)
+            _sync(device)
+            wall = time.monotonic() - t0
+            launches = (mmk.launches, fa.launches, asym[0], mln.launches,
+                        gemm_ar[0])
+            layouts = dict(mmk.launches_by_variant)
+            executed, times = dict(probe["executed"]), probe_times(probe)
+            peak = _peak_gib(device)
+            t_derive = time.monotonic()
+            tpc = tp_mod.TPContext.from_config(rt.tp, lm.group)
+            derived = tp_mod.step_launches(rec, B, S, cfg.d_model,
+                                           rt.dtype.itemsize)
+            trained = [(p_, p_.training()) for p_ in rec.periods]
+            period, (_, bwd, bwd_planner) = trained[0]
+            fwd, mb, periods = period.graph, period.mb, len(trained)
+            pairs = [nd.name for g in (fwd, bwd) for nd in g.nodes
+                     if nd.op == "overlap_asym"]
+            plans = None
+            if planner == "perfsim":
+                fp, bp = period.plan, bwd_planner.plan
+                plans = dict(
+                    mb=mb, forward=[list(p) for p in fp.pairing],
+                    backward=[list(p) for p in bp.pairing],
+                    chunks=[fp.num_chunks, bp.num_chunks],
+                    makespan_ms=[fp.makespan * 1e3, bp.makespan * 1e3],
+                    greedy_makespan_ms=[fp.greedy_makespan * 1e3,
+                                        bp.greedy_makespan * 1e3])
+                planned = sorted(f"{a}+{b}"
+                                 for a, b in fp.pairing + bp.pairing)
+                cache = plan_mod.default_cache()
+                plans.update(
+                    same_on_every_rank=plan_digests_agree(
+                        group, {k: plans[k] for k in ("mb", "forward",
+                                                      "backward", "chunks")}),
+                    graphs_pair_the_plan=sorted(pairs) == planned,
+                    executed_is_the_plan=executed == {
+                        p: c * periods for p, c in Counter(planned).items()},
+                    host_s=times,
+                    cache=dict(cache.stats, memo_hits=cache.memo_hits))
+
+            def nodes(op, attr=None):
+                return sum(
+                    (tpc.route_ring * getattr(nd.fn, attr) if attr else 1)
+                    for p_, t_ in trained for g in (p_.graph, t_[1])
+                    for nd in g.nodes if nd.op == op)
+
+            row = dict(
+                mode=mode, mb=mb, requested_mb=run[1], planner=planner,
+                mesh=run_mesh, sequence_parallel=sp,
+                layout=activation_layout(rt, S, lm.tp), batch=[B, S],
+                topology=list(tpc.topology), dp=lm.dp, dtype=dtype,
+                loss=float(metrics["loss"]),
+                grad_norm=float(metrics["grad_norm"]), wall_s=wall,
+                peak_gib=peak, matmul_launches=launches[0],
+                matmul_derived=derived["matmul"], matmul_layouts=layouts,
+                matmul_variants=mmk.variant_totals(layouts),
+                flash_launches=launches[1], flash_derived=derived["flash"],
+                flash_variants=dict(fa.launches_by_variant),
+                mln_launches=launches[3],
+                mln_derived=derived["matmul_rmsnorm"],
+                gemm_ar=launches[4], gemm_ar_derived=nodes("gemm_ar"),
+                overlap_asym=launches[2],
+                overlap_asym_nodes=derived["overlap_asym"],
+                # a2a_ffn / bwd_a2a_ffn: backend dispatches and the matmul
+                # launches inside them, against the graphs' nodes and
+                # counts
+                a2a=[a2a["a2a_expert_ffn"], a2a["grad_a2a_expert_ffn"]],
+                a2a_derived=[[nodes(op), nodes(op, attr)]
+                             for op, attr in (("a2a_ffn", "matmul_calls"),
+                                              ("bwd_a2a_ffn",
+                                               "vjp_matmul_calls"))],
+                a2a_groups=sorted(a2a_groups),
+                setup_s=setup_s, derive_s=time.monotonic() - t_derive,
+                routing=routes[:cfg.num_layers],
+                cross_direction_pairs=derived["cross_direction_pairs"],
+                call_shapes=sorted([*k, v] for k, v in calls.items()),
+                norm_shapes=sorted([*k, v] for k, v in norm_calls.items()),
+                flash_shapes=sorted([*k, v] for k, v in flash_calls.items()),
+                plans=plans,
+                wire=group.backend + (", staged through the host"
+                                      if group.staged(metrics["grad_norm"])
+                                      else ""))
+            if dtype == "float32":
+                if _on_card(device):
+                    torch.cuda.empty_cache()
+                t_errs = time.monotonic()
+                errs, at_sign = train_errors(lm, state, store, ref, cfg,
+                                             init)
+                row.update(errs=errs, params_at_sign_bound=at_sign,
+                           errs_s=time.monotonic() - t_errs)
+            row.update(startup_s=startup_s, reached=reached,
+                       run_s=time.monotonic() - t_run)
+            out.append(row)
+            del state, opt, step, metrics, rec, trained, period, bwd
+            for p in lm.parameters():
+                p.grad = None
             if _on_card(device):
                 torch.cuda.empty_cache()
-            errs, at_sign = train_errors(lm, state, store, ref, cfg, init)
-            row.update(errs=errs, params_at_sign_bound=at_sign)
-        out.append(row)
-        del state, opt, step, metrics
-        for p in lm.parameters():
-            p.grad = None
-        if _on_card(device):
-            torch.cuda.empty_cache()
-    comp = compress_check(lm, batch) if compress else None
-    return dict(runs=out, compress=comp)
+        comp = compress_check(lm, batch) if compress else None
+        legs_out.append(dict(runs=out, compress=comp))
+    return legs_out
 
 
 def plan_checks(per: list) -> dict:
@@ -2179,23 +2352,27 @@ def plan_cache_at(root):
 
 def phase_train(cfg=None, batch=None, runs=None, label: str = "phase 9",
                 quantities=RefStore.QUANTITIES, mesh: str = "flat",
-                compress: bool = False) -> dict:
+                compress: bool = False, legs=None) -> dict:
     """One training step on TP_WORLD gloo ranks against one device (phase
     9: internlm2-1.8b, TRAIN_RUNS; phase 11 (b): mixtral-8x7b cut to
-    MOE_LAYERS layers, MOE_RUNS). An MoE run is held to one device under
-    the routing rule: its routing against the one-device forward's (a
-    rank's shard is one group of one device); element-wise holds (grad
-    norm, grads, m, v, parameters) and the f32 loss tolerance only where
-    every rank's routing agreed, and where it did not the differences must
-    sit at gaps below ROUTE_TOL and the loss within BF16_LOSS_RTOL. Its
-    expert all-to-all and adjoint must have run through the backend as
-    often as the graphs hold them, with the matmul kernel inside, on tp_out
-    alone on a 2D mesh (grouped EP). The ranks build the model on ``mesh``
-    (phase 12: "dp2", "2x2"); a run may name another mesh of the same
-    shards (phase 9's "2x2" runs). With ``compress``, each replica's grads
-    are summed over the data axis in int8 (:func:`compress_check`) within
-    COMPRESS_RTOL of the exact sum."""
+    MOE_LAYERS layers, MOE_RUNS; phase 13: minicpm3-4b and internlm2-1.8b
+    cut to 2 layers). ``legs`` (a list of (batch, runs)) steps one model
+    on several batches in one spawn, each leg held to its own one-device
+    step; otherwise the one leg (``batch``, ``runs``). An MoE run is held
+    to one device under the routing rule: its routing against the
+    one-device forward's (a rank's shard is one group of one device);
+    element-wise holds (grad norm, grads, m, v, parameters) and the f32
+    loss tolerance only where every rank's routing agreed, and where it
+    did not the differences must sit at gaps below ROUTE_TOL and the loss
+    within BF16_LOSS_RTOL. Its expert all-to-all and adjoint must have run
+    through the backend as often as the graphs hold them, with the matmul
+    kernel inside, on tp_out alone on a 2D mesh (grouped EP). The ranks
+    build the model on ``mesh`` (phase 12: "dp2", "2x2"); a run may name
+    another mesh of the same shards (phase 9's "2x2" runs). With
+    ``compress``, each replica's grads are summed over the data axis in int8
+    (:func:`compress_check`) within COMPRESS_RTOL of the exact sum."""
     import gc
+    import shutil
     import tempfile
 
     from repro_torch.launch.ranks import run_ranks
@@ -2203,43 +2380,56 @@ def phase_train(cfg=None, batch=None, runs=None, label: str = "phase 9",
     gc.collect()
     torch.cuda.empty_cache()
     cfg = cfg or get_tp_cfg()
-    batch = batch if batch is not None else train_batch()
-    runs = runs or TRAIN_RUNS
+    if legs is None:
+        legs = [(batch if batch is not None else train_batch(),
+                 runs or TRAIN_RUNS)]
+    refs = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ref_") as root:
-        import shutil
-
         free = shutil.disk_usage(root).free
-        need = 4 * len(quantities) * cfg.param_count()
+        need = 4 * len(quantities) * cfg.param_count() * len(legs)
         if free < need + 2**30:
             raise AssertionError(f"{label} keeps the one-device reference "
                                  f"on the host: {need / 1e9:.1f} GB under "
                                  f"{root}, which has {free / 1e9:.1f} GB")
-        ref, store = train_reference(batch, root, cfg,
-                                     quantities=quantities)
-        log(f"  one device f32 (remat, per-block path): loss "
-            f"{ref['loss']:.7f}, grad norm {ref['grad_norm']:.7f}, step "
-            f"{ref['step_s']:.2f}s, peak {ref['peak_gib']} GiB; bf16 "
-            f"loss (forward) {ref['loss_bf16']:.7f}; reference kept on the "
-            f"host: {ref['store_gb']:.1f} GB in {ref['write_s']:.1f}s")
-        gc.collect()
-        torch.cuda.empty_cache()
+        for i, (leg_batch, _) in enumerate(legs):
+            leg_root = Path(root) / f"leg{i}"
+            leg_root.mkdir()
+            t_ref = time.monotonic()
+            ref, store = train_reference(leg_batch, str(leg_root), cfg,
+                                         quantities=quantities)
+            refs.append((ref, store))
+            B, S = leg_batch["tokens"].shape
+            log(f"  one device f32 (remat, per-block path), batch {B} x {S}"
+                f": loss {ref['loss']:.7f}, grad norm "
+                f"{ref['grad_norm']:.7f}, step {ref['step_s']:.2f}s, peak "
+                f"{ref['peak_gib']} GiB; bf16 loss (forward) "
+                f"{ref['loss_bf16']:.7f}; reference kept on the host: "
+                f"{ref['store_gb']:.1f} GB in {ref['write_s']:.1f}s; "
+                f"{time.monotonic() - t_ref:.1f}s in all")
+            gc.collect()
+            torch.cuda.empty_cache()
         free_b, total_b = torch.cuda.mem_get_info()
         log(f"  before the ranks: this process holds "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, the card "
             f"has {free_b / 2**30:.2f} of {total_b / 2**30:.2f} GiB free")
         t0 = time.monotonic()
         with plan_cache_at(Path(root) / "plans"):
-            got = run_ranks(train_rank, TP_WORLD, batch, runs, store,
-                            {k: v for k, v in ref.items()
-                             if k != "routing"}, cfg, "cuda", mesh, compress,
-                            device="cuda", timeout=1200)
+            got = run_ranks(train_legs, TP_WORLD, [
+                (leg_batch, leg_runs, store,
+                 {k: v for k, v in ref.items() if k != "routing"})
+                for (leg_batch, leg_runs), (ref, store) in zip(legs, refs)],
+                cfg, "cuda", mesh, compress, time.time(), device="cuda",
+                timeout=1200)
         wall = time.monotonic() - t0
-    ranks = [g["runs"] for g in got]
-    B, S = batch["tokens"].shape
-    rows, failed = train_checks(cfg, ref, ranks, runs, B * S // TP_WORLD)
-    comp = None
+    rows, failed, comp = [], [], None
+    for i, ((leg_batch, leg_runs), (ref, _)) in enumerate(zip(legs, refs)):
+        ranks = [g[i]["runs"] for g in got]
+        B, S = leg_batch["tokens"].shape
+        r, f = train_checks(cfg, ref, ranks, leg_runs, B * S // TP_WORLD)
+        rows += r
+        failed += f
     if compress:
-        comp = [g["compress"] for g in got]
+        comp = [g[0]["compress"] for g in got]
         worst = max(c["worst_rel"] for c in comp)
         log(f"  compressed_psum of each replica's grads over the data axis "
             f"(int8, one scale a tensor agreed by max): worst max|d| / "
@@ -2251,18 +2441,28 @@ def phase_train(cfg=None, batch=None, runs=None, label: str = "phase 9",
             failed.append(("compress", f"within {COMPRESS_RTOL}"))
     if failed:
         raise AssertionError(f"{label}: failed {failed}")
-    total_mm = sum(p["matmul_launches"] for rk in ranks for p in rk)
-    total_fa = sum(p["flash_launches"] for rk in ranks for p in rk)
-    shapes = {tuple(c[:5]) for rk in ranks for p in rk
-              for c in p["call_shapes"]}
-    log(f"  {TP_WORLD} ranks, {len(runs)} steps in {wall:.1f}s (spawn "
-        "and weights included; gloo stages every hop through the host, so "
-        "these are not TP speeds); launches over all ranks and runs: "
-        f"matmul {total_mm}, flash {total_fa}")
-    return dict(runs=rows, reference={k: v for k, v in ref.items()
-                                      if k not in ("maxabs", "routing")},
-                matmul_launches=total_mm, flash_launches=total_fa,
-                wall_s=wall, call_shapes=sorted(shapes), compress=comp)
+    per = [p for g in got for leg in g for p in leg["runs"]]
+    total = {k: sum(p[k] for p in per)
+             for k in ("matmul_launches", "flash_launches", "mln_launches")}
+    shapes = {tuple(c[:5]) for p in per for c in p["call_shapes"]}
+    norms = {tuple(c[:5]) for p in per for c in p["norm_shapes"]}
+    cores = {tuple(c[:8]) for p in per for c in p["flash_shapes"]}
+    log(f"  {TP_WORLD} ranks, {sum(len(r_) for _, r_ in legs)} steps in "
+        f"{wall:.1f}s (spawn and weights included; gloo stages every hop "
+        "through the host, so these are not TP speeds); launches over all "
+        f"ranks and runs: matmul {total['matmul_launches']}, flash "
+        f"{total['flash_launches']}, matmul_rmsnorm {total['mln_launches']}")
+    strip = ("maxabs", "routing")
+    return dict(runs=rows,
+                reference={k: v for k, v in refs[0][0].items()
+                           if k not in strip},
+                references=[{k: v for k, v in ref.items() if k not in strip}
+                            for ref, _ in refs],
+                matmul_launches=total["matmul_launches"],
+                flash_launches=total["flash_launches"],
+                mln_launches=total["mln_launches"], wall_s=wall,
+                call_shapes=sorted(shapes), norm_shapes=sorted(norms),
+                flash_shapes=sorted(cores), compress=comp)
 
 
 def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
@@ -2295,6 +2495,8 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
                 p["matmul_launches"] == p["matmul_derived"] > 0 for p in per),
             "flash launches = forward + recompute": all(
                 p["flash_launches"] == p["flash_derived"] > 0 for p in per),
+            "matmul_rmsnorm launches = 2 a replicated MLA mixer": all(
+                p["mln_launches"] == p["mln_derived"] for p in per),
             "flash variants": all(p["flash_variants"] == dict(
                 splitkv=0, wgmma=p["flash_launches"] if not f32 else 0,
                 ffma=p["flash_launches"] if f32 else 0) for p in per),
@@ -2324,6 +2526,10 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
             if f32:
                 checks[f"routing differences at gaps < {ROUTE_TOL:g}"] = \
                     all(routing_rule(d) for d in route)
+        if head["layout"] == "replicated":
+            checks["gemm_ar dispatched through the backend as the graphs "
+                   "hold it"] = all(
+                p["gemm_ar"] == p["gemm_ar_derived"] > 0 for p in per)
         if head["plans"] is not None:
             checks.update(plan_checks(per))
         if held:
@@ -2343,7 +2549,8 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
             worst["param_err_over_limit"] = max(
                 e["param"][1] for p in per for e in p["errs"].values())
         row = dict({k: v for k, v in head.items()
-                    if k not in ("errs", "call_shapes", "routing")},
+                    if k not in ("errs", "call_shapes", "norm_shapes",
+                                 "flash_shapes", "routing")},
                    rel_to_one_device=rel, grad_norm_rel=gn_rel,
                    one_device=ref_loss, worst_over_bound=worst,
                    elementwise_held=held, routing_differences=route,
@@ -2354,7 +2561,8 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
         rows.append(row)
         log(f"  {run[0]:>7} mb={head['mb']} (asked {run[1]}) {run[2]:>8} "
             f"{head['planner']} mesh {head['mesh']} (topology "
-            f"{head['topology']}, dp {head['dp']}): loss "
+            f"{head['topology']}, dp {head['dp']}), batch {head['batch']}, "
+            f"layout {head['layout']}: loss "
             f"{head['loss']:.7f} (one device {ref_loss:.7f}, rel "
             f"{rel:.2e}), grad norm {head['grad_norm']:.7f} (rel "
             f"{gn_rel:.2e}); worst err/bound {json.dumps(worst)}; "
@@ -2362,9 +2570,19 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
             f"rank: matmul {head['matmul_launches']} (graphs "
             f"{head['matmul_derived']}; {json.dumps(head['matmul_layouts'])})"
             f", flash {head['flash_launches']} (graphs "
-            f"{head['flash_derived']}), overlap_asym {head['overlap_asym']} "
+            f"{head['flash_derived']}), matmul_rmsnorm "
+            f"{head['mln_launches']} (graphs {head['mln_derived']}), gemm_ar "
+            f"{head['gemm_ar']} (graphs {head['gemm_ar_derived']}), "
+            f"overlap_asym {head['overlap_asym']} "
             f"({len(head['cross_direction_pairs'])} cross-direction nodes a "
-            f"period); step {max(row['wall_s']):.2f}s; peak "
+            f"period); step {max(row['wall_s']):.2f}s (rank 0: started "
+            f"{head['startup_s'] or 0.0:.1f}s after the spawn: this module "
+            f"at {(head['reached'] or (0.0, 0.0))[0]:.1f}s, torch imported "
+            f"in {(head['reached'] or (0.0, 0.0))[1]:.1f}s; the model and "
+            f"its shards {head['setup_s']:.1f}s before the first run, launch "
+            f"counts derived in {head['derive_s']:.1f}s, held to one device "
+            f"in {head.get('errs_s', 0.0):.1f}s, the run {head['run_s']:.1f}s "
+            f"in all); peak "
             f"{row['peak_gib']} GiB by rank; wire: {head['wire']}")
         if moe:
             log(f"    routing against one device (choice / slot-only "
@@ -3171,7 +3389,146 @@ def phase_topology() -> dict:
     return dict(dp=dp, grouped_ep=gep, debug_mesh=debug)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: TP training past whole blocks (per-sub-layer graphs, ragged S,
+# sequence_parallel=False)
+# ---------------------------------------------------------------------------
+
+
+def mla_norm_grads(cfg, batch, device="cuda") -> dict:
+    """Phase 13 (a)'s first check, on one device: every MLA layer's grads
+    of q_norm, kv_norm, wq_a and wkv_a from ``LM.loss``'s backward with
+    matmul_rmsnorm's kernel (its VJP in torch math, ``ops._MatmulRMSNorm``)
+    against the same backward with the plain version in the kernel's place,
+    within TRAIN_RTOL of the plain grad's max, and not zero; the kernel
+    launched twice a layer. Where matmul_rmsnorm has no gradient (its
+    kernel writes the output through ctypes) these grads are zero."""
+    from repro_torch.kernels import matmul_rmsnorm as mln
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import LM
+    from repro_torch.runtime import Runtime
+
+    lm = LM(cfg, Runtime(compute_dtype="float32", remat=False), device=device,
+            seed=SEED)
+    lm.requires_grad_(True)
+    tok = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    params = dict(lm.named_parameters())
+    names = [f"blocks.{i}.mixer.{leaf}" for i in range(cfg.num_layers)
+             for leaf in ("q_norm", "kv_norm", "wq_a", "wkv_a")]
+
+    def grads():
+        for p_ in lm.parameters():
+            p_.grad = None
+        t0 = time.monotonic()
+        lm.loss(tok).backward()
+        _sync(device)
+        return {n: (params[n].grad if params[n].grad is not None
+                    else torch.zeros_like(params[n])).detach().clone()
+                for n in names}, time.monotonic() - t0
+
+    kernel = ops.matmul_rmsnorm
+    ops.matmul_rmsnorm = (lambda a, b, scale, *, eps=1e-6, out_dtype=None:
+                          ref.matmul_rmsnorm_ref(a, b, scale, eps, out_dtype))
+    try:
+        want, plain_s = grads()
+    finally:
+        ops.matmul_rmsnorm = kernel
+    mln.launches = 0
+    got, kernel_s = grads()
+    launches = mln.launches
+    rows = {}
+    for n in names:
+        bound = TRAIN_RTOL * float(want[n].abs().max())
+        err = float((got[n] - want[n]).abs().max())
+        rows[n] = dict(err=err, bound=bound,
+                       over_bound=err / bound if bound else float("inf"),
+                       got_max=float(got[n].abs().max()))
+    del lm, params, got, want, tok
+    if _on_card(device):
+        torch.cuda.empty_cache()
+    worst = max(rows, key=lambda n: rows[n]["over_bound"])
+    ok = (all(r["err"] <= r["bound"] and r["got_max"] > 0
+              for r in rows.values())
+          and (launches == 2 * cfg.num_layers or not _on_card(device)))
+    log(f"  one device: grads of q_norm, kv_norm, wq_a and wkv_a with the "
+        f"kernel against the plain matmul_rmsnorm: worst err/bound "
+        f"{rows[worst]['over_bound']:.3e} ({worst}); smallest max|grad| "
+        f"{min(r['got_max'] for r in rows.values()):.3e}; kernel launches "
+        f"{launches} (2 a layer); backward {kernel_s:.2f}s (plain "
+        f"{plain_s:.2f}s) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 13 (a): matmul_rmsnorm's grads {rows}, "
+                             f"{launches} launches")
+    return dict(grads=rows, worst=worst, launches=launches,
+                kernel_s=kernel_s, plain_s=plain_s)
+
+
+def phase_subl() -> dict:
+    """Phase 13: (a) minicpm3-4b cut to MLA_TRAIN_LAYERS layers, the norm
+    grads of :func:`mla_norm_grads`, then one training step on
+    TP_WORLD gloo ranks (MLA_TRAIN_RUNS) held to one device by phase 9's
+    rules; (b) internlm2-1.8b cut to RAGGED_LAYERS layers in one spawn: the
+    ragged step (RAGGED_RUNS) and the sequence_parallel off and on steps
+    (SP_RUNS), each held to its batch's one-device step, the off loss
+    within SP_LOSS_RTOL of the on loss and of the one-device loss. The
+    references keep their
+    gradients alone on the host (m, v and the parameters are AdamW's first
+    step of them, :func:`first_step`), a quarter of the bytes."""
+    t0 = time.monotonic()
+    mcfg = get_mla_train_cfg()
+    mbatch = train_batch(mcfg, seq=MLA_TRAIN_SEQ, batch=MLA_TRAIN_BATCH)
+    norms = mla_norm_grads(mcfg, mbatch)
+    t = time.monotonic()
+    mla = phase_train(cfg=mcfg, batch=mbatch, runs=MLA_TRAIN_RUNS,
+                      label="phase 13 (a)", quantities=("grad",))
+    mla_s = time.monotonic() - t
+    log(f"  (a) {mla_s:.1f}s")
+    rcfg = get_tp_cfg().scaled(num_layers=RAGGED_LAYERS)
+    t = time.monotonic()
+    ragged = phase_train(cfg=rcfg, label="phase 13 (b)",
+                         quantities=("grad",), legs=[
+        (train_batch(rcfg, seq=RAGGED_SEQ), RAGGED_RUNS),
+        (train_batch(rcfg), SP_RUNS)])
+    ragged_s = time.monotonic() - t
+    off, on = (next(r for r in ragged["runs"] if r["batch"][1] == TP_SEQ
+                    and r["sequence_parallel"] == flag)
+               for flag in (False, True))
+    one = off["one_device"]
+    rel = max(abs(off["loss"] - x) / abs(x) for x in (on["loss"], one))
+    log(f"  (b) {ragged_s:.1f}s; sequence_parallel=False loss "
+        f"{off['loss']:.7f} (layout {off['layout']}) against the flag on "
+        f"{on['loss']:.7f} (layout {on['layout']}) and one device "
+        f"{one:.7f}: rel {rel:.3e}"
+        f"{' (bitwise)' if off['loss'] == on['loss'] == one else ''}")
+    if not (rel <= SP_LOSS_RTOL and off["layout"] == "gathered"
+            and on["layout"] == "sharded"):
+        raise AssertionError(f"phase 13 (b): sequence_parallel=False loss "
+                             f"rel {rel} (layouts {off['layout']}, "
+                             f"{on['layout']})")
+    ragged_rows = [r for r in ragged["runs"] if r["batch"][1] == RAGGED_SEQ]
+    if not all(r["layout"] == "replicated" for r in ragged_rows):
+        raise AssertionError("phase 13 (b): the ragged run was not in the "
+                             "replicated layout")
+    parts = (mla, ragged)
+    total = time.monotonic() - t0
+    log(f"  phase 13: {total:.1f}s (norm grads "
+        f"{norms['kernel_s'] + norms['plain_s']:.1f}s of backward, (a) "
+        f"{mla_s:.1f}s, (b) {ragged_s:.1f}s)")
+    return dict(norm_grads=norms, mla=mla, ragged=ragged, sp_rel=rel,
+                seconds=dict(total=total, mla=mla_s, ragged=ragged_s),
+                matmul_launches=sum(q["matmul_launches"] for q in parts),
+                flash_launches=sum(q["flash_launches"] for q in parts),
+                mln_launches=sum(q["mln_launches"] for q in parts),
+                call_shapes=sorted({tuple(c) for q in parts
+                                    for c in q["call_shapes"]}),
+                norm_shapes=sorted({tuple(c) for q in parts
+                                    for c in q["norm_shapes"]}),
+                flash_shapes=sorted({tuple(c) for q in parts
+                                     for c in q["flash_shapes"]}))
+
+
 def main() -> int:
+    global T_START
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
               file=sys.stderr)
@@ -3190,7 +3547,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 means full f32
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.monotonic()
+    t_start = T_START = time.monotonic()
 
     log("phase 1: card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3249,8 +3606,8 @@ def main() -> int:
         raise AssertionError(f"phase 5 called flash_attention at shapes "
                              f"phase 3 did not check: {unchecked}")
 
-    log(f"phase 6: {TP_ARCH} LM.loss at full width, {TP_WORLD} TP ranks on "
-        "one card over gloo")
+    log(f"phase 6: {TP_ARCH} LM.loss at full width cut to {TP_LAYERS} "
+        f"layers, {TP_WORLD} TP ranks on one card over gloo")
     tp = phase_tp(mmk, fa)
     if tp["matmul_launches"] == 0 or tp["flash_launches"] == 0:
         raise AssertionError("the tensor-parallel path launched no kernel")
@@ -3280,7 +3637,8 @@ def main() -> int:
         raise AssertionError(f"phase 8 called kernels at shapes phase 3 did "
                              f"not check: {unchecked}")
 
-    log(f"phase 9: one {TP_ARCH} training step at full width and depth, "
+    log(f"phase 9: one {TP_ARCH} training step at full width cut to "
+        f"{TP_LAYERS} layers, "
         f"{TP_WORLD} TP ranks on one card over gloo, against one device")
     log("  " + smi)
     train = phase_train(runs=TRAIN_RUNS + TRAIN_2D_RUNS)
@@ -3300,7 +3658,8 @@ def main() -> int:
                 f"{r['loss'] - flat['loss']:.3e})")
     log("  train " + json.dumps(train))
 
-    log(f"phase 10: paged serving of {TP_ARCH} at full width and depth, and "
+    log(f"phase 10: paged serving of {TP_ARCH} at full width cut to "
+        f"{TP_LAYERS} layers, and "
         f"{REPL_ARCH} cut to {REPL_LAYERS} layers, {TP_WORLD} TP ranks on one "
         "card over gloo, against one device")
     log("  " + smi)
@@ -3342,6 +3701,25 @@ def main() -> int:
         raise AssertionError(f"phase 12 called matmul at shapes phase 3 did "
                              f"not check: {unchecked}")
     log("  topo " + json.dumps(topo))
+
+    log(f"phase 13: TP training past whole blocks: {MLA_ARCH} (MLA) cut to "
+        f"{MLA_TRAIN_LAYERS} layers, and {TP_ARCH} cut to {RAGGED_LAYERS} "
+        f"at ragged S and without sequence parallelism, {TP_WORLD} TP ranks "
+        "on one card over gloo, against one device")
+    log("  " + smi)
+    subl = phase_subl()
+    checked_mln = {(r["shape"]["M"], r["shape"]["K"], r["shape"]["N"],
+                    r["shape"]["ldb"], r["dtype"]) for r in mln_rows}
+    unchecked = [("matmul", s_) for s_ in subl["call_shapes"]
+                 if tuple(s_) not in checked]
+    unchecked += [("matmul_rmsnorm", s_) for s_ in subl["norm_shapes"]
+                  if tuple(s_) not in checked_mln]
+    unchecked += [("flash_attention", s_) for s_ in subl["flash_shapes"]
+                  if tuple(s_) not in checked_fa]
+    if unchecked:
+        raise AssertionError(f"phase 13 called kernels at shapes phase 3 "
+                             f"did not check: {unchecked}")
+    log("  subl " + json.dumps(subl))
 
     log("kernel cases " + json.dumps({"flash_attention": rows,
                                       "matmul": mm_rows,
@@ -3390,7 +3768,7 @@ def main() -> int:
          + mla["launches"]["flash_attention"] + train["flash_launches"]
          + serve_tp["flash_launches"] + moe["serve"]["launches"]
          + moe["train"]["flash_launches"] + topo["dp"]["flash_launches"]
-         + topo["grouped_ep"]["flash_launches"],
+         + topo["grouped_ep"]["flash_launches"] + subl["flash_launches"],
          **record(head)},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -3398,12 +3776,13 @@ def main() -> int:
          "launches": tp["matmul_launches"] + train["matmul_launches"]
          + serve_tp["matmul_launches"] + moe["train"]["matmul_launches"]
          + topo["dp"]["matmul_launches"]
-         + topo["grouped_ep"]["matmul_launches"],
+         + topo["grouped_ep"]["matmul_launches"] + subl["matmul_launches"],
          **record(mm_head)},
         {"name": "matmul_rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul_rmsnorm.cu",
          "replaces": "src/repro/kernels/matmul_ln.py:55",
-         "launches": mla["launches"]["matmul_rmsnorm"],
+         "launches": mla["launches"]["matmul_rmsnorm"]
+         + subl["mln_launches"],
          **record(mln_head)}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

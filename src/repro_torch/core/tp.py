@@ -39,6 +39,17 @@ pairing of the forward, the training and the serve graphs, from the global
 shapes ``repro``'s planner sees (:func:`global_weight_shapes`): the same
 plans, cache keys included, as ``repro``'s.
 
+A block that is not whole-block TP-applicable runs sub-layer by sub-layer,
+as JAX's ``block_forward`` falls back: :func:`sp_attention`, :func:`sp_ffn`
+and :func:`sp_moe_ffn` build, plan and execute one-sub-layer graphs as
+periods (the same :class:`Period`, planner and graph-built backward), and a
+sub-layer that is not TP-applicable runs replicated
+(:func:`sp_replicated_mixer`: MLA over the gathered rows, whose gather's
+adjoint is a reduce-scatter; :func:`sp_replicated_ffn`: an MoE whose
+experts do not split over the ring). :func:`seq_rows` and
+:func:`seq_gather` move an activation between the sequence-sharded layout
+and one whole on every rank (``sequence_parallel=False``).
+
 An MoE block's expert path is the period graph's ``route`` → ``a2a_ffn``
 → ``unroute`` nodes (:func:`_moe_graph_fns`): each rank routes its sequence
 shard's tokens as one group, the backend's expert all-to-all carries them to
@@ -63,10 +74,11 @@ autodiff through the ring collectives), and an MoE serve period (JAX's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence, Union
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -162,10 +174,11 @@ class SPOptions:
     """Keyword options of the ``sp_*`` entry points (``opts=SPOptions(...)``
     or the fields as direct keywords). ``seq_sharded=False`` is the
     replicated-activation (decode/ragged) layout; ``prefix_len``
-    (prefix-LM) is not ported yet and raises; JAX's ``window`` belongs to
-    the per-sub-layer ``sp_attention``, which is not ported."""
+    (prefix-LM) is not ported yet and raises; ``window`` is
+    :func:`sp_attention`'s sliding window (0: global)."""
 
     prefix_len: int = 0
+    window: int = 0
     norm_kind: str = "rmsnorm"
     seq_sharded: bool = True
     num_microbatches: Union[int, str, None] = None
@@ -197,18 +210,29 @@ def param_shard_dim(name: str, cfg, tp: int) -> Optional[int]:
     columns for wq/wk/wv/w_up/w_gate, ``(M, None)`` rows for wo/w_down. An
     MoE's experts split by whole expert (dim 0, ``e_spec``) where
     E % tp == 0 and replicate otherwise; its router and dense-residual MLP
-    replicate. On any group, :func:`param_placement`."""
+    replicate. An MLA mixer is never sharded (JAX's mixer runs it whole,
+    under GSPMD): every rank holds it. On any group,
+    :func:`param_placement`."""
     if tp <= 1 or not name.startswith("blocks."):
         return None
-    leaf = name.split(".", 2)[2]
+    _, idx, leaf = name.split(".", 2)
+    if leaf.startswith("mixer.") and cfg.layer_kinds()[int(idx)] == "mla":
+        return None
     if cfg.moe is not None and leaf.startswith("ffn."):
         if leaf in _EXPERT_LEAVES:
             return 0 if cfg.moe.num_experts % tp == 0 else None
         return None
-    if leaf in ("mixer.wq", "ffn.w_up", "ffn.w_gate"):
-        return 1
     if leaf in ("mixer.wk", "mixer.wv"):
         return 1 if cfg.num_kv_heads % tp == 0 else None
+    return _dense_shard_dim(leaf)
+
+
+def _dense_shard_dim(leaf: str) -> Optional[int]:
+    """A dense block's column/row rule for parameter ``leaf`` (relative to
+    the block): wq/w_up/w_gate by columns, wo/w_down by rows, the rest
+    whole."""
+    if leaf in ("mixer.wq", "ffn.w_up", "ffn.w_gate"):
+        return 1
     if leaf in ("mixer.wo", "ffn.w_down"):
         return 0
     return None
@@ -313,6 +337,29 @@ def _dense_block_nodes(core_fn: Callable, has_gate: bool, act: str,
     return nodes, f"{p}r2"
 
 
+def _moe_ffn_nodes(route_fn: Callable, expert_fn: Callable,
+                   unroute_fn: Callable, expert_weights: tuple,
+                   dense_fn: Optional[Callable], dense_weights: tuple,
+                   p: str, src: str):
+    """The MoE FFN on the normed value ``src``: route → a2a_ffn → unroute
+    [+ the dense-residual MLP]. Returns (nodes, out_value, aux_value)."""
+    nodes = [
+        df.Node(f"{p}moe_route", "route", (src,), (f"{p}router",),
+                outputs=(f"{p}send", f"{p}combine", f"{p}aux"), fn=route_fn),
+        df.Node(f"{p}eout", "a2a_ffn", (f"{p}send",), expert_weights,
+                fn=expert_fn),
+        df.Node(f"{p}y", "unroute", (f"{p}eout", f"{p}combine", src),
+                fn=unroute_fn),
+    ]
+    top = f"{p}y"
+    if dense_fn is not None:
+        nodes.append(df.Node(f"{p}dmlp", "custom", (src,),
+                             dense_weights, fn=dense_fn))
+        nodes.append(df.Node(f"{p}ymoe", "add", (top, f"{p}dmlp")))
+        top = f"{p}ymoe"
+    return nodes, top, f"{p}aux"
+
+
 def _moe_block_nodes(core_fn: Callable, route_fn: Callable,
                      expert_fn: Callable, unroute_fn: Callable,
                      expert_weights: tuple,
@@ -322,23 +369,13 @@ def _moe_block_nodes(core_fn: Callable, route_fn: Callable,
     """One MoE block as a graph fragment: returns (nodes, out_value,
     aux_value). ``expert_weights``/``dense_weights`` are the (namespaced)
     weight keys of the expert FFN / dense-residual MLP."""
+    ffn, top, aux = _moe_ffn_nodes(route_fn, expert_fn, unroute_fn,
+                                   expert_weights, dense_fn, dense_weights,
+                                   p, f"{p}ln2")
     nodes = _attention_block_nodes(core_fn, p, src) + [
         df.Node(f"{p}ln2", "layernorm", (f"{p}r1",), (f"{p}scale2",)),
-        df.Node(f"{p}moe_route", "route", (f"{p}ln2",), (f"{p}router",),
-                outputs=(f"{p}send", f"{p}combine", f"{p}aux"), fn=route_fn),
-        df.Node(f"{p}eout", "a2a_ffn", (f"{p}send",), expert_weights,
-                fn=expert_fn),
-        df.Node(f"{p}y", "unroute", (f"{p}eout", f"{p}combine", f"{p}ln2"),
-                fn=unroute_fn),
-    ]
-    top = f"{p}y"
-    if dense_fn is not None:
-        nodes.append(df.Node(f"{p}dmlp", "custom", (f"{p}ln2",),
-                             dense_weights, fn=dense_fn))
-        nodes.append(df.Node(f"{p}ymoe", "add", (top, f"{p}dmlp")))
-        top = f"{p}ymoe"
-    nodes.append(df.Node(f"{p}r2", "residual", (top, f"{p}r1")))
-    return nodes, f"{p}r2", f"{p}aux"
+    ] + ffn + [df.Node(f"{p}r2", "residual", (top, f"{p}r1"))]
+    return nodes, f"{p}r2", aux
 
 
 def dense_block_graph(core_fn: Callable, has_gate: bool, act: str
@@ -378,6 +415,47 @@ def moe_block_graph(core_fn: Callable, route_fn: Callable,
                                        unroute_fn, expert_weights,
                                        dense_fn, dense_weights)
     return df.Graph([df.Node("x", "input")] + nodes, outputs=(out, aux))
+
+
+def ffn_sublayer_graph(has_gate: bool, act: str, p: str = "",
+                       seq_sharded: bool = True) -> df.Graph:
+    """x → LN → [AG →] GEMM(up[, gate]) → act[(·)] → GEMM(down) → RS|AR as
+    IR nodes (``repro``'s ``ffn_sublayer_graph``; the residual is the
+    caller's). ``optimize()`` turns the collectives into the backend's fused
+    schedules (ag_gemm_multi, gemm_rs; in the replicated layout gemm_col
+    and gemm_ar). Weight keys ``{p}scale2``, ``{p}w_up``[, ``{p}w_gate``],
+    ``{p}w_down``."""
+    nodes = [df.Node("x", "input"),
+             df.Node(f"{p}ln2", "layernorm", ("x",), (f"{p}scale2",))]
+    nodes += _ffn_chain_nodes(f"{p}ln2", f"{p}out", has_gate, act, tag="2",
+                              p=p, seq_sharded=seq_sharded)
+    return df.Graph(nodes, outputs=(f"{p}out",))
+
+
+def attention_sublayer_graph(core_fn: Callable, p: str = "",
+                             seq_sharded: bool = True) -> df.Graph:
+    """x → LN → [AG →] GEMM(q|k|v) → attention core → GEMM(out) → RS|AR as
+    IR nodes (``repro``'s ``attention_sublayer_graph``; the residual is the
+    caller's). Weight keys ``{p}scale1``, ``{p}wq``, ``{p}wk``, ``{p}wv``,
+    ``{p}wo``."""
+    nodes = _attention_block_nodes(core_fn, p, "x", seq_sharded)[:-1]
+    return df.Graph([df.Node("x", "input")] + nodes,
+                    outputs=(nodes[-1].name,))
+
+
+def moe_sublayer_graph(route_fn: Callable, expert_fn: Callable,
+                       unroute_fn: Callable, expert_weights: tuple,
+                       dense_fn: Optional[Callable] = None,
+                       dense_weights: tuple = (), p: str = "") -> df.Graph:
+    """x → LN → route → a2a_ffn → unroute [+ dense-residual MLP] as IR
+    nodes: the MoE FFN sub-layer :func:`sp_moe_ffn` runs (the residual is
+    the caller's); outputs (FFN out, aux)."""
+    ffn, top, aux = _moe_ffn_nodes(route_fn, expert_fn, unroute_fn,
+                                   expert_weights, dense_fn, dense_weights,
+                                   p, f"{p}ln2")
+    nodes = [df.Node("x", "input"),
+             df.Node(f"{p}ln2", "layernorm", ("x",), (f"{p}scale2",))]
+    return df.Graph(nodes + ffn, outputs=(top, aux))
 
 
 def _local_heads(cfg, tp: int):
@@ -614,9 +692,18 @@ _WEIGHT_PARAMS = {"scale1": "norm1.scale", "scale2": "norm2.scale",
                   "d_down": "ffn.dense.w_down"}
 
 
-def grad_groups(weights, cfg, group: TPGroup,
+def _placements(weights, cfg, group: TPGroup) -> Dict[str, object]:
+    """{period-graph weight key: its :func:`param_placement`} on ``group``,
+    through the Block parameter each key holds."""
+    return {k: param_placement(
+        "blocks.0." + _WEIGHT_PARAMS[k.split(".", 1)[1]], cfg, group)
+        for k in weights}
+
+
+def grad_groups(placements, group: TPGroup,
                 seq_sharded: bool = True) -> Dict[str, TPGroup]:
-    """The keys of a period graph's ``weights`` whose gradients are partial
+    """The keys of a period graph's weights (each with its
+    :func:`param_placement` in ``placements``) whose gradients are partial
     sums over ranks of the TP group ``group``, each with the group to
     all-reduce it over: JAX's ``grad_psum_axes``, every TP axis a weight's
     spec does not name. Sequence-sharded, every weight a rank holds whole
@@ -629,14 +716,11 @@ def grad_groups(weights, cfg, group: TPGroup,
     are partial, since a rank's attention reads only the kv heads its q
     heads use (JAX's replicated-layout backward sums none of them, which
     undercounts wk/wv there: ROADMAP C)."""
-    kv = ("wk", "wv")
     out: Dict[str, TPGroup] = {}
-    for k in weights:
+    for k, place in placements.items():
         leaf = k.split(".", 1)[1]
-        place = param_placement("blocks.0." + _WEIGHT_PARAMS[leaf], cfg,
-                                group)
         if place is None:
-            if seq_sharded or leaf in kv:
+            if seq_sharded or leaf in ("wk", "wv"):
                 out[k] = group
         elif place[1] is not group and isinstance(group, CompositeGroup):
             out[k] = group.tp_in        # grouped EP: replicated over tp_in
@@ -739,11 +823,14 @@ def global_weight_shapes(weights, cfg, group: TPGroup
     ``repro``'s planner sees (its weights enter ``shard_map`` whole): a
     rank's shard with its :func:`param_placement` dimension multiplied back
     by the size of the group that splits it."""
+    return _global_shapes(weights, _placements(weights, cfg, group))
+
+
+def _global_shapes(weights, placements) -> Dict[str, tuple]:
     out = {}
     for k, w in weights.items():
         shape = list(w.shape)
-        place = param_placement(
-            "blocks.0." + _WEIGHT_PARAMS[k.split(".", 1)[1]], cfg, group)
+        place = placements[k]
         if place is not None:
             shape[place[0]] *= place[1].size
         out[k] = tuple(shape)
@@ -768,12 +855,12 @@ class _PlanView:
     static: tuple
 
 
-def _plan_view(tpc: TPContext, weights, cfg, kinds: Sequence[str],
+def _plan_view(tpc: TPContext, weights, placements, kinds: Sequence[str],
                x: torch.Tensor, seq_sharded: bool,
                hints: Dict[str, float]) -> _PlanView:
     seq = int(x.shape[1]) * (tpc.tp if seq_sharded else 1)
     x_shape = (int(x.shape[0]), seq, int(x.shape[2]))
-    wshapes = global_weight_shapes(weights, cfg, tpc.group)
+    wshapes = _global_shapes(weights, placements)
     static = (tuple(kinds), seq_sharded, x_shape, _shape_items(wshapes),
               x.element_size(), tpc.tp, tpc.topology, tpc.mode, tpc.hw,
               _shape_items(hints))
@@ -875,6 +962,8 @@ class Period:
     plan: Optional[object] = None   # the forward's perfsim Plan, or None
     bwd_planner: Optional[Callable] = None  # TrainingGraph -> planner
     n_aux: int = 0          # aux outputs a chain (one an MoE block)
+    _trained: Optional[tuple] = field(default=None, init=False, repr=False,
+                                      compare=False)
 
     def chains(self):
         return ["x"] if self.mb == 1 else [f"mb{i}.x" for i in range(self.mb)]
@@ -899,8 +988,11 @@ class Period:
 
     def training(self):
         """(TrainingGraph, the optimized training graph, its planner or
-        None) of this period."""
-        return training_graph(self.merged, self.norm, self.bwd_planner)
+        None) of this period, built once."""
+        if self._trained is None:
+            self._trained = training_graph(self.merged, self.norm,
+                                           self.bwd_planner)
+        return self._trained
 
     def backward(self, x: torch.Tensor, ws, gy: torch.Tensor,
                  gaux: Optional[torch.Tensor] = None):
@@ -978,6 +1070,34 @@ def ring_mean(aux: torch.Tensor, group: TPGroup) -> torch.Tensor:
     return _RingMean.apply(aux, group) if group.size > 1 else aux
 
 
+def _make_period(tpc: TPContext, x: torch.Tensor, base: df.Graph,
+                 weights: Dict[str, torch.Tensor], placements,
+                 hints: Dict[str, float], role: Sequence[str],
+                 o: SPOptions) -> Period:
+    """The :class:`Period` of the single-chain graph ``base`` over
+    ``weights`` (each key's placement in ``placements``): split into the
+    planned microbatches, optimized by the planned pass 3, its weights' grad
+    groups. ``role`` names the graph in the planner's memo key (the block
+    kinds of a period, ``"sub.*"`` for a one-sub-layer graph)."""
+    if o.prefix_len:
+        raise NotImplementedError("prefix-LM attention is not ported yet "
+                                  "(VLM family, ROADMAP A15)")
+    view = (_plan_view(tpc, weights, placements, role, x, o.seq_sharded,
+                       hints)
+            if tpc.planner == "perfsim" else None)
+    n_aux = len(base.outputs) - 1
+    mb, planner, plan = _plan_period(tpc, base, x, o.num_microbatches,
+                                     moe=n_aux > 0, view=view,
+                                     seq_sharded=o.seq_sharded)
+    merged = microbatch_period_graph(base, mb)
+    bwd = (functools.partial(_bwd_planner, tpc, view=view, mb=mb)
+           if view is not None else None)
+    return Period(tpc, merged, df.optimize(merged, planner=planner),
+                  list(weights),
+                  grad_groups(placements, tpc.group, o.seq_sharded),
+                  mb, o.norm_kind, plan, bwd, n_aux)
+
+
 def build_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
                  kinds: Sequence[str], *, opts: Optional[SPOptions] = None,
                  **kw):
@@ -987,27 +1107,61 @@ def build_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     optimized by the planned pass 3, and the weights it reads. Returns
     (Period, weights dict)."""
     o = _sp_opts(opts, kw)
-    if o.prefix_len:
-        raise NotImplementedError("prefix-LM attention is not ported yet "
-                                  "(VLM family, ROADMAP A15)")
     base, weights = _period_graph(tpc, params_seq, cfg, kinds,
                                   dtype=x.dtype, seq_sharded=o.seq_sharded)
     seq = int(x.shape[1]) * (tpc.tp if o.seq_sharded else 1)
     hints = _core_comp_hints(cfg, kinds, int(x.shape[0]), seq)
-    view = (_plan_view(tpc, weights, cfg, kinds, x, o.seq_sharded, hints)
-            if tpc.planner == "perfsim" else None)
-    n_aux = len(base.outputs) - 1
-    mb, planner, plan = _plan_period(tpc, base, x, o.num_microbatches,
-                                     moe=n_aux > 0, view=view,
-                                     seq_sharded=o.seq_sharded)
-    merged = microbatch_period_graph(base, mb)
-    bwd = (functools.partial(_bwd_planner, tpc, view=view, mb=mb)
-           if view is not None else None)
-    period = Period(tpc, merged, df.optimize(merged, planner=planner),
-                    list(weights),
-                    grad_groups(weights, cfg, tpc.group, o.seq_sharded),
-                    mb, o.norm_kind, plan, bwd, n_aux)
+    period = _make_period(tpc, x, base, weights,
+                          _placements(weights, cfg, tpc.group), hints, kinds,
+                          o)
     return period, weights
+
+
+class StepRecord:
+    """What the TP forwards run inside :func:`recording` executed on this
+    rank: every :class:`Period` (a whole period, a per-block graph or a
+    one-sub-layer graph) in the order it ran, and how many mixers ran
+    replicated (:func:`sp_replicated_mixer`). A step's kernel launches
+    derive from it (:func:`step_launches`)."""
+
+    def __init__(self):
+        self.periods: List[Period] = []
+        self.replicated_mixers = 0
+
+
+_RECORDS: List[StepRecord] = []
+
+
+@contextlib.contextmanager
+def recording():
+    """Record, while the block runs, what this rank's TP forwards execute
+    (yields the :class:`StepRecord`)."""
+    rec = StepRecord()
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
+
+
+def _run_period(period: Period, x: torch.Tensor, ws: tuple):
+    """Execute ``period`` on this rank: as :class:`_PeriodFunction` where
+    autograd records (x or a weight requires grad), plainly otherwise.
+    Returns (output, the aux loss's mean over the ring; 0 without aux)."""
+    for rec in _RECORDS:
+        rec.periods.append(period)
+    tpc = period.tpc
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x,) + ws)):
+        out, aux = period.forward(x, ws)
+    elif not tpc.graph_backward:
+        raise NotImplementedError(
+            "TPConfig(graph_backward=False) on a TP ring needs autodiff "
+            "through the ring collectives, which the port does not have "
+            "yet (ROADMAP A15); use the graph-built backward")
+    else:
+        out, aux = _PeriodFunction.apply(period, x, *ws)
+    return out, (ring_mean(aux, tpc.group) if period.n_aux else aux)
 
 
 def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
@@ -1037,18 +1191,7 @@ def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     rank and are not summed over the ring (:func:`grad_groups`)."""
     period, weights = build_period(tpc, x, params_seq, cfg, kinds,
                                    opts=_sp_opts(opts, kw))
-    ws = tuple(weights.values())
-    if not (torch.is_grad_enabled()
-            and any(t.requires_grad for t in (x,) + ws)):
-        out, aux = period.forward(x, ws)
-    elif not tpc.graph_backward:
-        raise NotImplementedError(
-            "TPConfig(graph_backward=False) on a TP ring needs autodiff "
-            "through the ring collectives, which the port does not have "
-            "yet (ROADMAP A15); use the graph-built backward")
-    else:
-        out, aux = _PeriodFunction.apply(period, x, *ws)
-    return out, (ring_mean(aux, tpc.group) if period.n_aux else aux)
+    return _run_period(period, x, tuple(weights.values()))
 
 
 def sp_block(tpc: TPContext, x: torch.Tensor, params, cfg,
@@ -1059,11 +1202,135 @@ def sp_block(tpc: TPContext, x: torch.Tensor, params, cfg,
                      opts=_sp_opts(opts, kw))
 
 
+# ---------------------------------------------------------------------------
+# Sub-layers: one-sub-layer periods, and the replicated sub-layers of a ring
+# ---------------------------------------------------------------------------
+#
+# A block that is not whole-block TP-applicable (an MLA mixer, an MoE whose
+# experts do not split over the ring) runs sub-layer by sub-layer, as JAX's
+# ``block_forward`` falls back: a TP-applicable sub-layer as its own
+# one-sub-layer period (:func:`sp_attention`, :func:`sp_ffn`,
+# :func:`sp_moe_ffn`: the same Period, planner and graph-built backward as a
+# whole period), the others replicated. JAX runs those under GSPMD; here
+# they are explicit (:func:`sp_replicated_mixer`, :func:`sp_replicated_ffn`).
+
+
+def _ffn_placements(weights, group: TPGroup):
+    """A dense FFN sub-layer's placements on ``group``, by the dense rule
+    (:func:`_dense_shard_dim`): up/gate by columns, down by rows, the norm
+    scale whole."""
+    dims = {k: _dense_shard_dim(_WEIGHT_PARAMS[k.split(".", 1)[1]])
+            for k in weights}
+    return {k: None if d is None else (d, group) for k, d in dims.items()}
+
+
+def build_ffn_sublayer(tpc: TPContext, x: torch.Tensor, norm_scale, w_up,
+                       w_gate, w_down, act: str, *,
+                       opts: Optional[SPOptions] = None, **kw):
+    """The one-sub-layer :class:`Period` :func:`sp_ffn` runs for ``x`` (a
+    ``meta`` tensor will do) and its weights dict."""
+    o = _sp_opts(opts, kw)
+    p = "b0."
+    base = ffn_sublayer_graph(w_gate is not None, act, p=p,
+                              seq_sharded=o.seq_sharded)
+    weights = {p + "scale2": norm_scale, p + "w_up": w_up}
+    if w_gate is not None:
+        weights[p + "w_gate"] = w_gate
+    weights[p + "w_down"] = w_down
+    period = _make_period(tpc, x, base, weights,
+                          _ffn_placements(weights, tpc.group), {},
+                          ("sub.ffn",), o)
+    return period, weights
+
+
+def sp_ffn(tpc: TPContext, x: torch.Tensor, norm_scale, w_up, w_gate,
+           w_down, act: str, *, opts: Optional[SPOptions] = None, **kw):
+    """The FFN sub-layer FFN(LN(x)) (the residual is the caller's) as a
+    one-sub-layer period: :func:`ffn_sublayer_graph` built, split into the
+    planned microbatches, optimized and executed on this rank, with the
+    graph-built backward where autograd records. ``w_gate`` may be None.
+    x: (B, S/tp, d) sequence-sharded, or with ``seq_sharded=False`` (B, S,
+    d) whole on every rank (the down projection then ends in a
+    ``gemm_ar``). The weights are this rank's shards: up/gate by columns,
+    down by rows."""
+    period, weights = build_ffn_sublayer(tpc, x, norm_scale, w_up, w_gate,
+                                         w_down, act, opts=_sp_opts(opts, kw))
+    return _run_period(period, x, tuple(weights.values()))[0]
+
+
+def build_attention_sublayer(tpc: TPContext, x: torch.Tensor, norm_scale,
+                             wq, wk, wv, wo, cfg, *,
+                             opts: Optional[SPOptions] = None, **kw):
+    """The one-sub-layer :class:`Period` :func:`sp_attention` runs for
+    ``x`` and its weights dict."""
+    o = _sp_opts(opts, kw)
+    p = "b0."
+    core = _attention_core_fn(cfg, tpc.tp, window=o.window,
+                              rank=tpc.group.rank)
+    base = attention_sublayer_graph(core, p=p, seq_sharded=o.seq_sharded)
+    weights = {p + "scale1": norm_scale, p + "wq": wq, p + "wk": wk,
+               p + "wv": wv, p + "wo": wo}
+    seq = int(x.shape[1]) * (tpc.tp if o.seq_sharded else 1)
+    hints = _core_comp_hints(cfg, ("attn",), int(x.shape[0]), seq)
+    period = _make_period(tpc, x, base, weights,
+                          _placements(weights, cfg, tpc.group), hints,
+                          ("sub.attn",), o)
+    return period, weights
+
+
+def sp_attention(tpc: TPContext, x: torch.Tensor, norm_scale, wq, wk, wv,
+                 wo, cfg, *, opts: Optional[SPOptions] = None, **kw):
+    """The attention sub-layer attn(LN(x)) (the residual is the caller's)
+    as a one-sub-layer period over :func:`attention_sublayer_graph`; Q heads
+    shard over the ring, K/V too where ``num_kv_heads % tp == 0`` and
+    replicate otherwise (every rank projects all kv heads and its core
+    slices the ones its q heads use, as :func:`_attention_core_fn` does).
+    Options ``window``, ``norm_kind``, ``seq_sharded`` and
+    ``num_microbatches`` as :class:`SPOptions` keywords."""
+    period, weights = build_attention_sublayer(
+        tpc, x, norm_scale, wq, wk, wv, wo, cfg, opts=_sp_opts(opts, kw))
+    return _run_period(period, x, tuple(weights.values()))[0]
+
+
+def build_moe_sublayer(tpc: TPContext, x: torch.Tensor, norm_scale, params,
+                       cfg, norm_kind: str = "rmsnorm"):
+    """The one-sub-layer :class:`Period` :func:`sp_moe_ffn` runs for ``x``
+    and its weights dict: never split into microbatches (each chain would
+    route with its own capacity, which JAX's ``sp_moe_ffn`` does not)."""
+    E, ring = cfg.moe.num_experts, tpc.route_ring
+    if not (E % ring == 0 or ring % E == 0):
+        raise ValueError(f"{E} experts do not map onto a ring of {ring}")
+    route_fn, expert_fn, unroute_fn = _moe_graph_fns(cfg, ring,
+                                                     tpc.route_group.rank)
+    p = "b0."
+    dense = params.dense is not None
+    e_keys = (p + "w_up", p + "w_gate", p + "w_down")
+    d_keys = (p + "d_up", p + "d_gate", p + "d_down") if dense else ()
+    base = moe_sublayer_graph(route_fn, expert_fn, unroute_fn, e_keys,
+                              _dense_residual_fn(cfg.act) if dense else None,
+                              d_keys, p=p)
+    dt = x.dtype
+    weights = {p + "scale2": norm_scale, p + "router": params.router,
+               p + "w_up": params.w_up.to(dt),
+               p + "w_gate": params.w_gate.to(dt),
+               p + "w_down": params.w_down.to(dt)}
+    if dense:
+        weights.update({p + "d_up": params.dense.w_up.to(dt),
+                        p + "d_gate": params.dense.w_gate.to(dt),
+                        p + "d_down": params.dense.w_down.to(dt)})
+    period = _make_period(tpc, x, base, weights,
+                          _placements(weights, cfg, tpc.group), {},
+                          ("sub.moe",),
+                          SPOptions(norm_kind=norm_kind, num_microbatches=1))
+    return period, weights
+
+
 def sp_moe_ffn(tpc: TPContext, x: torch.Tensor, norm_scale: torch.Tensor,
                params, cfg, norm_kind: str = "rmsnorm"):
-    """The MoE FFN sub-layer with the backend's expert all-to-all, outside
-    a period graph (forward): each rank routes its sequence shard's tokens
-    to the experts' owners through the :func:`_moe_graph_fns` closures.
+    """The MoE FFN sub-layer with the backend's expert all-to-all, as a
+    one-sub-layer period (:func:`moe_sublayer_graph`; differentiable by its
+    graph-built backward): each rank routes its sequence shard's tokens to
+    the experts' owners through the :func:`_moe_graph_fns` closures.
     ``params`` is this rank's :class:`repro_torch.models.ffn.MoE`: experts
     sharded by whole expert where E % ring == 0, all E replicated where
     E < ring (ring % E == 0; expert e on rank e·(ring/E), the others
@@ -1071,23 +1338,98 @@ def sp_moe_ffn(tpc: TPContext, x: torch.Tensor, norm_scale: torch.Tensor,
     (grouped EP). x: (B, S/tp, d) sequence-sharded. Returns (FFN(LN(x)),
     the aux loss's mean over the TP group); the residual is the
     caller's."""
-    from repro_torch.models.ffn import mlp_forward
+    period, weights = build_moe_sublayer(tpc, x, norm_scale, params, cfg,
+                                         norm_kind)
+    return _run_period(period, x, tuple(weights.values()))
+
+
+class _SeqGather(torch.autograd.Function):
+    """All-gather of the rank's sequence rows (B, S/tp, ·) into (B, S, ·).
+    Its adjoint depends on what lies downstream: where each rank keeps
+    only its own rows of what it computes from the gathered value
+    (``partial=True``), each rank's cotangent of it is partial and the
+    adjoint is a reduce-scatter; where every rank computes the same loss
+    from it (``partial=False``: the activation whole between periods), the
+    cotangent is replicated and the adjoint keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, group, partial):
+        ctx.group, ctx.partial, ctx.s = group, partial, x.shape[1]
+        return group.all_gather(x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            return ctx.group.reduce_scatter(g.contiguous(), 1), None, None
+        r, s = ctx.group.rank, ctx.s
+        return g[:, r * s:(r + 1) * s].contiguous(), None, None
+
+
+class _SeqRows(torch.autograd.Function):
+    """This rank's sequence rows of an activation whole (and the same) on
+    every rank. The rows' cotangents are each rank's complete part of the
+    whole's, so the adjoint all-gathers them."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        s = x.shape[1] // group.size
+        return x[:, group.rank * s:(group.rank + 1) * s].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g.contiguous(), 1), None
+
+
+def seq_gather(x: torch.Tensor, group: TPGroup,
+               partial: bool) -> torch.Tensor:
+    """(B, S/tp, ·) rows → (B, S, ·) on every rank, differentiable
+    (:class:`_SeqGather`)."""
+    return _SeqGather.apply(x, group, partial) if group.size > 1 else x
+
+
+def seq_rows(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """This rank's (B, S/tp, ·) rows of (B, S, ·), differentiable
+    (:class:`_SeqRows`)."""
+    return _SeqRows.apply(x, group) if group.size > 1 else x
+
+
+def sp_replicated_mixer(tpc: TPContext, x: torch.Tensor, norm_scale,
+                        mixer_fn: Callable, norm_kind: str = "rmsnorm",
+                        seq_sharded: bool = True) -> torch.Tensor:
+    """A mixer that is not TP-applicable (MLA), whole weights on every rank
+    (JAX runs it under GSPMD). Sequence-sharded (x (B, S/tp, d)): the normed
+    rows all-gathered along the sequence, ``mixer_fn`` on the whole
+    sequence, this rank's rows of its output kept; the gather's adjoint is
+    a reduce-scatter (each rank's cotangent of the gathered rows is
+    partial), and the mixer's weight grads are partial sums over the ranks,
+    summed over the ring once a step
+    (:meth:`repro_torch.models.transformer.LM.sync_grads`). With
+    ``seq_sharded=False`` (x (B, S, d) whole on every rank) ``mixer_fn`` on
+    the normed x, its grads complete on every rank."""
     from repro_torch.models.layers import apply_norm
 
-    E, ring = cfg.moe.num_experts, tpc.route_ring
-    if not (E % ring == 0 or ring % E == 0):
-        raise ValueError(f"{E} experts do not map onto a ring of {ring}")
-    route_fn, expert_fn, unroute_fn = _moe_graph_fns(cfg, ring,
-                                                     tpc.route_group.rank)
-    xn = apply_norm(norm_kind, x, norm_scale)
-    send, combine, aux = route_fn(xn, params.router)
-    ws = tuple(w.to(x.dtype) for w in (params.w_up, params.w_gate,
-                                       params.w_down))
-    ret = tpc.backend.a2a_expert_ffn(
-        send, lambda chunk: expert_fn(chunk, *ws), tpc.group, tpc.cais)
-    out = unroute_fn(ret, combine, xn)
-    if params.dense is not None:
-        out = out + mlp_forward(params.dense, xn, cfg.act)
+    for rec in _RECORDS:
+        rec.replicated_mixers += 1
+    h = apply_norm(norm_kind, x, norm_scale)
+    if not seq_sharded:
+        return mixer_fn(h)
+    full = seq_gather(h, tpc.group, partial=True)
+    r, s = tpc.group.rank, x.shape[1]
+    return mixer_fn(full)[:, r * s:(r + 1) * s]
+
+
+def sp_replicated_ffn(tpc: TPContext, x: torch.Tensor, norm_scale,
+                      ffn_fn: Callable, norm_kind: str = "rmsnorm"):
+    """An FFN that is not TP-applicable (an MoE whose experts replicate:
+    E % route_ring != 0), on a sequence-sharded ring: ``ffn_fn`` (per token,
+    its whole weights) on this rank's normed rows, its aux loss the mean
+    over the ring (as :func:`sp_period` reports it). Its weight grads are
+    partial sums over the ranks, summed over the ring once a step. Returns
+    (FFN(LN(x)), aux)."""
+    from repro_torch.models.layers import apply_norm
+
+    out, aux = ffn_fn(apply_norm(norm_kind, x, norm_scale))
     return out, ring_mean(aux.reshape(()), tpc.group)
 
 
@@ -1332,6 +1674,35 @@ def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
             else:
                 calls += rs()
     return calls
+
+
+def step_launches(rec: StepRecord, batch: int, seq: int, d_model: int,
+                  itemsize: int) -> dict:
+    """The kernel calls one rank makes in a training step's forward and
+    graph-built backward over a (``batch``, ``seq``) batch of ``itemsize``
+    activations, derived from what its forward ran (``rec``): matmul and
+    flash by :func:`matmul_calls` / :func:`flash_calls` of each period's
+    optimized forward and training graphs; a replicated (MLA) mixer one
+    flash and two matmul_rmsnorm calls a forward (its backward is torch
+    math: ``ops._FlashAttention``, ``ops._MatmulRMSNorm``). Also the
+    overlap_asym nodes the graphs execute, and those of the first period's
+    training graph that pair a backward collective with a forward one."""
+    n = rec.replicated_mixers
+    out = dict(matmul=0, flash=n, matmul_rmsnorm=2 * n, overlap_asym=0,
+               cross_direction_pairs=[])
+    for i, period in enumerate(rec.periods):
+        _, bwd, _ = period.training()
+        for graph in (period.graph, bwd):
+            out["matmul"] += matmul_calls(graph, period.tpc,
+                                          batch // period.mb, seq, d_model,
+                                          itemsize)
+            out["flash"] += flash_calls(graph)
+            out["overlap_asym"] += sum(nd.op == "overlap_asym"
+                                       for nd in graph.nodes)
+        if i == 0:
+            out["cross_direction_pairs"] = cross_direction_pairs(
+                period.merged, bwd)
+    return out
 
 
 def flash_calls(graph: df.Graph) -> int:

@@ -24,7 +24,7 @@ import traceback
 from typing import Any, Callable, List, Optional
 
 
-def _rank_main(fn, world, rank, init_method, backend, device, args, out):
+def _rank_main(world, rank, init_method, backend, device, inbox, out):
     import torch
 
     from repro_torch import sharding
@@ -33,6 +33,8 @@ def _rank_main(fn, world, rank, init_method, backend, device, args, out):
     # the ranks share this host's cores: no rank's CPU kernels take them all
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     try:
+        fn, args = inbox.recv()
+        inbox.close()
         group = sharding.init_tp_group(world, rank, init_method=init_method,
                                        backend=backend, device=device)
         try:
@@ -54,14 +56,22 @@ def run_ranks(fn: Callable, world: int, *args: Any,
     tmp = tempfile.mkdtemp(prefix="tp_ranks_")
     init_method = f"file://{os.path.join(tmp, 'rendezvous')}"
     out = ctx.Queue()
+    pipes = [ctx.Pipe(duplex=False) for _ in range(world)]
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, world, r, init_method, backend, device,
-                               args, out), daemon=True)
+                         args=(world, r, init_method, backend, device,
+                               pipes[r][0], out), daemon=True)
              for r in range(world)]
     results: dict = {}
     try:
         for p in procs:
             p.start()
+        # fn and its arguments go to the ranks once every rank is starting:
+        # sent with the process, a payload past the pipe's buffer would
+        # hold each start until the rank before it had imported torch
+        for inbox, send in pipes:
+            inbox.close()
+            send.send((fn, args))
+            send.close()
         while len(results) < world:    # drain before joining
             try:
                 rank, ok, value = out.get(timeout=timeout)

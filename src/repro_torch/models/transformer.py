@@ -16,7 +16,13 @@ weights, the embedded activation is cut to this rank's sequence shard, every
 period runs as one dataflow graph (:func:`repro_torch.core.tp.sp_period`)
 and stays sequence-sharded between periods, and the loss's (sum, count) is
 all-reduced over the ring; an MoE period's aux loss is the mean over the
-ring of each rank's, the aux of its own shard. Paged serving
+ring of each rank's, the aux of its own shard. A block that is not
+whole-block TP-applicable (MLA; an MoE whose experts do not split over the
+ring) runs sub-layer by sub-layer (:func:`block_routes`). Where the
+sequence does not split over the ring (S % tp != 0) the activation is whole
+on every rank and dense blocks run in the replicated-activation graphs; with
+``sequence_parallel=False`` it is whole between periods, each period taking
+its rows and gathering its output (:data:`LAYOUTS`). Paged serving
 (``serve_step``) on a ring keeps the activation whole on every rank and
 runs each period as one serve graph
 (:func:`repro_torch.core.tp.sp_serve_period`) against the rank's KV pools;
@@ -46,9 +52,10 @@ ring already saves only (x, weights) for its graph-built backward, which
 re-executes the forward, so there it adds nothing and is not applied (JAX's
 ``jax.checkpoint`` around its ``custom_vjp`` runs that forward a third
 time: the same values). Serving over dense caches (``prefill`` /
-``decode_step``) runs on one device only (ROADMAP A11, A12); MLA blocks run
-on one device only (JAX's mixer never shards MLA) and have no paged path
-(their cache is a latent, not K/V).
+``decode_step``) runs on one device only (ROADMAP A11 (b), A12); MLA blocks
+are whole on every rank (JAX's mixer never shards MLA), train on a ring
+through the replicated mixer, and have no paged path (their cache is a
+latent, not K/V).
 """
 from __future__ import annotations
 
@@ -117,10 +124,26 @@ def _tp_context(rt: Runtime, group: Optional[TPGroup]
             f"tp mode {rt.tp.mode!r} leaves scheduling to the framework; its "
             "torch counterpart (DTensor) is not ported yet (ROADMAP A5): use "
             "'barrier' or 'cais' on a TP group")
-    if not rt.tp.sequence_parallel:
-        raise NotImplementedError("TP without sequence parallelism is not "
-                                  "ported yet (ROADMAP A11)")
     return tp_mod.TPContext.from_config(rt.tp, group)
+
+
+# the activation's layout on a TP ring (LM.forward picks it):
+#   "sharded"    (B, S/tp, d) between periods, every period sequence-sharded
+#   "gathered"   sequence_parallel=False: (B, S, d) whole on every rank
+#                between periods; each period takes its rows on entry and
+#                all-gathers its output (JAX's ``_sp_axis`` None, the same
+#                values)
+#   "replicated" ragged S % tp != 0 (or S = 1): (B, S, d) whole on every
+#                rank everywhere, dense blocks in the replicated-activation
+#                graphs (``seq_sharded=False``)
+LAYOUTS = ("sharded", "gathered", "replicated")
+
+
+def activation_layout(rt: Runtime, seq: int, tp: int) -> str:
+    """The layout of a (B, ``seq``, d) activation on a TP ring of ``tp``."""
+    if seq % tp:
+        return "replicated"
+    return "sharded" if rt.tp.sequence_parallel else "gathered"
 
 
 def _whole_block_applicable(cfg: ArchConfig, kind: str, tp: int,
@@ -133,23 +156,111 @@ def _whole_block_applicable(cfg: ArchConfig, kind: str, tp: int,
                  or tp_mod.tp_applicable(cfg, "ffn", tp)))
 
 
+def block_routes(kind: str, cfg: ArchConfig, tpc: tp_mod.TPContext,
+                 seq_sharded: bool = True) -> Tuple[str, str]:
+    """How :func:`block_forward` runs a block of ``kind`` on a TP ring, JAX's
+    ``block_forward`` branch for branch: ("block", "block") where the whole
+    block is one dataflow graph (``sp_block``; ``seq_sharded=False`` the
+    replicated-activation graph of a dense block); otherwise (mixer, FFN)
+    sub-layer by sub-layer, the mixer "sp_attention" or "replicated" (MLA),
+    the FFN "sp_moe_ffn", "sp_ffn", "replicated" (an MoE whose experts do
+    not split over the route ring) or "none". MoE at ragged S, which JAX
+    runs replicated under GSPMD, raises (ROADMAP A11 (b))."""
+    if not seq_sharded and cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE at a sequence that does not split over the "
+            f"ring (tp={tpc.tp}) needs an MoE graph in the replicated "
+            "layout, which is not ported yet (ROADMAP A11 (b))")
+    if _whole_block_applicable(cfg, kind, tpc.tp, tpc.route_ring):
+        return "block", "block"
+    mixer = ("sp_attention" if kind in ("attn", "swa")
+             and tp_mod.tp_applicable(cfg, kind, tpc.tp) else "replicated")
+    if mixer == "replicated" and kind != "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: a {kind!r} mixer that is not TP-applicable at "
+            f"tp={tpc.tp} has no replicated weights to run (ROADMAP A5)")
+    if not _has_ffn(cfg):
+        ffn = "none"
+    elif tp_mod.tp_applicable(cfg, "moe", tpc.tp, tpc.route_ring):
+        ffn = "sp_moe_ffn"
+    elif tp_mod.tp_applicable(cfg, "ffn", tpc.tp):
+        ffn = "sp_ffn"
+    elif cfg.moe is not None:
+        ffn = "replicated"
+    else:
+        raise NotImplementedError(
+            f"{cfg.name}: d_ff {cfg.d_ff} does not split over tp={tpc.tp}")
+    return mixer, ffn
+
+
+def replicated_block_params(kind: str, cfg: ArchConfig,
+                            tpc: tp_mod.TPContext) -> Tuple[str, ...]:
+    """The parameter name prefixes of a block of ``kind`` (relative to the
+    block) that run outside every period graph on a sequence-sharded ring
+    and are whole on every rank: their grads are partial sums over the
+    ranks, which :meth:`LM.sync_grads` sums once (a replicated mixer and
+    its norm1; a replicated FFN and its norm2)."""
+    mixer, ffn = block_routes(kind, cfg, tpc)
+    out = ()
+    if mixer == "replicated":
+        out += ("norm1.", "mixer.")
+    if ffn == "replicated":
+        out += ("norm2.", "ffn.")
+    return out
+
+
 def block_forward(kind: str, params: Block, x: torch.Tensor,
                   cfg: ArchConfig, tpc: Optional[tp_mod.TPContext] = None,
-                  prefix_len: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pre-norm residual block. Returns (x, aux_loss). On a TP ring the
-    whole block runs as one dataflow graph (``sp_block``) on this rank's
-    sequence shard; the per-sub-layer TP graphs JAX falls back to for a
-    block that is only partly TP-applicable are not ported."""
-    if tpc is not None:
-        if not _whole_block_applicable(cfg, kind, tpc.tp, tpc.route_ring):
-            raise NotImplementedError(
-                f"{cfg.name}: a {kind!r} block that is not whole-block "
-                f"TP-applicable at tp={tpc.tp} is not ported yet")
+                  prefix_len: int = 0, seq_sharded: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm residual block. Returns (x, aux_loss). On a TP ring by
+    :func:`block_routes`: the whole block as one dataflow graph
+    (``sp_block``) where attention and FFN both are TP-applicable, in the
+    replicated-activation graph where the sequence does not split
+    (``seq_sharded=False``: x (B, S, d) whole on every rank); otherwise
+    sub-layer by sub-layer, each TP-applicable one as its one-sub-layer
+    graph (``sp_attention``, ``sp_ffn``, ``sp_moe_ffn``) and the others
+    replicated (:func:`repro_torch.core.tp.sp_replicated_mixer`,
+    ``sp_replicated_ffn``)."""
+    if tpc is None:
+        x = x + _mixer_forward(kind, params.mixer, params.norm1(x), cfg,
+                               prefix_len)
+        return _ffn_block(params, x, cfg)
+    mixer, ffn = block_routes(kind, cfg, tpc, seq_sharded)
+    if mixer == "block":
         return tp_mod.sp_block(tpc, x, params, cfg, kind,
-                               prefix_len=prefix_len, norm_kind=cfg.norm)
-    x = x + _mixer_forward(kind, params.mixer, params.norm1(x), cfg,
-                           prefix_len)
-    return _ffn_block(params, x, cfg)
+                               prefix_len=prefix_len, norm_kind=cfg.norm,
+                               seq_sharded=seq_sharded)
+    dt = x.dtype
+    if mixer == "sp_attention":
+        m = params.mixer
+        x = x + tp_mod.sp_attention(
+            tpc, x, params.norm1.scale.to(dt), m.wq.to(dt), m.wk.to(dt),
+            m.wv.to(dt), m.wo.to(dt), cfg, window=_window(kind, cfg),
+            prefix_len=prefix_len, norm_kind=cfg.norm,
+            seq_sharded=seq_sharded)
+    else:
+        x = x + tp_mod.sp_replicated_mixer(
+            tpc, x, params.norm1.scale,
+            lambda h: _mixer_forward(kind, params.mixer, h, cfg, prefix_len),
+            cfg.norm, seq_sharded=seq_sharded)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn == "sp_moe_ffn":
+        out, aux = tp_mod.sp_moe_ffn(tpc, x, params.norm2.scale.to(dt),
+                                     params.ffn, cfg, norm_kind=cfg.norm)
+        x = x + out
+    elif ffn == "sp_ffn":
+        f = params.ffn
+        x = x + tp_mod.sp_ffn(
+            tpc, x, params.norm2.scale.to(dt), f.w_up.to(dt),
+            f.w_gate.to(dt), f.w_down.to(dt), cfg.act, norm_kind=cfg.norm,
+            seq_sharded=seq_sharded)
+    elif ffn == "replicated":
+        out, aux = tp_mod.sp_replicated_ffn(
+            tpc, x, params.norm2.scale,
+            lambda h: ffn_mod.ffn_forward(params.ffn, h, cfg), cfg.norm)
+        x = x + out
+    return x, aux
 
 
 def _mixer_forward(kind: str, mixer, h: torch.Tensor, cfg: ArchConfig,
@@ -184,27 +295,37 @@ def _ffn_residual(params: Block, x: torch.Tensor,
 def _blocks_forward(kinds: Sequence[str], blocks: Sequence[Block],
                     x: torch.Tensor, cfg: ArchConfig,
                     tpc: Optional[tp_mod.TPContext] = None,
-                    prefix_len: int = 0):
-    """Run consecutive blocks: on a TP ring, when every block is
-    whole-block TP-applicable, as ONE period-level dataflow graph
-    (``sp_period``); otherwise block by block."""
-    if (tpc is not None and len(blocks) > 0
+                    prefix_len: int = 0, layout: str = "sharded"):
+    """Run consecutive blocks (JAX's ``_blocks_forward``): on a TP ring with
+    a sequence that splits, when every block is whole-block TP-applicable,
+    as ONE period-level dataflow graph (``sp_period``); otherwise block by
+    block (:func:`block_forward`). Under ``layout="gathered"`` the blocks
+    take this rank's rows of the whole x on entry and all-gather their
+    output (:func:`repro_torch.core.tp.seq_rows`, ``seq_gather``)."""
+    if tpc is not None and layout == "gathered":
+        x, aux = _blocks_forward(kinds, blocks, tp_mod.seq_rows(x, tpc.group),
+                                 cfg, tpc, prefix_len, "sharded")
+        return tp_mod.seq_gather(x, tpc.group, partial=False), aux
+    if (tpc is not None and len(blocks) > 0 and layout == "sharded"
             and all(_whole_block_applicable(cfg, k, tpc.tp, tpc.route_ring)
                     for k in kinds)):
         return tp_mod.sp_period(tpc, x, list(blocks), cfg, kinds,
                                 prefix_len=prefix_len, norm_kind=cfg.norm)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, blk in zip(kinds, blocks):
-        x, a = block_forward(kind, blk, x, cfg, tpc, prefix_len)
+        x, a = block_forward(kind, blk, x, cfg, tpc, prefix_len,
+                             seq_sharded=layout != "replicated")
         aux = aux + a
     return x, aux
 
 
 def stack_forward(blocks: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig,
                   tpc: Optional[tp_mod.TPContext] = None,
-                  prefix_len: int = 0, remat: bool = False):
+                  prefix_len: int = 0, remat: bool = False,
+                  layout: str = "sharded"):
     """The whole stack, one ``layer_pattern`` period at a time (JAX's
-    ``lax.scan`` over stacked periods), then the remainder layers. With
+    ``lax.scan`` over stacked periods), then the remainder layers, the
+    activation in ``layout`` on a TP ring (:data:`LAYOUTS`). With
     ``remat`` (where autograd records) each period and the remainder tail
     keep only their input for the backward and run their forward again
     there (``torch.utils.checkpoint``, non-reentrant)."""
@@ -216,8 +337,8 @@ def stack_forward(blocks: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig,
     def run(kinds, blks, x):
         if remat:
             return checkpoint(_blocks_forward, kinds, blks, x, cfg, tpc,
-                              prefix_len, use_reentrant=False)
-        return _blocks_forward(kinds, blks, x, cfg, tpc, prefix_len)
+                              prefix_len, layout, use_reentrant=False)
+        return _blocks_forward(kinds, blks, x, cfg, tpc, prefix_len, layout)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in range(n_full):
@@ -332,7 +453,8 @@ def _blocks_step(kinds: Sequence[str], blocks: Sequence[Block],
     runs as ONE serve graph (``sp_serve_period``: replicated activation,
     ``gemm_ar`` reductions, the pools through each core node); otherwise
     the rank raises (JAX falls back per block under GSPMD; the port has no
-    such fallback, ROADMAP A5). On one device, block by block."""
+    such fallback in serving, ROADMAP A11 (b)). On one device, block by
+    block."""
     if tpc is None:
         for blk, pool in zip(blocks, pools):
             x, _ = block_step(blk, x, pool, view, cfg)
@@ -346,8 +468,8 @@ def _blocks_step(kinds: Sequence[str], blocks: Sequence[Block],
                for k in kinds):
         raise NotImplementedError(
             f"{cfg.name}: serving blocks {tuple(kinds)} that are not "
-            f"whole-block TP-applicable at tp={tpc.tp} is not ported yet "
-            "(ROADMAP A5)")
+            f"whole-block TP-applicable at tp={tpc.tp} (JAX falls back per "
+            "sub-layer under GSPMD) is not ported yet (ROADMAP A11 (b))")
     return tp_mod.sp_serve_period(tpc, x, list(blocks), cfg, kinds,
                                   list(pools), view, norm_kind=cfg.norm)
 
@@ -393,15 +515,21 @@ def chunked_ce_loss(x: torch.Tensor, embed_or_head: torch.Tensor,
                     group: Optional[TPGroup] = None,
                     data: Optional[TPGroup] = None) -> torch.Tensor:
     """Mean cross-entropy with logits computed per sequence chunk (bounds
-    the (B, chunk, V) logits). x: (B, S, d) — on a TP ring this rank's
-    sequence shard, with the matching slices of ``labels`` and ``mask``;
-    the (sum, count) pair is then all-reduced over ``group`` and over the
-    ``data`` axis, so the loss is the mean over the global batch (a mean of
-    replica means would differ wherever the masks do)."""
+    the (B, chunk, V) logits). x: (B, S, d) — on a TP ring in the
+    ``"sharded"`` layout this rank's sequence shard, with the matching
+    slices of ``labels`` and ``mask``; the (sum, count) pair is then
+    all-reduced over ``group`` and over the ``data`` axis, so the loss is
+    the mean over the global batch (a mean of replica means would differ
+    wherever the masks do). Where the activation is whole on every rank the
+    caller passes no ``group``: every rank's pair is already the whole
+    sequence's. The chunks are ``rt.loss_chunk`` long, the last one shorter
+    where that does not divide S: JAX's ``lax.scan`` needs equal chunks and
+    halves the chunk until it divides S (one token a chunk at a prime S);
+    this slice loop needs no divisor. Where the chunk divides S the chunks
+    are JAX's; elsewhere the per-token sum is the same, grouped
+    otherwise."""
     B, S, _ = x.shape
     chunk = min(rt.loss_chunk, S)
-    while S % chunk:
-        chunk //= 2
     w = embed_or_head.T if tied else embed_or_head    # (d, V)
     w = w.to(x.dtype)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -546,13 +674,18 @@ class LM(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Hidden states after the final norm, and the aux loss. tokens:
         (B, S) int, the whole sequence on every rank; on a TP ring the
-        result is this rank's sequence shard (B, S/tp, d)."""
+        result is this rank's sequence shard (B, S/tp, d) in the
+        ``"sharded"`` layout, and (B, S, d) on every rank where the
+        activation is whole (``sequence_parallel=False``, or S % tp != 0:
+        :func:`activation_layout`)."""
         tpc = _tp_context(self.rt, self.group)
         x = self._embed(tokens, self.rt.dtype)
+        S = x.shape[1]
         if tpc is not None:
-            x = x[:, self._seq_shard(x.shape[1])].contiguous()
+            x = x[:, self._seq_shard(S)].contiguous()
         x, aux = stack_forward(self.blocks, x, self.cfg, tpc,
-                               remat=self.rt.remat and tpc is None)
+                               remat=self.rt.remat and tpc is None,
+                               layout=activation_layout(self.rt, S, self.tp))
         return self.final_norm(x), aux
 
     def split_groups(self) -> Dict[str, TPGroup]:
@@ -569,16 +702,37 @@ class LM(nn.Module):
                 out[n] = place[1]
         return out
 
-    def sync_grads(self, data: bool = True) -> None:
-        """Sum, once, the grads of the parameters outside the period graphs
-        (embedding, head, final norm) over the whole TP group: each rank's
-        are the partial sums of its sequence shard (the period graphs' own
-        weights are summed in their backward). Then, unless ``data`` is
-        False, every grad over the data axis: each replica's is its rows'
-        part of the global batch's. A no-op on one device."""
+    def sync_grads(self, seq: int, data: bool = True) -> None:
+        """Sum, once, over the whole TP group the grads that are partial
+        sums over its ranks, by the layout of the step's batch (its
+        sequence length ``seq``, :func:`activation_layout`): in the
+        ``"sharded"`` layout those of the parameters outside the block
+        graphs (embedding, head, final norm: each rank's are its sequence
+        shard's part); in the ``"sharded"`` and ``"gathered"`` layouts those
+        of the block parameters that run replicated outside every period
+        graph (:func:`replicated_block_params`: an MLA mixer and its norm1,
+        a replicated MoE and its norm2). Where the activation is whole on
+        every rank, every rank computes the same loss from it, so the
+        embedding's, head's and final norm's grads are complete, and in the
+        ``"replicated"`` layout the replicated blocks' are too. The period
+        graphs' own weights are summed in their backward. Then, unless
+        ``data`` is False, every grad over the data axis: each replica's is
+        its rows' part of the global batch's. A no-op on one device."""
         if self.tp > 1:
+            layout = activation_layout(self.rt, seq, self.tp)
+            tpc = _tp_context(self.rt, self.group)
+            partial = tuple(
+                f"blocks.{i}.{q}" for i, blk in enumerate(self.blocks)
+                for q in replicated_block_params(blk.kind, self.cfg, tpc))
             for name, p in self.named_parameters():
-                if not name.startswith("blocks.") and p.grad is not None:
+                if p.grad is None:
+                    continue
+                if name.startswith("blocks."):
+                    summed = layout != "replicated" and \
+                        name.startswith(partial)
+                else:
+                    summed = layout == "sharded"
+                if summed:
                     p.grad = self.group.all_reduce(p.grad)
         if data and self.dp > 1:
             for p in self.parameters():
@@ -586,10 +740,10 @@ class LM(nn.Module):
                     p.grad = self.data.all_reduce(p.grad)
 
     def _seq_shard(self, S: int) -> slice:
-        if S % self.tp:
-            raise NotImplementedError(
-                f"sequence length {S} does not split over {self.tp} ranks: "
-                "the ragged layout is not ported yet (ROADMAP A11)")
+        """This rank's sequence rows in the ``"sharded"`` layout; every row
+        where the activation is whole on every rank."""
+        if activation_layout(self.rt, S, self.tp) != "sharded":
+            return slice(None)
         s = S // self.tp
         return slice(self.group.rank * s, (self.group.rank + 1) * s)
 
@@ -605,12 +759,15 @@ class LM(nn.Module):
             mask = torch.ones(labels.shape, dtype=torch.float32,
                               device=labels.device)
         x, aux = self.forward(tokens)
-        if self.tp > 1:
-            sl = self._seq_shard(labels.shape[1])
-            labels, mask = labels[:, sl], mask[:, sl]
+        group = None
+        S = labels.shape[1]
+        if self.tp > 1 and activation_layout(self.rt, S, self.tp) == \
+                "sharded":
+            sl = self._seq_shard(S)
+            labels, mask, group = labels[:, sl], mask[:, sl], self.group
         head, tied = self._head()
         ce = chunked_ce_loss(x, head, labels, mask, self.cfg, self.rt, tied,
-                             self.group, self.data)
+                             group, self.data)
         if self.dp > 1 and self.cfg.moe is not None:
             aux = tp_mod.ring_mean(aux, self.data)
         return ce + AUX_LOSS_WEIGHT * aux
@@ -623,7 +780,7 @@ class LM(nn.Module):
     def _one_device(self, what: str) -> None:
         if self.tp > 1 or self.dp > 1:
             raise NotImplementedError(f"{what} over a TP ring is not ported "
-                                      "yet (ROADMAP A11, A12)")
+                                      "yet (ROADMAP A11 (b), A12)")
 
     def init_cache(self, batch: int, s_max: int) -> List[attn.Cache]:
         return init_stack_cache(self.cfg, batch, s_max, self.rt.dtype,

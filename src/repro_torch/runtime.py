@@ -32,7 +32,8 @@ class TPConfig:
     ``"auto"``); ``planner`` drives the split and pass 3 (``"greedy"``, or
     ``"perfsim"``: the schedule planner of :mod:`repro_torch.plan`);
     ``sequence_parallel=False``
-    (replicated activations) is ROADMAP A11; ``graph_backward`` is read by
+    keeps the activation whole on every rank between periods (the same
+    values; ``models.transformer.LAYOUTS``); ``graph_backward`` is read by
     the training slice (ROADMAP A8)."""
 
     mode: str = "auto"                  # any repro_torch.core.backends name

@@ -26,7 +26,7 @@ anything but ``None`` (the model carries its group; serving with a data
 axis is not ported, as JAX's period-graph serve path is dp 1), and
 ``DenseEngine``
 on a ring raises: MLA is not whole-block TP-applicable, and ``prefill`` /
-``decode_step`` on a ring are ROADMAP A11/A12. Not ported either: the
+``decode_step`` on a ring are ROADMAP A11 (b), A12. Not ported either: the
 prefix/extras inputs of the enc-dec and VLM families.
 """
 from __future__ import annotations
@@ -247,7 +247,7 @@ class DenseEngine:
     ``LM.prefill`` and then ``LM.decode_step`` calls until every request of
     the batch has its tokens. ``steps`` counts the prefill and decode calls
     of the last run. A model on a TP ring raises: ``prefill`` and
-    ``decode_step`` on a ring are ROADMAP A11/A12."""
+    ``decode_step`` on a ring are ROADMAP A11 (b), A12."""
 
     def __init__(self, model, cfg: ArchConfig, rt: Runtime,
                  serve_cfg: Optional[ServeConfig] = None, *, mesh=None,
@@ -257,7 +257,7 @@ class DenseEngine:
             raise NotImplementedError(
                 f"{cfg.name}: the dense engine on a TP ring needs prefill "
                 "and decode_step on a ring, which are not ported yet "
-                "(ROADMAP A11, A12)")
+                "(ROADMAP A11 (b), A12)")
         self.model = model
         self.cfg = cfg
         self.rt = rt

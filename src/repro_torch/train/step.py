@@ -64,7 +64,7 @@ def make_train_step(model, opt: Optimizer, rt: Runtime,
             lv = model.loss(micro)
             lv.backward()
             loss = loss + lv.detach().float().cpu()
-        model.sync_grads()
+        model.sync_grads(batch["tokens"].shape[1])
         grads = {}
         for k, p in params.items():
             g = p.grad if p.grad is not None else torch.zeros_like(p)

@@ -1,4 +1,5 @@
-"""``chip_smoke.py``'s phases 9, 10, 11 and 12 on the CPU at smoke size.
+"""``chip_smoke.py``'s phases 9, 10, 11, 12 and 13 on the CPU at smoke
+size.
 
 Phase 9: the one-device
 reference step and its host store, and the rank body on a gloo ring of 4,
@@ -31,7 +32,15 @@ batch 4 of 32) held to one device as phase 9's runs, and each replica's
 grads summed in int8 over the data axis within COMPRESS_RTOL; (b) grouped
 EP on the 2D mesh (mixtral-8x7b smoke, batch 1 of 64) held as phase 11's,
 every concrete expert all-to-all and adjoint on tp_out. Phase 12 (c), the
-launcher's ``--mesh debug``, is ``tests/test_torch_train.py``'s."""
+launcher's ``--mesh debug``, is ``tests/test_torch_train.py``'s.
+
+Phase 13: (a) minicpm3-4b smoke, batch 4 of 32: the norm grads' check, and
+the ring's MLA steps (mixers replicated, FFNs through ``sp_ffn``) held to
+one device, every kernel call counted against the graphs and every matmul
+among ``sp_ffn_matmul_shapes``; (b) internlm2-1.8b smoke in one spawn: the
+ragged step (S 31) in the replicated layout, every matmul among
+``ragged_matmul_shapes``, and the step with ``sequence_parallel`` off
+(S 32), each held to its batch's one-device step."""
 import sys
 import tempfile
 
@@ -72,9 +81,10 @@ def phase9():
     with tempfile.TemporaryDirectory() as root:
         ref, store = CS.train_reference(batch, root, cfg, "cpu")
         with CS.plan_cache_at(Path(root) / "plans"):
-            got = run_ranks(CS.train_rank, 4, batch, PHASE9_RUNS, store,
-                            ref, cfg, "cpu", device="cpu", timeout=600)
-    return cfg, ref, [g["runs"] for g in got]
+            got = run_ranks(CS.train_legs, 4,
+                            [(batch, PHASE9_RUNS, store, ref)], cfg, "cpu",
+                            device="cpu", timeout=600)
+    return cfg, ref, [g[0]["runs"] for g in got]
 
 
 @pytest.mark.parametrize("i", range(len(PHASE9_RUNS)),
@@ -172,11 +182,11 @@ def phase11():
         ref, store = CS.train_reference(batch, root, cfg, "cpu",
                                         quantities=("grad",))
         with CS.plan_cache_at(Path(root) / "plans"):
-            got = run_ranks(CS.train_rank, 4, batch, CS.MOE_RUNS, store,
-                            {k: v for k, v in ref.items()
-                             if k != "routing"}, cfg, "cpu",
-                            device="cpu", timeout=600)
-    ranks = [g["runs"] for g in got]
+            got = run_ranks(CS.train_legs, 4, [
+                (batch, CS.MOE_RUNS, store,
+                 {k: v for k, v in ref.items() if k != "routing"})],
+                cfg, "cpu", device="cpu", timeout=600)
+    ranks = [g[0]["runs"] for g in got]
     rows, _ = CS.train_checks(cfg, ref, ranks, CS.MOE_RUNS, 16)
     return cfg, ranks, rows
 
@@ -239,10 +249,11 @@ def _phase12(cfg, batch, runs, mesh, quantities=CS.RefStore.QUANTITIES,
         ref, store = CS.train_reference(batch, root, cfg, "cpu",
                                         quantities=quantities)
         with CS.plan_cache_at(Path(root) / "plans"):
-            got = run_ranks(CS.train_rank, 4, batch, runs, store,
-                            {k: v for k, v in ref.items()
-                             if k != "routing"}, cfg, "cpu", mesh, compress,
-                            device="cpu", timeout=600)
+            got = run_ranks(CS.train_legs, 4, [
+                (batch, runs, store,
+                 {k: v for k, v in ref.items() if k != "routing"})],
+                cfg, "cpu", mesh, compress, device="cpu", timeout=600)
+    got = [g[0] for g in got]
     B, S = batch["tokens"].shape
     rows, _ = CS.train_checks(cfg, ref, [g["runs"] for g in got], runs,
                               B * S // 4)
@@ -308,3 +319,105 @@ def test_phase12_grouped_ep_on_the_cpu(phase12b):
             <= predicted
         assert [a[0] for a in p["a2a"]] == [a[0] for a in p["a2a_derived"]] \
             == [2 * cfg.num_layers, cfg.num_layers]
+
+
+# ---------------------------------------------------------------------------
+# phase 13: TP training past whole blocks
+# ---------------------------------------------------------------------------
+
+
+def _legs(cfg, legs):
+    """Phase 13's ``phase_train`` at smoke size on the CPU, one spawn for
+    all ``legs`` ((batch, runs) pairs): [(rows as ``train_checks`` makes
+    them, every rank's runs)] a leg."""
+    with tempfile.TemporaryDirectory() as root:
+        refs = []
+        for i, (b, _) in enumerate(legs):
+            leg = Path(root) / f"leg{i}"
+            leg.mkdir()
+            refs.append(CS.train_reference(b, str(leg), cfg, "cpu"))
+        with CS.plan_cache_at(Path(root) / "plans"):
+            got = run_ranks(CS.train_legs, 4, [
+                (b, runs, store, {k: v for k, v in ref.items()
+                                  if k != "routing"})
+                for (b, runs), (ref, store) in zip(legs, refs)],
+                cfg, "cpu", device="cpu", timeout=600)
+    out = []
+    for i, ((b, runs), (ref, _)) in enumerate(zip(legs, refs)):
+        ranks = [g[i]["runs"] for g in got]
+        B, S = b["tokens"].shape
+        rows, _ = CS.train_checks(cfg, ref, ranks, runs, B * S // 4)
+        out.append((rows, ranks))
+    return out
+
+
+PHASE13_LAUNCHES = LAUNCH_CHECKS + ("matmul_rmsnorm launches", "transposed")
+
+
+@pytest.fixture(scope="module")
+def phase13():
+    mcfg = get_arch(CS.MLA_ARCH).smoke()
+    mbatch = CS.train_batch(mcfg, 32, CS.MLA_TRAIN_BATCH)
+    rcfg = get_arch("internlm2-1.8b").smoke()
+    norms = CS.mla_norm_grads(mcfg, mbatch, device="cpu")
+    mla = _legs(mcfg, [(mbatch, CS.MLA_TRAIN_RUNS)])[0]
+    ragged = _legs(rcfg, [(CS.train_batch(rcfg, 31, 2), CS.RAGGED_RUNS),
+                          (CS.train_batch(rcfg, 32, 2), CS.SP_RUNS)])
+    return (mcfg, rcfg), norms, mla, ragged
+
+
+def _held(row):
+    bad = [k for k, v in row["checks"].items()
+           if not v and not k.startswith(PHASE13_LAUNCHES)]
+    assert not bad, bad
+    assert row["elementwise_held"]
+
+
+def test_phase13_mla_on_the_cpu(phase13):
+    """(a): the norm grads' check (on the CPU both sides are the plain
+    version), then the ring runs held to one device; every matmul call
+    among ``sp_ffn_matmul_shapes``, the calls of each kernel the graphs'
+    count (matmul_rmsnorm twice and flash once a layer a forward)."""
+    (mcfg, _), norms, (rows, ranks), _ = phase13
+    assert all(r["got_max"] > 0 for r in norms["grads"].values())
+    predicted = set(CS.sp_ffn_matmul_shapes(mcfg, batch=CS.MLA_TRAIN_BATCH,
+                                            seq=32))
+    for i, row in enumerate(rows):
+        _held(row)
+        assert row["layout"] == "sharded"
+        for rk in ranks:
+            p = rk[i]
+            assert sum(c[-1] for c in p["call_shapes"]) == \
+                p["matmul_derived"] > 0
+            assert sum(c[-1] for c in p["norm_shapes"]) == \
+                p["mln_derived"] == 2 * mcfg.num_layers
+            assert sum(c[-1] for c in p["flash_shapes"]) == \
+                p["flash_derived"] == mcfg.num_layers
+            assert {(M, K, N, lay) for M, K, N, _, lay, _ in
+                    p["call_shapes"]} <= predicted
+            if p["mb"] > 1:
+                assert p["cross_direction_pairs"]
+
+
+def test_phase13_ragged_and_sp_off_on_the_cpu(phase13):
+    """(b): the ragged step in the replicated layout (its gemm_ar
+    dispatches the graphs', every matmul among ``ragged_matmul_shapes``),
+    and sequence_parallel off and on, each held to one device, the off loss
+    within SP_LOSS_RTOL of the on loss and of one device's."""
+    (_, rcfg), _, _, ((rrows, rranks), (srows, _)) = phase13
+    _held(rrows[0])
+    assert rrows[0]["layout"] == "replicated"
+    assert "gemm_ar dispatched through the backend as the graphs hold it" \
+        in rrows[0]["checks"]
+    predicted = set(CS.ragged_matmul_shapes(rcfg, batch=2, seq=31))
+    for rk in rranks:
+        p = rk[0]
+        assert sum(c[-1] for c in p["call_shapes"]) == p["matmul_derived"]
+        assert {(M, K, N, lay) for M, K, N, _, lay, _ in p["call_shapes"]} \
+            <= predicted
+    off, on = srows
+    for row in srows:
+        _held(row)
+    assert (off["layout"], on["layout"]) == ("gathered", "sharded")
+    for x in (on["loss"], off["one_device"]):
+        assert abs(off["loss"] - x) <= CS.SP_LOSS_RTOL * abs(x)

@@ -233,18 +233,22 @@ def test_unported_tp_paths_raise():
     with pytest.raises(NotImplementedError, match="A5"):
         lm.loss(batch)                      # SMOKE's tp mode is "auto"
     lm.rt = Runtime(compute_dtype="float32", tp=TPConfig(mode="cais"))
+    # ragged S trains on a ring in the replicated layout
+    # (tests/test_torch_sublayer.py); an MoE there does not (A11 (b))
     odd = {"tokens": toks[:, :31], "labels": toks[:, :31]}
+    moe = LM(get_arch("mixtral-8x7b").smoke(), lm.rt, device="cpu", seed=0,
+             group=group)
     with pytest.raises(NotImplementedError, match="A11"):
-        lm.loss(odd)
+        moe.loss(odd)
     # the perfsim planner is ported: its config builds
     assert TPConfig(mode="cais", planner="perfsim").planner == "perfsim"
     # paged serving runs on a ring (tests/test_torch_serve_tp.py); serving
     # over dense caches and the dense engine do not
-    with pytest.raises(NotImplementedError, match="A11, A12"):
+    with pytest.raises(NotImplementedError, match=r"A11 \(b\), A12"):
         lm.prefill(toks)
-    with pytest.raises(NotImplementedError, match="A11, A12"):
+    with pytest.raises(NotImplementedError, match=r"A11 \(b\), A12"):
         lm.decode_step(toks[:, :1], [], torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="A11, A12"):
+    with pytest.raises(NotImplementedError, match=r"A11 \(b\), A12"):
         DenseEngine(lm, cfg, lm.rt, device="cpu")
     assert tp_mod.TPContext(group, backend="cais",
                             planner="perfsim").planner == "perfsim"

@@ -278,7 +278,7 @@ def grad_cells(group, cases, tokens, runs, norm_tree, plan_root=None):
         transposed.clear()
         loss = lm.loss({"tokens": tok, "labels": tok})
         loss.backward()
-        lm.sync_grads()
+        lm.sync_grads(tok.shape[1])
         made = (count[0], flash[0], asym[0])
         tpc = tp_mod.TPContext.from_config(rt.tp, group)
         P = len(cfg.layer_pattern)
@@ -544,7 +544,7 @@ def _moe_lm_cells(group, cfg, params, tokens, count, flash):
             a2a[k] = 0
         loss = lm.loss({"tokens": tok, "labels": tok})
         loss.backward()
-        lm.sync_grads()
+        lm.sync_grads(tok.shape[1])
         made = (count[0], flash[0], a2a["a2a_expert_ffn"],
                 a2a["grad_a2a_expert_ffn"])
         tpc = tp_mod.TPContext.from_config(rt.tp, group)

@@ -252,7 +252,7 @@ def lm_cells(meshes, cases):
                     count[0] = 0
                     loss = lm.loss({"tokens": tok, "labels": tok})
                     loss.backward()
-                    lm.sync_grads()
+                    lm.sync_grads(tok.shape[1])
                     made = count[0]
                     tpc = tp_mod.TPContext.from_config(rt.tp, lm.group)
                     x = torch.empty(B, S // lm.tp, cfg.d_model,
