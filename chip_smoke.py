@@ -192,6 +192,29 @@ Phases (any failure exits non-zero):
      the on loss and of the one-device loss. Every call shape of the three
      kernels must be among phase 3's (which adds the sp_ffn ring steps, the
      ragged step's GEMMs and its attention core).
+ 14. the recurrent families at their published widths, random weights
+     from seed 0, f32 params: (a) mamba2-130m (Mamba-2 SSD mixers, no
+     attention, no FFN) and (b) recurrentgemma-2b (RG-LRU, RG-LRU and
+     sliding-window attention: window 2048, 10 query heads over one kv
+     head), each first cut to REC_CHECK_LAYERS layers in f32, ``LM.prefill``
+     of REC_CHECK_BATCH prompts (1024 / 2560 tokens: the window cuts) and
+     REC_DECODE_STEPS decode steps on the CPU (plain versions) and on the
+     card, logits within ``LOGIT_TOL``; then at full depth served through
+     ``repro_torch.launch.serve`` (the dense engine) in bf16, REC_REQUESTS
+     prompts of REC_PROMPT tokens, REC_MAX_NEW new tokens: one prefill and
+     the decode calls, flash once a sliding-window layer a call (prefill on
+     wgmma, decode on split-KV), TTFT, per-token latency and the peak
+     printed. (c) One training step of each on 4 gloo ranks sharing the
+     card, f32, through phase 9's machinery and rules (one-device reference
+     first): recurrentgemma-2b cut to REC_TRAIN_LAYERS (one period), 1 x
+     4096, ``cais`` and ``barrier`` (a batch of 1 clamps cais's 2
+     microbatches to 1), its RG-LRU mixers and its attention (10 heads do
+     not split over 4 ranks) replicated over the gathered rows, its FFN
+     through ``sp_ffn``; mamba2-130m cut to 2 layers, 2 x 2048, ``cais``,
+     every mixer replicated and no graph at all. Matmul launches the
+     graphs', flash once a replicated attention layer a forward, every call
+     shape of both kernels among phase 3's (which adds recurrentgemma-2b's
+     attention cores and sp_ffn ring steps).
 Phase 3 also holds matmul_rmsnorm against its plain version at the TPU
 kernel's test shapes, at every shape phase 8 calls (b a column slice of
 ``wkv_a`` for the KV latent) and at N 8192, and flash attention at the MLA
@@ -369,6 +392,34 @@ SP_RUNS = [("cais", 2, "float32", "greedy", "flat", False),
 # one-device step's: the same f32 math on the same rows (the sequence-
 # sharded step matched one device bitwise), so bitwise or within this
 SP_LOSS_RTOL = 1e-6
+# phase 14: the recurrent families at their published widths, random
+# weights from seed 0, f32 params. mamba2-130m (Mamba-2 SSD mixers, no FFN)
+# and recurrentgemma-2b (RG-LRU : RG-LRU : sliding-window attention, window
+# 2048, 10 query heads over one kv head, head dim 256). The f32 card-vs-CPU
+# check cuts depth to REC_CHECK_LAYERS (recurrentgemma-2b: one period),
+# batch REC_CHECK_BATCH x the prompt, then REC_DECODE_STEPS decode steps;
+# recurrentgemma-2b's prompt of 2560 passes the window in prefill and decode
+SSM_ARCH, HYB_ARCH = "mamba2-130m", "recurrentgemma-2b"
+REC_CHECK_LAYERS = {SSM_ARCH: 2, HYB_ARCH: 3}
+REC_CHECK_BATCH, REC_DECODE_STEPS = 2, 4
+# served at full depth in bf16 through launch.serve (the dense engine):
+# REC_REQUESTS prompts of REC_PROMPT tokens (one length group), REC_MAX_NEW
+# new tokens each, greedy
+REC_PROMPT = {SSM_ARCH: 2048, HYB_ARCH: 2560}
+REC_CHECK_PROMPT = {SSM_ARCH: 1024, HYB_ARCH: 2560}
+REC_REQUESTS, REC_MAX_NEW = 4, 16
+# (c) one training step on TP_WORLD gloo ranks, f32, against one device:
+# every SSM and RG-LRU mixer, and recurrentgemma-2b's attention (10 heads
+# do not split over 4 ranks), whole on every rank and run replicated over
+# the gathered rows; recurrentgemma-2b's FFN through sp_ffn (d_ff 7680 over
+# 4 ranks). Depth cut to REC_TRAIN_LAYERS (recurrentgemma-2b: one period);
+# batch x sequence REC_TRAIN_SHAPE. A batch of 1 clamps cais's 2
+# microbatches to 1 (resolve_microbatches).
+REC_TRAIN_LAYERS = {HYB_ARCH: 3, SSM_ARCH: 2}
+REC_TRAIN_SHAPE = {HYB_ARCH: (1, 4096), SSM_ARCH: (2, 2048)}
+REC_TRAIN_RUNS = {HYB_ARCH: [("cais", 2, "float32"),
+                             ("barrier", 1, "float32")],
+                  SSM_ARCH: [("cais", 2, "float32")]}
 
 
 T_START: Optional[float] = None     # main() sets it
@@ -729,6 +780,12 @@ def phase_kernels(cfg, fa, ref) -> list:
     rows.append(check_kernel_case("ragged_tp_core", tp_core_case(
         get_tp_cfg(), TP_BATCH, torch.float32, seed=8, seq=RAGGED_SEQ), fa,
         ref))
+    # phase 14: recurrentgemma-2b's sliding-window layers (10 q heads over
+    # one kv head, dh 256, window 2048) served, checked and on the ring
+    hyb = get_rec_cfg(HYB_ARCH)
+    for i, (name, B, Sq, Skv, dtype) in enumerate(rec_flash_cases()):
+        rows.append(check_kernel_case(name, rec_core_case(
+            hyb, B, Sq, Skv, dtype, seed=9 + i), fa, ref))
     return rows
 
 
@@ -890,7 +947,10 @@ def phase_matmul(mmk, ref) -> list:
         # phase 13: minicpm3-4b's sp_ffn ring steps and their backward,
         # and internlm2-1.8b's ragged step (gemm_ar partials whole)
         ("sp_ffn", sp_ffn_matmul_shapes(get_mla_train_cfg())),
-        ("ragged", ragged_matmul_shapes(cfg))]
+        ("ragged", ragged_matmul_shapes(cfg)),
+        # phase 14 (c): recurrentgemma-2b's sp_ffn ring steps (2560 ->
+        # 1920 a rank and back) and their backward
+        ("rec_ffn", rec_matmul_shapes())]
     for name, shapes in mesh_cases:
         for M, K, N, lay in shapes:
             if (M, K, N, "float32", lay) not in seen:
@@ -946,6 +1006,16 @@ def moe_matmul_shapes(cfg, dtype: str, world: int = TP_WORLD,
     return sorted(shapes)
 
 
+def batch_split(batch: int, mb: int) -> int:
+    """The microbatches a run asking for ``mb`` takes on ``batch`` rows:
+    the largest count up to ``mb`` that divides the batch, as
+    ``core.tp.resolve_microbatches`` clamps it."""
+    mb = max(1, min(mb, batch))
+    while batch % mb:
+        mb -= 1
+    return mb
+
+
 def train_matmul_shapes(cfg, world: int = TP_WORLD, batch: int = TP_BATCH,
                         seq: int = TP_SEQ, runs=None,
                         ring: Optional[int] = None) -> list:
@@ -970,7 +1040,8 @@ def train_matmul_shapes(cfg, world: int = TP_WORLD, batch: int = TP_BATCH,
     ff, s_loc = cfg.d_ff // n, seq // n
     shapes = set()
     splits = [(mode, mb) for mode, req, *_ in runs
-              for mb in ((1, 2, 4) if req == "auto" else (req,))
+              for mb in ((1, 2, 4) if req == "auto"
+                         else (batch_split(batch, req),))
               if batch % mb == 0]
     for mode, mb in splits:
         b = batch // mb
@@ -1006,6 +1077,7 @@ def sp_ffn_matmul_shapes(cfg, batch: int = MLA_TRAIN_BATCH,
     s_r = seq // n
     shapes = set()
     for mode, mb, *_ in runs:
+        mb = batch_split(batch, mb)
         b = batch // mb
         if mode == "barrier":
             pairs = [(b * seq, b * seq)]
@@ -2226,10 +2298,13 @@ def train_legs(group, legs, cfg, device="cuda", mesh="flat",
             derived = tp_mod.step_launches(rec, B, S, cfg.d_model,
                                            rt.dtype.itemsize)
             trained = [(p_, p_.training()) for p_ in rec.periods]
-            period, (_, bwd, bwd_planner) = trained[0]
-            fwd, mb, periods = period.graph, period.mb, len(trained)
-            pairs = [nd.name for g in (fwd, bwd) for nd in g.nodes
-                     if nd.op == "overlap_asym"]
+            period = bwd = bwd_planner = fwd = None
+            mb, periods = 1, len(trained)
+            if trained:      # none where every sub-layer ran replicated
+                period, (_, bwd, bwd_planner) = trained[0]
+                fwd, mb = period.graph, period.mb
+            pairs = [nd.name for g in (fwd, bwd) if g is not None
+                     for nd in g.nodes if nd.op == "overlap_asym"]
             plans = None
             if planner == "perfsim":
                 fp, bp = period.plan, bwd_planner.plan
@@ -2470,6 +2545,13 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
     logged: (rows, failed (run, check) pairs). ``T`` is a rank's tokens (an
     MoE rank's routing group)."""
     moe = cfg.moe is not None
+    kinds = cfg.layer_kinds()
+    # a model whose every sub-layer runs replicated (mamba2-130m: SSM mixers
+    # and no FFN) runs no period graph, and one with no attention no flash
+    graphs = cfg.d_ff > 0 or moe or any(
+        k in ("attn", "swa") and cfg.num_heads % TP_WORLD == 0
+        for k in kinds)
+    attends = any(k in ("attn", "swa", "mla") for k in kinds)
     rows, failed = [], []
     for i, run in enumerate(runs):
         per = [rk[i] for rk in ranks]
@@ -2492,9 +2574,11 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
             and len({p["grad_norm"] for p in per}) == 1,
             f"loss within {rtol:g} of one device": rel <= rtol,
             "matmul launches = graphs": all(
-                p["matmul_launches"] == p["matmul_derived"] > 0 for p in per),
+                p["matmul_launches"] == p["matmul_derived"]
+                and (p["matmul_derived"] > 0) == graphs for p in per),
             "flash launches = forward + recompute": all(
-                p["flash_launches"] == p["flash_derived"] > 0 for p in per),
+                p["flash_launches"] == p["flash_derived"]
+                and (p["flash_derived"] > 0) == attends for p in per),
             "matmul_rmsnorm launches = 2 a replicated MLA mixer": all(
                 p["mln_launches"] == p["mln_derived"] for p in per),
             "flash variants": all(p["flash_variants"] == dict(
@@ -2504,14 +2588,15 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
                 dict(wgmma=0, ffma=p["matmul_launches"]) if f32 else
                 dict(wgmma=p["matmul_launches"], ffma=0)) for p in per),
             "transposed layouts launched": all(
-                p["matmul_layouts"][f"{v}.{lay}"] > 0
+                (p["matmul_layouts"][f"{v}.{lay}"] > 0) == graphs
                 for p in per for lay in ("nt", "tn")
                 for v in (("ffma",) if f32 else ("wgmma",))),
             "overlap_asym executed as the graphs say": all(
                 p["overlap_asym"] == p["overlap_asym_nodes"] for p in per),
             "a backward node paired with a forward one": (
                 all(p["cross_direction_pairs"] for p in per)
-                if head["mb"] > 1 and head["planner"] == "greedy" else True),
+                if head["mb"] > 1 and head["planner"] == "greedy"
+                and graphs else True),
         }
         if moe:
             checks["a2a_ffn / bwd_a2a_ffn through the backend, expert "
@@ -3527,6 +3612,212 @@ def phase_subl() -> dict:
                                      for c in q["flash_shapes"]}))
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the recurrent families (mamba2-130m, recurrentgemma-2b)
+# ---------------------------------------------------------------------------
+
+
+def get_rec_cfg(arch: str, layers: int = 0):
+    """``arch`` at its published widths, cut to ``layers`` (0: all)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    return cfg.scaled(num_layers=layers) if layers else cfg
+
+
+def swa_layers(cfg) -> int:
+    return sum(k == "swa" for k in cfg.layer_kinds())
+
+
+def rec_core_case(cfg, B: int, Sq: int, Skv: int, dtype, seed: int):
+    """recurrentgemma-2b's attention core as phase 14 calls it: B rows, all
+    10 query heads over the one kv head, the 2048 window; a prefill (Sq ==
+    Skv) over positions 0..Skv-1, or a decode step (Sq 1) at position
+    REC_PROMPT over the ring buffer's Skv keys, the last window
+    positions."""
+    g = torch.Generator().manual_seed(seed)
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    mk = lambda h, s_: torch.randn(B, s_, h, dh, generator=g).to("cuda",
+                                                                 dtype)
+    last = REC_PROMPT[HYB_ARCH] if Sq == 1 else Skv - 1
+    qpos = torch.arange(last - Sq + 1, last + 1, dtype=torch.int32)
+    kpos = torch.arange(last - Skv + 1, last + 1, dtype=torch.int32)
+    return dict(q=mk(H, Sq), k=mk(Hkv, Skv), v=mk(Hkv, Skv),
+                q_positions=qpos.expand(B, Sq).contiguous().cuda(),
+                kv_positions=kpos.expand(B, Skv).contiguous().cuda(),
+                window=cfg.window)
+
+
+def rec_flash_cases() -> list:
+    """(name, B, Sq, Skv, dtype) of every flash call phase 14 makes: the
+    bf16 serving prefill and decode (REC_REQUESTS rows), the f32 check's
+    prefill and decode (REC_CHECK_BATCH rows), and the ring's replicated
+    core over the whole sequence (f32)."""
+    P, W = REC_PROMPT[HYB_ARCH], get_rec_cfg(HYB_ARCH).window
+    B, S = REC_TRAIN_SHAPE[HYB_ARCH]
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [("rec_prefill", REC_REQUESTS, P, P, bf16),
+            ("rec_decode", REC_REQUESTS, 1, W, bf16),
+            ("rec_prefill", REC_CHECK_BATCH, REC_CHECK_PROMPT[HYB_ARCH],
+             REC_CHECK_PROMPT[HYB_ARCH], f32),
+            ("rec_decode", REC_CHECK_BATCH, 1, W, f32),
+            ("rec_ring_core", B, S, S, f32)]
+
+
+def rec_matmul_shapes() -> list:
+    """(M, K, N, layout) of every matmul call of phase 14 (c)'s ring steps:
+    recurrentgemma-2b's FFNs through sp_ffn (its mixers run replicated,
+    with torch's own products; mamba2-130m has no FFN and runs none)."""
+    B, S = REC_TRAIN_SHAPE[HYB_ARCH]
+    return sp_ffn_matmul_shapes(
+        get_rec_cfg(HYB_ARCH, REC_TRAIN_LAYERS[HYB_ARCH]), batch=B, seq=S,
+        runs=REC_TRAIN_RUNS[HYB_ARCH])
+
+
+def phase_rec_reference(arch: str) -> dict:
+    """(a)/(b)'s first check: ``arch`` cut to REC_CHECK_LAYERS layers, f32:
+    ``LM.prefill`` of REC_CHECK_BATCH prompts of REC_CHECK_PROMPT tokens and
+    REC_DECODE_STEPS ``LM.decode_step`` calls on the CPU (plain versions)
+    and on the card (the kernels), logits within LOGIT_TOL; the card's
+    flash calls recorded."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.runtime import SMOKE
+
+    cfg = get_rec_cfg(arch, REC_CHECK_LAYERS[arch])
+    cpu = LM(cfg, SMOKE, device="cpu", seed=SEED)
+    gpu = LM(cfg, SMOKE, device="cuda", seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (REC_CHECK_BATCH, REC_CHECK_PROMPT[arch])
+    ).astype(np.int32))
+    t0 = time.monotonic()
+    want = prefill_decode(cpu, tokens, REC_DECODE_STEPS)
+    cpu_s = time.monotonic() - t0
+    calls = {}
+    core = record_calls(ops, calls)
+    try:
+        t0 = time.monotonic()
+        got = prefill_decode(gpu, tokens, REC_DECODE_STEPS)
+        card_s = time.monotonic() - t0
+    finally:
+        ops.flash_attention = core
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **LOGIT_TOL)
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    log(f"  {arch} {cfg.num_layers} layers f32, {REC_CHECK_BATCH} x "
+        f"{REC_CHECK_PROMPT[arch]}: prefill + {REC_DECODE_STEPS} decode "
+        f"logits max|Δ| {err:.3e} within {LOGIT_TOL} (CPU {cpu_s:.1f}s, "
+        f"card {card_s:.1f}s)")
+    return dict(err=err, cpu_s=cpu_s, card_s=card_s,
+                call_shapes=sorted([*k, v] for k, v in calls.items()))
+
+
+def phase_rec_serve(arch: str, fa) -> dict:
+    """``arch`` at full width and depth served through
+    ``repro_torch.launch.serve`` (bf16 compute, f32 params; the dense
+    engine): REC_REQUESTS prompts of REC_PROMPT tokens, one length group,
+    REC_MAX_NEW new tokens, greedy; one prefill and REC_MAX_NEW - 1 decode
+    calls; flash once a sliding-window layer a call, the prefill's on
+    wgmma and every decode step's on split-KV."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    cfg = get_rec_cfg(arch)
+    calls = {}
+    core = record_calls(ops, calls)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = 0                            # count the main path only
+        fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+        t0 = time.monotonic()
+        eng, reqs = serve.main([
+            "--arch", arch, "--device", "cuda", "--requests",
+            str(REC_REQUESTS), "--prompt-len", str(REC_PROMPT[arch]),
+            "--prompt-len-min", str(REC_PROMPT[arch]), "--max-new",
+            str(REC_MAX_NEW), "--seed", "0"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches, variants = fa.launches, dict(fa.launches_by_variant)
+    finally:
+        ops.flash_attention = core
+    if not all(r.done and len(r.out_tokens) == REC_MAX_NEW for r in reqs):
+        raise AssertionError(f"{arch}: a request did not finish")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens):
+        raise AssertionError(f"{arch}: a token outside the vocabulary")
+    prefills, decodes = 1, REC_MAX_NEW - 1
+    if eng.paged or eng.steps != prefills + decodes:
+        raise AssertionError(f"{arch}: {eng.steps} model calls (paged "
+                             f"{eng.paged}), expected the dense engine's "
+                             f"{prefills} prefill + {decodes} decode")
+    n = swa_layers(cfg)
+    want = dict(wgmma=n * prefills, splitkv=n * decodes, ffma=0)
+    if launches != n * eng.steps or variants != want:
+        raise AssertionError(f"{arch}: flash launched {launches} times "
+                             f"{variants}, expected {n} layers x "
+                             f"{eng.steps} calls {want}")
+    rep = dict(eng.last_report)
+    rep.update(steps=eng.steps, launches=launches, flash_variants=variants,
+               wall_s=wall,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               params=cfg.param_count(),
+               call_shapes=sorted([*k, v] for k, v in calls.items()))
+    log(f"  {arch} served {len(reqs)} x {REC_PROMPT[arch]} tokens in "
+        f"{eng.steps} model calls ({prefills} prefill + {decodes} decode), "
+        f"{wall:.1f}s; TTFT p50 {rep['ttft_p50_ms']:.1f} ms, per-token p50 "
+        f"{rep['per_token_p50_ms']:.2f} ms, "
+        f"peak {rep['peak_mem_gib']:.2f} GiB; flash {launches} = {n} x "
+        f"{eng.steps} {json.dumps(variants)}")
+    log("  latency " + json.dumps(rep))
+    return rep
+
+
+def phase_recurrent(fa) -> dict:
+    """Phase 14: (a) mamba2-130m and (b) recurrentgemma-2b, each checked
+    f32 card against CPU (:func:`phase_rec_reference`) and served at full
+    depth in bf16 (:func:`phase_rec_serve`); (c) one training step of each
+    on TP_WORLD gloo ranks against one device (phase 9's machinery and
+    rules, the references keeping their grads alone on the host)."""
+    t0 = time.monotonic()
+    out = dict(check={}, serve={}, train={}, seconds={})
+    for arch in (SSM_ARCH, HYB_ARCH):
+        t = time.monotonic()
+        out["check"][arch] = phase_rec_reference(arch)
+        out["serve"][arch] = phase_rec_serve(arch, fa)
+        out["seconds"][arch] = time.monotonic() - t
+    for arch in (HYB_ARCH, SSM_ARCH):
+        t = time.monotonic()
+        cfg = get_rec_cfg(arch, REC_TRAIN_LAYERS[arch])
+        B, S = REC_TRAIN_SHAPE[arch]
+        log(f"  (c) {arch} cut to {cfg.num_layers} layers, batch {B} x {S}")
+        out["train"][arch] = phase_train(
+            cfg=cfg, batch=train_batch(cfg, seq=S, batch=B),
+            runs=REC_TRAIN_RUNS[arch], label=f"phase 14 (c) {arch}",
+            quantities=("grad",))
+        out["seconds"][f"train {arch}"] = time.monotonic() - t
+    trains = list(out["train"].values())
+    out.update(
+        flash_launches=sum(r["launches"] for r in out["serve"].values())
+        + sum(q["flash_launches"] for q in trains),
+        matmul_launches=sum(q["matmul_launches"] for q in trains),
+        call_shapes=sorted({tuple(c) for q in trains
+                            for c in q["call_shapes"]}),
+        flash_shapes=sorted(
+            {tuple(c[:8]) for q in trains for c in q["flash_shapes"]}
+            | {tuple(c[:8]) for r in list(out["serve"].values())
+               + list(out["check"].values()) for c in r["call_shapes"]}))
+    out["seconds"]["total"] = time.monotonic() - t0
+    log(f"  phase 14: {out['seconds']['total']:.1f}s "
+        f"({json.dumps({k: round(v, 1) for k, v in out['seconds'].items()})})"
+        f"; flash {out['flash_launches']}, matmul {out['matmul_launches']}")
+    return out
+
+
 def main() -> int:
     global T_START
     if not torch.cuda.is_available():
@@ -3721,6 +4012,21 @@ def main() -> int:
                              f"did not check: {unchecked}")
     log("  subl " + json.dumps(subl))
 
+    log(f"phase 14: the recurrent families: {SSM_ARCH} and {HYB_ARCH} at "
+        "full width, f32 card against CPU, served at full depth in bf16, "
+        f"and one training step each on {TP_WORLD} TP ranks on one card over "
+        "gloo against one device")
+    log("  " + smi)
+    rec = phase_recurrent(fa)
+    unchecked = [("matmul", s_) for s_ in rec["call_shapes"]
+                 if tuple(s_) not in checked]
+    unchecked += [("flash_attention", s_) for s_ in rec["flash_shapes"]
+                  if tuple(s_) not in checked_fa]
+    if unchecked:
+        raise AssertionError(f"phase 14 called kernels at shapes phase 3 "
+                             f"did not check: {unchecked}")
+    log("  recurrent " + json.dumps(rec))
+
     log("kernel cases " + json.dumps({"flash_attention": rows,
                                       "matmul": mm_rows,
                                       "matmul_rmsnorm": mln_rows}))
@@ -3768,7 +4074,8 @@ def main() -> int:
          + mla["launches"]["flash_attention"] + train["flash_launches"]
          + serve_tp["flash_launches"] + moe["serve"]["launches"]
          + moe["train"]["flash_launches"] + topo["dp"]["flash_launches"]
-         + topo["grouped_ep"]["flash_launches"] + subl["flash_launches"],
+         + topo["grouped_ep"]["flash_launches"] + subl["flash_launches"]
+         + rec["flash_launches"],
          **record(head)},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -3776,7 +4083,8 @@ def main() -> int:
          "launches": tp["matmul_launches"] + train["matmul_launches"]
          + serve_tp["matmul_launches"] + moe["train"]["matmul_launches"]
          + topo["dp"]["matmul_launches"]
-         + topo["grouped_ep"]["matmul_launches"] + subl["matmul_launches"],
+         + topo["grouped_ep"]["matmul_launches"] + subl["matmul_launches"]
+         + rec["matmul_launches"],
          **record(mm_head)},
         {"name": "matmul_rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul_rmsnorm.cu",

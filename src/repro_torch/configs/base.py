@@ -1,11 +1,11 @@
 """Architecture configuration: the port's copy of ``repro/configs/base.py``.
 
 Only what the ported archs need is here: the dense attention archs, MLA
-(minicpm3-4b) and MoE (mixtral-8x7b); the other family sub-configs (SSM,
-RG-LRU, enc-dec, VLM) arrive with the slices that port those families. Not
-here yet (ROADMAP A15):
-``num_prefix_tokens``, ``vision_width`` and ``sub_quadratic``. Every field
-the two packages share is equal for every ported arch, full and smoke
+(minicpm3-4b), MoE (mixtral-8x7b), the Mamba-2 SSD mixer (mamba2-130m) and
+the RG-LRU mixer (recurrentgemma-2b); the enc-dec and VLM sub-configs arrive
+with the slices that port those families. Not here yet (ROADMAP A15):
+``encoder``, ``num_prefix_tokens`` and ``vision_width``. Every field the two
+packages share is equal for every ported arch, full and smoke
 (``tests/test_torch_train.py``). ``ShapeConfig`` and ``SHAPES`` are copies.
 """
 from __future__ import annotations
@@ -42,17 +42,40 @@ class MoEConfig:
     router_jitter: float = 0.0
 
 
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD (state-space duality, chunked dual form)."""
+
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    chunk_size: int = 256
+    conv_width: int = 4
+    n_groups: int = 1
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RG-LRU recurrent block (RecurrentGemma / Griffin)."""
+
+    lru_width: int = 2560
+    conv_width: int = 4
+    block_width: int = 0  # 0 => d_model
+
+
 # Block kinds usable in `layer_pattern`:
-#   "attn" — full causal GQA/MQA attention
-#   "swa"  — sliding-window attention (window = cfg.window)
-#   "mla"  — multi-head latent attention (cfg.mla)
-BLOCK_KINDS = ("attn", "swa", "mla")
+#   "attn"  — full causal GQA/MQA attention
+#   "swa"   — sliding-window attention (window = cfg.window)
+#   "mla"   — multi-head latent attention (cfg.mla)
+#   "ssm"   — Mamba-2 SSD mixer (cfg.ssm)
+#   "rglru" — RG-LRU recurrent mixer (cfg.rglru)
+BLOCK_KINDS = ("attn", "swa", "mla", "ssm", "rglru")
 
 
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # dense | moe | ...
+    family: str  # dense | moe | ssm | hybrid | ...
     num_layers: int
     d_model: int
     num_heads: int
@@ -68,12 +91,16 @@ class ArchConfig:
 
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
 
     norm: str = "rmsnorm"  # gemma-style rmsnorm (the only kind ported)
     act: str = "silu"  # gated MLP activation: silu | gelu (tanh-approximate)
     rope_theta: float = 10_000.0
     tie_embeddings: bool = True
     logits_softcap: float = 0.0
+    # eligible for the long_500k shape (sub-quadratic or bounded-KV mixers)
+    sub_quadratic: bool = False
     # optimizer default (the huge MoE archs use adafactor, not ported yet)
     optimizer: str = "adamw"
 
@@ -94,6 +121,22 @@ class ArchConfig:
     def _mixer_param_count(self, kind: str) -> int:
         """Parameters of one block's mixer, by the shapes the model builds."""
         d, H = self.d_model, self.num_heads
+        if kind == "ssm":
+            s = self.ssm
+            d_inner = s.expand * d
+            nheads = d_inner // s.head_dim
+            conv_ch = d_inner + 2 * s.n_groups * s.d_state
+            return (d * (d_inner + conv_ch + nheads)      # w_in
+                    + (s.conv_width + 1) * conv_ch        # conv_w, conv_b
+                    + 3 * nheads                          # A_log, dt_bias, D
+                    + d_inner                             # norm_scale
+                    + d_inner * d)                        # w_out
+        if kind == "rglru":
+            r = self.rglru
+            w = r.block_width or r.lru_width or d
+            return (3 * d * w                             # w_y, w_x, w_out
+                    + (r.conv_width + 1) * w              # conv_w, conv_b
+                    + 5 * w)                              # gates, Lambda
         if kind == "mla":
             m = self.mla
             qk = m.qk_nope_head_dim + m.qk_rope_head_dim
@@ -120,12 +163,14 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Parameters of the decoder: embedding (+ untied head), per-layer
-        norms, mixer and FFN (every expert counted), final norm
-        (``repro``'s count of the same init shapes)."""
+        norms, mixer and FFN (every expert counted; none where d_ff is 0
+        and there is no MoE), final norm (``repro``'s count of the same init
+        shapes)."""
         d = self.d_model
-        mlp = self._ffn_param_count()
+        has_ffn = self.d_ff > 0 or self.moe is not None
+        ffn = (self._ffn_param_count() + d) if has_ffn else 0
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        blocks = sum(self._mixer_param_count(k) + mlp + 2 * d
+        blocks = sum(self._mixer_param_count(k) + ffn + d
                      for k in self.layer_kinds())
         return embed + blocks + d
 
@@ -155,6 +200,11 @@ class ArchConfig:
                 self.moe, num_experts=min(self.moe.num_experts, 4),
                 group_size=16,
                 dense_residual_d_ff=64 if self.moe.dense_residual_d_ff else 0)
+        if self.ssm:
+            kw["ssm"] = SSMConfig(d_state=16, head_dim=16, expand=2,
+                                  chunk_size=8, conv_width=4)
+        if self.rglru:
+            kw["rglru"] = RGLRUConfig(lru_width=64, conv_width=4)
         return self.scaled(**kw)
 
 

@@ -21,6 +21,7 @@ GEMMA3_1B = ArchConfig(
     act="gelu",
     rope_theta=1_000_000.0,  # global layers (local layers use 10k upstream)
     tie_embeddings=True,
+    sub_quadratic=True,
 )
 
 CONFIG = GEMMA3_1B

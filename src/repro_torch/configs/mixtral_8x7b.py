@@ -26,6 +26,7 @@ MIXTRAL_8X7B = ArchConfig(
     act="silu",
     rope_theta=1_000_000.0,
     tie_embeddings=False,
+    sub_quadratic=True,      # SWA bounds the KV cache to the window
 )
 
 CONFIG = MIXTRAL_8X7B

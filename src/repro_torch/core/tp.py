@@ -44,7 +44,8 @@ as JAX's ``block_forward`` falls back: :func:`sp_attention`, :func:`sp_ffn`
 and :func:`sp_moe_ffn` build, plan and execute one-sub-layer graphs as
 periods (the same :class:`Period`, planner and graph-built backward), and a
 sub-layer that is not TP-applicable runs replicated
-(:func:`sp_replicated_mixer`: MLA over the gathered rows, whose gather's
+(:func:`sp_replicated_mixer`: MLA, SSM, RG-LRU and attention whose query
+heads do not split over the ring, over the gathered rows, whose gather's
 adjoint is a reduce-scatter; :func:`sp_replicated_ffn`: an MoE whose
 experts do not split over the ring). :func:`seq_rows` and
 :func:`seq_gather` move an activation between the sequence-sharded layout
@@ -203,20 +204,26 @@ def _sp_opts(opts: Optional[SPOptions], legacy: dict) -> SPOptions:
 _EXPERT_LEAVES = ("ffn.w_up", "ffn.w_gate", "ffn.w_down")
 
 
-def param_shard_dim(name: str, cfg, tp: int) -> Optional[int]:
+def param_shard_dim(name: str, cfg, tp: int,
+                    kind: Optional[str] = None) -> Optional[int]:
     """The dimension along which parameter ``name`` (a key of the port's
     ``LM`` state dict) is split over a flat TP ring of ``tp``, or None where
     it is replicated: the specs of the period-graph fragment, ``(None, M)``
     columns for wq/wk/wv/w_up/w_gate, ``(M, None)`` rows for wo/w_down. An
     MoE's experts split by whole expert (dim 0, ``e_spec``) where
     E % tp == 0 and replicate otherwise; its router and dense-residual MLP
-    replicate. An MLA mixer is never sharded (JAX's mixer runs it whole,
-    under GSPMD): every rank holds it. On any group,
-    :func:`param_placement`."""
+    replicate. A mixer that is not TP-applicable (MLA, SSM, RG-LRU, and
+    attention whose query heads do not split over the ring) is never
+    sharded: every rank holds it whole and runs it replicated (JAX runs it
+    under GSPMD, its store splitting some of its leaves: ROADMAP C,
+    departure 7). ``kind`` names the block's kind where the name's index
+    is no layer of ``cfg`` (a period graph's own block index). On any
+    group, :func:`param_placement`."""
     if tp <= 1 or not name.startswith("blocks."):
         return None
     _, idx, leaf = name.split(".", 2)
-    if leaf.startswith("mixer.") and cfg.layer_kinds()[int(idx)] == "mla":
+    if leaf.startswith("mixer.") and not tp_applicable(
+            cfg, kind or cfg.layer_kinds()[int(idx)], tp):
         return None
     if cfg.moe is not None and leaf.startswith("ffn."):
         if leaf in _EXPERT_LEAVES:
@@ -238,7 +245,8 @@ def _dense_shard_dim(leaf: str) -> Optional[int]:
     return None
 
 
-def param_placement(name: str, cfg, group: Optional[TPGroup]):
+def param_placement(name: str, cfg, group: Optional[TPGroup],
+                    kind: Optional[str] = None):
     """(dim, the group whose ranks split it) of parameter ``name`` on the
     TP group ``group``, or None where every rank holds it whole. On a flat
     ring, :func:`param_shard_dim` over the ring. On a 2D mesh's composite
@@ -252,7 +260,7 @@ def param_placement(name: str, cfg, group: Optional[TPGroup]):
         if cfg.moe.num_experts % group.tp_out.size:
             return None
         return 0, group.tp_out
-    dim = param_shard_dim(name, cfg, group.size)
+    dim = param_shard_dim(name, cfg, group.size, kind)
     return None if dim is None else (dim, group)
 
 
@@ -694,10 +702,11 @@ _WEIGHT_PARAMS = {"scale1": "norm1.scale", "scale2": "norm2.scale",
 
 def _placements(weights, cfg, group: TPGroup) -> Dict[str, object]:
     """{period-graph weight key: its :func:`param_placement`} on ``group``,
-    through the Block parameter each key holds."""
+    through the Block parameter each key holds. A graph's mixer weights are
+    a TP-applicable attention's, whatever kind the stack's layer 0 is."""
     return {k: param_placement(
-        "blocks.0." + _WEIGHT_PARAMS[k.split(".", 1)[1]], cfg, group)
-        for k in weights}
+        "blocks.0." + _WEIGHT_PARAMS[k.split(".", 1)[1]], cfg, group,
+        kind="attn") for k in weights}
 
 
 def grad_groups(placements, group: TPGroup,
@@ -1120,13 +1129,13 @@ def build_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
 class StepRecord:
     """What the TP forwards run inside :func:`recording` executed on this
     rank: every :class:`Period` (a whole period, a per-block graph or a
-    one-sub-layer graph) in the order it ran, and how many mixers ran
-    replicated (:func:`sp_replicated_mixer`). A step's kernel launches
-    derive from it (:func:`step_launches`)."""
+    one-sub-layer graph) in the order it ran, and how many mixers of each
+    kind ran replicated (:func:`sp_replicated_mixer`). A step's kernel
+    launches derive from it (:func:`step_launches`)."""
 
     def __init__(self):
         self.periods: List[Period] = []
-        self.replicated_mixers = 0
+        self.replicated_mixers: Dict[str, int] = {}
 
 
 _RECORDS: List[StepRecord] = []
@@ -1396,12 +1405,14 @@ def seq_rows(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
 
 def sp_replicated_mixer(tpc: TPContext, x: torch.Tensor, norm_scale,
                         mixer_fn: Callable, norm_kind: str = "rmsnorm",
-                        seq_sharded: bool = True) -> torch.Tensor:
-    """A mixer that is not TP-applicable (MLA), whole weights on every rank
-    (JAX runs it under GSPMD). Sequence-sharded (x (B, S/tp, d)): the normed
-    rows all-gathered along the sequence, ``mixer_fn`` on the whole
-    sequence, this rank's rows of its output kept; the gather's adjoint is
-    a reduce-scatter (each rank's cotangent of the gathered rows is
+                        seq_sharded: bool = True, *,
+                        kind: str) -> torch.Tensor:
+    """A mixer of ``kind`` that is not TP-applicable (MLA, SSM, RG-LRU,
+    attention whose query heads do not split over the ring), whole weights
+    on every rank (JAX runs it under GSPMD). Sequence-sharded (x (B, S/tp,
+    d)): the normed rows all-gathered along the sequence, ``mixer_fn`` on
+    the whole sequence, this rank's rows of its output kept; the gather's
+    adjoint is a reduce-scatter (each rank's cotangent of the gathered rows is
     partial), and the mixer's weight grads are partial sums over the ranks,
     summed over the ring once a step
     (:meth:`repro_torch.models.transformer.LM.sync_grads`). With
@@ -1410,7 +1421,7 @@ def sp_replicated_mixer(tpc: TPContext, x: torch.Tensor, norm_scale,
     from repro_torch.models.layers import apply_norm
 
     for rec in _RECORDS:
-        rec.replicated_mixers += 1
+        rec.replicated_mixers[kind] = rec.replicated_mixers.get(kind, 0) + 1
     h = apply_norm(norm_kind, x, norm_scale)
     if not seq_sharded:
         return mixer_fn(h)
@@ -1682,13 +1693,17 @@ def step_launches(rec: StepRecord, batch: int, seq: int, d_model: int,
     graph-built backward over a (``batch``, ``seq``) batch of ``itemsize``
     activations, derived from what its forward ran (``rec``): matmul and
     flash by :func:`matmul_calls` / :func:`flash_calls` of each period's
-    optimized forward and training graphs; a replicated (MLA) mixer one
-    flash and two matmul_rmsnorm calls a forward (its backward is torch
-    math: ``ops._FlashAttention``, ``ops._MatmulRMSNorm``). Also the
-    overlap_asym nodes the graphs execute, and those of the first period's
-    training graph that pair a backward collective with a forward one."""
+    optimized forward and training graphs; a replicated mixer one flash a
+    forward where it attends (MLA, attention) and an MLA mixer two
+    matmul_rmsnorm calls (their backward is torch math:
+    ``ops._FlashAttention``, ``ops._MatmulRMSNorm``); an SSM or RG-LRU
+    mixer none. Also the overlap_asym nodes the graphs execute, and those of
+    the first period's training graph that pair a backward collective with
+    a forward one."""
     n = rec.replicated_mixers
-    out = dict(matmul=0, flash=n, matmul_rmsnorm=2 * n, overlap_asym=0,
+    out = dict(matmul=0,
+               flash=sum(n.get(k, 0) for k in ("attn", "swa", "mla")),
+               matmul_rmsnorm=2 * n.get("mla", 0), overlap_asym=0,
                cross_direction_pairs=[])
     for i, period in enumerate(rec.periods):
         _, bwd, _ = period.training()

@@ -103,6 +103,11 @@ def gated(name: str) -> bool:
     return name in ("silu", "gelu")
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return x

@@ -17,8 +17,10 @@ period runs as one dataflow graph (:func:`repro_torch.core.tp.sp_period`)
 and stays sequence-sharded between periods, and the loss's (sum, count) is
 all-reduced over the ring; an MoE period's aux loss is the mean over the
 ring of each rank's, the aux of its own shard. A block that is not
-whole-block TP-applicable (MLA; an MoE whose experts do not split over the
-ring) runs sub-layer by sub-layer (:func:`block_routes`). Where the
+whole-block TP-applicable (MLA, SSM, RG-LRU, attention whose query heads
+do not split over the ring; an MoE whose experts do not split) runs
+sub-layer by sub-layer (:func:`block_routes`), each mixer that is not
+TP-applicable whole on every rank and run replicated. Where the
 sequence does not split over the ring (S % tp != 0) the activation is whole
 on every rank and dense blocks run in the replicated-activation graphs; with
 ``sequence_parallel=False`` it is whole between periods, each period taking
@@ -52,10 +54,9 @@ ring already saves only (x, weights) for its graph-built backward, which
 re-executes the forward, so there it adds nothing and is not applied (JAX's
 ``jax.checkpoint`` around its ``custom_vjp`` runs that forward a third
 time: the same values). Serving over dense caches (``prefill`` /
-``decode_step``) runs on one device only (ROADMAP A11 (b), A12); MLA blocks
-are whole on every rank (JAX's mixer never shards MLA), train on a ring
-through the replicated mixer, and have no paged path (their cache is a
-latent, not K/V).
+``decode_step``) runs on one device only (ROADMAP A11 (b), A12); MLA, SSM
+and RG-LRU blocks have no paged path (their caches are a latent or a
+recurrent state, not K/V) and serve through the dense engine.
 """
 from __future__ import annotations
 
@@ -70,6 +71,8 @@ from repro_torch.core import tp as tp_mod
 from repro_torch.core.backends import get_backend
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Norm, embed_init_, softcap
 from repro_torch.runtime import Runtime, resolve_device
 from repro_torch.sharding import (CompositeGroup, Mesh, TPGroup, as_mesh,
@@ -85,20 +88,32 @@ def _has_ffn(cfg: ArchConfig) -> bool:
 
 
 class Block(nn.Module):
-    """Pre-norm residual block: norm1 → mixer → (+x) → norm2 → ffn → (+x);
-    ``kind`` is "attn", "swa" (sliding window ``cfg.window``) or "mla"
-    (whole on every rank: MLA is never sharded)."""
+    """Pre-norm residual block: norm1 → mixer → (+x) → norm2 → ffn → (+x)
+    (no FFN where d_ff is 0 and there is no MoE); ``kind`` is "attn",
+    "swa" (sliding window ``cfg.window``), "mla", "ssm" (Mamba-2 SSD) or
+    "rglru" (RG-LRU). On a TP ring of ``tp`` an attention mixer whose
+    query heads split over the ring holds this rank's shards; every other
+    mixer (MLA, SSM, RG-LRU, attention whose heads do not split) is whole
+    on every rank and runs replicated (ROADMAP C, departure 7)."""
 
     def __init__(self, kind: str, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, tp: int = 1,
                  route_ring: Optional[int] = None):
         super().__init__()
-        if kind not in ("attn", "swa", "mla"):
-            raise NotImplementedError(f"{kind!r} blocks are not ported yet")
         self.kind = kind
         self.norm1 = Norm(cfg.norm, cfg.d_model, dtype, device)
-        self.mixer = attn.MLA(cfg, dtype, device) if kind == "mla" \
-            else attn.Attention(cfg, dtype, device, tp)
+        if kind in ("attn", "swa"):
+            self.mixer = attn.Attention(
+                cfg, dtype, device,
+                tp if tp_mod.tp_applicable(cfg, kind, tp) else 1)
+        elif kind == "mla":
+            self.mixer = attn.MLA(cfg, dtype, device)
+        elif kind == "ssm":
+            self.mixer = ssm_mod.SSM(cfg, dtype, device)
+        elif kind == "rglru":
+            self.mixer = rglru_mod.RGLRU(cfg, dtype, device)
+        else:
+            raise NotImplementedError(f"{kind!r} blocks are not ported yet")
         self.norm2 = self.ffn = None
         if _has_ffn(cfg):
             self.norm2 = Norm(cfg.norm, cfg.d_model, dtype, device)
@@ -162,10 +177,12 @@ def block_routes(kind: str, cfg: ArchConfig, tpc: tp_mod.TPContext,
     ``block_forward`` branch for branch: ("block", "block") where the whole
     block is one dataflow graph (``sp_block``; ``seq_sharded=False`` the
     replicated-activation graph of a dense block); otherwise (mixer, FFN)
-    sub-layer by sub-layer, the mixer "sp_attention" or "replicated" (MLA),
-    the FFN "sp_moe_ffn", "sp_ffn", "replicated" (an MoE whose experts do
-    not split over the route ring) or "none". MoE at ragged S, which JAX
-    runs replicated under GSPMD, raises (ROADMAP A11 (b))."""
+    sub-layer by sub-layer, the mixer "sp_attention" or "replicated" (every
+    mixer that is not TP-applicable: MLA, SSM, RG-LRU, attention whose
+    query heads do not split over the ring; JAX runs them under GSPMD), the
+    FFN "sp_moe_ffn", "sp_ffn", "replicated" (an MoE whose experts do not
+    split over the route ring) or "none". MoE at ragged S, which JAX runs
+    replicated under GSPMD, raises (ROADMAP A11 (b))."""
     if not seq_sharded and cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: MoE at a sequence that does not split over the "
@@ -173,12 +190,10 @@ def block_routes(kind: str, cfg: ArchConfig, tpc: tp_mod.TPContext,
             "layout, which is not ported yet (ROADMAP A11 (b))")
     if _whole_block_applicable(cfg, kind, tpc.tp, tpc.route_ring):
         return "block", "block"
+    if kind not in ("attn", "swa", "mla", "ssm", "rglru"):
+        raise NotImplementedError(f"{kind!r} blocks are not ported yet")
     mixer = ("sp_attention" if kind in ("attn", "swa")
              and tp_mod.tp_applicable(cfg, kind, tpc.tp) else "replicated")
-    if mixer == "replicated" and kind != "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: a {kind!r} mixer that is not TP-applicable at "
-            f"tp={tpc.tp} has no replicated weights to run (ROADMAP A5)")
     if not _has_ffn(cfg):
         ffn = "none"
     elif tp_mod.tp_applicable(cfg, "moe", tpc.tp, tpc.route_ring):
@@ -243,7 +258,7 @@ def block_forward(kind: str, params: Block, x: torch.Tensor,
         x = x + tp_mod.sp_replicated_mixer(
             tpc, x, params.norm1.scale,
             lambda h: _mixer_forward(kind, params.mixer, h, cfg, prefix_len),
-            cfg.norm, seq_sharded=seq_sharded)
+            cfg.norm, seq_sharded=seq_sharded, kind=kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "sp_moe_ffn":
         out, aux = tp_mod.sp_moe_ffn(tpc, x, params.norm2.scale.to(dt),
@@ -267,6 +282,10 @@ def _mixer_forward(kind: str, mixer, h: torch.Tensor, cfg: ArchConfig,
                    prefix_len: int = 0) -> torch.Tensor:
     if kind == "mla":
         return attn.mla_forward(mixer, h, cfg)
+    if kind == "ssm":
+        return ssm_mod.ssm_forward(mixer, h, cfg)
+    if kind == "rglru":
+        return rglru_mod.rglru_forward(mixer, h, cfg)
     return attn.attention_forward(mixer, h, cfg, window=_window(kind, cfg),
                                   prefix_len=prefix_len)
 
@@ -358,10 +377,15 @@ def block_prefill(params: Block, x: torch.Tensor, cfg: ArchConfig,
                   s_max: Optional[int] = None
                   ) -> Tuple[torch.Tensor, attn.Cache]:
     """Pre-norm residual block over the prompt; returns (x, the layer's
-    decode cache)."""
+    decode cache: K/V, a latent, or a recurrent {"h", "conv"} state)."""
     h = params.norm1(x)
     if params.kind == "mla":
         mixed, cache = attn.mla_prefill(params.mixer, h, cfg, s_max=s_max)
+    elif params.kind in ("ssm", "rglru"):
+        fwd = ssm_mod.ssm_forward if params.kind == "ssm" \
+            else rglru_mod.rglru_forward
+        mixed, (state, conv) = fwd(params.mixer, h, cfg, return_state=True)
+        cache = {"h": state, "conv": conv}
     else:
         mixed, cache = attn.attention_prefill(
             params.mixer, h, cfg, window=_window(params.kind, cfg),
@@ -372,10 +396,15 @@ def block_prefill(params: Block, x: torch.Tensor, cfg: ArchConfig,
 def block_decode(params: Block, x: torch.Tensor, cache: attn.Cache,
                  idx: torch.Tensor, cfg: ArchConfig
                  ) -> Tuple[torch.Tensor, attn.Cache]:
-    """One decode step of one block; ``cache`` is updated in place."""
+    """One decode step of one block; ``cache`` is updated in place (a
+    recurrent state needs no position: ``idx`` is the attention kinds')."""
     h = params.norm1(x)
     if params.kind == "mla":
         mixed, cache = attn.mla_decode(params.mixer, h, cache, idx, cfg)
+    elif params.kind == "ssm":
+        mixed, cache = ssm_mod.ssm_decode(params.mixer, h, cache, cfg)
+    elif params.kind == "rglru":
+        mixed, cache = rglru_mod.rglru_decode(params.mixer, h, cache, cfg)
     else:
         mixed, cache = attn.attention_decode(
             params.mixer, h, cache, idx, cfg,
@@ -391,6 +420,10 @@ def init_block_cache(kind: str, cfg: ArchConfig, batch: int, s_max: int,
         return attn.init_swa_cache(cfg, batch, cfg.window, dtype, device)
     if kind == "mla":
         return attn.init_mla_cache(cfg, batch, s_max, dtype, device)
+    if kind == "ssm":
+        return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return rglru_mod.init_rglru_cache(cfg, batch, dtype, device)
     raise NotImplementedError(f"{kind!r} caches are not ported yet")
 
 
@@ -576,7 +609,7 @@ AUX_LOSS_WEIGHT = 0.01
 
 
 class LM(nn.Module):
-    """Decoder-only language model (dense attention and MLA archs).
+    """Decoder-only language model (attention, MLA, SSM and RG-LRU archs).
 
     Parameters live on ``device`` (CUDA unless the caller names another) in
     ``rt.param_dtype``; activations run in ``rt.compute_dtype``. With
@@ -710,8 +743,8 @@ class LM(nn.Module):
         graphs (embedding, head, final norm: each rank's are its sequence
         shard's part); in the ``"sharded"`` and ``"gathered"`` layouts those
         of the block parameters that run replicated outside every period
-        graph (:func:`replicated_block_params`: an MLA mixer and its norm1,
-        a replicated MoE and its norm2). Where the activation is whole on
+        graph (:func:`replicated_block_params`: a replicated mixer and its
+        norm1, a replicated MoE and its norm2). Where the activation is whole on
         every rank, every rank computes the same loss from it, so the
         embedding's, head's and final norm's grads are complete, and in the
         ``"replicated"`` layout the replicated blocks' are too. The period
