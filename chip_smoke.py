@@ -215,6 +215,27 @@ Phases (any failure exits non-zero):
      graphs', flash once a replicated attention layer a forward, every call
      shape of both kernels among phase 3's (which adds recurrentgemma-2b's
      attention cores and sp_ffn ring steps).
+ 15. the enc-dec and VLM families at their published widths, random
+     weights from seed 0, f32 params: whisper-tiny (4 encoder + 4 decoder
+     layers, d 384, 6 heads of 64, 1500 source frames; the encoder's and
+     the cross-attention's cores non-causal) and paligemma-3b (18 layers,
+     d 2048, 8 query heads over 1 kv head of 256, 256 image-prefix
+     tokens attending bidirectionally in training). (a) whisper-tiny at
+     full depth, f32, card against CPU: prefill + PF_DECODE_STEPS decode
+     logits within LOGIT_TOL, the loss and every grad by phase 9's f32
+     rules; (b) served in bf16 through ``launch.serve`` (the dense engine):
+     flash 12 times in the prefill (4 encoder, 4 self, 4 cross, all
+     ``ffma``) and 8 a decode call (``splitkv``); (c) paligemma-3b cut to
+     VLM_CHECK_LAYERS, f32, card against CPU: the prefix-LM loss forward
+     within TRAIN_RTOL (the prefix mask on ``ffma``), prefill + decode
+     logits within LOGIT_TOL; (d) served at full depth in bf16: flash 18
+     ``wgmma`` in the prefill and 18 ``splitkv`` a decode call; (e) one
+     training step on 4 gloo ranks against one device through phase 9's
+     machinery and rules (f32, ``cais``, cut to VLM_TRAIN_LAYERS, 1 x (256
+     + 1024) rows, so rank 0's 320 straddle the prefix boundary), every
+     flash call carrying the prefix. Every call shape, with its mask, among
+     phase 3's (which adds the prefix rows of all three variants and the
+     non-causal rows).
 Phase 3 also holds matmul_rmsnorm against its plain version at the TPU
 kernel's test shapes, at every shape phase 8 calls (b a column slice of
 ``wkv_a`` for the KV latent) and at N 8192, and flash attention at the MLA
@@ -420,6 +441,27 @@ REC_TRAIN_SHAPE = {HYB_ARCH: (1, 4096), SSM_ARCH: (2, 2048)}
 REC_TRAIN_RUNS = {HYB_ARCH: [("cais", 2, "float32"),
                              ("barrier", 1, "float32")],
                   SSM_ARCH: [("cais", 2, "float32")]}
+# phase 15: the enc-dec and VLM families at their published widths, random
+# weights from seed 0, f32 params: whisper-tiny (4 encoder + 4 decoder
+# layers, d 384, 6 heads of 64, 1500 source frames) and paligemma-3b (18
+# layers, d 2048, 8 query heads over 1 kv head of 256, d_ff 16384, 256
+# image-prefix tokens of width 1152)
+ENC_ARCH, VLM_ARCH = "whisper-tiny", "paligemma-3b"
+PF_DECODE_STEPS = 4
+# (a) whisper-tiny at full depth, f32 card vs CPU: ENC_CHECK_BATCH prompts
+# of ENC_PROMPT tokens over 1500 frames; (b) served in bf16: ENC_REQUESTS
+# prompts of ENC_PROMPT tokens (one length group), ENC_MAX_NEW new, greedy
+ENC_CHECK_BATCH, ENC_PROMPT, ENC_REQUESTS, ENC_MAX_NEW = 2, 64, 4, 16
+# (c) paligemma-3b cut to VLM_CHECK_LAYERS, f32 card vs CPU:
+# VLM_CHECK_BATCH x (256 prefix + VLM_PROMPT text); (d) served at full depth
+# in bf16: VLM_REQUESTS x (256 + VLM_PROMPT), VLM_MAX_NEW new
+VLM_CHECK_LAYERS, VLM_CHECK_BATCH, VLM_PROMPT = 2, 2, 256
+VLM_REQUESTS, VLM_MAX_NEW = 4, 16
+# (e) one training step on TP_WORLD gloo ranks against one device, cut to
+# VLM_TRAIN_LAYERS: batch 1 x (256 prefix + 1024 text) = 1280 rows, 320 a
+# rank, so rank 0's shard straddles the prefix boundary
+VLM_TRAIN_LAYERS, VLM_TRAIN_SHAPE = 1, (1, 1024)
+VLM_TRAIN_RUNS = [("cais", 1, "float32")]
 
 
 T_START: Optional[float] = None     # main() sets it
@@ -635,12 +677,13 @@ def bound(case, ref) -> tuple:
     card's peaks: bytes / HBM rate, operations / peak rate of the type; the
     least time the card could take is the larger. Counts what these inputs
     need: q, out, positions, and the K/V rows some query of the batch row
-    may see; 2·(dh + dv) operations per visible (query head, key) pair."""
+    may see; 2·(dh + dv) operations per visible (query head, key) pair
+    under the case's mask (:func:`case_mask`)."""
     q, k = case["q"], case["k"]
     B, Sq, H, dh = q.shape
     Hkv, dv = k.shape[2], case["v"].shape[3]
     vis = ref.visible(case["q_positions"], case["kv_positions"],
-                      causal=True, window=case["window"])
+                      **case_mask(case))
     es = q.element_size()
     keys = int(vis.any(dim=1).sum())
     nbytes = (B * Sq * H * (dh + dv) * es + keys * Hkv * (dh + dv) * es
@@ -648,6 +691,14 @@ def bound(case, ref) -> tuple:
                      + case["kv_positions"].numel()))
     ops = 2 * (dh + dv) * H * int(vis.sum())
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[q.dtype] * 1e3
+
+
+def case_mask(case) -> dict:
+    """A flash case's mask: causal unless the case says not (the enc-dec
+    family's encoder and cross-attention), its window, its prefix-LM
+    prefix (the VLM's training core; 0: none)."""
+    return dict(causal=case.get("causal", True), window=case["window"],
+                prefix_len=case.get("prefix_len", 0))
 
 
 def flash_plan(fa, q, k, v):
@@ -658,12 +709,14 @@ def flash_plan(fa, q, k, v):
 def check_kernel_case(name: str, case, fa, ref) -> dict:
     import torch.nn.functional as F
 
-    kw = {n: case[n] for n in ("q_positions", "kv_positions", "window")}
+    mask = case_mask(case)
+    kw = dict(q_positions=case["q_positions"],
+              kv_positions=case["kv_positions"], **mask)
     q, k, v = case["q"], case["k"], case["v"]
     p = flash_plan(fa, q, k, v)
-    got = fa.flash_attention(q, k, v, causal=True, **kw)
+    got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    want = ref.attention_ref(q, k, v, causal=True, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
     keep = case["q_positions"] >= 0      # rows with no visible key hold 0
     g, w = got[keep].float(), want[keep].float()
     err = (g - w).abs()
@@ -672,18 +725,22 @@ def check_kernel_case(name: str, case, fa, ref) -> dict:
     limit = check
     if p.variant == "wgmma":
         limit = check + P_ROUNDING * ref.attention_ref(
-            q, k, v.abs(), causal=True, **kw)[keep].float()
+            q, k, v.abs(), **kw)[keep].float()
     ok = bool((err <= limit).all())
     if not torch.isfinite(got).all() or got[~keep].any():
         ok = False
-    # the library yardstick: SDPA with the same boolean mask, GQA inside
+    # the library yardstick: SDPA with the same boolean mask (the prefix
+    # rows' included), GQA inside; without one where every key is visible
+    # (a non-causal row: is_causal=False)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    mask = ref.visible(case["q_positions"], case["kv_positions"], causal=True,
-                       window=case["window"])[:, None]
-    t = timings(lambda: fa.flash_attention(q, k, v, causal=True, **kw),
-                lambda: ref.attention_ref(q, k, v, causal=True, **kw),
+    seen = ref.visible(case["q_positions"], case["kv_positions"], **mask)
+    sdpa_mask = None if bool(seen.all()) and not mask["causal"] \
+        else seen[:, None]
+    t = timings(lambda: fa.flash_attention(q, k, v, **kw),
+                lambda: ref.attention_ref(q, k, v, **kw),
                 lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True))
+                    qt, kt, vt, attn_mask=sdpa_mask, is_causal=False,
+                    enable_gqa=True))
     ms = t["ms"]
     bytes_ms, ops_ms = bound(case, ref)
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
@@ -691,6 +748,7 @@ def check_kernel_case(name: str, case, fa, ref) -> dict:
                shape=dict(B=q.shape[0], Sq=q.shape[1], Skv=k.shape[1],
                           H=q.shape[2], Hkv=k.shape[2], dh=q.shape[3],
                           dv=v.shape[3]),
+               causal=mask["causal"], prefix_len=mask["prefix_len"],
                variant=p.variant, tile=list(p.tile), splits=p.splits,
                ctas=p.ctas, max_abs_err=float(err.max()),
                tol=dict(tol, p_rounding=(
@@ -702,7 +760,10 @@ def check_kernel_case(name: str, case, fa, ref) -> dict:
                bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
                **achieved(bytes_ms, ops_ms, bound_by, ms, q.dtype,
                           t["graph_ms"]))
-    log(f"  {name:>14} {row['dtype']:>8} {p.variant} {p.tile[0]}x"
+    log(f"  {name:>14} {row['dtype']:>8} "
+        f"{'' if mask['causal'] else 'non-causal '}"
+        f"{'prefix %d ' % mask['prefix_len'] if mask['prefix_len'] else ''}"
+        f"{p.variant} {p.tile[0]}x"
         f"{p.tile[1]} splits {p.splits} err={row['max_abs_err']:.3e} "
         f"(err/limit {row['worst_err_over_limit']:.3f}, err/CHECK_TOL "
         f"{row['worst_err_over_check_tol']:.3f}) {'ok' if ok else 'FAIL'} "
@@ -786,6 +847,13 @@ def phase_kernels(cfg, fa, ref) -> list:
     for i, (name, B, Sq, Skv, dtype) in enumerate(rec_flash_cases()):
         rows.append(check_kernel_case(name, rec_core_case(
             hyb, B, Sq, Skv, dtype, seed=9 + i), fa, ref))
+    # phase 15: whisper-tiny's non-causal encoder and cross-attention cores
+    # and its causal decoder, paligemma-3b's prefix-LM training cores (all
+    # three variants: ffma f32, wgmma bf16, a split-KV decode whose queries
+    # lie inside the prefix) and its causal serving cores
+    for i, case in enumerate(pf_flash_cases()):
+        rows.append(check_kernel_case(case[0], pf_core_case(
+            *case[1:], seed=30 + i), fa, ref))
     return rows
 
 
@@ -950,7 +1018,10 @@ def phase_matmul(mmk, ref) -> list:
         ("ragged", ragged_matmul_shapes(cfg)),
         # phase 14 (c): recurrentgemma-2b's sp_ffn ring steps (2560 ->
         # 1920 a rank and back) and their backward
-        ("rec_ffn", rec_matmul_shapes())]
+        ("rec_ffn", rec_matmul_shapes()),
+        # phase 15 (e): paligemma-3b's whole-block ring step over the 1280
+        # prefix + text rows and its backward
+        ("vlm_ring", vlm_matmul_shapes())]
     for name, shapes in mesh_cases:
         for M, K, N, lay in shapes:
             if (M, K, N, "float32", lay) not in seen:
@@ -1272,15 +1343,18 @@ def phase_reference(cfg_full):
 # ---------------------------------------------------------------------------
 
 
-def record_calls(ops, calls: dict):
+def record_calls(ops, calls: dict, masked: bool = False):
     """Wrap ``ops.flash_attention`` so that each call's shape key (B, Sq, H,
-    dh, Skv, Hkv, dv, dtype) is counted in ``calls``; returns the original
-    to put back."""
+    dh, Skv, Hkv, dv, dtype), with ``masked`` followed by its mask (causal,
+    prefix_len), is counted in ``calls``; returns the original to put
+    back."""
     core = ops.flash_attention
 
     def core_shapes(q, k, v, **kw):
         key = (*q.shape, k.shape[1], k.shape[2], v.shape[3],
                str(q.dtype).replace("torch.", ""))
+        if masked:
+            key += (kw.get("causal", True), kw.get("prefix_len", 0))
         calls[key] = calls.get(key, 0) + 1
         return core(q, k, v, **kw)
 
@@ -1535,16 +1609,23 @@ def phase_tp(mmk, fa) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def prefill_decode(lm, tokens, steps: int = 3):
-    """LM.prefill of ``tokens`` then ``steps`` decode steps of fixed
-    tokens; returns every step's logits on the CPU."""
+def prefill_decode(lm, tokens, steps: int = 3, extras=None):
+    """The model's prefill of ``tokens`` (with ``extras``, the enc-dec and
+    VLM families' frontend inputs) then ``steps`` decode steps of fixed
+    tokens, positions past a VLM's image prefix; returns every step's
+    logits on the CPU."""
     dev = lm.device
     B, S = tokens.shape
-    logits, caches = lm.prefill(tokens.to(dev), s_max=S + steps)
+    P = lm.cfg.num_prefix_tokens
+    batch = tokens.to(dev)
+    if extras:
+        batch = {"tokens": batch, **{k: v.to(dev)
+                                     for k, v in extras.items()}}
+    logits, caches = lm.prefill(batch, s_max=P + S + steps)
     out = [logits.cpu()]
     for t in range(steps):
         tok = torch.full((B, 1), 7 + t, dtype=torch.int32, device=dev)
-        idx = torch.full((B,), S + t, dtype=torch.int32, device=dev)
+        idx = torch.full((B,), P + S + t, dtype=torch.int32, device=dev)
         logits, caches = lm.decode_step(tok, caches, idx)
         out.append(logits.cpu())
     return out
@@ -1842,13 +1923,13 @@ def train_reference(batch, root: str, cfg, device="cuda",
     only), an MoE's routing in the step's forward (:func:`routing_probe`),
     and a :class:`RefStore` of its gradients, m, v and parameters. Frees
     the card before it returns."""
-    from repro_torch.models import LM
+    from repro_torch.models import build_model
     from repro_torch.optim import adamw, constant_schedule
     from repro_torch.runtime import Runtime
     from repro_torch.train.step import init_state, make_train_step
 
     rt = Runtime(compute_dtype="float32")
-    lm = LM(cfg, rt, device=device, seed=SEED)
+    lm = build_model(cfg, rt, device=device, seed=SEED)
     tok = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     with torch.no_grad():
         lm.rt = Runtime(compute_dtype="bfloat16")
@@ -2163,7 +2244,7 @@ def train_legs(group, legs, cfg, device="cuda", mesh="flat",
     from repro_torch.kernels import matmul as mmk
     from repro_torch.kernels import matmul_rmsnorm as mln
     from repro_torch.kernels import ops
-    from repro_torch.models import LM
+    from repro_torch.models import build_model
     from repro_torch.models.transformer import activation_layout
     from repro_torch.optim import adamw, constant_schedule
     from repro_torch.runtime import Runtime, TPConfig
@@ -2183,8 +2264,8 @@ def train_legs(group, legs, cfg, device="cuda", mesh="flat",
                 init_mesh(group, **MESHES[key])
         return meshes[key]
 
-    lm = LM(cfg, Runtime(compute_dtype="float32"), device=device, seed=SEED,
-            group=mesh_of(mesh))
+    lm = build_model(cfg, Runtime(compute_dtype="float32"), device=device,
+                     seed=SEED, group=mesh_of(mesh))
     if _on_card(device):
         torch.cuda.empty_cache()      # the whole model drawn for the shards
     init = {k: p.detach().to("cpu", copy=True)
@@ -2242,7 +2323,7 @@ def train_legs(group, legs, cfg, device="cuda", mesh="flat",
         return _inner(a, b, scale, **k)
 
     ops.matmul_rmsnorm = norm_shapes
-    record_calls(ops, flash_calls)
+    record_calls(ops, flash_calls, masked=True)
     probe = plan_probe()
     setup_s = time.monotonic() - t_setup     # the model drawn, its shards
     legs_out = []
@@ -2250,6 +2331,7 @@ def train_legs(group, legs, cfg, device="cuda", mesh="flat",
         if lm.dp > 1:
             batch = replica_rows(batch, lm.data.rank, lm.dp)
         B, S = batch["tokens"].shape
+        S += cfg.num_prefix_tokens       # the rows the stack sees (a VLM's)
         out = []
         for run in runs:
             t_run = time.monotonic()
@@ -2579,6 +2661,9 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
             "flash launches = forward + recompute": all(
                 p["flash_launches"] == p["flash_derived"]
                 and (p["flash_derived"] > 0) == attends for p in per),
+            "every flash call causal with the model's prefix": all(
+                c[8:10] == [True, cfg.num_prefix_tokens]
+                for p in per for c in p["flash_shapes"]),
             "matmul_rmsnorm launches = 2 a replicated MLA mixer": all(
                 p["mln_launches"] == p["mln_derived"] for p in per),
             "flash variants": all(p["flash_variants"] == dict(
@@ -3818,6 +3903,336 @@ def phase_recurrent(fa) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the enc-dec and VLM families (whisper-tiny, paligemma-3b)
+# ---------------------------------------------------------------------------
+
+
+def pf_flash_cases() -> list:
+    """(name, arch, B, Sq, Skv, per_rank, dtype, causal, prefix_len, q0) of
+    every flash call phase 15 makes, q0 a decode row's query position (None:
+    a prefill, positions 0..Sq-1) and ``per_rank`` a ring rank's heads.
+    whisper-tiny: (a) f32 over ENC_CHECK_BATCH rows and (b) bf16 over
+    ENC_REQUESTS: the non-causal encoder (1500 frames) and cross-attention
+    (the prompt, then a decode row, over 1500 keys), the causal
+    self-attention's prefill and decode (a cache of prompt + new tokens).
+    paligemma-3b: the prefix-LM cores of (c)'s loss, of (e)'s ring (a
+    rank's 2 query heads over the one kv head, f32 ffma and its bf16
+    wgmma twin) and of (e)'s one-device step, a bf16 split-KV decode whose
+    queries lie inside the prefix; the causal serving cores of (c) (f32)
+    and (d) (bf16): prefill over 256 + VLM_PROMPT, decode over the cache."""
+    P = get_rec_cfg(VLM_ARCH).num_prefix_tokens
+    T, (Bt, St) = P + VLM_PROMPT, VLM_TRAIN_SHAPE
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = []
+    for B, dtype, new in ((ENC_CHECK_BATCH, f32, PF_DECODE_STEPS),
+                          (ENC_REQUESTS, bf16, ENC_MAX_NEW)):
+        S, F = ENC_PROMPT, get_rec_cfg(ENC_ARCH).encoder.max_source_len
+        out += [("enc_encoder", ENC_ARCH, B, F, F, False, dtype, False, 0,
+                 None),
+                ("enc_self", ENC_ARCH, B, S, S, False, dtype, True, 0, None),
+                ("enc_cross", ENC_ARCH, B, S, F, False, dtype, False, 0,
+                 None),
+                ("enc_self_decode", ENC_ARCH, B, 1, S + new, False, dtype,
+                 True, 0, S),
+                ("enc_cross_decode", ENC_ARCH, B, 1, F, False, dtype, False,
+                 0, 0)]
+    out += [("vlm_prefix_check", VLM_ARCH, VLM_CHECK_BATCH, T, T, False,
+             f32, True, P, None),
+            ("vlm_prefix_ring", VLM_ARCH, Bt, P + St, P + St, True, f32,
+             True, P, None),
+            ("vlm_prefix_ring", VLM_ARCH, Bt, P + St, P + St, True, bf16,
+             True, P, None),
+            ("vlm_prefix_step", VLM_ARCH, Bt, P + St, P + St, False, f32,
+             True, P, None),
+            ("vlm_prefix_decode", VLM_ARCH, 2, 1, T, False, bf16, True, P,
+             [P // 2 - 28, P - 1])]
+    for B, dtype, new in ((VLM_CHECK_BATCH, f32, PF_DECODE_STEPS),
+                          (VLM_REQUESTS, bf16, VLM_MAX_NEW)):
+        out += [("vlm_prefill", VLM_ARCH, B, T, T, False, dtype, True, 0,
+                 None),
+                ("vlm_decode", VLM_ARCH, B, 1, T + new, False, dtype, True,
+                 0, T)]
+    return out
+
+
+def pf_core_case(arch: str, B: int, Sq: int, Skv: int, per_rank: bool,
+                 dtype, causal: bool, prefix_len: int, q0, seed: int):
+    """The attention core of ``arch`` as phase 15 calls it: all heads, or
+    a ring rank's (H/TP_WORLD query heads over the kv head they use);
+    a prefill over positions 0..Sq-1, or a decode row at q0 (an int, or
+    one a batch row) over keys 0..q0 (-1 after: the cache's free slots)
+    where causal, over every key where not."""
+    cfg = get_rec_cfg(arch)
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    if per_rank:
+        H, Hkv = H // TP_WORLD, max(Hkv // TP_WORLD, 1)
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda h, s_: torch.randn(B, s_, h, dh, generator=g).to("cuda",
+                                                                 dtype)
+    kpos = torch.arange(Skv, dtype=torch.int32).expand(B, Skv).clone()
+    if q0 is None:
+        qpos = torch.arange(Sq, dtype=torch.int32).expand(B, Sq).clone()
+    else:
+        q0 = q0 if isinstance(q0, list) else [q0] * B
+        qpos = torch.tensor(q0, dtype=torch.int32)[:, None]
+        if causal and not prefix_len:
+            kpos = torch.where(kpos <= qpos, kpos, -1)
+    return dict(q=mk(H, Sq), k=mk(Hkv, Skv), v=mk(Hkv, Skv),
+                q_positions=qpos.cuda(), kv_positions=kpos.cuda(), window=0,
+                causal=causal, prefix_len=prefix_len)
+
+
+def checked_masked(rows) -> set:
+    """Phase 3's flash rows as (B, Sq, H, dh, Skv, Hkv, dv, dtype, causal,
+    prefix_len) keys, as ``record_calls(..., masked=True)`` sees a
+    call."""
+    return {(r["shape"]["B"], r["shape"]["Sq"], r["shape"]["H"],
+             r["shape"]["dh"], r["shape"]["Skv"], r["shape"]["Hkv"],
+             r["shape"]["dv"], r["dtype"], r["causal"], r["prefix_len"])
+            for r in rows}
+
+
+def vlm_matmul_shapes(cfg=None, batch: int = VLM_TRAIN_SHAPE[0],
+                      seq: int = VLM_TRAIN_SHAPE[1],
+                      runs=VLM_TRAIN_RUNS) -> list:
+    """(M, K, N, layout) of every matmul call of phase 15 (e)'s ring step,
+    whole-block graphs over the P + ``seq`` rows: the forward's cais ring
+    steps (gather steps of b·S_r/c rows, c as the cais planner picks it,
+    reduce steps of b·S_r/2) through the q, k, v (the one kv head whole on
+    every rank), up and gate columns and the o and down rows, and the
+    backward's as :func:`train_matmul_shapes` counts them."""
+    from repro_torch.core import primitives as prim
+    from repro_torch.core.backends import CAISBackend
+
+    cfg = cfg or get_rec_cfg(VLM_ARCH, VLM_TRAIN_LAYERS)
+    T = cfg.num_prefix_tokens + seq
+    n, d, dh = TP_WORLD, cfg.d_model, cfg.resolved_head_dim
+    kv_tp = n if cfg.num_kv_heads % n == 0 else 1
+    fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // kv_tp
+    ff, s_r = cfg.d_ff // n, T // n
+    shapes = set()
+    for mode, mb, *_ in runs:
+        b = batch // batch_split(batch, mb)
+        if mode == "barrier":
+            m_ag = m_rs = b * T
+        else:
+            c = prim._pick_chunks(s_r, CAISBackend.plan_chunks(
+                b * T * d * 4, n))
+            m_ag, m_rs = b * s_r // c, b * s_r // 2
+        shapes |= {(m_ag, d, fq, "nn"), (m_ag, d, fkv, "nn"),
+                   (m_ag, d, ff, "nn"), (m_rs, fq, d, "nn"),
+                   (m_rs, ff, d, "nn")}
+    return sorted(shapes | set(train_matmul_shapes(
+        cfg, batch=batch, seq=T, runs=runs)))
+
+
+def pf_inputs(cfg, B: int, S: int, seed: int) -> dict:
+    """A batch of B prompts of S tokens (and their next-token labels) with
+    the family's stub-frontend input, standard normal from ``seed``:
+    whisper's frame embeddings (B, 1500, d), paligemma's patch embeddings
+    (B, 256, 1152)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_enc_dec:
+        out["src_embed"] = rng.standard_normal(
+            (B, cfg.encoder.max_source_len, cfg.d_model)).astype(np.float32)
+    else:
+        out["patch_embed"] = rng.standard_normal(
+            (B, cfg.num_prefix_tokens, cfg.vision_width)).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def phase_pf_check(cfg, B: int, S: int, grads: bool,
+                   device="cuda") -> dict:
+    """(a)/(c): ``cfg``'s model in f32 on the CPU (plain versions) and on
+    ``device`` (the kernels) from one seed: ``prefill`` of B prompts of S
+    tokens with their frontend input and PF_DECODE_STEPS ``decode_step``
+    calls, logits within LOGIT_TOL; the loss (the VLM's prefix-LM one)
+    within TRAIN_RTOL, and with ``grads`` every grad per tensor within
+    TRAIN_RTOL of its max (phase 9's f32 rules); the device's flash calls
+    recorded with their masks."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.runtime import SMOKE
+
+    cpu = build_model(cfg, SMOKE, device="cpu", seed=SEED)
+    dev = build_model(cfg, SMOKE, device=device, seed=None)
+    dev.load_state_dict(cpu.state_dict())
+    batch = pf_inputs(cfg, B, S, seed=15)
+    extras = {k: v for k, v in batch.items() if k.endswith("_embed")}
+    out, calls = {}, {}
+    for name, m in (("cpu", cpu), ("card", dev)):
+        core = record_calls(ops, calls, masked=True) if name == "card" \
+            else None
+        t0 = time.monotonic()
+        try:
+            logits = prefill_decode(m, batch["tokens"], PF_DECODE_STEPS,
+                                    extras)
+            b = {k: v.to(m.device) for k, v in batch.items()}
+            m.requires_grad_(grads)
+            with torch.set_grad_enabled(grads):
+                loss = m.loss(b)
+            if grads:
+                loss.backward()
+            _sync(m.device)
+        finally:
+            if core is not None:
+                ops.flash_attention = core
+        out[name] = dict(logits=logits, loss=float(loss.detach()),
+                         grads={k: p.grad for k, p in m.named_parameters()}
+                         if grads else {}, s=time.monotonic() - t0)
+    err = max(float((g - w).abs().max())
+              for g, w in zip(out["card"]["logits"], out["cpu"]["logits"]))
+    logits_ok = all(torch.allclose(g, w, **LOGIT_TOL) for g, w in
+                    zip(out["card"]["logits"], out["cpu"]["logits"]))
+    rel = abs(out["card"]["loss"] - out["cpu"]["loss"]) / \
+        abs(out["cpu"]["loss"])
+    worst = max((float((g.cpu() - out["cpu"]["grads"][k]).abs().max())
+                 / (TRAIN_RTOL * float(out["cpu"]["grads"][k].abs().max()))
+                 for k, g in out["card"]["grads"].items()), default=0.0)
+    checks = {f"logits within {LOGIT_TOL}": logits_ok,
+              f"loss within {TRAIN_RTOL:g}": rel <= TRAIN_RTOL,
+              f"every grad within {TRAIN_RTOL:g} max|ref|": worst <= 1.0}
+    log(f"  {cfg.name} {cfg.num_layers} layers f32, {B} x "
+        f"{cfg.num_prefix_tokens + S}: prefill + {PF_DECODE_STEPS} decode "
+        f"logits max|d| {err:.3e}; loss {out['card']['loss']:.7f} (CPU "
+        f"{out['cpu']['loss']:.7f}, rel {rel:.2e})"
+        + (f"; worst grad err / bound {worst:.3f}" if grads else "")
+        + f" (CPU {out['cpu']['s']:.1f}s, card {out['card']['s']:.1f}s); "
+        f"{json.dumps({k: v for k, v in checks.items()})}")
+    del cpu, dev, out
+    if _on_card(device):
+        torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"{cfg.name}: card against CPU failed "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return dict(logits_err=err, loss_rel=rel, grad_worst=worst,
+                calls=sorted([*k, v] for k, v in calls.items()))
+
+
+def pf_serve_launches(cfg, new: int) -> dict:
+    """The flash calls by variant of one dense-engine batch of ``cfg``
+    served for ``new`` tokens: whisper-tiny's prefill runs the encoder, the
+    self-attention and the cross-attention of every layer (ffma: dh 64 has
+    no wgmma pair) and each decode call the self- and cross-attention
+    (split-KV); paligemma-3b's prefill one wgmma call a layer and each
+    decode call one split-KV call a layer."""
+    L, decodes = cfg.num_layers, new - 1
+    if cfg.is_enc_dec:
+        return dict(ffma=cfg.encoder.num_layers + 2 * L,
+                    splitkv=2 * L * decodes, wgmma=0)
+    return dict(wgmma=L, splitkv=L * decodes, ffma=0)
+
+
+def phase_pf_serve(arch: str, fa, requests: int, prompt: int,
+                   new: int) -> dict:
+    """(b)/(d): ``arch`` at full width and depth served through
+    ``repro_torch.launch.serve`` in bf16 (f32 params; the dense engine):
+    ``requests`` prompts of ``prompt`` tokens, one length group, ``new``
+    tokens each, greedy; one prefill and new - 1 decode calls, the flash
+    launches exactly :func:`pf_serve_launches`'."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    cfg = get_rec_cfg(arch)
+    calls = {}
+    core = record_calls(ops, calls, masked=True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = 0                            # count the main path only
+        fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+        t0 = time.monotonic()
+        eng, reqs = serve.main([
+            "--arch", arch, "--device", "cuda", "--requests", str(requests),
+            "--prompt-len", str(prompt), "--prompt-len-min", str(prompt),
+            "--max-new", str(new), "--seed", "0"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches, variants = fa.launches, dict(fa.launches_by_variant)
+    finally:
+        ops.flash_attention = core
+    want = pf_serve_launches(cfg, new)
+    checks = {
+        "every request finished": all(
+            r.done and len(r.out_tokens) == new for r in reqs),
+        "tokens in the vocabulary": all(
+            0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
+        "dense engine, 1 prefill + new - 1 decode calls":
+            not eng.paged and eng.steps == new,
+        f"flash launches {sum(want.values())} {json.dumps(want)}":
+            launches == sum(want.values()) == sum(calls.values())
+            and variants == want}
+    rep = dict(eng.last_report)
+    rep.update(steps=eng.steps, launches=launches, flash_variants=variants,
+               wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated()
+               / 2**30, params=cfg.param_count(),
+               calls=sorted([*k, v] for k, v in calls.items()))
+    behind = (f" behind {cfg.num_prefix_tokens} image tokens"
+              if cfg.num_prefix_tokens else "")
+    log(f"  {arch} served {len(reqs)} x {prompt} tokens{behind} in "
+        f"{eng.steps} model calls, {wall:.1f}s; TTFT p50 "
+        f"{rep['ttft_p50_ms']:.1f} ms, per-token p50 "
+        f"{rep['per_token_p50_ms']:.2f} ms, peak {rep['peak_mem_gib']:.2f} "
+        f"GiB; flash {launches} {json.dumps(variants)}; "
+        f"{json.dumps(checks)}")
+    log("  latency " + json.dumps({k: v for k, v in rep.items()
+                                   if k != "calls"}))
+    if not all(checks.values()):
+        raise AssertionError(f"{arch} serving failed "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return rep
+
+
+def phase_pf(fa) -> dict:
+    """Phase 15: (a) whisper-tiny f32 card against CPU and (b) served in
+    bf16; (c) paligemma-3b cut to VLM_CHECK_LAYERS f32 card against CPU and
+    (d) served at full depth in bf16; (e) one paligemma-3b training step on
+    TP_WORLD gloo ranks against one device (phase 9's machinery and rules,
+    the reference keeping its grads alone on the host), every flash call
+    with the prefix. Returns the launches, the masked flash calls of
+    (a)-(d), (e)'s call shapes and the seconds of each part."""
+    t0 = time.monotonic()
+    out = dict(seconds={})
+
+    def part(name, fn, *a):
+        t = time.monotonic()
+        log(f"  ({name})")
+        out[name] = fn(*a)
+        out["seconds"][name] = time.monotonic() - t
+
+    part("a", phase_pf_check, get_rec_cfg(ENC_ARCH), ENC_CHECK_BATCH,
+         ENC_PROMPT, True)
+    part("b", phase_pf_serve, ENC_ARCH, fa, ENC_REQUESTS, ENC_PROMPT,
+         ENC_MAX_NEW)
+    part("c", phase_pf_check, get_rec_cfg(VLM_ARCH, VLM_CHECK_LAYERS),
+         VLM_CHECK_BATCH, VLM_PROMPT, False)
+    part("d", phase_pf_serve, VLM_ARCH, fa, VLM_REQUESTS, VLM_PROMPT,
+         VLM_MAX_NEW)
+    cfg = get_rec_cfg(VLM_ARCH, VLM_TRAIN_LAYERS)
+    B, S = VLM_TRAIN_SHAPE
+    part("e", phase_train, cfg, train_batch(cfg, seq=S, batch=B),
+         VLM_TRAIN_RUNS, "phase 15 (e)", ("grad",))
+    train = out["e"]
+    P = cfg.num_prefix_tokens
+    out.update(
+        flash_launches=out["b"]["launches"] + out["d"]["launches"]
+        + train["flash_launches"],
+        matmul_launches=train["matmul_launches"],
+        call_shapes=train["call_shapes"],
+        masked=sorted({tuple(c[:10]) for k in "abcd"
+                       for c in out[k]["calls"]}
+                      | {(*c[:8], True, P) for c in train["flash_shapes"]}))
+    out["seconds"]["total"] = time.monotonic() - t0
+    log(f"  phase 15: {out['seconds']['total']:.1f}s "
+        f"({json.dumps({k: round(v, 1) for k, v in out['seconds'].items()})})"
+        f"; flash {out['flash_launches']}, matmul {out['matmul_launches']}")
+    return out
+
+
 def main() -> int:
     global T_START
     if not torch.cuda.is_available():
@@ -4027,6 +4442,24 @@ def main() -> int:
                              f"did not check: {unchecked}")
     log("  recurrent " + json.dumps(rec))
 
+    log(f"phase 15: the enc-dec and VLM families: {ENC_ARCH} f32 card "
+        f"against CPU and served in bf16; {VLM_ARCH} cut to "
+        f"{VLM_CHECK_LAYERS} layers f32 card against CPU, served at full "
+        f"depth in bf16, and one training step cut to {VLM_TRAIN_LAYERS} "
+        f"layer on {TP_WORLD} TP ranks on one card over gloo against one "
+        "device")
+    log("  " + smi)
+    pf = phase_pf(fa)
+    unchecked = [("matmul", s_) for s_ in pf["call_shapes"]
+                 if tuple(s_) not in checked]
+    unchecked += [("flash_attention", s_) for s_ in pf["masked"]
+                  if s_ not in checked_masked(rows)]
+    if unchecked:
+        raise AssertionError(f"phase 15 called kernels at shapes (flash: "
+                             f"and masks) phase 3 did not check: "
+                             f"{unchecked}")
+    log("  pf " + json.dumps(pf))
+
     log("kernel cases " + json.dumps({"flash_attention": rows,
                                       "matmul": mm_rows,
                                       "matmul_rmsnorm": mln_rows}))
@@ -4075,7 +4508,7 @@ def main() -> int:
          + serve_tp["flash_launches"] + moe["serve"]["launches"]
          + moe["train"]["flash_launches"] + topo["dp"]["flash_launches"]
          + topo["grouped_ep"]["flash_launches"] + subl["flash_launches"]
-         + rec["flash_launches"],
+         + rec["flash_launches"] + pf["flash_launches"],
          **record(head)},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -4084,7 +4517,7 @@ def main() -> int:
          + serve_tp["matmul_launches"] + moe["train"]["matmul_launches"]
          + topo["dp"]["matmul_launches"]
          + topo["grouped_ep"]["matmul_launches"] + subl["matmul_launches"]
-         + rec["matmul_launches"],
+         + rec["matmul_launches"] + pf["matmul_launches"],
          **record(mm_head)},
         {"name": "matmul_rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul_rmsnorm.cu",

@@ -12,6 +12,11 @@ the ``num_layers % len(layer_pattern)`` trailing blocks in
 ``rem[j]`` is layer ``n_full * P + j``. Both layouts keep weights as
 ``(d_in, d_out)``, so nothing is transposed.
 
+The VLM's tree is the LM's plus ``vision_proj``. The enc-dec tree stacks
+every encoder block on one leading axis (``enc_blocks``) and every decoder
+block on another (``dec_blocks``); block ``i`` is slice ``i``, and the
+decoder block's ``"self"`` attention is the port's ``self_attn``.
+
 For a model on a TP group (a flat ring or a 2D mesh's composite group),
 :func:`shard_for_group` keeps this rank's slice of each TP weight, by the
 specs of the period-graph fragment: the TP weights by the (composite)
@@ -71,15 +76,33 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))   # a writable copy
 
 
+def _encdec_flat(params: Mapping, cfg: ArchConfig,
+                 flat: Dict[str, np.ndarray]) -> None:
+    for stack, n in (("enc_blocks", cfg.encoder.num_layers),
+                     ("dec_blocks", cfg.num_layers)):
+        for li in range(n):
+            block = _slice(params[stack], li)
+            if "self" in block:
+                block["self_attn"] = block.pop("self")
+            _flatten(block, f"{stack}.{li}.", flat)
+    _flatten(params["enc_norm"], "enc_norm.", flat)
+    _flatten(params["dec_norm"], "dec_norm.", flat)
+
+
 def state_dict_from_jax(params: Mapping, cfg: ArchConfig
                         ) -> Dict[str, torch.Tensor]:
-    """``repro``'s ``LM.init`` pytree -> the port's ``LM`` state dict."""
+    """``repro``'s model pytree (``LM.init``, ``VLM.init`` or
+    ``EncDecLM.init``) -> the port's state dict of the same model."""
     flat: Dict[str, np.ndarray] = {"embed": params["embed"]}
+    if cfg.is_enc_dec:
+        _encdec_flat(params, cfg, flat)
+        return {k: _tensor(v) for k, v in flat.items()}
     for li, block in enumerate(unstack_layers(params["stack"], cfg)):
         _flatten(block, f"blocks.{li}.", flat)
     _flatten(params["final_norm"], "final_norm.", flat)
-    if "lm_head" in params:
-        flat["lm_head"] = params["lm_head"]
+    for extra in ("lm_head", "vision_proj"):
+        if extra in params:
+            flat[extra] = params[extra]
     return {k: _tensor(v) for k, v in flat.items()}
 
 
@@ -95,9 +118,9 @@ def shard_for_group(sd: Mapping[str, torch.Tensor], cfg: ArchConfig,
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping) -> None:
-    """Copy ``repro`` parameters (numpy pytree) into the port's ``LM``, in
-    its parameter type and on its device, sharded for its TP rank; every
-    key must match."""
+    """Copy ``repro`` parameters (numpy pytree) into the port's model (an
+    ``LM``, ``VLM`` or ``EncDecLM``), in its parameter type and on its
+    device, sharded for its TP rank; every key must match."""
     sd = shard_for_group(state_dict_from_jax(params, model.cfg), model.cfg,
                          model.group)
     own = model.state_dict()

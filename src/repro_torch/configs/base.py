@@ -1,12 +1,12 @@
 """Architecture configuration: the port's copy of ``repro/configs/base.py``.
 
-Only what the ported archs need is here: the dense attention archs, MLA
-(minicpm3-4b), MoE (mixtral-8x7b), the Mamba-2 SSD mixer (mamba2-130m) and
-the RG-LRU mixer (recurrentgemma-2b); the enc-dec and VLM sub-configs arrive
-with the slices that port those families. Not here yet (ROADMAP A15):
-``encoder``, ``num_prefix_tokens`` and ``vision_width``. Every field the two
-packages share is equal for every ported arch, full and smoke
-(``tests/test_torch_train.py``). ``ShapeConfig`` and ``SHAPES`` are copies.
+Every field of ``repro``'s ``ArchConfig`` is here: the dense attention
+archs, MLA (minicpm3-4b), MoE (mixtral-8x7b), the Mamba-2 SSD mixer
+(mamba2-130m), the RG-LRU mixer (recurrentgemma-2b), the enc-dec family's
+``encoder`` (whisper-tiny) and the VLM family's ``num_prefix_tokens`` and
+``vision_width`` (paligemma-3b). Every field is equal for every ported arch,
+full and smoke (``tests/test_torch_train.py``). ``ShapeConfig`` and
+``SHAPES`` are copies.
 """
 from __future__ import annotations
 
@@ -63,6 +63,15 @@ class RGLRUConfig:
     block_width: int = 0  # 0 => d_model
 
 
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack of an enc-dec arch (whisper). The frontend is a stub:
+    the inputs are precomputed frame embeddings (B, T_enc, d_model)."""
+
+    num_layers: int = 4
+    max_source_len: int = 1500
+
+
 # Block kinds usable in `layer_pattern`:
 #   "attn"  — full causal GQA/MQA attention
 #   "swa"   — sliding-window attention (window = cfg.window)
@@ -94,8 +103,15 @@ class ArchConfig:
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
 
-    norm: str = "rmsnorm"  # gemma-style rmsnorm (the only kind ported)
-    act: str = "silu"  # gated MLP activation: silu | gelu (tanh-approximate)
+    # enc-dec (whisper): the decoder's fields above, the encoder stack here
+    encoder: Optional[EncoderConfig] = None
+    # vlm (paligemma): image-prefix tokens the stub frontend supplies as
+    # precomputed patch embeddings of width vision_width (projected in)
+    num_prefix_tokens: int = 0
+    vision_width: int = 0
+
+    norm: str = "rmsnorm"  # rmsnorm (gemma-style) | layernorm
+    act: str = "silu"  # silu | gelu (gated) | gelu_mlp (non-gated)
     rope_theta: float = 10_000.0
     tie_embeddings: bool = True
     logits_softcap: float = 0.0
@@ -108,6 +124,10 @@ class ArchConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def is_enc_dec(self) -> bool:
+        return self.encoder is not None
 
     def layer_kinds(self) -> Tuple[str, ...]:
         """Full per-layer block-kind list of length num_layers."""
@@ -151,28 +171,39 @@ class ArchConfig:
         return d * dh * (2 * H + 2 * self.num_kv_heads)         # wq wk wv wo
 
     def _ffn_param_count(self) -> int:
-        """Parameters of one block's FFN: the gated MLP (w_up, w_gate,
-        w_down), or the MoE router (d, E), E experts' gated MLPs and the
-        dense residual MLP where there is one."""
+        """Parameters of one block's FFN: the dense MLP (w_up, w_down and,
+        gated, w_gate), or the MoE router (d, E), E experts' gated MLPs and
+        the dense residual MLP where there is one."""
         d = self.d_model
         m = self.moe
         if m is None:
-            return 3 * d * self.d_ff
+            return (3 if self.act in ("silu", "gelu") else 2) * d * self.d_ff
         return (d * m.num_experts + m.num_experts * 3 * d * self.d_ff
                 + 3 * d * m.dense_residual_d_ff)
 
+    def _norm_param_count(self) -> int:
+        """One norm: its scale, and a layernorm's bias."""
+        return self.d_model * (2 if self.norm == "layernorm" else 1)
+
     def param_count(self) -> int:
-        """Parameters of the decoder: embedding (+ untied head), per-layer
-        norms, mixer and FFN (every expert counted; none where d_ff is 0
-        and there is no MoE), final norm (``repro``'s count of the same init
-        shapes)."""
-        d = self.d_model
+        """Parameters of the model (``repro``'s count of the same init
+        shapes): the embedding (+ untied head), per-layer norms, mixer and
+        FFN (every expert counted; none where d_ff is 0 and there is no
+        MoE) and the final norm; an enc-dec's encoder blocks (self-attention
+        + MLP), encoder norm and each decoder block's cross-attention and
+        its norm; a VLM's ``vision_proj``."""
+        d, n = self.d_model, self._norm_param_count()
         has_ffn = self.d_ff > 0 or self.moe is not None
-        ffn = (self._ffn_param_count() + d) if has_ffn else 0
+        ffn = (self._ffn_param_count() + n) if has_ffn else 0
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        blocks = sum(self._mixer_param_count(k) + ffn + d
+        blocks = sum(self._mixer_param_count(k) + ffn + n
                      for k in self.layer_kinds())
-        return embed + blocks + d
+        total = embed + blocks + n + self.vision_width * d
+        if self.encoder is not None:
+            attn = self._mixer_param_count("attn")
+            total += self.encoder.num_layers * (attn + ffn + n) + n
+            total += self.num_layers * (attn + n)        # cross-attention
+        return total
 
     def scaled(self, **overrides) -> "ArchConfig":
         return dataclasses.replace(self, **overrides)
@@ -205,6 +236,11 @@ class ArchConfig:
                                   chunk_size=8, conv_width=4)
         if self.rglru:
             kw["rglru"] = RGLRUConfig(lru_width=64, conv_width=4)
+        if self.encoder:
+            kw["encoder"] = EncoderConfig(num_layers=2, max_source_len=16)
+        if self.num_prefix_tokens:
+            kw["num_prefix_tokens"] = 4
+            kw["vision_width"] = 32
         return self.scaled(**kw)
 
 

@@ -1,9 +1,9 @@
 """Arch registry of the port: the dense attention archs (paged serving,
 the TP training forward), minicpm3-4b (MLA), mamba2-130m (the Mamba-2 SSD
-mixer) and recurrentgemma-2b (RG-LRU + local attention), which serve
-through the dense engine, and mixtral-8x7b (MoE). The other archs of
-``repro``'s registry are named here so that asking for one says it is not
-ported yet."""
+mixer), recurrentgemma-2b (RG-LRU + local attention), whisper-tiny
+(enc-dec) and paligemma-3b (prefix-LM VLM), which serve through the dense
+engine, and mixtral-8x7b (MoE). The one other arch of ``repro``'s registry
+is named here so that asking for it says it is not ported yet."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
@@ -13,16 +13,17 @@ from repro_torch.configs.internlm2_1_8b import INTERNLM2_1_8B
 from repro_torch.configs.mamba2_130m import MAMBA2_130M
 from repro_torch.configs.minicpm3_4b import MINICPM3_4B
 from repro_torch.configs.mixtral_8x7b import MIXTRAL_8X7B
+from repro_torch.configs.paligemma_3b import PALIGEMMA_3B
 from repro_torch.configs.recurrentgemma_2b import RECURRENTGEMMA_2B
+from repro_torch.configs.whisper_tiny import WHISPER_TINY
 
 ARCHS = {a.name: a for a in (DEEPSEEK_7B, INTERNLM2_1_8B, GEMMA3_1B,
                              MINICPM3_4B, MIXTRAL_8X7B, MAMBA2_130M,
-                             RECURRENTGEMMA_2B)}
+                             RECURRENTGEMMA_2B, WHISPER_TINY, PALIGEMMA_3B)}
 
-# in repro's registry, waiting for their model families (the VLM and
-# enc-dec families) or, arctic-480b, for its optimizer, adafactor, and
+# in repro's registry, waiting for its optimizer, adafactor, and
 # checkpoint/store.py (ROADMAP A15)
-NOT_PORTED = ("paligemma-3b", "whisper-tiny", "arctic-480b")
+NOT_PORTED = ("arctic-480b",)
 
 
 def get_arch(name: str) -> ArchConfig:

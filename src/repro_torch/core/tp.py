@@ -174,8 +174,10 @@ class TPContext:
 class SPOptions:
     """Keyword options of the ``sp_*`` entry points (``opts=SPOptions(...)``
     or the fields as direct keywords). ``seq_sharded=False`` is the
-    replicated-activation (decode/ragged) layout; ``prefix_len``
-    (prefix-LM) is not ported yet and raises; ``window`` is
+    replicated-activation (decode/ragged) layout; ``prefix_len`` marks the
+    leading prefix-LM positions, which attend bidirectionally (the VLM's
+    image prefix; the attention core's query rows carry absolute
+    positions, so the rule holds on every rank); ``window`` is
     :func:`sp_attention`'s sliding window (0: global)."""
 
     prefix_len: int = 0
@@ -488,12 +490,13 @@ def _rank_kv(k: torch.Tensor, v: torch.Tensor, cfg, tp: int, rank: int):
             v[:, :, start:start + need].contiguous())
 
 
-def _attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
-                       ) -> Callable:
+def _attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0,
+                       prefix_len: int = 0) -> Callable:
     """The local attention math (rope, KV head slicing, the flash core,
     head reshape) as the closure of a ``custom`` node. q/k/v arrive over
     the full sequence (gathered, or replicated) with this rank's heads; with
-    replicated KV the rank slices the kv heads its q heads use."""
+    replicated KV the rank slices the kv heads its q heads use. The first
+    ``prefix_len`` positions attend bidirectionally (prefix-LM)."""
     from repro_torch.models.attention import attention_core
     from repro_torch.models.layers import apply_rope
 
@@ -508,7 +511,7 @@ def _attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
         k = apply_rope(k.reshape(B_, S, Hkv_loc, dh), pos, cfg.rope_theta)
         k, v = _rank_kv(k, v.reshape(B_, S, Hkv_loc, dh), cfg, tp, rank)
         o = attention_core(q, k, v, q_positions=pos, kv_positions=pos,
-                           causal=True, window=window)
+                           causal=True, window=window, prefix_len=prefix_len)
         return o.reshape(B_, S, H_loc * dh)
 
     core.flash_calls = 1
@@ -658,7 +661,7 @@ def _dense_residual_fn(act: str) -> Callable:
 
 def _block_graph_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
                           src: str, dtype=torch.float32,
-                          seq_sharded: bool = True):
+                          seq_sharded: bool = True, prefix_len: int = 0):
     """One block (a :class:`repro_torch.models.transformer.Block` holding
     this rank's shards) as a period-graph fragment: nodes chained from value
     ``src``, every node name and weight key namespaced ``b{idx}.``. Returns
@@ -666,7 +669,7 @@ def _block_graph_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
     p = f"b{idx}."
     window = cfg.window if kind == "swa" else 0
     core = _attention_core_fn(cfg, tpc.tp, window=window,
-                              rank=tpc.group.rank)
+                              rank=tpc.group.rank, prefix_len=prefix_len)
     weights = _block_weights(params, p, dtype)
     if cfg.moe is None:
         nodes, out = _dense_block_nodes(core, True, cfg.act, p=p, src=src,
@@ -737,7 +740,8 @@ def grad_groups(placements, group: TPGroup,
 
 
 def _period_graph(tpc: TPContext, params_seq, cfg, kinds: Sequence[str],
-                  dtype=torch.float32, seq_sharded: bool = True):
+                  dtype=torch.float32, seq_sharded: bool = True,
+                  prefix_len: int = 0):
     """The single-chain period graph :func:`sp_period` executes: every block
     chained through per-block ``b{i}.`` namespaces from input ``x``, its
     outputs the period output and then each MoE block's aux value. Returns
@@ -749,7 +753,7 @@ def _period_graph(tpc: TPContext, params_seq, cfg, kinds: Sequence[str],
     for i, (params, kind) in enumerate(zip(params_seq, kinds)):
         ns, src, aux, w = _block_graph_fragment(
             tpc, params, cfg, kind, i, src, dtype=dtype,
-            seq_sharded=seq_sharded)
+            seq_sharded=seq_sharded, prefix_len=prefix_len)
         nodes += ns
         weights.update(w)
         if aux is not None:
@@ -1088,9 +1092,6 @@ def _make_period(tpc: TPContext, x: torch.Tensor, base: df.Graph,
     planned microbatches, optimized by the planned pass 3, its weights' grad
     groups. ``role`` names the graph in the planner's memo key (the block
     kinds of a period, ``"sub.*"`` for a one-sub-layer graph)."""
-    if o.prefix_len:
-        raise NotImplementedError("prefix-LM attention is not ported yet "
-                                  "(VLM family, ROADMAP A15)")
     view = (_plan_view(tpc, weights, placements, role, x, o.seq_sharded,
                        hints)
             if tpc.planner == "perfsim" else None)
@@ -1117,7 +1118,8 @@ def build_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     (Period, weights dict)."""
     o = _sp_opts(opts, kw)
     base, weights = _period_graph(tpc, params_seq, cfg, kinds,
-                                  dtype=x.dtype, seq_sharded=o.seq_sharded)
+                                  dtype=x.dtype, seq_sharded=o.seq_sharded,
+                                  prefix_len=o.prefix_len)
     seq = int(x.shape[1]) * (tpc.tp if o.seq_sharded else 1)
     hints = _core_comp_hints(cfg, kinds, int(x.shape[0]), seq)
     period = _make_period(tpc, x, base, weights,
@@ -1275,7 +1277,7 @@ def build_attention_sublayer(tpc: TPContext, x: torch.Tensor, norm_scale,
     o = _sp_opts(opts, kw)
     p = "b0."
     core = _attention_core_fn(cfg, tpc.tp, window=o.window,
-                              rank=tpc.group.rank)
+                              rank=tpc.group.rank, prefix_len=o.prefix_len)
     base = attention_sublayer_graph(core, p=p, seq_sharded=o.seq_sharded)
     weights = {p + "scale1": norm_scale, p + "wq": wq, p + "wk": wk,
                p + "wv": wv, p + "wo": wo}

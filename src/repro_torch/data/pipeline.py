@@ -6,9 +6,10 @@ Batches are generated from a PRNG keyed on (seed, step): any step's batch is
 reproducible without replaying the stream. Each process may materialize only
 its slice of the global batch (``host_slice``): on a mesh with a data axis
 of ``dp`` replicas, replica ``d`` takes rows ``[d·B/dp, (d+1)·B/dp)``
-(:func:`replica_slice`), as JAX's ``BATCH_AXES`` sharding gives them. The
-encoder and prefix-image inputs of the enc-dec and VLM families arrive with
-those families (ROADMAP A15).
+(:func:`replica_slice`), as JAX's ``BATCH_AXES`` sharding gives them. An
+enc-dec arch's batch also holds ``src_embed`` (B, max_source_len, d_model)
+and a VLM's ``patch_embed`` (B, num_prefix_tokens, vision_width), standard
+normal f32 from their own generators keyed on (seed, step), JAX's arrays.
 """
 from __future__ import annotations
 
@@ -44,7 +45,18 @@ def make_batch(cfg: ArchConfig, shape: ShapeConfig, step: int,
     toks = _tokens_for_step(cfg, b, s, data.seed, step, data.zipf_alpha)
     if host_slice is not None:
         toks = toks[host_slice]
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    n = toks.shape[0]
+    # ``seed ^ 0xE0C + step`` is ``seed ^ (0xE0C + step)``, as in JAX
+    if cfg.is_enc_dec:
+        rng = np.random.default_rng(np.random.PCG64(data.seed ^ 0xE0C + step))
+        batch["src_embed"] = rng.standard_normal(
+            (n, cfg.encoder.max_source_len, cfg.d_model)).astype(np.float32)
+    if cfg.num_prefix_tokens:
+        rng = np.random.default_rng(np.random.PCG64(data.seed ^ 0x1A6 + step))
+        batch["patch_embed"] = rng.standard_normal(
+            (n, cfg.num_prefix_tokens, cfg.vision_width)).astype(np.float32)
+    return batch
 
 
 def replica_slice(global_batch: int, index: int, dp: int) -> slice:

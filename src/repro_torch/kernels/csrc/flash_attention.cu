@@ -6,8 +6,11 @@
 // an online softmax over KV tiles and f32 running (max, sum, acc) -- but takes
 // the mask from explicit positions, as the model's attention_core does
 // (src/repro/models/attention.py): key j is visible to query i iff
-//   kv_pos[j] >= 0  &&  (!causal || (kv_pos[j] <= q_pos[i]
-//                                    && (window == 0 || kv_pos[j] > q_pos[i] - window))).
+//   kv_pos[j] >= 0  &&  (!causal || ((kv_pos[j] <= q_pos[i]
+//                                     || (kv_pos[j] < prefix && q_pos[i] < prefix))
+//                                    && (window == 0 || kv_pos[j] > q_pos[i] - window))),
+// prefix the prefix-LM prefix (bidirectional among its positions; 0: none);
+// the window applies after the prefix's OR, as in JAX.
 // The TPU kernel's own case (top-left causal over (BH, S, d)) is positions =
 // arange with H = Hkv = 1.
 //
@@ -36,7 +39,9 @@
 //    tile's key positions and skips it unless some key may be visible to
 //    some row of the CTA (a conservative test on the rows' least and
 //    greatest position: the causal diagonal, the window, the end of each
-//    context); it hands the positions to the consumers in shared memory.
+//    context; a tile with a key of the prefix is live for a CTA with a row
+//    in the prefix); it hands the positions to the consumers in shared
+//    memory.
 //    Two consumer warpgroups own 64 query rows each:
 //      S = Q K^T by wgmma m64nBNk16 (K as stored is K-major: the plain B);
 //      the mask from positions on the f32 accumulator fragments; the online
@@ -100,11 +105,35 @@ using hopper::tma_load_4d;
 constexpr int kMaxSmem = 232448;  // 227 KB: the most a CTA may opt in to
 constexpr float kLog2e = 1.4426950408889634f;
 
-// A key is visible to a query at position qp (see the top of the file).
-__device__ __forceinline__ bool visible(int kp, int qp, int causal,
-                                        int window) {
-  return kp >= 0 &&
-         (!causal || (kp <= qp && (window == 0 || kp > qp - window)));
+// The mask (see the top of the file): causal or not, a sliding window (0:
+// none), a prefix-LM prefix (0: none). Passed by value to every kernel.
+struct Mask {
+  int causal, window, prefix;
+};
+
+// The keys visible to a query at position qp (see the top of the file) as
+// one range, lo < kp <= hi: the causal limit is the query's position, or the
+// prefix's last position for a query inside the prefix (kp <= qp || both in
+// the prefix); the window raises lo above qp - window; without the causal
+// mask every key >= 0. A kernel computes a row's range once, so the mask
+// costs two compares a score whatever its terms.
+struct KeyRange {
+  int lo, hi;
+};
+
+__device__ __forceinline__ KeyRange key_range(int qp, Mask m) {
+  if (!m.causal) return {-1, INT_MAX};
+  return {m.window ? max(qp - m.window, -1) : -1,
+          qp < m.prefix ? m.prefix - 1 : qp};
+}
+
+__device__ __forceinline__ bool in_range(int kp, KeyRange r) {
+  return kp > r.lo && kp <= r.hi;
+}
+
+// A key is visible to a query at position qp.
+__device__ __forceinline__ bool visible(int kp, int qp, Mask m) {
+  return in_range(kp, key_range(qp, m));
 }
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -186,7 +215,7 @@ __global__ void __launch_bounds__(kThreads)
 ffma_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const int* __restrict__ q_pos,
             const int* __restrict__ kv_pos, T* __restrict__ out, int Sq,
-            int Skv, int H, int Hkv, int dh, int causal, int window,
+            int Skv, int H, int Hkv, int dh, Mask mask,
             float scale) {
   constexpr int R = kThreads / TPR;
   constexpr int KPT = kTileKeys / TPR;    // keys scored per thread
@@ -223,7 +252,7 @@ ffma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int my_qi = (row0 + r) / G;
   const bool row_in = my_qi < Sq;
-  const int my_qpos = sQpos[r];
+  const KeyRange my_keys = key_range(sQpos[r], mask);
   const float* qrow = sQ + r * ds;
   float* prow = sP + r * (kTileKeys + 1);
 
@@ -240,8 +269,7 @@ ffma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     bool any = false;
 #pragma unroll
     for (int i = 0; i < KPT; ++i) {
-      valid[i] = row_in && visible(sKpos[lt + TPR * i], my_qpos, causal,
-                                   window);
+      valid[i] = row_in && in_range(sKpos[lt + TPR * i], my_keys);
       any = any || valid[i];
     }
     // skip a tile no row of this CTA may see (context end, window, diagonal)
@@ -326,8 +354,8 @@ ffma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int TPR, int DMAX>
 cudaError_t launch_ffma(const void* q, const void* k, const void* v,
                         const int* q_pos, const int* kv_pos, void* out, int B,
-                        int Sq, int Skv, int H, int Hkv, int dh, int causal,
-                        int window, float scale, cudaStream_t stream) {
+                        int Sq, int Skv, int H, int Hkv, int dh, Mask mask,
+                        float scale, cudaStream_t stream) {
   constexpr int R = kThreads / TPR;
   const size_t smem = ffma_smem(R, dh);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
@@ -340,7 +368,7 @@ cudaError_t launch_ffma(const void* q, const void* k, const void* v,
   ffma_kernel<T, TPR, DMAX><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), Sq, Skv,
-      H, Hkv, dh, causal, window, scale);
+      H, Hkv, dh, mask, scale);
   return cudaGetLastError();
 }
 
@@ -349,18 +377,18 @@ template <typename T, int DMAX>
 cudaError_t dispatch_ffma_rows(int rows, const void* q, const void* k,
                                const void* v, const int* qp, const int* kp,
                                void* out, int B, int Sq, int Skv, int H,
-                               int Hkv, int dh, int causal, int window,
+                               int Hkv, int dh, Mask mask,
                                float scale, cudaStream_t st) {
   switch (rows) {
     case 4:
       return launch_ffma<T, 32, DMAX>(q, k, v, qp, kp, out, B, Sq, Skv, H,
-                                      Hkv, dh, causal, window, scale, st);
+                                      Hkv, dh, mask, scale, st);
     case 16:
       return launch_ffma<T, 8, DMAX>(q, k, v, qp, kp, out, B, Sq, Skv, H,
-                                     Hkv, dh, causal, window, scale, st);
+                                     Hkv, dh, mask, scale, st);
     case 32:
       return launch_ffma<T, 4, DMAX>(q, k, v, qp, kp, out, B, Sq, Skv, H,
-                                     Hkv, dh, causal, window, scale, st);
+                                     Hkv, dh, mask, scale, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -370,14 +398,14 @@ template <typename T>
 cudaError_t dispatch_ffma(int rows, const void* q, const void* k,
                           const void* v, const int* qp, const int* kp,
                           void* out, int B, int Sq, int Skv, int H, int Hkv,
-                          int dh, int causal, int window, float scale,
+                          int dh, Mask mask, float scale,
                           cudaStream_t st) {
   if (dh % 4 != 0 || dh > kFfmaMaxDh) return cudaErrorInvalidValue;
   if (dh <= 256)
     return dispatch_ffma_rows<T, 256>(rows, q, k, v, qp, kp, out, B, Sq, Skv,
-                                      H, Hkv, dh, causal, window, scale, st);
+                                      H, Hkv, dh, mask, scale, st);
   return dispatch_ffma_rows<T, kFfmaMaxDh>(rows, q, k, v, qp, kp, out, B, Sq,
-                                           Skv, H, Hkv, dh, causal, window,
+                                           Skv, H, Hkv, dh, mask,
                                            scale, st);
 }
 
@@ -622,7 +650,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                  const int* __restrict__ q_pos,
                  const int* __restrict__ kv_pos,
                  __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
-                 int Hkv, int causal, int window, float scale_log2) {
+                 int Hkv, Mask mask, float scale_log2) {
   using L = WgLayout<DH, DV, BN>;
   extern __shared__ uint8_t smem_raw[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(
@@ -685,10 +713,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         for (int i = 0; i < BN / 32; ++i) {
           const int j = t * BN + lane + 32 * i;
           kp[i] = j < Skv ? kv_pos[(size_t)b * Skv + j] : -1;
-          // some row may see key j: the rows' positions span [qlo, qhi]
-          any = any || (kp[i] >= 0 &&
-                        (!causal || (kp[i] <= qhi &&
-                                     (window == 0 || kp[i] > qlo - window))));
+          // some row may see key j: the rows' positions span [qlo, qhi]; a
+          // key of the prefix is live for a CTA that holds a prefix row
+          any = any ||
+                (kp[i] >= 0 &&
+                 (!mask.causal ||
+                  ((kp[i] <= qhi ||
+                    (kp[i] < mask.prefix && qlo < mask.prefix)) &&
+                   (mask.window == 0 || kp[i] > qlo - mask.window))));
         }
         if (!__any_sync(0xffffffffu, any)) continue;
         mbar_wait(&empty[s], phase ^ 1);
@@ -725,11 +757,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int row0 = wg * 64 + 16 * warp + lane / 4;  // and row0 + 8
     const int c2 = 2 * (lane % 4);
-    int qp[2];
+    KeyRange keys[2];   // rows row0 and row0 + 8
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qi = q0 + row0 + 8 * r;
-      qp[r] = qi < Sq ? q_pos[(size_t)b * Sq + qi] : -1;
+      keys[r] = key_range(qi < Sq ? q_pos[(size_t)b * Sq + qi] : -1, mask);
     }
     float o[DV / 2];
 #pragma unroll
@@ -770,8 +802,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1;
-          const float x = visible(kp[8 * i + c2 + (e & 1)], qp[r], causal,
-                                  window)
+          const float x = in_range(kp[8 * i + c2 + (e & 1)], keys[r])
                               ? sc[4 * i + e] * scale_log2
                               : -INFINITY;
           sc[4 * i + e] = x;
@@ -855,8 +886,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 template <int DH, int DV, int BN>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const int* q_pos, const int* kv_pos, void* out,
-                         int B, int Sq, int Skv, int H, int Hkv, int causal,
-                         int window, float scale, cudaStream_t stream) {
+                         int B, int Sq, int Skv, int H, int Hkv, Mask mask,
+                         float scale, cudaStream_t stream) {
   if (!hopper::tma_ok(q, DH) || !hopper::tma_ok(k, DH) ||
       !hopper::tma_ok(v, DV))
     return cudaErrorInvalidValue;
@@ -887,7 +918,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const dim3 grid(H, B, (Sq + kWgBM - 1) / kWgBM);
   kernel<<<grid, kWgThreads, smem, stream>>>(
       mq, mk, mv, q_pos, kv_pos, static_cast<__nv_bfloat16*>(out), Sq, Skv,
-      H, Hkv, causal, window, scale * kLog2e);
+      H, Hkv, mask, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -895,14 +926,14 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 cudaError_t dispatch_wgmma(int bn, const void* q, const void* k,
                            const void* v, const int* qp, const int* kp,
                            void* out, int B, int Sq, int Skv, int H, int Hkv,
-                           int dh, int dv, int causal, int window,
+                           int dh, int dv, Mask mask,
                            float scale, cudaStream_t st) {
   if (B > 65535 || (Sq + kWgBM - 1) / kWgBM > 65535)
     return cudaErrorInvalidValue;
 #define FLASH_WGMMA_TILE(DH_, DV_, BN_)                                     \
   if (dh == DH_ && dv == DV_ && bn == BN_)                                  \
     return launch_wgmma<DH_, DV_, BN_>(q, k, v, qp, kp, out, B, Sq, Skv, H, \
-                                       Hkv, causal, window, scale, st);
+                                       Hkv, mask, scale, st);
   FLASH_WGMMA_TILE(256, 256, 64)
   FLASH_WGMMA_TILE(128, 128, 128)
   FLASH_WGMMA_TILE(96, 64, 128)
@@ -955,7 +986,7 @@ __global__ void __launch_bounds__(kSplitThreads)
                    const T* __restrict__ v, const int* __restrict__ q_pos,
                    const int* __restrict__ kv_pos, T* __restrict__ out,
                    float* __restrict__ work, int* tickets, int Sq, int Skv,
-                   int H, int Hkv, int dh, int dv, int causal, int window,
+                   int H, int Hkv, int dh, int dv, Mask mask,
                    float scale_log2, int kchunk) {
   constexpr int R = kSplitThreads / TPR;
   constexpr int TK = kSplitTileKeys;
@@ -1008,7 +1039,7 @@ __global__ void __launch_bounds__(kSplitThreads)
                                : j < k1 ? kv_pos[(size_t)b * Skv + j] : -1;
         sKpos[buf * TK + tid] = kp;
         for (int rr = 0; rr < rows; ++rr)
-          any = any || visible(kp, sQpos[rr], causal, window);
+          any = any || visible(kp, sQpos[rr], mask);
       }
       if (__syncthreads_or(any)) return t;
     }
@@ -1038,7 +1069,7 @@ __global__ void __launch_bounds__(kSplitThreads)
   };
 
   const bool row_in = r < rows;
-  const int my_qpos = sQpos[r];
+  const KeyRange my_keys = key_range(sQpos[r], mask);
   const float* qrow = sQ + r * dsq;
   float* prow = sP + r * (TK + 1);
   float m = -INFINITY, l = 0.f;
@@ -1067,7 +1098,7 @@ __global__ void __launch_bounds__(kSplitThreads)
 #pragma unroll
     for (int i = 0; i < KPT; ++i) {
       const int j = lt + TPR * i;
-      valid[i] = row_in && visible(kp[j], my_qpos, causal, window);
+      valid[i] = row_in && in_range(kp[j], my_keys);
       const T* krow = kt + j * dsk;
       float a0 = 0.f, a1 = 0.f;
       int c = 0;
@@ -1203,8 +1234,8 @@ template <typename T, int TPR>
 cudaError_t launch_splitkv(const void* q, const void* k, const void* v,
                            const int* q_pos, const int* kv_pos, void* out,
                            float* work, int* tickets, int B, int Sq, int Skv,
-                           int H, int Hkv, int dh, int dv, int causal,
-                           int window, float scale, int kchunk,
+                           int H, int Hkv, int dh, int dv, Mask mask,
+                           float scale, int kchunk,
                            cudaStream_t stream) {
   constexpr int R = kSplitThreads / TPR;
   constexpr int VEC = 16 / sizeof(T);
@@ -1223,7 +1254,7 @@ cudaError_t launch_splitkv(const void* q, const void* k, const void* v,
   splitkv_kernel<T, TPR><<<grid, kSplitThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), work,
-      tickets, Sq, Skv, H, Hkv, dh, dv, causal, window, scale * kLog2e,
+      tickets, Sq, Skv, H, Hkv, dh, dv, mask, scale * kLog2e,
       kchunk);
   return cudaGetLastError();
 }
@@ -1234,16 +1265,16 @@ cudaError_t dispatch_splitkv(int rows, const void* q, const void* k,
                              const void* v, const int* qp, const int* kp,
                              void* out, float* work, int* tickets, int B,
                              int Sq, int Skv, int H, int Hkv, int dh, int dv,
-                             int causal, int window, float scale, int kchunk,
+                             Mask mask, float scale, int kchunk,
                              cudaStream_t st) {
   switch (rows) {
     case 4:
       return launch_splitkv<T, 32>(q, k, v, qp, kp, out, work, tickets, B,
-                                   Sq, Skv, H, Hkv, dh, dv, causal, window,
+                                   Sq, Skv, H, Hkv, dh, dv, mask,
                                    scale, kchunk, st);
     case 16:
       return launch_splitkv<T, 8>(q, k, v, qp, kp, out, work, tickets, B, Sq,
-                                  Skv, H, Hkv, dh, dv, causal, window, scale,
+                                  Skv, H, Hkv, dh, dv, mask, scale,
                                   kchunk, st);
     default:
       return cudaErrorInvalidValue;
@@ -1263,12 +1294,13 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* q_pos, const void* kv_pos, void* out,
                         void* work, void* tickets, int B, int Sq, int Skv,
                         int H, int Hkv, int dh, int dv, int causal,
-                        int window, float scale, int variant, int tile,
-                        int kchunk, int dtype, void* stream) {
+                        int window, int prefix, float scale, int variant,
+                        int tile, int kchunk, int dtype, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || H % Hkv != 0 || dh < 4 ||
       dh % 4 != 0 || dv < 4 || dv % 4 != 0 || dv > dh || window < 0 ||
-      (dtype != 0 && dtype != 1))
+      prefix < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  const Mask mask{causal, window, prefix};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(kv_pos);
@@ -1279,25 +1311,25 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
       if (dv != dh) return (int)cudaErrorInvalidValue;
       return dtype == 0
                  ? (int)dispatch_ffma<float>(tile, q, k, v, qp, kp, out, B,
-                                             Sq, Skv, H, Hkv, dh, causal,
-                                             window, scale, st)
+                                             Sq, Skv, H, Hkv, dh, mask,
+                                             scale, st)
                  : (int)dispatch_ffma<__nv_bfloat16>(tile, q, k, v, qp, kp,
                                                      out, B, Sq, Skv, H, Hkv,
-                                                     dh, causal, window,
+                                                     dh, mask,
                                                      scale, st);
     case 1:
       if (dtype != 1) return (int)cudaErrorInvalidValue;
       return (int)dispatch_wgmma(tile, q, k, v, qp, kp, out, B, Sq, Skv, H,
-                                 Hkv, dh, dv, causal, window, scale, st);
+                                 Hkv, dh, dv, mask, scale, st);
     case 2:
       return dtype == 0
                  ? (int)dispatch_splitkv<float>(tile, q, k, v, qp, kp, out, w,
                                                 t, B, Sq, Skv, H, Hkv, dh, dv,
-                                                causal, window, scale, kchunk,
+                                                mask, scale, kchunk,
                                                 st)
                  : (int)dispatch_splitkv<__nv_bfloat16>(
                        tile, q, k, v, qp, kp, out, w, t, B, Sq, Skv, H, Hkv,
-                       dh, dv, causal, window, scale, kchunk, st);
+                       dh, dv, mask, scale, kchunk, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -174,7 +174,7 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         lib.flash_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
             + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -229,10 +229,13 @@ def _check(q, k, v, q_positions, kv_positions) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_positions: torch.Tensor, kv_positions: torch.Tensor,
                     causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """Launch the kernel: q (B,Sq,H,dh), k (B,Skv,Hkv,dh), v (B,Skv,Hkv,dv)
-    with dv <= dh on one CUDA device, int32 positions (−1 = masked key).
-    Returns (B,Sq,H,dv) in q's type; a row with no visible key holds zeros.
+    with dv <= dh on one CUDA device, int32 positions (−1 = masked key),
+    the mask of :func:`repro_torch.kernels.ref.visible` (``prefix_len``:
+    the prefix-LM prefix, 0 for none). Returns (B,Sq,H,dv) in q's type; a
+    row with no visible key holds zeros.
 
     The wgmma and splitkv variants take v at its own dv. The ffma kernel
     takes v at dh: a narrower v (MLA's value dim 64 under a query/key dim
@@ -243,11 +246,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, q_positions, kv_positions)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
     if q.device.index != torch.cuda.current_device():
         with torch.cuda.device(q.device):
             return flash_attention(q, k, v, q_positions=q_positions,
                                    kv_positions=kv_positions, causal=causal,
-                                   window=window, scale=scale)
+                                   window=window, scale=scale,
+                                   prefix_len=prefix_len)
     B, Sq, H, dh = q.shape
     _, Skv, Hkv, _ = k.shape
     dv = v.shape[3]
@@ -272,7 +278,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
         kv_positions.data_ptr(), out.data_ptr(), work, tickets, B, Sq, Skv,
-        H, Hkv, dh, dh if pad else dv, int(causal), int(window), scale,
+        H, Hkv, dh, dh if pad else dv, int(causal), int(window),
+        int(prefix_len), scale,
         VARIANTS[p.variant], p.tile[0] if p.variant != "wgmma" else p.tile[1],
         p.kchunk, _DTYPES[q.dtype], stream)
     if err:

@@ -114,12 +114,12 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_positions, kv_positions, causal, window,
-                scale):
-        kw = dict(q_positions=q_positions, kv_positions=kv_positions,
-                  causal=causal, window=window, scale=scale)
+                scale, prefix_len):
         ctx.save_for_backward(q, k, v, q_positions, kv_positions)
-        ctx.kw = dict(causal=causal, window=window, scale=scale)
-        return _attention_forward(q, k, v, kw)
+        ctx.kw = dict(causal=causal, window=window, scale=scale,
+                      prefix_len=prefix_len)
+        return _attention_forward(q, k, v, dict(
+            q_positions=q_positions, kv_positions=kv_positions, **ctx.kw))
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -129,20 +129,23 @@ class _FlashAttention(torch.autograd.Function):
             out = ref.attention_ref(*prim, q_positions=q_positions,
                                     kv_positions=kv_positions, **ctx.kw)
             grads = torch.autograd.grad(out, prim, grad_out)
-        return (*grads, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_positions: torch.Tensor, kv_positions: torch.Tensor,
                     causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(q kᵀ·scale) v under the position mask; q (B,Sq,H,dh),
-    k (B,Skv,Hkv,dh), v (B,Skv,Hkv,dv) with dv <= dh -> (B,Sq,H,dv).
-    Differentiable in q, k and v (:class:`_FlashAttention`) where autograd
-    records; otherwise one plain call of the kernel or the CPU version."""
+                    scale: Optional[float] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
+    """softmax(q kᵀ·scale) v under the position mask
+    (:func:`repro_torch.kernels.ref.visible`: causal or not, a sliding
+    window, a prefix-LM prefix); q (B,Sq,H,dh), k (B,Skv,Hkv,dh),
+    v (B,Skv,Hkv,dv) with dv <= dh -> (B,Sq,H,dv). Differentiable in q, k
+    and v (:class:`_FlashAttention`) where autograd records; otherwise one
+    plain call of the kernel or the CPU version."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, q_positions, kv_positions,
-                                     causal, window, scale)
+                                     causal, window, scale, prefix_len)
     return _attention_forward(q, k, v, dict(
         q_positions=q_positions, kv_positions=kv_positions, causal=causal,
-        window=window, scale=scale))
+        window=window, scale=scale, prefix_len=prefix_len))

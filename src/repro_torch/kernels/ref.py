@@ -40,13 +40,21 @@ def matmul_rmsnorm_ref(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
 
 
 def visible(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
-            causal: bool = True, window: int = 0) -> torch.Tensor:
-    """(B, Sq, Skv) bool: which keys each query may see."""
+            causal: bool = True, window: int = 0,
+            prefix_len: int = 0) -> torch.Tensor:
+    """(B, Sq, Skv) bool: which keys each query may see. Key j is visible to
+    query i iff kv_pos[j] >= 0 and, when causal, (kv_pos[j] <= q_pos[i] or
+    both lie in the prefix-LM prefix, kv_pos[j] < prefix_len and q_pos[i] <
+    prefix_len) and (window 0 or kv_pos[j] > q_pos[i] - window): the
+    window applies after the prefix's OR, as in JAX's ``attention_core``."""
     kv = kv_positions[:, None, :]
     ok = (kv >= 0).expand(-1, q_positions.shape[1], -1)
     if causal:
         qp = q_positions[:, :, None]
-        ok = ok & (kv <= qp)
+        rel = kv <= qp
+        if prefix_len:
+            rel = rel | ((kv < prefix_len) & (qp < prefix_len))
+        ok = ok & rel
         if window:
             ok = ok & (kv > qp - window)
     return ok
@@ -55,7 +63,8 @@ def visible(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   q_positions: torch.Tensor, kv_positions: torch.Tensor,
                   causal: bool = True, window: int = 0,
-                  scale: Optional[float] = None) -> torch.Tensor:
+                  scale: Optional[float] = None,
+                  prefix_len: int = 0) -> torch.Tensor:
     """q (B,Sq,H,dh), k/v (B,Skv,Hkv,dh) -> (B,Sq,H,dh) in q's type, all
     arithmetic in f32. GQA: query head h reads kv head h // (H/Hkv). A row
     with no visible key holds zeros (the kernel's convention)."""
@@ -65,8 +74,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / math.sqrt(dh) if scale is None else scale
     qg = q.float().reshape(B, Sq, Hkv, G, dh)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
-    ok = visible(q_positions, kv_positions, causal=causal,
-                 window=window)[:, None, None]
+    ok = visible(q_positions, kv_positions, causal=causal, window=window,
+                 prefix_len=prefix_len)[:, None, None]
     p = torch.softmax(s.masked_fill(~ok, NEG_INF), dim=-1) * ok
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, H, dv).to(q.dtype)
@@ -75,7 +84,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def splitkv_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      q_positions: torch.Tensor, kv_positions: torch.Tensor,
                      kchunk: int, causal: bool = True, window: int = 0,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None, prefix_len: int = 0):
     """The split-KV kernel's first step, plainly: for each range of
     ``kchunk`` keys, each query row's running max m (of the scaled scores;
     −inf where the range holds no visible key), sum l = Σ exp(s − m) and
@@ -86,7 +95,8 @@ def splitkv_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G = H // Hkv
     scale = 1.0 / math.sqrt(dh) if scale is None else scale
     qg = q.float().reshape(B, Sq, Hkv, G, dh)
-    ok = visible(q_positions, kv_positions, causal=causal, window=window)
+    ok = visible(q_positions, kv_positions, causal=causal, window=window,
+                 prefix_len=prefix_len)
     ms, ls, accs = [], [], []
     for k0 in range(0, Skv, kchunk):
         ks = slice(k0, k0 + kchunk)
@@ -123,13 +133,15 @@ def attention_splitkv_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, q_positions: torch.Tensor,
                           kv_positions: torch.Tensor, kchunk: int,
                           causal: bool = True, window: int = 0,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          prefix_len: int = 0) -> torch.Tensor:
     """:func:`attention_ref` computed as the split-KV kernel orders it:
     partials over key ranges of ``kchunk``, then the merge. The CPU tests
     hold it against :func:`attention_ref` and the Pallas kernel."""
     m, l, acc = splitkv_partials(q, k, v, q_positions=q_positions,
                                  kv_positions=kv_positions, kchunk=kchunk,
-                                 causal=causal, window=window, scale=scale)
+                                 causal=causal, window=window, scale=scale,
+                                 prefix_len=prefix_len)
     return splitkv_merge(m, l, acc, q.dtype)
 
 

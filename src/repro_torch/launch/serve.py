@@ -8,6 +8,8 @@ DenseEngine, on one device. Counterpart of ``repro/launch/serve.py``.
     python -m repro_torch.launch.serve --smoke --device cpu
     python -m repro_torch.launch.serve --arch minicpm3-4b --smoke --device cpu
     python -m repro_torch.launch.serve --arch mixtral-8x7b --layers 2
+    python -m repro_torch.launch.serve --arch whisper-tiny --smoke --device cpu
+    python -m repro_torch.launch.serve --arch paligemma-3b --smoke --device cpu
     python -m repro_torch.launch.serve --load poisson --rate 16 \
         --report reports/serve_latency.json
 
@@ -17,7 +19,11 @@ shape: ``--prompt-len-min`` (prompt lengths drawn from
 [min, ``--prompt-len``]), ``--prefill-chunk`` and ``--block-size``. Only
 ``--mesh none`` is ported. ``--layers N`` cuts the depth to the first N
 layers at the published widths (mixtral-8x7b's 46.7 B parameters do not
-fit one card; 2 layers do). JAX's launcher meshes have a data-parallel axis
+fit one card; 2 layers do). whisper-tiny and paligemma-3b serve through
+the dense engine with their stub frontends' inputs (``src_embed``,
+``patch_embed``: standard normal from ``default_rng(0)``, one row a
+request, as JAX's launcher makes them), and the cache holds the image
+prefix too. JAX's launcher meshes have a data-parallel axis
 (``debug`` is 2 x 4), and serving with one is not ported (JAX's period-graph
 serve path is dp 1 too). Serving over a TP ring or a 2D mesh with data axis
 1 runs the ``Engine`` on a model built with ``group=`` on every rank
@@ -89,12 +95,22 @@ def main(argv: Optional[List[str]] = None
         args.max_new = min(args.max_new, 4)
 
     model = build_model(cfg, rt, device=args.device, seed=0)
+    extras = {}
+    if cfg.is_enc_dec:
+        extras["src_embed"] = np.random.default_rng(0).standard_normal(
+            (args.requests, cfg.encoder.max_source_len, cfg.d_model)
+        ).astype(np.float32)
+    if cfg.num_prefix_tokens:
+        extras["patch_embed"] = np.random.default_rng(0).standard_normal(
+            (args.requests, cfg.num_prefix_tokens, cfg.vision_width)
+        ).astype(np.float32)
     sc = ServeConfig(max_batch=args.requests,
-                     s_max=args.prompt_len + args.max_new,
+                     s_max=args.prompt_len + args.max_new
+                     + cfg.num_prefix_tokens,
                      block_size=args.block_size,
                      prefill_chunk=args.prefill_chunk)
     cls = Engine if args.engine == "paged" else DenseEngine
-    eng = cls(model, cfg, rt, sc, device=args.device)
+    eng = cls(model, cfg, rt, sc, device=args.device, extras=extras)
 
     if args.load == "none":
         rng = np.random.default_rng(1)

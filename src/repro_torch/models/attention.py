@@ -1,7 +1,9 @@
 """Attention blocks of ``repro/models/attention.py``: GQA/MQA/sliding-window
-attention (the whole-sequence forward, dense and ring-buffer caches for
-prefill + decode, the paged serving path) and MLA (multi-head latent
-attention: forward, latent cache, absorbed decode).
+attention (the whole-sequence forward, prefix-LM included, dense and
+ring-buffer caches for prefill + decode, the paged serving path), MLA
+(multi-head latent attention: forward, latent cache, absorbed decode) and
+the enc-dec decoder's cross-attention (K/V of the encoder output computed
+once, non-causal).
 
 The attention core dispatches through :mod:`repro_torch.kernels.ops`: the
 Hopper flash-attention kernel for CUDA tensors, its plain PyTorch version for
@@ -112,17 +114,20 @@ def paged_lookup(kp: torch.Tensor, vp: torch.Tensor,
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_positions: torch.Tensor, kv_positions: torch.Tensor,
                    causal: bool = True, window: int = 0,
+                   prefix_len: int = 0,
                    scale: Optional[float] = None) -> torch.Tensor:
     """q (B,Sq,H,dh), k (B,Skv,Hkv,dh), v (B,Skv,Hkv,dv) -> (B,Sq,H,dv);
-    key j is visible to query i iff
-    kv_pos[j] >= 0 and, when causal, kv_pos[j] <= q_pos[i] and (window 0 or)
-    kv_pos[j] > q_pos[i] - window. A query with no visible key yields zeros
-    (JAX's finite mask gives the mean of v there); the paged paths, where
-    such queries are the padding, put JAX's value back
+    key j is visible to query i iff kv_pos[j] >= 0 and, when causal,
+    (kv_pos[j] <= q_pos[i] or, prefix-LM, kv_pos[j] < prefix_len and
+    q_pos[i] < prefix_len: the prefix attends bidirectionally) and (window 0
+    or kv_pos[j] > q_pos[i] - window). A query with no visible key yields
+    zeros (JAX's finite mask gives the mean of v there); the paged paths,
+    where such queries are the padding, put JAX's value back
     (:func:`padding_rows_as_jax`)."""
     return ops.flash_attention(q, k, v, q_positions=q_positions,
                                kv_positions=kv_positions, causal=causal,
-                               window=window, scale=scale)
+                               window=window, scale=scale,
+                               prefix_len=prefix_len)
 
 
 def padding_rows_as_jax(o: torch.Tensor, v: torch.Tensor,
@@ -180,17 +185,15 @@ def attention_forward(params: Attention, x: torch.Tensor, cfg: ArchConfig,
                       positions: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """Training / prefill forward over a whole sequence, no cache.
-    x: (B, S, d); positions default to 0..S-1."""
-    if prefix_len:
-        raise NotImplementedError("prefix-LM attention is not ported yet "
-                                  "(VLM family, ROADMAP A15)")
+    x: (B, S, d); positions default to 0..S-1; the first ``prefix_len``
+    positions attend bidirectionally (prefix-LM)."""
     B, S, _ = x.shape
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        positions = positions.expand(B, S).contiguous()
+        positions = _arange_positions(B, S, x.device)
     q, k, v = _project_qkv(params, x, cfg, positions, x.dtype)
     o = attention_core(q, k, v, q_positions=positions,
-                       kv_positions=positions, causal=True, window=window)
+                       kv_positions=positions, causal=True, window=window,
+                       prefix_len=prefix_len)
     return o.reshape(B, S, -1) @ params.wo.to(x.dtype)
 
 
@@ -454,3 +457,41 @@ def mla_decode(params: MLA, x: torch.Tensor, cache: Cache, idx: torch.Tensor,
     wv_b = params.wv_b.to(dtype).reshape(m.kv_lora_rank, H, m.v_head_dim)
     o = torch.einsum("bqhr,rhd->bqhd", o_lat, wv_b)
     return o.reshape(B, 1, -1) @ params.wo.to(dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attention(cfg: ArchConfig, dtype: torch.dtype,
+                         device: torch.device) -> Attention:
+    """The cross-attention projections: an :class:`Attention` (wq over the
+    decoder, wk/wv over the encoder output, wo)."""
+    return Attention(cfg, dtype, device)
+
+
+def cross_attention_kv(params: Attention, enc_out: torch.Tensor,
+                       cfg: ArchConfig) -> Cache:
+    """K/V of the encoder output (B, T, d), computed once a request (the
+    cross cache): {"k", "v"}, each (B, T, Hkv, dh), no rope."""
+    B, T, _ = enc_out.shape
+    Hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    dtype = enc_out.dtype
+    return {"k": (enc_out @ params.wk.to(dtype)).reshape(B, T, Hkv, dh),
+            "v": (enc_out @ params.wv.to(dtype)).reshape(B, T, Hkv, dh)}
+
+
+def cross_attention(params: Attention, x: torch.Tensor, cross_kv: Cache,
+                    cfg: ArchConfig) -> torch.Tensor:
+    """x (B, S, d) attends to every key of ``cross_kv`` (non-causal,
+    positions 0..S-1 and 0..T-1, no rope)."""
+    B, S, _ = x.shape
+    H, dh = cfg.num_heads, cfg.resolved_head_dim
+    q = (x @ params.wq.to(x.dtype)).reshape(B, S, H, dh)
+    T = cross_kv["k"].shape[1]
+    o = attention_core(q, cross_kv["k"], cross_kv["v"],
+                       q_positions=_arange_positions(B, S, x.device),
+                       kv_positions=_arange_positions(B, T, x.device),
+                       causal=False)
+    return o.reshape(B, S, -1) @ params.wo.to(x.dtype)

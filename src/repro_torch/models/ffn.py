@@ -1,5 +1,5 @@
-"""FFN blocks: the gated MLP and the capacity-bounded top-k MoE, the
-counterpart of ``repro/models/ffn.py``.
+"""FFN blocks: the dense MLP (gated, or non-gated for ``gelu_mlp``) and the
+capacity-bounded top-k MoE, the counterpart of ``repro/models/ffn.py``.
 
 MoE follows the GShard/Mesh-TF formulation: tokens are reshaped into
 ``(groups, group_size)`` and dispatched to experts with a one-hot
@@ -31,20 +31,22 @@ from repro_torch.models.layers import activation, dense_init_, gated
 
 
 class MLP(nn.Module):
-    """w_up (d, d_ff), w_gate (d, d_ff) and w_down (d_ff, d)."""
+    """w_up (d, d_ff), w_down (d_ff, d) and, gated (``act`` silu or gelu),
+    w_gate (d, d_ff); a non-gated MLP (``gelu_mlp``) has no w_gate."""
 
     def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, act: str = "silu"):
         super().__init__()
         mk = lambda *s: nn.Parameter(
             torch.empty(s, dtype=dtype, device=device), requires_grad=False)
         self.w_up = mk(d_model, d_ff)
         self.w_down = mk(d_ff, d_model)
-        self.w_gate = mk(d_model, d_ff)
+        self.w_gate = mk(d_model, d_ff) if gated(act) else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for w in (self.w_up, self.w_down, self.w_gate):
-            dense_init_(w, generator)
+            if w is not None:
+                dense_init_(w, generator)
 
 
 class MoE(nn.Module):
@@ -65,7 +67,7 @@ class MoE(nn.Module):
         self.w_down = mk(num_local, f, d)
         self.w_gate = mk(num_local, d, f)
         dr = cfg.moe.dense_residual_d_ff
-        self.dense = MLP(d, dr, dtype, device) if dr else None
+        self.dense = MLP(d, dr, dtype, device, cfg.act) if dr else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         d, f = self.w_up.shape[1], self.w_up.shape[2]
@@ -77,10 +79,10 @@ class MoE(nn.Module):
             self.dense.reset_parameters(generator)
 
 
-def _gated_only(cfg: ArchConfig) -> None:
+def _gated_experts(cfg: ArchConfig) -> None:
     if not gated(cfg.act):
-        raise NotImplementedError(f"non-gated MLP ({cfg.act!r}) is not ported "
-                                  "yet")
+        raise NotImplementedError(f"an MoE of non-gated experts ({cfg.act!r}) "
+                                  "is not ported (no arch has one)")
 
 
 def local_experts(cfg: ArchConfig, tp: int) -> int:
@@ -98,17 +100,22 @@ def init_ffn(cfg: ArchConfig, dtype: torch.dtype, device: torch.device,
     (w_up/w_gate by columns, w_down by rows; an MoE's experts by whole
     expert over ``route_ring``, default ``tp``: on a 2D mesh tp_out, the
     grouped-EP placement; its router and dense MLP whole)."""
-    _gated_only(cfg)
     if cfg.moe is not None:
+        _gated_experts(cfg)
         return MoE(cfg, dtype, device, local_experts(
             cfg, tp if route_ring is None else route_ring))
-    return MLP(cfg.d_model, cfg.d_ff // tp, dtype, device)
+    return MLP(cfg.d_model, cfg.d_ff // tp, dtype, device, cfg.act)
 
 
 def mlp_forward(params: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
+    """``act(x @ w_gate) * (x @ w_up) @ w_down`` gated, ``act(x @ w_up) @
+    w_down`` not."""
     dtype = x.dtype
-    gate = activation(act, x @ params.w_gate.to(dtype))
-    h = gate * (x @ params.w_up.to(dtype))
+    h = x @ params.w_up.to(dtype)
+    if params.w_gate is not None:
+        h = activation(act, x @ params.w_gate.to(dtype)) * h
+    else:
+        h = activation(act, h)
     return h @ params.w_down.to(dtype)
 
 
@@ -210,7 +217,6 @@ def ffn_forward(params: Union[MLP, MoE], x: torch.Tensor, cfg: ArchConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Unified FFN entry: returns (out, aux_loss), the aux loss 0 for a
     dense MLP."""
-    _gated_only(cfg)
     if cfg.moe is not None:
         return moe_forward(params, x, cfg)
     return mlp_forward(params, x, cfg.act), torch.zeros(

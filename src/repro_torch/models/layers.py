@@ -7,6 +7,8 @@ JAX's ``(d_in, d_out)`` layout, so a projection is ``x @ w``.
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -36,29 +38,45 @@ def embed_init_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 
 
 def apply_norm(kind: str, x: torch.Tensor, scale: torch.Tensor,
-               eps: float = 1e-6) -> torch.Tensor:
-    """Gemma-style rmsnorm, ``x * rsqrt(mean(x²) + eps) * (1 + scale)``.
-    Every ported arch uses it; other kinds raise."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+               eps: float = 1e-6,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gemma-style rmsnorm, ``x * rsqrt(mean(x²) + eps) * (1 + scale)``, or
+    layernorm, ``(x - μ) * rsqrt(var + eps) * scale + bias``; other kinds
+    raise."""
     xf = x.float()
-    var = xf.square().mean(-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    if kind == "rmsnorm":
+        var = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    elif kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps) * scale.float() \
+            + bias.float()
+    else:
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
     return out.to(x.dtype)
 
 
 class Norm(nn.Module):
-    """Norm parameters: ``scale``, zeros at init (a ``(1 + 0)`` scale)."""
+    """Norm parameters: an rmsnorm's ``scale``, zeros at init (a
+    ``(1 + 0)`` scale); a layernorm's ``scale``, ones, and ``bias``,
+    zeros."""
 
     def __init__(self, kind: str, dim: int, dtype: torch.dtype,
                  device: torch.device):
         super().__init__()
         self.kind = kind
-        self.scale = nn.Parameter(
-            torch.zeros(dim, dtype=dtype, device=device), requires_grad=False)
+        fill = torch.ones if kind == "layernorm" else torch.zeros
+        self.scale = nn.Parameter(fill(dim, dtype=dtype, device=device),
+                                  requires_grad=False)
+        self.bias = None
+        if kind == "layernorm":
+            self.bias = nn.Parameter(
+                torch.zeros(dim, dtype=dtype, device=device),
+                requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_norm(self.kind, x, self.scale)
+        return apply_norm(self.kind, x, self.scale, bias=self.bias)
 
 
 # ---------------------------------------------------------------------------
@@ -92,14 +110,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def activation(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "silu":
         return F.silu(x)
-    if name == "gelu":
+    if name in ("gelu", "gelu_mlp"):
         return F.gelu(x, approximate="tanh")
     raise NotImplementedError(f"activation {name!r} is not ported yet")
 
 
 def gated(name: str) -> bool:
-    """Whether ``name`` is a gated activation (``act(x @ w_gate) * x @ w_up``);
-    only gated MLPs are ported."""
+    """Whether ``name`` is a gated activation (``act(x @ w_gate) * x @ w_up``;
+    ``gelu_mlp`` is the non-gated ``act(x @ w_up)``)."""
     return name in ("silu", "gelu")
 
 

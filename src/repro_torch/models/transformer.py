@@ -641,6 +641,7 @@ class LM(nn.Module):
         self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
         self.lm_head = None if cfg.tie_embeddings \
             else param(cfg.d_model, cfg.vocab_size)
+        self._extra_params(param)
         if seed is None:
             return
         if tp == 1:
@@ -656,7 +657,7 @@ class LM(nn.Module):
         turns = world.backend == "gloo" and device.type == "cuda"
         for turn in range(world.size if turns else 1):
             if not turns or turn == world.rank:
-                full = LM(cfg, rt, device=device, seed=seed)
+                full = type(self)(cfg, rt, device=device, seed=seed)
                 self.load_state_dict(shard_for_group(
                     full.state_dict(), cfg, self.group))
                 del full
@@ -664,6 +665,10 @@ class LM(nn.Module):
                     torch.cuda.empty_cache()
             if turns:
                 world.all_reduce(torch.zeros(1))    # the turn's end
+
+    def _extra_params(self, param) -> None:
+        """Parameters a subclass adds beside the decoder's (``param(*shape)``
+        makes one), before the weights are drawn."""
 
     @property
     def group(self) -> Optional[TPGroup]:
@@ -711,12 +716,18 @@ class LM(nn.Module):
         ``"sharded"`` layout, and (B, S, d) on every rank where the
         activation is whole (``sequence_parallel=False``, or S % tp != 0:
         :func:`activation_layout`)."""
+        return self._stack(self._embed(tokens, self.rt.dtype))
+
+    def _stack(self, x: torch.Tensor, prefix_len: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`forward` from the embedded (B, S, d) input, whole on every
+        rank (its first ``prefix_len`` positions a prefix-LM prefix)."""
         tpc = _tp_context(self.rt, self.group)
-        x = self._embed(tokens, self.rt.dtype)
         S = x.shape[1]
         if tpc is not None:
             x = x[:, self._seq_shard(S)].contiguous()
         x, aux = stack_forward(self.blocks, x, self.cfg, tpc,
+                               prefix_len=prefix_len,
                                remat=self.rt.remat and tpc is None,
                                layout=activation_layout(self.rt, S, self.tp))
         return self.final_norm(x), aux
@@ -786,18 +797,33 @@ class LM(nn.Module):
         with a data axis, this replica's rows of the global batch
         (:func:`repro_torch.data.pipeline.replica_rows`), and the loss the
         global batch's. The same value on every rank of the mesh."""
-        tokens, labels = batch["tokens"], batch["labels"]
-        mask = batch.get("mask")
+        x, aux = self.forward(batch["tokens"])
+        return self._loss(x, aux, batch)
+
+    def _loss(self, x: torch.Tensor, aux: torch.Tensor,
+              batch: Dict[str, torch.Tensor], prefix_len: int = 0
+              ) -> torch.Tensor:
+        """The loss of :meth:`loss` from the stack's output ``x`` over
+        ``prefix_len`` + S rows (this rank's shard of them in the
+        ``"sharded"`` layout), the first ``prefix_len`` unlabelled: they are
+        cut off where ``x`` is whole, and carry mask 0 in a shard (a rank
+        whose rows are all prefix adds 0 to the sum and to the count)."""
+        labels, mask = batch["labels"], batch.get("mask")
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32,
                               device=labels.device)
-        x, aux = self.forward(tokens)
         group = None
-        S = labels.shape[1]
-        if self.tp > 1 and activation_layout(self.rt, S, self.tp) == \
+        T = prefix_len + labels.shape[1]
+        if self.tp > 1 and activation_layout(self.rt, T, self.tp) == \
                 "sharded":
-            sl = self._seq_shard(S)
+            if prefix_len:
+                pad = lambda t: torch.cat([t.new_zeros(
+                    (t.shape[0], prefix_len)), t], dim=1)
+                labels, mask = pad(labels), pad(mask)
+            sl = self._seq_shard(T)
             labels, mask, group = labels[:, sl], mask[:, sl], self.group
+        else:
+            x = x[:, prefix_len:]
         head, tied = self._head()
         ce = chunked_ce_loss(x, head, labels, mask, self.cfg, self.rt, tied,
                              group, self.data)
@@ -820,18 +846,21 @@ class LM(nn.Module):
                                 self.device)
 
     @torch.no_grad()
-    def prefill(self, tokens, s_max: Optional[int] = None
+    def prefill(self, tokens=None, s_max: Optional[int] = None, *,
+                embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List[attn.Cache]]:
         """The prompt through the stack. ``tokens``: (B, S) int, or a batch
-        dict with a "tokens" entry. Returns the last position's logits,
-        (B, 1, V) f32, and the per-layer caches of ``s_max`` slots (default
-        S)."""
+        dict with a "tokens" entry; or, instead, the input embeddings
+        ``embeds`` (B, S, d) in the compute type (the VLM's image prefix and
+        text, as JAX's VLM calls ``stack_prefill`` on them). Returns the
+        last position's logits, (B, 1, V) f32, and the per-layer caches of
+        ``s_max`` slots (default S)."""
         self._one_device("prefill")
         if isinstance(tokens, dict):
             tokens = tokens["tokens"]
-        x = self._embed(tokens, self.rt.dtype)
+        x = self._embed(tokens, self.rt.dtype) if embeds is None else embeds
         x, caches = stack_prefill(self.blocks, x, self.cfg,
-                                  s_max or tokens.shape[1])
+                                  s_max or x.shape[1])
         return self.logits(self.final_norm(x[:, -1:])), caches
 
     @torch.no_grad()

@@ -26,8 +26,12 @@ anything but ``None`` (the model carries its group; serving with a data
 axis is not ported, as JAX's period-graph serve path is dp 1), and
 ``DenseEngine``
 on a ring raises: MLA is not whole-block TP-applicable, and ``prefill`` /
-``decode_step`` on a ring are ROADMAP A11 (b), A12. Not ported either: the
-prefix/extras inputs of the enc-dec and VLM families.
+``decode_step`` on a ring are ROADMAP A11 (b), A12.
+
+The enc-dec and VLM families serve through the ``DenseEngine`` with their
+``extras`` (whisper's ``src_embed``, paligemma's ``patch_embed``: one row a
+request of the batch), passed to ``prefill`` beside the tokens; decode
+starts past the image prefix, at S + ``num_prefix_tokens``.
 """
 from __future__ import annotations
 
@@ -88,12 +92,16 @@ def _sample_token(logits_row: np.ndarray, seed: int, rid: int,
     return int(torch.multinomial(probs, 1, generator=g))
 
 
-def paged_supported(model, cfg: Optional[ArchConfig]) -> bool:
+def paged_supported(model, cfg: Optional[ArchConfig],
+                    extras: Optional[Dict[str, np.ndarray]] = None) -> bool:
     """Can this (model, arch) serve through the paged path? Requires
-    attention-only mixers (the pools hold K/V blocks; MLA caches a latent)
-    and a model with ``serve_step``; the FFN may be dense or MoE, as in
-    JAX."""
-    if cfg is None or not hasattr(model, "serve_step"):
+    attention-only mixers (the pools hold K/V blocks; MLA caches a latent),
+    a decoder-only model with ``serve_step`` and no extras inputs (enc-dec
+    cross-attention, VLM patch embeddings); the FFN may be dense or MoE, as
+    in JAX."""
+    if cfg is None or extras or not hasattr(model, "serve_step"):
+        return False
+    if cfg.is_enc_dec or cfg.num_prefix_tokens:
         return False
     return all(k in ("attn", "swa") for k in cfg.layer_kinds())
 
@@ -128,11 +136,11 @@ class Engine:
     """Paged-KV continuous-batching engine on one device or on the model's
     TP ring (CUDA unless the caller passes ``device="cpu"``; the model must
     lie there). Falls back to :class:`DenseEngine` for archs outside the
-    paged path."""
+    paged path and for requests with ``extras``."""
 
     def __init__(self, model, cfg: ArchConfig, rt: Runtime,
                  serve_cfg: Optional[ServeConfig] = None, *, mesh=None,
-                 device=None):
+                 device=None, extras: Optional[Dict[str, np.ndarray]] = None):
         self.device = _engine_device(model, mesh, device)
         self.model = model
         self.group = getattr(model, "group", None)
@@ -141,11 +149,11 @@ class Engine:
         self.sc = serve_cfg if serve_cfg is not None else ServeConfig()
         self.last_report: Dict[str, float] = {}
         self.steps = 0                  # model calls in the last run
-        self.paged = paged_supported(model, cfg)
+        self.paged = paged_supported(model, cfg, extras)
         self._dense: Optional[DenseEngine] = None
         if not self.paged:
             self._dense = DenseEngine(model, cfg, rt, self.sc,
-                                      device=self.device)
+                                      device=self.device, extras=extras)
             return
         sc = self.sc
         self.max_active = sc.max_active or sc.max_batch
@@ -244,14 +252,18 @@ class Engine:
 class DenseEngine:
     """The static-batch engine on one device: dense ``(B, s_max)`` caches,
     one batch per same-length prompt group (left-padded, as JAX's), one
-    ``LM.prefill`` and then ``LM.decode_step`` calls until every request of
-    the batch has its tokens. ``steps`` counts the prefill and decode calls
-    of the last run. A model on a TP ring raises: ``prefill`` and
-    ``decode_step`` on a ring are ROADMAP A11 (b), A12."""
+    ``prefill`` and then ``decode_step`` calls until every request of the
+    batch has its tokens. ``steps`` counts the prefill and decode calls of
+    the last run. ``extras`` (an enc-dec's ``src_embed``, a VLM's
+    ``patch_embed``) go to every ``prefill`` whole, as JAX's engine passes
+    them: a batch must hold one request per row of them, so the engine
+    raises where a batch's rows differ from theirs (JAX does not check).
+    A model on a TP ring raises: ``prefill`` and ``decode_step`` on a ring
+    are ROADMAP A11 (b), A12."""
 
     def __init__(self, model, cfg: ArchConfig, rt: Runtime,
                  serve_cfg: Optional[ServeConfig] = None, *, mesh=None,
-                 device=None):
+                 device=None, extras: Optional[Dict[str, np.ndarray]] = None):
         self.device = _engine_device(model, mesh, device)
         if getattr(model, "tp", 1) > 1:
             raise NotImplementedError(
@@ -262,6 +274,8 @@ class DenseEngine:
         self.cfg = cfg
         self.rt = rt
         self.sc = serve_cfg if serve_cfg is not None else ServeConfig()
+        self.extras = {k: torch.as_tensor(v).to(self.device)
+                       for k, v in (extras or {}).items()}
         self.last_report: Dict[str, float] = {}
         self.steps = 0
 
@@ -278,7 +292,8 @@ class DenseEngine:
         seed = 0 if seed is None else int(seed)
         for r in requests:
             r.seed = seed
-            need = len(r.prompt) + r.max_new_tokens - 1
+            need = (self.cfg.num_prefix_tokens + len(r.prompt)
+                    + r.max_new_tokens - 1)
             if need > self.sc.s_max:
                 raise ValueError(
                     f"request {r.rid}: prompt+max_new needs {need} cache "
@@ -307,9 +322,17 @@ class DenseEngine:
 
     def _run_batch(self, requests: List[Request], seed: int, t0: float):
         toks, S = self._pack(requests)
-        logits, caches = self.model.prefill(toks, s_max=self.sc.s_max)
+        for k, v in self.extras.items():
+            if v.shape[0] != len(requests):
+                raise ValueError(
+                    f"extras {k!r} hold {v.shape[0]} rows, the batch "
+                    f"{len(requests)} requests: serve one batch whose "
+                    "requests match the extras' rows")
+        logits, caches = self.model.prefill({"tokens": toks, **self.extras},
+                                            s_max=self.sc.s_max)
         self.steps += 1
-        idx = torch.full((len(requests),), S, dtype=torch.int32,
+        idx = torch.full((len(requests),),
+                         S + self.cfg.num_prefix_tokens, dtype=torch.int32,
                          device=self.device)
         tok = self._sample(logits, requests, seed)
         for t in range(max(r.max_new_tokens for r in requests)):

@@ -3,7 +3,9 @@ and ``chip_smoke.py`` share.
 
 Counterpart of ``repro/train/step.py``. ``make_train_step(model, opt, rt)``
 returns ``(state, batch) -> (state, metrics)`` with gradient accumulation
-over ``microbatches`` (loss and grads averaged). The state is {"params",
+over ``microbatches`` (loss and grads averaged); every array of the batch
+(a VLM's ``patch_embed``, an enc-dec's ``src_embed`` beside the tokens)
+goes to the model's device and into the microbatches. The state is {"params",
 "opt", "step"}; "params" are the model's own parameters, which the step
 updates in place, as AdamW does the optimizer state it is given (no second
 copy of the model and its state).
@@ -64,7 +66,9 @@ def make_train_step(model, opt: Optimizer, rt: Runtime,
             lv = model.loss(micro)
             lv.backward()
             loss = loss + lv.detach().float().cpu()
-        model.sync_grads(batch["tokens"].shape[1])
+        # the sequence the stack saw: a VLM's image prefix and its text
+        model.sync_grads(batch["tokens"].shape[1]
+                         + model.cfg.num_prefix_tokens)
         grads = {}
         for k, p in params.items():
             g = p.grad if p.grad is not None else torch.zeros_like(p)

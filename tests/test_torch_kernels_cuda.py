@@ -72,9 +72,70 @@ def assert_flash_close(got, q, k, v, kw):
     assert torch.isfinite(got).all()
     seen = ref.visible(kw["q_positions"], kw["kv_positions"],
                        causal=kw.get("causal", True),
-                       window=kw.get("window", 0)).any(-1)
+                       window=kw.get("window", 0),
+                       prefix_len=kw.get("prefix_len", 0)).any(-1)
     assert not (~seen).all()
     assert torch.count_nonzero(got[~seen]) == 0   # no visible key: zeros
+
+
+# the prefix-LM mask (paligemma-3b's training core) and the non-causal one
+# (whisper-tiny's encoder and cross-attention) in each variant: (variant,
+# B, Sq, Skv, H, Hkv, dh, dtype, causal, prefix_len, window, decode query
+# positions or None for positions 0..Sq-1). The wgmma cases put the prefix
+# inside a 128-row tile, so a tile's rows straddle it; the split-KV cases
+# put the queries inside the prefix, where keys past them are visible
+MASK_CASES = [
+    ("wgmma", 2, 300, 300, 8, 1, 256, torch.bfloat16, True, 100, 0, None),
+    ("wgmma", 2, 300, 300, 8, 1, 256, torch.bfloat16, True, 100, 40, None),
+    ("wgmma", 1, 260, 260, 4, 2, 128, torch.bfloat16, True, 260, 0, None),
+    ("wgmma", 2, 200, 333, 4, 2, 128, torch.bfloat16, False, 0, 0, None),
+    ("ffma", 2, 300, 300, 8, 1, 256, torch.float32, True, 100, 0, None),
+    ("ffma", 2, 300, 300, 8, 1, 256, torch.float32, True, 100, 40, None),
+    ("ffma", 2, 150, 150, 6, 6, 64, torch.bfloat16, False, 0, 0, None),
+    ("ffma", 2, 37, 150, 6, 6, 64, torch.float32, False, 0, 0, None),
+    ("splitkv", 2, 1, 300, 8, 1, 256, torch.bfloat16, True, 100, 0,
+     [40, 99]),
+    ("splitkv", 2, 1, 300, 8, 1, 256, torch.float32, True, 100, 0,
+     [40, 150]),
+    ("splitkv", 2, 1, 1500, 6, 6, 64, torch.float32, False, 0, 0, [0, 0]),
+    ("splitkv", 4, 1, 1500, 6, 6, 64, torch.bfloat16, False, 0, 0,
+     [0, 0, 0, 0]),
+]
+
+
+@pytest.mark.parametrize("case", range(len(MASK_CASES)))
+def test_flash_prefix_and_non_causal_masks(dev, case):
+    (variant, B, Sq, Skv, H, Hkv, dh, dtype, causal, prefix, window,
+     q0) = MASK_CASES[case]
+    g = torch.Generator(device="cpu").manual_seed(100 + case)
+    mk = lambda h, s_: torch.randn(B, s_, h, dh, generator=g).to(dev, dtype)
+    q, k, v = mk(H, Sq), mk(Hkv, Skv), mk(Hkv, Skv)
+    kpos = torch.arange(Skv, dtype=torch.int32).expand(B, Skv).contiguous()
+    qpos = (torch.arange(Sq, dtype=torch.int32).expand(B, Sq).contiguous()
+            if q0 is None else torch.tensor(q0, dtype=torch.int32)[:, None])
+    kw = dict(q_positions=qpos.to(dev), kv_positions=kpos.to(dev),
+              causal=causal, window=window, prefix_len=prefix)
+    assert flash_variant(q, k, v) == variant
+    before = dict(fa.launches_by_variant)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant[variant] == before[variant] + 1
+    assert_flash_close(got, q, k, v, kw)
+    if causal and prefix and q0 is None:
+        # the prefix changes the result: a query inside it sees keys past
+        # its own position
+        plain = fa.flash_attention(q, k, v, **dict(kw, prefix_len=0))
+        assert not torch.equal(plain[:, :prefix - 1], got[:, :prefix - 1])
+        torch.testing.assert_close(plain[:, prefix:], got[:, prefix:],
+                                   rtol=0, atol=0)
+
+
+def test_flash_rejects_a_negative_prefix(dev):
+    q = torch.zeros(1, 4, 1, 16, device=dev)
+    pos = torch.arange(4, dtype=torch.int32, device=dev)[None]
+    with pytest.raises(ValueError, match="prefix_len"):
+        fa.flash_attention(q, q, q, q_positions=pos, kv_positions=pos,
+                           prefix_len=-1)
 
 
 CASES = {

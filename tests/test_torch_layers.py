@@ -28,11 +28,13 @@ def test_apply_norm(shape):
 
 
 def test_unported_norm_and_activation_raise():
+    """layernorm and gelu_mlp are ported (tests/test_torch_encdec.py); a
+    kind neither package has raises."""
     x = torch.zeros(2, 4)
     with pytest.raises(NotImplementedError):
-        tl.apply_norm("layernorm", x, torch.zeros(4))
+        tl.apply_norm("batchnorm", x, torch.zeros(4))
     with pytest.raises(NotImplementedError):
-        tl.activation("gelu_mlp", x)
+        tl.activation("relu", x)
 
 
 def test_norm_module_is_gemma_style():

@@ -65,7 +65,8 @@ def _chip_smoke():
 CS = _chip_smoke()
 GRAD_RTOL = 1e-5          # per tensor: max|Δ| <= 1e-5 * max(1, max|g|)
 PORTED = ("gemma3-1b", "internlm2-1.8b", "deepseek-7b", "minicpm3-4b",
-          "mixtral-8x7b", "mamba2-130m", "recurrentgemma-2b")
+          "mixtral-8x7b", "mamba2-130m", "recurrentgemma-2b", "whisper-tiny",
+          "paligemma-3b")
 
 
 def _np(t):
@@ -542,7 +543,7 @@ def test_config_fields_equal_repro(arch):
         jf = {f.name: getattr(j, f.name) for f in dataclasses.fields(j)}
         tf = {f.name: getattr(t, f.name) for f in dataclasses.fields(t)}
         for name in set(jf) & set(tf):
-            if name in ("mla", "moe", "ssm", "rglru") and \
+            if name in ("mla", "moe", "ssm", "rglru", "encoder") and \
                     jf[name] is not None:
                 assert dataclasses.asdict(jf[name]) == \
                     dataclasses.asdict(tf[name])
@@ -550,10 +551,10 @@ def test_config_fields_equal_repro(arch):
                 assert tf[name] == jf[name], (arch, smoke, name)
         assert t.optimizer == "adamw"
         assert t.param_count() == j.param_count()
-        # still to port (ROADMAP A15); the family sub-configs arrive with
-        # their families
-        assert {"num_prefix_tokens", "vision_width", "encoder"} == \
-            set(jf) - set(tf)
+        assert t.is_enc_dec == j.is_enc_dec
+        # every field of repro's ArchConfig, the enc-dec and VLM families'
+        # encoder, num_prefix_tokens and vision_width included
+        assert set(jf) == set(tf)
     assert [dataclasses.astuple(s) for s in SHAPES] == \
         [dataclasses.astuple(s) for s in JAX_SHAPES]
 
