@@ -236,6 +236,25 @@ Phases (any failure exits non-zero):
      flash call carrying the prefix. Every call shape, with its mask, among
      phase 3's (which adds the prefix rows of all three variants and the
      non-causal rows).
+ 16. arctic-480b (128 experts top-2 beside a dense residual MLP, 56 query
+     heads over 8 kv heads of 128) at full width cut to 1 of 35 layers:
+     14.05 B parameters, 28.1 GB in bf16, drawn on the card. (a) Served
+     through ``launch.serve`` with phase 5's traffic: flash once a layer a
+     step (decode on ``splitkv``, prefill chunks on ``wgmma``), TTFT,
+     per-token latency and the peak printed. (b1) The port's adafactor
+     alone on one expert leaf (128 x 7168 x 4864, bf16, seeded grads)
+     against its formula evaluated expert by expert in f64: each new
+     parameter within one bf16 ulp, its extra memory printed (a few
+     experts, not an f32 copy of the leaf). (b2) One adafactor train step
+     of the served model on 1 x 2048 tokens (four routing groups of 512):
+     finite loss and grad norm, every parameter changed, the loss on the
+     batch lower after the step, flash once a layer. (c) internlm2-1.8b
+     cut to 2 layers, f32 adafactor, 2 x 4096, ``cais`` on 4 gloo ranks:
+     step 0, a checkpoint (``repro_torch.checkpoint``: the shards
+     gathered, rank 0 writes), step 1; the checkpoint restored on one
+     device and step 1 there, and restored on the ring and step 1 again,
+     each held to the ring's step 1 (loss, grad norm, parameters);
+     launches the graphs'.
 Phase 3 also holds matmul_rmsnorm against its plain version at the TPU
 kernel's test shapes, at every shape phase 8 calls (b a column slice of
 ``wkv_a`` for the KV latent) and at N 8192, and flash attention at the MLA
@@ -247,6 +266,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -381,8 +401,11 @@ MOE_DECODE_STEPS = 2
 # embedding and head, with grads, m and v), global batch DP_BATCH of TP_SEQ
 # so that each replica's 2 rows split into 2 microbatches; then the int8
 # compressed sum of a step's per-replica grads over the data axis within
-# COMPRESS_RTOL of the exact sum (JAX's compression.int8_close bound)
-DP_LAYERS, DP_BATCH = 6, 4
+# COMPRESS_RTOL of the exact sum (JAX's compression.int8_close bound).
+# Every check holds each layer alike, so the depth is what the script's
+# 1200 s limit leaves room for (the ring's two steps took 132 s at 6
+# layers on an NVIDIA H100 80GB HBM3, 700 W)
+DP_LAYERS, DP_BATCH = 4, 4
 DP_RUNS = [("cais", 2, "float32", "greedy", "dp2"),
            ("barrier", 1, "float32", "greedy", "dp2")]
 COMPRESS_RTOL = 0.05
@@ -462,6 +485,36 @@ VLM_REQUESTS, VLM_MAX_NEW = 4, 16
 # rank, so rank 0's shard straddles the prefix boundary
 VLM_TRAIN_LAYERS, VLM_TRAIN_SHAPE = 1, (1, 1024)
 VLM_TRAIN_RUNS = [("cais", 1, "float32")]
+# phase 16: arctic-480b (128 experts top-2 beside a dense residual MLP, 56
+# query heads over 8 kv heads of 128, trained with adafactor) at its
+# published widths cut to ARCTIC_LAYERS of 35 layers: 14.05 B parameters,
+# 28.1 GB in bf16, its runtime's parameter type (the published 480 B are
+# above 6e10), drawn on the card. (a) served through launch.serve with
+# phase 5's traffic; (b1) adafactor alone on one expert leaf (128 x 7168 x
+# 4864, bf16) against its formula in f64; (b2) one adafactor train step on
+# a batch of ARCTIC_TRAIN_SHAPE (four routing groups of 512, capacity 10),
+# bf16 parameters and grads, remat off, at ARCTIC_LR
+ARCTIC_ARCH, ARCTIC_LAYERS, ARCTIC_TRAIN_SHAPE = "arctic-480b", 1, (1, 2048)
+# the launcher's default schedule's first lr past 0: its cosine schedule
+# (peak 3e-4, 20 warmup steps) gives 0 at step 0 and 3e-4 / 20 at step 1.
+# At the peak itself one adafactor step from the random init overshoots
+# (NVIDIA H100 80GB HBM3, 700 W: the loss on the batch 11.67 -> 35.02)
+ARCTIC_LR = 3e-4 / 20
+# (b1): each new bf16 parameter within one bf16 ulp (2^-7 of its size) of
+# the formula evaluated expert by expert in f64 with the f64 RMS, plus
+# ADA_F32 of its two terms' sizes (p and lr·u are f32 before the
+# subtraction, whose result can be far smaller than either); vr and vc
+# (f32 means of 4864 / 7168 squares) within ADA_STATE_RTOL of f64
+ADA_ULP, ADA_F32, ADA_STATE_RTOL = 2.0 ** -7, 2.0 ** -20, 1e-5
+# (c) checkpoint across ring layouts: internlm2-1.8b at full width cut to
+# CKPT_LAYERS of 24 layers, f32 adafactor at TRAIN_LR, batch TP_BATCH x
+# TP_SEQ, CKPT_RUN on TP_WORLD gloo ranks: step 0, save (gathered, rank 0
+# writes), step 1 (saved too); then step 1 from the first checkpoint on
+# one device and again on the ring. Updated parameters against the ring's:
+# |Δp| <= TRAIN_RTOL·max|p_ring - p_ckpt| of each tensor (the update, as
+# phase 9 holds gradients) + CKPT_ROUNDING·|p_ring| (two f32 roundings)
+CKPT_LAYERS, CKPT_RUN = 2, ("cais", 2, "float32")
+CKPT_ROUNDING = 2.0 ** -22
 
 
 T_START: Optional[float] = None     # main() sets it
@@ -854,6 +907,12 @@ def phase_kernels(cfg, fa, ref) -> list:
     for i, case in enumerate(pf_flash_cases()):
         rows.append(check_kernel_case(case[0], pf_core_case(
             *case[1:], seed=30 + i), fa, ref))
+    # phase 16: arctic-480b's 56 q / 8 kv heads served (bf16 decode steps
+    # and prefill chunks) and trained (its 1 x 2048 core, bf16), and the
+    # one-device f32 step of the checkpoint check (internlm2-1.8b's whole
+    # 16 q / 8 kv heads)
+    for name, make in arctic_flash_cases():
+        rows.append(check_kernel_case(name, make(), fa, ref))
     return rows
 
 
@@ -4233,6 +4292,565 @@ def phase_pf(fa) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: arctic-480b (served, adafactor) and checkpoint/restart across
+# ring layouts
+# ---------------------------------------------------------------------------
+
+
+def get_arctic_cfg(layers: int = ARCTIC_LAYERS):
+    """arctic-480b at its published widths, cut to ``layers`` layers."""
+    from repro_torch.configs import get_arch
+
+    return get_arch(ARCTIC_ARCH).scaled(num_layers=layers)
+
+
+def full_core_case(cfg, B: int, S: int, dtype, seed: int):
+    """The attention core as one device calls it in a training step: every
+    query and kv head of ``cfg``, ``S`` causal positions."""
+    g = torch.Generator().manual_seed(seed)
+    dh = cfg.resolved_head_dim
+    mk = lambda h: torch.randn(B, S, h, dh, generator=g).to("cuda", dtype)
+    pos = torch.arange(S, dtype=torch.int32,
+                       device="cuda").expand(B, S).contiguous()
+    return dict(q=mk(cfg.num_heads), k=mk(cfg.num_kv_heads),
+                v=mk(cfg.num_kv_heads), q_positions=pos, kv_positions=pos,
+                window=cfg.window)
+
+
+def arctic_flash_cases() -> list:
+    """Phase 16's flash calls for phase 3: arctic-480b served in bf16 (a
+    decode step, a prefill chunk), its training core (bf16), and (c)'s
+    one-device f32 step of internlm2-1.8b (16 q / 8 kv heads)."""
+    arc = get_arctic_cfg()
+    B, S = ARCTIC_TRAIN_SHAPE
+    bf16 = torch.bfloat16
+    return [
+        ("arctic_decode", lambda: serving_case(
+            arc, 1, q0=[699, 649, 0, 612], ctx=[700, 650, 0, 613],
+            dtype=bf16, seed=40)),
+        ("arctic_prefill_chunk", lambda: serving_case(
+            arc, PREFILL_CHUNK, q0=[640, 0, 0, 512], ctx=[700, 128, 0, 640],
+            dtype=bf16, seed=41)),
+        ("arctic_train_core", lambda: full_core_case(arc, B, S, bf16, 42)),
+        ("ckpt_one_device", lambda: full_core_case(
+            get_tp_cfg(), TP_BATCH, TP_SEQ, torch.float32, 43))]
+
+
+def phase_arctic_serve(cfg, fa) -> tuple:
+    """Phase 16 (a): arctic-480b cut to ARCTIC_LAYERS served through
+    ``launch.serve`` (phase 5's traffic, bf16 compute and parameters,
+    greedy): flash once a layer a step, decode steps on split-KV (G = 7
+    query rows a kv head), prefill chunks on wgmma. Returns (the report,
+    the served model)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    calls = {}
+    core = record_calls(ops, calls)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = 0                            # count the main path only
+        fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+        t0 = time.monotonic()
+        eng, reqs = serve.main([
+            "--arch", ARCTIC_ARCH, "--layers", str(ARCTIC_LAYERS),
+            "--device", "cuda", "--requests", str(REQUESTS), "--prompt-len",
+            str(PROMPT_MAX), "--prompt-len-min", str(PROMPT_MIN),
+            "--max-new", str(MAX_NEW), "--prefill-chunk", str(PREFILL_CHUNK),
+            "--block-size", str(BLOCK_SIZE), "--seed", "0"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches, variants = fa.launches, dict(fa.launches_by_variant)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        ops.flash_attention = core
+    lm, report = eng.model, dict(eng.last_report, steps=eng.steps)
+    L = cfg.num_layers
+    G = cfg.num_heads // cfg.num_kv_heads
+    decode = sum(n for key, n in calls.items()
+                 if key[1] * G <= fa.SPLIT_MAX_ROWS)
+    params = sum(p.numel() for p in lm.parameters())
+    checks = {
+        "bf16 parameters (the router f32, as JAX's), the published "
+        "count": all(p.dtype == (torch.float32 if n.endswith(".router")
+                                 else torch.bfloat16)
+                     for n, p in lm.named_parameters())
+        and params == cfg.param_count(),
+        "every request finished": all(
+            r.done and len(r.out_tokens) == MAX_NEW for r in reqs),
+        "tokens inside the vocabulary": all(
+            0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
+        "flash once a layer a step": launches == eng.steps * L > 0,
+        "decode on split-KV, prefill on wgmma": variants == dict(
+            splitkv=decode, wgmma=launches - decode, ffma=0)
+        and 0 < decode < launches and G == 7,
+    }
+    nbytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    log(f"  (a) {params / 1e9:.3f} B parameters ({nbytes / 1e9:.2f} GB); "
+        f"{len(reqs)} requests in "
+        f"{eng.steps} steps, {wall:.2f}s; TTFT p50 "
+        f"{report['ttft_p50_ms']:.1f} ms, per-token p50 "
+        f"{report['per_token_p50_ms']:.1f} ms; flash {launches} = "
+        f"{eng.steps} x {L} {json.dumps(variants)}; peak {peak:.2f} GiB")
+    del eng
+    return dict(report=report, launches=launches, flash_variants=variants,
+                peak_gib=peak, wall_s=wall, params=params, checks=checks,
+                call_shapes=sorted([*k, v] for k, v in calls.items())), lm
+
+
+def adafactor_leaf_check(shape=None, device="cuda") -> dict:
+    """Phase 16 (b1): the port's adafactor, alone, on one expert leaf of
+    ``shape`` (arctic-480b's w_up: 128 x 7168 x 4864) in bf16 with seeded
+    grads, its first step; held against the formula evaluated expert by
+    expert in f64 (vr, vc, u, then the RMS of the whole leaf from the f64
+    u, then the new parameter): each new bf16 parameter within one bf16 ulp
+    (ADA_ULP) and the f32 rounding of its two terms (ADA_F32), vr and vc
+    within ADA_STATE_RTOL. The optimizer streams over
+    the experts, so its extra memory (the peak past what the parameter,
+    grad and state hold) is a few experts' f32 temporaries."""
+    from repro_torch.optim import adafactor, constant_schedule
+
+    if shape is None:
+        cfg = get_arctic_cfg()
+        shape = (cfg.moe.num_experts, cfg.d_model, cfg.d_ff)
+    E = shape[0]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    p = torch.empty(shape, dtype=torch.bfloat16, device=device)
+    g = torch.empty_like(p)
+    for e in range(E):          # an expert at a time: no f32 copy of it
+        p[e] = 0.02 * torch.randn(shape[1:], generator=gen, device=device)
+        g[e] = (1e-3 * (1 + e % 4)) * torch.randn(shape[1:], generator=gen,
+                                                  device=device)
+    p0 = p.clone()
+    opt = adafactor(constant_schedule(ARCTIC_LR))
+    state = opt.init({"w": p})
+    _sync(device)
+    base = torch.cuda.memory_allocated() if _on_card(device) else 0
+    _peak_start(device)
+    t0 = time.monotonic()
+    opt.apply({"w": p}, {"w": g}, state, 0)
+    _sync(device)
+    apply_s = time.monotonic() - t0
+    extra = (torch.cuda.max_memory_allocated() - base) / 2**30 \
+        if _on_card(device) else None
+    leaf_gb = p.numel() * 4 / 2**30            # one f32 copy of the leaf
+
+    def u64(e):                  # step 0: beta = 1 - 1^-0.8 = 0
+        g64 = g[e].double()
+        g2 = g64 * g64 + 1e-30
+        vr, vc = g2.mean(-1), g2.mean(-2)
+        rfac = torch.rsqrt(vr / torch.clamp(vr.mean(), min=1e-30))
+        return g64 * rfac[:, None] * torch.rsqrt(vc)[None, :], vr, vc
+
+    t0 = time.monotonic()
+    ssq, state_err = 0.0, 0.0
+    for e in range(E):
+        u, vr, vc = u64(e)
+        ssq += float((u * u).sum())
+        for got, want in ((state["w"]["vr"][e], vr),
+                          (state["w"]["vc"][e], vc)):
+            state_err = max(state_err, float(
+                ((got.double() - want).abs() / want).max()))
+    rms = math.sqrt(ssq / p.numel() + 1e-30)
+    denom = max(1.0, rms)                      # clip_threshold 1
+    worst, changed = 0.0, 0
+    for e in range(E):
+        u, _, _ = u64(e)
+        p64, step = p0[e].double(), ARCTIC_LR * u / denom
+        want = p64 - step
+        err = (p[e].double() - want).abs()
+        limit = ADA_ULP * want.abs() + ADA_F32 * (p64.abs() + step.abs())
+        worst = max(worst, float((err / limit.clamp(min=1e-30)).max()))
+        changed += int((p[e] != p0[e]).sum())
+    ref_s = time.monotonic() - t0
+    out = dict(shape=list(shape), apply_s=apply_s, ref_s=ref_s, rms=rms,
+               err_over_ulp=worst, state_rel_err=state_err,
+               changed_share=changed / p.numel(), extra_gib=extra,
+               leaf_f32_gib=leaf_gb)
+    checks = {
+        "each new parameter within one bf16 ulp of f64 (+ f32 terms)":
+            worst <= 1.0,
+        f"vr and vc within {ADA_STATE_RTOL:g} of f64":
+            state_err <= ADA_STATE_RTOL,
+        "the update changed parameters": changed > 0,
+        "extra memory below one f32 copy of the leaf":
+            extra is None or extra < leaf_gb,
+    }
+    log(f"  (b1) adafactor on {tuple(shape)} bf16: apply {apply_s:.2f}s, "
+        f"f64 reference {ref_s:.2f}s; RMS(u) {rms:.4f}; err / bound "
+        f"{worst:.3f}; vr/vc rel err {state_err:.2e}; changed "
+        f"{changed / p.numel():.1%}; extra memory "
+        f"{'n/a' if extra is None else f'{extra:.2f} GiB'} (one f32 copy "
+        f"of the leaf: {leaf_gb:.1f} GiB)")
+    del p, g, p0, state
+    if _on_card(device):
+        torch.cuda.empty_cache()
+    return dict(out, checks=checks)
+
+
+def fingerprint(t: torch.Tensor) -> tuple:
+    """(Σ bits, Σ bits²) of ``t``'s elements read as integers, CHUNK
+    elements at a time: any change of an element changes it (short of a
+    collision), and no copy of the tensor is kept."""
+    bits = t.detach().reshape(-1).view(
+        {2: torch.int16, 4: torch.int32}[t.element_size()])
+    s1 = s2 = 0
+    for lo in range(0, bits.numel(), CHUNK):
+        c = bits[lo:lo + CHUNK].to(torch.int64)
+        s1 += int(c.sum())
+        s2 += int((c * c).sum())
+    return s1, s2
+
+
+def arctic_train_step(lm, cfg, shape=ARCTIC_TRAIN_SHAPE,
+                      device="cuda") -> dict:
+    """Phase 16 (b2): one adafactor train step of ``lm`` (the served model,
+    bf16 parameters, so bf16 grads) on step 0's batch of ``shape``: loss
+    and grad norm finite, every parameter changed (its fingerprint), the
+    loss on the same batch after the step below the loss before it, flash
+    once a layer (remat off; its backward is torch math), on wgmma."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.optim import constant_schedule, make_optimizer
+    from repro_torch.train.step import init_state, make_train_step
+
+    B, S = shape
+    batch = make_batch(cfg, ShapeConfig("arctic", S, B, "train"), 0,
+                       DataConfig(SEED))
+    rt = dataclasses.replace(lm.rt, remat=False)
+    lm.rt = rt
+    opt = make_optimizer(cfg.optimizer, constant_schedule(ARCTIC_LR))
+    state = init_state(lm, opt)
+    step = make_train_step(lm, opt, rt)
+    before = {k: fingerprint(p) for k, p in lm.named_parameters()}
+    calls = {}
+    core = record_calls(ops, calls)
+    try:
+        _peak_start(device)
+        fa.launches = 0
+        fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        _sync(device)
+        step_s = time.monotonic() - t0
+        launches, variants = fa.launches, dict(fa.launches_by_variant)
+        peak = _peak_gib(device)
+    finally:
+        ops.flash_attention = core
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    unchanged = [k for k, p in lm.named_parameters()
+                 if fingerprint(p) == before[k]]
+    for p in lm.parameters():
+        p.grad = None
+    lm.requires_grad_(False)
+    del state, step
+    with torch.no_grad():
+        after = float(lm.loss({k: torch.as_tensor(v).to(device)
+                               for k, v in batch.items()}))
+    L = cfg.num_layers
+    checks = {
+        "loss and grad norm finite": math.isfinite(loss)
+        and math.isfinite(gnorm) and gnorm > 0,
+        "every parameter changed": not unchanged,
+        "the loss on the batch fell": after < loss,
+        "flash once a layer, on wgmma": launches == L and variants == dict(
+            splitkv=0, wgmma=L, ffma=0),
+    }
+    log(f"  (b2) adafactor step on {B} x {S} (routing groups of "
+        f"{cfg.moe.group_size}): loss {loss:.6f} -> {after:.6f} after the "
+        f"step, grad norm {gnorm:.4f}, {step_s:.2f}s, peak "
+        f"{'n/a' if peak is None else f'{peak:.2f} GiB'}; flash {launches} "
+        f"{json.dumps(variants)}; unchanged {unchanged}")
+    return dict(loss=loss, loss_after=after, grad_norm=gnorm, step_s=step_s,
+                peak_gib=peak, launches=launches, flash_variants=variants,
+                checks=checks,
+                call_shapes=sorted([*k, v] for k, v in calls.items()))
+
+
+def ckpt_batches(cfg, batch: int = TP_BATCH, seq: int = TP_SEQ) -> list:
+    """Steps 0 and 1's batches of (c) (``make_batch`` keyed on the step, as
+    the Trainer draws them)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+
+    shape = ShapeConfig("train_4k", seq, batch, "train")
+    return [make_batch(cfg, shape, k, DataConfig(SEED)) for k in (0, 1)]
+
+
+def ckpt_rank(group, cfg, root: str, batches, device="cuda") -> dict:
+    """One rank of phase 16 (c): adafactor, CKPT_RUN; step 0, then an
+    ``AsyncSaver`` save as step 1 (the shards gathered and the host
+    snapshot taken in this thread; world rank 0 writes the files in the
+    background while step 1 runs), step 1 with its launches against the
+    graphs' (``tp.recording``, ``tp.step_launches``), saved as step 2; then
+    the step-1 checkpoint restored into the same state and step 1 again:
+    its loss, grad norm and this rank's parameters against the
+    uninterrupted step's. Every part timed."""
+    from repro_torch.checkpoint import store
+    from repro_torch.core import tp as tp_mod
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import adafactor, constant_schedule
+    from repro_torch.runtime import Runtime, TPConfig
+    from repro_torch.train.step import (init_state, make_train_step,
+                                        state_placement)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    secs = {}
+    t0 = time.monotonic()
+    mode, mb, dtype = CKPT_RUN
+    rt = Runtime(compute_dtype=dtype, remat=False,
+                 tp=TPConfig(mode=mode, microbatches=mb))
+    lm = build_model(cfg, rt, device=device, seed=SEED, group=group)
+    if _on_card(device):
+        torch.cuda.empty_cache()      # the whole model drawn for the shards
+    opt = adafactor(constant_schedule(TRAIN_LR))
+    state = init_state(lm, opt)
+    step = make_train_step(lm, opt, rt)
+    place = state_placement(lm, opt)
+    saver = store.AsyncSaver(root, lm.mesh, place)
+    B, S = batches[0]["tokens"].shape
+    calls = {}
+
+    def shapes(a, b, _inner=ops.matmul, **k):
+        key = (*a.shape, b.shape[1], str(a.dtype).replace("torch.", ""),
+               mmk.layout(a, b))
+        calls[key] = calls.get(key, 0) + 1
+        return _inner(a, b, **k)
+
+    ops.matmul = shapes
+    flash_calls = {}
+    record_calls(ops, flash_calls)
+
+    def timed(name, fn, *a, **kw):
+        t = time.monotonic()
+        out = fn(*a, **kw)
+        _sync(device)
+        secs[name] = time.monotonic() - t
+        return out
+
+    def step_one():
+        mmk.launches = fa.launches = 0
+        with tp_mod.recording() as rec:
+            _, m = step(state, batches[1])
+        _sync(device)
+        derived = tp_mod.step_launches(rec, B, S, cfg.d_model,
+                                       rt.dtype.itemsize)
+        return (float(m["loss"]), float(m["grad_norm"]),
+                (mmk.launches, fa.launches),
+                (derived["matmul"], derived["flash"]))
+
+    secs["build"] = time.monotonic() - t0
+    timed("step0", step, state, batches[0])
+    timed("save1", saver.save, state, 1)
+    first = timed("step1", step_one)
+    timed("save2", saver.save, state, 2)       # waits for step 1's file
+    kept = {k: p.detach().clone() for k, p in lm.named_parameters()}
+    _, manifest = timed("restore", store.restore, root, state,
+                        placement=place, step=1)
+    ckpt = {k: p.detach().clone() for k, p in lm.named_parameters()}
+    again = timed("step1_again", step_one)
+    bitwise = first[:2] == again[:2] and all(
+        torch.equal(kept[k], p.detach()) for k, p in lm.named_parameters())
+    ratio = 0.0
+    for k, p in lm.named_parameters():
+        want = kept[k]
+        limit = TRAIN_RTOL * float((want - ckpt[k]).abs().max()) \
+            + CKPT_ROUNDING * want.abs()
+        ratio = max(ratio, float(((p.detach() - want).abs()
+                                  / limit).max()))
+    del kept, ckpt
+    timed("wait", saver.wait)                  # step 2's file on disk
+    return dict(loss=first[0], grad_norm=first[1], launches=first[2],
+                derived=first[3], again=again, bitwise=bitwise,
+                param_ratio=ratio, seconds=secs,
+                restored_step=manifest["step"],
+                sharded=sum(1 for k in place if k.startswith("params")),
+                opt_sharded=sum(1 for k in place if k.startswith("opt")),
+                call_shapes=sorted([*k, v] for k, v in calls.items()),
+                flash_shapes=sorted([*k, v] for k, v in flash_calls.items()))
+
+
+def phase_ckpt(cfg, device="cuda", world: int = TP_WORLD,
+               batches=None) -> dict:
+    """Phase 16 (c): :func:`ckpt_rank` on ``world`` gloo ranks, then the
+    ring's step-1 checkpoint restored on one device and step 1 there: its
+    loss and grad norm within F32_LOSS_RTOL / TRAIN_RTOL of the ring's, its
+    parameters against the ring's step-2 checkpoint by the CKPT bound; the
+    ring's second step 1 from the checkpoint by the same rules (and
+    whether it was bitwise). Launches on the ring equal the graphs';
+    one device's flash once a layer. One device restores and steps while
+    the ring goes on (its step-1 checkpoint is complete once its directory
+    exists: the writer renames it into place)."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.checkpoint import store
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import build_model
+    from repro_torch.optim import adafactor, constant_schedule
+    from repro_torch.runtime import Runtime
+    from repro_torch.train.step import init_state, make_train_step
+
+    batches = batches or ckpt_batches(cfg)
+    root = tempfile.mkdtemp(prefix="ckpt_")
+    pool = ThreadPoolExecutor(1)
+    try:
+        t0 = time.monotonic()
+        ring = pool.submit(run_ranks, ckpt_rank, world, cfg, root, batches,
+                           device, device=device, timeout=900)
+        first = os.path.join(root, "step_00000001")
+        while not os.path.isdir(first):
+            if ring.done():
+                ring.result()              # the ring failed before it
+            time.sleep(0.1)
+        ckpt_gb = os.path.getsize(os.path.join(first, "arrays.npz")) / 1e9
+        t1 = time.monotonic()
+        lm = build_model(cfg, Runtime(compute_dtype=CKPT_RUN[2],
+                                      remat=False), device=device, seed=None)
+        opt = adafactor(constant_schedule(TRAIN_LR))
+        state = init_state(lm, opt)
+        _, manifest = store.restore(root, state, step=1)
+        start = {k: p.detach().clone() for k, p in lm.named_parameters()}
+        calls = {}
+        core = record_calls(ops, calls)
+        try:
+            fa.launches = 0
+            _, m = make_train_step(lm, opt, lm.rt)(state, batches[1])
+            _sync(device)
+            launches = fa.launches
+        finally:
+            ops.flash_attention = core
+        one_s = time.monotonic() - t1
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        ranks = ring.result()
+        ring_s = time.monotonic() - t0
+        head = ranks[0]
+        whole, _ = store.read(root, 2)
+        ratio = 0.0
+        for k, p in lm.named_parameters():
+            want = torch.as_tensor(whole[f"params::{k}"]).to(device)
+            upd = float((want - start[k]).abs().max())
+            limit = TRAIN_RTOL * upd + CKPT_ROUNDING * want.abs()
+            ratio = max(ratio, float(((p.detach() - want).abs()
+                                      / limit).max()))
+        del lm, state, whole, start
+        if _on_card(device):
+            torch.cuda.empty_cache()
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(root, ignore_errors=True)
+    rel = lambda a, b: abs(a - b) / abs(b)        # noqa: E731
+    checks = {
+        "ranks agree": len({(r["loss"], r["grad_norm"]) for r in ranks})
+        == 1,
+        "ring launches = graphs": all(
+            r["launches"] == r["derived"] and min(r["derived"]) > 0
+            for r in ranks),
+        "the checkpoint restored step 1 on every layout": manifest["step"]
+        == 1 and all(r["restored_step"] == 1 for r in ranks),
+        "sharded parameters and adafactor state gathered": head["sharded"]
+        > 0 and head["opt_sharded"] > 0,
+        "one device: loss within F32_LOSS_RTOL of the ring's":
+            rel(loss, head["loss"]) <= F32_LOSS_RTOL,
+        "one device: grad norm within TRAIN_RTOL":
+            rel(gnorm, head["grad_norm"]) <= TRAIN_RTOL,
+        "one device: parameters within the bound": ratio <= 1.0,
+        "one device: flash once a layer": launches == cfg.num_layers,
+        "ring again: loss and grad norm": all(
+            rel(r["again"][0], r["loss"]) <= F32_LOSS_RTOL
+            and rel(r["again"][1], r["grad_norm"]) <= TRAIN_RTOL
+            and r["again"][2:] == (r["launches"], r["derived"])
+            for r in ranks),
+        "ring again: parameters within the bound": all(
+            r["param_ratio"] <= 1.0 for r in ranks),
+    }
+    bitwise = all(r["bitwise"] for r in ranks)
+    log(f"  (c) {world} ranks {ring_s:.1f}s (rank 0: "
+        f"{json.dumps({k: round(v, 2) for k, v in head['seconds'].items()})}"
+        f"; checkpoint {ckpt_gb:.2f} GB, "
+        f"{head['sharded']} parameters and {head['opt_sharded']} adafactor "
+        f"tensors gathered); ring step 1 loss {head['loss']:.7f} grad norm "
+        f"{head['grad_norm']:.6f}, launches {head['launches']} (graphs "
+        f"{head['derived']}); one device from the checkpoint "
+        f"{one_s:.1f}s (beside the ring): loss {loss:.7f} (rel {rel(loss, head['loss']):.2e}) "
+        f"grad norm {gnorm:.6f} (rel {rel(gnorm, head['grad_norm']):.2e}), "
+        f"params err/bound {ratio:.3f}, flash {launches}; ring again from "
+        f"the checkpoint: bitwise {bitwise}, params err/bound "
+        f"{max(r['param_ratio'] for r in ranks):.3f}")
+    return dict(loss=head["loss"], grad_norm=head["grad_norm"], checks=checks,
+                one_device=dict(loss=loss, grad_norm=gnorm,
+                                param_ratio=ratio, flash_launches=launches),
+                bitwise=bitwise, ckpt_gb=ckpt_gb, ring_s=ring_s,
+                one_s=one_s,
+                matmul_launches=sum(2 * r["launches"][0] for r in ranks),
+                flash_launches=sum(2 * r["launches"][1] for r in ranks)
+                + launches,
+                call_shapes=sorted({tuple(c[:-1]) for r in ranks
+                                    for c in r["call_shapes"]}),
+                flash_shapes=sorted({tuple(c[:-1]) for r in ranks
+                                     for c in r["flash_shapes"]}
+                                    | {k for k in calls}))
+
+
+def phase_arctic(fa) -> dict:
+    """Phase 16: (a) :func:`phase_arctic_serve`, (b1)
+    :func:`adafactor_leaf_check`, (b2) :func:`arctic_train_step` of the
+    served model, (c) :func:`phase_ckpt`; each part returns its checks,
+    and the phase fails on the first part with a check that did not hold.
+    Returns the launches, the call shapes and the seconds of each part."""
+    import gc
+
+    t0 = time.monotonic()
+    out = dict(seconds={})
+
+    def part(name, fn, *a):
+        t = time.monotonic()
+        log(f"  ({name})")
+        res = fn(*a)
+        out["seconds"][name] = time.monotonic() - t
+        checks = (res[0] if isinstance(res, tuple) else res)["checks"]
+        failed = [k for k, v in checks.items() if not v]
+        if failed:
+            raise AssertionError(f"phase 16 ({name}): failed {failed}")
+        return res
+
+    cfg = get_arctic_cfg()
+    out["a"], lm = part("a", phase_arctic_serve, cfg, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b1"] = part("b1", adafactor_leaf_check)
+    out["b2"] = part("b2", arctic_train_step, lm, cfg)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["c"] = part("c", phase_ckpt, get_tp_cfg().scaled(
+        num_layers=CKPT_LAYERS))
+    out.update(
+        flash_launches=out["a"]["launches"] + out["b2"]["launches"]
+        + out["c"]["flash_launches"],
+        matmul_launches=out["c"]["matmul_launches"],
+        call_shapes=out["c"]["call_shapes"],
+        flash_shapes=sorted({tuple(c[:-1]) for k in ("a", "b2")
+                             for c in out[k]["call_shapes"]}
+                            | set(out["c"]["flash_shapes"])))
+    out["seconds"]["total"] = time.monotonic() - t0
+    log(f"  phase 16: {out['seconds']['total']:.1f}s "
+        f"({json.dumps({k: round(v, 1) for k, v in out['seconds'].items()})})"
+        f"; flash {out['flash_launches']}, matmul {out['matmul_launches']}")
+    return out
+
+
 def main() -> int:
     global T_START
     if not torch.cuda.is_available():
@@ -4460,6 +5078,22 @@ def main() -> int:
                              f"{unchecked}")
     log("  pf " + json.dumps(pf))
 
+    log(f"phase 16: {ARCTIC_ARCH} at full width cut to {ARCTIC_LAYERS} of "
+        f"35 layers: served in bf16, adafactor on one expert leaf against "
+        f"f64, one adafactor train step; then {TP_ARCH} cut to "
+        f"{CKPT_LAYERS} layers: a checkpoint written by {TP_WORLD} TP ranks "
+        "on one card over gloo, restored on one device and on the ring")
+    log("  " + smi)
+    arctic = phase_arctic(fa)
+    unchecked = [("matmul", s_) for s_ in arctic["call_shapes"]
+                 if tuple(s_) not in checked]
+    unchecked += [("flash_attention", s_) for s_ in arctic["flash_shapes"]
+                  if tuple(s_) not in checked_fa]
+    if unchecked:
+        raise AssertionError(f"phase 16 called kernels at shapes phase 3 "
+                             f"did not check: {unchecked}")
+    log("  arctic " + json.dumps(arctic))
+
     log("kernel cases " + json.dumps({"flash_attention": rows,
                                       "matmul": mm_rows,
                                       "matmul_rmsnorm": mln_rows}))
@@ -4508,7 +5142,8 @@ def main() -> int:
          + serve_tp["flash_launches"] + moe["serve"]["launches"]
          + moe["train"]["flash_launches"] + topo["dp"]["flash_launches"]
          + topo["grouped_ep"]["flash_launches"] + subl["flash_launches"]
-         + rec["flash_launches"] + pf["flash_launches"],
+         + rec["flash_launches"] + pf["flash_launches"]
+         + arctic["flash_launches"],
          **record(head)},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -4517,7 +5152,8 @@ def main() -> int:
          + serve_tp["matmul_launches"] + moe["train"]["matmul_launches"]
          + topo["dp"]["matmul_launches"]
          + topo["grouped_ep"]["matmul_launches"] + subl["matmul_launches"]
-         + rec["matmul_launches"] + pf["matmul_launches"],
+         + rec["matmul_launches"] + pf["matmul_launches"]
+         + arctic["matmul_launches"],
          **record(mm_head)},
         {"name": "matmul_rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul_rmsnorm.cu",

@@ -117,7 +117,7 @@ class ArchConfig:
     logits_softcap: float = 0.0
     # eligible for the long_500k shape (sub-quadratic or bounded-KV mixers)
     sub_quadratic: bool = False
-    # optimizer default (the huge MoE archs use adafactor, not ported yet)
+    # optimizer default (the huge MoE archs use adafactor)
     optimizer: str = "adamw"
 
     # ----- derived -----

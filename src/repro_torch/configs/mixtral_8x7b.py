@@ -2,9 +2,6 @@
 
 [moe] mixtral-8x7b — 8 experts top-2, SWA [arXiv:2401.04088; hf]
 32L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=32000
-
-``repro``'s ``sub_quadratic`` flag is not a field of the port's config yet
-(ROADMAP A15).
 """
 from repro_torch.configs.base import ArchConfig, MoEConfig
 

@@ -1,11 +1,12 @@
-"""Arch registry of the port: the dense attention archs (paged serving,
-the TP training forward), minicpm3-4b (MLA), mamba2-130m (the Mamba-2 SSD
-mixer), recurrentgemma-2b (RG-LRU + local attention), whisper-tiny
-(enc-dec) and paligemma-3b (prefix-LM VLM), which serve through the dense
-engine, and mixtral-8x7b (MoE). The one other arch of ``repro``'s registry
-is named here so that asking for it says it is not ported yet."""
+"""Arch registry of the port: every arch of ``repro``'s registry. The dense
+attention archs, minicpm3-4b (MLA), mamba2-130m (the Mamba-2 SSD mixer),
+recurrentgemma-2b (RG-LRU + local attention), whisper-tiny (enc-dec),
+paligemma-3b (prefix-LM VLM), and the MoE archs mixtral-8x7b and
+arctic-480b (128 experts with a dense residual, trained with
+adafactor)."""
 from __future__ import annotations
 
+from repro_torch.configs.arctic_480b import ARCTIC_480B
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.deepseek_7b import DEEPSEEK_7B
 from repro_torch.configs.gemma3_1b import GEMMA3_1B
@@ -19,18 +20,11 @@ from repro_torch.configs.whisper_tiny import WHISPER_TINY
 
 ARCHS = {a.name: a for a in (DEEPSEEK_7B, INTERNLM2_1_8B, GEMMA3_1B,
                              MINICPM3_4B, MIXTRAL_8X7B, MAMBA2_130M,
-                             RECURRENTGEMMA_2B, WHISPER_TINY, PALIGEMMA_3B)}
-
-# in repro's registry, waiting for its optimizer, adafactor, and
-# checkpoint/store.py (ROADMAP A15)
-NOT_PORTED = ("arctic-480b",)
+                             RECURRENTGEMMA_2B, WHISPER_TINY, PALIGEMMA_3B,
+                             ARCTIC_480B)}
 
 
 def get_arch(name: str) -> ArchConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet; the port serves "
-            f"{sorted(ARCHS)}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[name]

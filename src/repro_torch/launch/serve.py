@@ -18,8 +18,9 @@ fails where there is no card unless told ``--device cpu``) and the serving
 shape: ``--prompt-len-min`` (prompt lengths drawn from
 [min, ``--prompt-len``]), ``--prefill-chunk`` and ``--block-size``. Only
 ``--mesh none`` is ported. ``--layers N`` cuts the depth to the first N
-layers at the published widths (mixtral-8x7b's 46.7 B parameters do not
-fit one card; 2 layers do). whisper-tiny and paligemma-3b serve through
+layers at the published widths and in the published model's runtime
+(mixtral-8x7b's 46.7 B parameters do not fit one card, 2 layers do;
+arctic-480b's 1 layer holds 14 B parameters, in bf16 as its 480 B are). whisper-tiny and paligemma-3b serve through
 the dense engine with their stub frontends' inputs (``src_embed``,
 ``patch_embed``: standard normal from ``default_rng(0)``, one row a
 request, as JAX's launcher makes them), and the cache holds the image
@@ -83,9 +84,9 @@ def main(argv: Optional[List[str]] = None
             f"--mesh {args.mesh}: serving on a mesh with a data-parallel "
             "axis is not ported; serve on a TP group (LM(..., group=...))")
     cfg = get_arch(args.arch)
+    rt = runtime_for(cfg)        # the published model's (arctic: bf16 params)
     if args.layers:
         cfg = cfg.scaled(num_layers=args.layers)
-    rt = runtime_for(cfg)
     if args.smoke:
         cfg = cfg.smoke()
         rt = dataclasses.replace(rt, compute_dtype="float32")

@@ -15,11 +15,15 @@ they share a card) on a ``data`` 2 x ``model`` 4 mesh
 its half of every global batch, the grads are summed over the replicas,
 and rank 0 prints the lines; it needs an explicit ``--tp-mode`` (``barrier``
 or ``cais``: ``auto``'s torch counterpart is ROADMAP A5). ``--mesh
-single|multi`` raise (they need a multi-host launcher), and ``--ckpt-dir``
-raises until checkpointing is ported (A15). ``--smoke`` trains the reduced
-config on a 4 x 128 shape in f32 without remat, as ``repro``'s. Every step
-prints a ``step N loss ...`` line; ``--history PATH`` also writes the
-steps' losses unrounded as JSON.
+single|multi`` raise (they need a multi-host launcher). ``--ckpt-dir DIR``
+checkpoints every ``--ckpt-every`` steps (and on a straggler or
+preemption) and resumes from DIR's latest step: rerunning the same command
+with more ``--steps`` goes on where the last run stopped, on one device or
+under ``--mesh debug`` (each rank restores its shards; rank 0 writes the
+whole arrays). Each arch trains with its config's optimizer (arctic-480b:
+adafactor). ``--smoke`` trains the reduced config on a 4 x 128 shape in
+f32 without remat, as ``repro``'s. Every step prints a ``step N loss ...``
+line; ``--history PATH`` also writes the steps' losses unrounded as JSON.
 """
 from __future__ import annotations
 
@@ -111,9 +115,6 @@ def main(argv: Optional[List[str]] = None) -> Union[Trainer, MeshRun]:
         from repro_torch.launch.mesh import make_production_mesh
 
         make_production_mesh(multi_pod=args.mesh == "multi")
-    if args.ckpt_dir:
-        raise NotImplementedError("checkpointing is not ported yet "
-                                  "(checkpoint/store.py, ROADMAP A15)")
     if args.mesh == "debug":
         from repro_torch.launch.mesh import DEBUG_SHAPE
         from repro_torch.launch.ranks import run_ranks

@@ -31,6 +31,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.layers import Norm, embed_init_
+from repro_torch.optim.optimizers import Leaf
 from repro_torch.models.transformer import chunked_ce_loss
 from repro_torch.runtime import Runtime, resolve_device
 
@@ -169,6 +170,14 @@ class EncDecLM(nn.Module):
 
     def split_groups(self) -> dict:
         return {}
+
+    def opt_leaves(self) -> dict:
+        """{parameter: its ``repro`` leaf and stack index}
+        (:meth:`repro_torch.models.transformer.LM.opt_leaves`)."""
+        from repro_torch.bridge import jax_leaf
+
+        return {n: Leaf(*jax_leaf(n, self.cfg))
+                for n, _ in self.named_parameters()}
 
     def sync_grads(self, seq: int, data: bool = True) -> None:
         """Nothing to sum on one device."""

@@ -74,6 +74,7 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Norm, embed_init_, softcap
+from repro_torch.optim.optimizers import Leaf
 from repro_torch.runtime import Runtime, resolve_device
 from repro_torch.sharding import (CompositeGroup, Mesh, TPGroup, as_mesh,
                                   dp_size, tp_axes, tp_size)
@@ -744,6 +745,22 @@ class LM(nn.Module):
             place = param_placement(n, self.cfg, self.group)
             if place is not None:
                 out[n] = place[1]
+        return out
+
+    def opt_leaves(self) -> Dict[str, Leaf]:
+        """{parameter: its :class:`~repro_torch.optim.optimizers.Leaf`}: the
+        ``repro`` leaf and stack index it belongs to
+        (:func:`repro_torch.bridge.jax_leaf`) and the dimension this rank's
+        shard of it splits (:func:`repro_torch.core.tp.param_placement`),
+        for the optimizers whose update is defined per JAX leaf."""
+        from repro_torch.bridge import jax_leaf
+        from repro_torch.core.tp import param_placement
+
+        out = {}
+        for n, _ in self.named_parameters():
+            place = param_placement(n, self.cfg, self.group)
+            out[n] = Leaf(*jax_leaf(n, self.cfg),
+                          None if place is None else place[0])
         return out
 
     def sync_grads(self, seq: int, data: bool = True) -> None:

@@ -4,7 +4,9 @@ from repro_torch.optim.compression import (
     wire_bytes_saved,
 )
 from repro_torch.optim.optimizers import (
+    Leaf,
     Optimizer,
+    adafactor,
     adamw,
     clip_by_global_norm,
     constant_schedule,
@@ -14,7 +16,7 @@ from repro_torch.optim.optimizers import (
 )
 
 __all__ = [
-    "Optimizer", "adamw", "make_optimizer", "cosine_schedule",
+    "Leaf", "Optimizer", "adafactor", "adamw", "make_optimizer", "cosine_schedule",
     "constant_schedule", "clip_by_global_norm", "global_norm",
     "compressed_psum", "init_error_feedback", "wire_bytes_saved",
 ]

@@ -17,8 +17,11 @@ embedding's, head's and final norm's grads over the ring once the
 microbatches are done, and on a mesh with a data axis every grad over the
 replicas (each replica's batch is its rows of the global batch:
 :func:`repro_torch.data.pipeline.replica_rows`); then the global norm, the
-clip and AdamW, the same on every rank. After a step each parameter's
-``.grad`` holds the step's averaged (unclipped) gradient.
+clip and the optimizer (AdamW, or Adafactor over ``repro``'s leaves:
+``model.opt_leaves()``), the same on every rank. After a step each
+parameter's ``.grad`` holds the step's averaged (unclipped) gradient.
+:func:`state_placement` says which tensors of the state a rank holds a
+shard of, for the checkpoint (:mod:`repro_torch.checkpoint`).
 """
 from __future__ import annotations
 
@@ -37,7 +40,26 @@ def init_state(model, opt: Optimizer) -> State:
     optimizer's state for them, and step 0."""
     model.requires_grad_(True)
     params = dict(model.named_parameters())
-    return {"params": params, "opt": opt.init(params), "step": 0}
+    return {"params": params,
+            "opt": opt.init(params, leaves=model.opt_leaves()), "step": 0}
+
+
+def state_placement(model, opt: Optimizer) -> Dict[str, Tuple[int, Any]]:
+    """{flat state key (``params::<name>``, ``opt::...``: the checkpoint's
+    keys): (the dimension it splits, the group that splits it)} for every
+    tensor of the train state this rank holds a shard of: the parameters
+    by :func:`repro_torch.core.tp.param_placement`, the optimizer's state
+    by ``opt.placement``."""
+    from repro_torch.checkpoint.store import SEP
+
+    params = dict(model.named_parameters())
+    sharded = model.split_groups()
+    leaves = model.opt_leaves()
+    out = {f"params{SEP}{n}": (leaves[n].dim, g) for n, g in sharded.items()
+           if leaves[n].dim is not None and g.size > 1}
+    for path, place in opt.placement(params, leaves, sharded).items():
+        out[SEP.join(("opt",) + path)] = place
+    return out
 
 
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
@@ -49,6 +71,7 @@ def make_train_step(model, opt: Optimizer, rt: Runtime,
     """Build the train step (gradient accumulation over ``microbatches``
     equal slices of the batch's leading axis)."""
     sharded = model.split_groups()
+    leaves = model.opt_leaves()
 
     def train_step(state: State, batch) -> Tuple[State, Dict[str, Any]]:
         params = state["params"]
@@ -76,7 +99,7 @@ def make_train_step(model, opt: Optimizer, rt: Runtime,
         loss = loss / microbatches
         gnorm = global_norm(grads, sharded)
         _, new_opt = opt.apply(params, grads, state["opt"], state["step"],
-                               sharded=sharded)
+                               sharded=sharded, leaves=leaves)
         metrics = {"loss": loss, "grad_norm": gnorm, "step": state["step"]}
         for k, p in params.items():
             p.grad = grads[k]

@@ -772,3 +772,67 @@ def test_flash_launches_by_variant(dev):
         fa.flash_attention(q, k[:, :, :, :8].contiguous(), v,
                            q_positions=qpos, kv_positions=kpos)
     assert fa.launches == total + len(calls)
+
+
+# arctic-480b's attention (56 query heads over 8 kv heads of 128): a served
+# decode step and prefill chunk (the engine's block-table width 720) and the
+# one-device training core (1 x 2048), bf16 as the model runs them
+ARCTIC_CASES = [
+    dict(B=4, Sq=1, Skv=720, ctx=[700, 650, 0, 613], q0=[699, 649, 0, 612]),
+    dict(B=4, Sq=128, Skv=720, ctx=[700, 128, 0, 640], q0=[640, 0, 0, 512]),
+    dict(B=1, Sq=2048, Skv=2048, ctx=[2048], q0=[0])]
+
+
+@pytest.mark.parametrize("case", range(len(ARCTIC_CASES)))
+def test_flash_at_arctic_shapes(dev, case):
+    c = ARCTIC_CASES[case]
+    q, k, v, qpos, kpos = paged_case(dev, torch.bfloat16, H=56, Hkv=8,
+                                     dh=128, seed=case, **c)
+    kw = dict(q_positions=qpos, kv_positions=kpos)
+    assert flash_variant(q, k, v) == ("splitkv" if c["Sq"] == 1
+                                      else "wgmma")
+    assert_flash_close(fa.flash_attention(q, k, v, **kw), q, k, v, kw)
+
+
+def test_adafactor_streams_an_expert_leaf_as_f64(dev):
+    """The port's adafactor on a bf16 expert leaf on the card (16 experts of
+    arctic-480b's 7168 x 4864), streamed an expert a slab: each new
+    parameter within one bf16 ulp of the formula in f64 (plus the f32
+    rounding of p and lr·u), vr and vc within 1e-5, its extra memory below
+    one expert's f32 copy times 8."""
+    from repro_torch.optim import adafactor, constant_schedule
+
+    E, d, f, lr = 16, 7168, 4864, 1.5e-5
+    g_ = torch.Generator(device=dev).manual_seed(0)
+    p = (0.02 * torch.randn(E, d, f, generator=g_, device=dev)).to(
+        torch.bfloat16)
+    g = (1e-3 * torch.randn(E, d, f, generator=g_, device=dev)).to(
+        torch.bfloat16)
+    p0 = p.clone()
+    opt = adafactor(constant_schedule(lr))
+    state = opt.init({"w": p})
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt.apply({"w": p}, {"w": g}, state, 0)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 8 * d * f * 4
+    us, ssq = [], 0.0
+    for e in range(E):
+        g64 = g[e].double()
+        g2 = g64 * g64 + 1e-30
+        vr, vc = g2.mean(-1), g2.mean(-2)
+        for got, want in ((state["w"]["vr"][e], vr),
+                          (state["w"]["vc"][e], vc)):
+            assert float(((got.double() - want).abs() / want).max()) <= 1e-5
+        u = g64 * torch.rsqrt(vr / vr.mean())[:, None] * \
+            torch.rsqrt(vc)[None, :]
+        ssq += float((u * u).sum())
+        us.append(u)
+    denom = max(1.0, (ssq / p.numel() + 1e-30) ** 0.5)
+    for e in range(E):
+        step = lr * us[e] / denom
+        want = p0[e].double() - step
+        limit = 2.0 ** -7 * want.abs() + 2.0 ** -20 * (
+            p0[e].double().abs() + step.abs())
+        assert bool(((p[e].double() - want).abs() <= limit).all())

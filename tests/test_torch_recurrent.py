@@ -462,11 +462,10 @@ def test_param_count_and_registry(arch):
         "mamba2-130m": 128_983_488, "recurrentgemma-2b": 2_658_736_640}[arch]
     assert t.smoke().param_count() == j.smoke().param_count()
     assert t.sub_quadratic and t.layer_kinds() == j.layer_kinds()
-    from repro_torch.configs.registry import NOT_PORTED
+    from repro.configs.registry import ARCHS as JAX_ARCHS
+    from repro_torch.configs.registry import ARCHS
 
-    assert NOT_PORTED == ("arctic-480b",)
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_arch(name)
+    # the registry holds every arch of repro's, arctic-480b included
+    assert set(ARCHS) == set(JAX_ARCHS)
     with pytest.raises(ValueError, match="not ported"):
         t.scaled(layer_pattern=("xattn",)).layer_kinds()

@@ -66,7 +66,7 @@ CS = _chip_smoke()
 GRAD_RTOL = 1e-5          # per tensor: max|Δ| <= 1e-5 * max(1, max|g|)
 PORTED = ("gemma3-1b", "internlm2-1.8b", "deepseek-7b", "minicpm3-4b",
           "mixtral-8x7b", "mamba2-130m", "recurrentgemma-2b", "whisper-tiny",
-          "paligemma-3b")
+          "paligemma-3b", "arctic-480b")
 
 
 def _np(t):
@@ -331,7 +331,7 @@ def grad_ring(n):
     cases = {a: jax_grads(a)[0] for a in {r[0] for r in RING_RUNS[n]}}
     with tempfile.TemporaryDirectory() as root:
         return run_ranks(cells.grad_cells, n, cases, TOKENS, RING_RUNS[n],
-                         _tree(5), root)
+                         _tree(5), root, ada_ring_case())
 
 
 @pytest.mark.parametrize("n,run", RING_CELLS, ids=RING_IDS)
@@ -445,8 +445,10 @@ def test_norm_clip_and_schedules_match_jax():
             np.testing.assert_allclose(
                 float(mk(opt)(step)), float(mk(jopt)(jnp.int32(step))),
                 rtol=1e-6, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="A15"):
-        opt.make_optimizer("adafactor", opt.constant_schedule(1.0))
+    ada = opt.make_optimizer("adafactor", opt.constant_schedule(1.0))
+    assert ada.name == "adafactor" and ada.placement is not None
+    with pytest.raises(ValueError):
+        opt.make_optimizer("lion", opt.constant_schedule(1.0))
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -456,6 +458,190 @@ def test_global_norm_on_a_ring_counts_each_element_once(world):
     got = [r["norm"] for r in grad_ring(world)]
     assert len(set(got)) == 1
     np.testing.assert_allclose(got[0], want, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor against JAX's, per JAX leaf
+# ---------------------------------------------------------------------------
+
+
+ADA_LR = 1e-2
+ADA_SLABS = (1, opt.APPLY_CHUNK)       # streamed one row a slab, and whole
+ADA_SCALES = (0.01, 10.0, 0.3)         # three steps' grad scales
+
+
+def _stacked_to_port(tree, stacked):
+    """A JAX tree of leaves -> (the port's params {name: array}, their
+    leaves {name: (leaf, index)}): a stacked leaf is one parameter a
+    layer."""
+    out, leaves = {}, {}
+    for k, a in tree.items():
+        if k in stacked:
+            for i in range(a.shape[0]):
+                out[f"{k}.{i}"], leaves[f"{k}.{i}"] = np.array(a[i]), (k, i)
+        else:
+            out[k], leaves[k] = np.array(a), (k, None)
+    return out, leaves
+
+
+def _jax_adafactor(tree, grads, leaf_opt=None):
+    """JAX's Adafactor over ``len(grads)`` steps: the final params."""
+    o = jopt.adafactor(jopt.constant_schedule(ADA_LR))
+    p = jax.tree.map(jnp.asarray, tree)
+    st = o.init(p)
+    for step, g in enumerate(grads):
+        p, st = o.apply(p, jax.tree.map(jnp.asarray, g), st, jnp.int32(step))
+    return jax.tree.map(np.asarray, p), jax.tree.map(np.asarray, st)
+
+
+def _ada_close(got, want):
+    """Within 1e-6 of the tensor's scale (a rounding of p - lr·u)."""
+    np.testing.assert_allclose(got, want, rtol=1e-6,
+                               atol=1e-6 * float(np.abs(want).max()))
+
+
+# 1-D to 4-D leaves; "s2"/"s3"/"sv" are stacks of two layers (a stacked
+# vector is factored: its vc averages over the layers)
+ADA_SHAPES = {"v": (5,), "m": (6, 7), "e": (3, 4, 5), "q": (2, 3, 4, 5),
+              "sv": (2, 8), "s2": (2, 6, 7), "s3": (2, 3, 4, 5)}
+
+
+@functools.lru_cache(maxsize=None)
+def ada_tree_case():
+    rng = np.random.default_rng(30)
+    tree = {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in ADA_SHAPES.items()}
+    grads = [{k: (sc * rng.standard_normal(s)).astype(np.float32)
+              for k, s in ADA_SHAPES.items()} for sc in ADA_SCALES]
+    return tree, grads, _jax_adafactor(tree, grads)
+
+
+@pytest.mark.parametrize("slab", ADA_SLABS)
+def test_adafactor_matches_jax(slab):
+    tree, grads, (want, jstate) = ada_tree_case()
+    stacked = ("sv", "s2", "s3")
+    params, lv = _stacked_to_port(tree, stacked)
+    leaves = {k: opt.Leaf(*v) for k, v in lv.items()}
+    o = opt.make_optimizer("adafactor", opt.constant_schedule(ADA_LR),
+                           slab=slab)
+    tp_ = _t(params)
+    state = o.init(tp_, leaves=leaves)
+    for step, g in enumerate(grads):
+        got, state = o.apply(tp_, _t(_stacked_to_port(g, stacked)[0]), state,
+                             step, leaves=leaves)
+        assert all(got[k] is tp_[k] for k in tp_)      # in place
+    ref, _ = _stacked_to_port(want, stacked)
+    for k in ref:
+        _ada_close(_np(tp_[k]), ref[k])
+    # JAX's stacked state shapes: a stack of vectors keeps vr (2,), vc (8,)
+    assert set(state) == set(jstate)
+    for k in jstate:
+        assert set(state[k]) == set(jstate[k])
+        for s_ in jstate[k]:
+            assert tuple(state[k][s_].shape) == jstate[k][s_].shape
+            np.testing.assert_allclose(_np(state[k][s_]), jstate[k][s_],
+                                       rtol=1e-5)
+    assert tuple(state["sv"]["vr"].shape) == (2,)
+
+
+ADA_MODELS = [("internlm2-1.8b", 2), ("gemma3-1b", 7), ("whisper-tiny", 2),
+              ("paligemma-3b", 2)]
+
+
+@pytest.mark.parametrize("slab", ADA_SLABS)
+@pytest.mark.parametrize("arch,layers", ADA_MODELS)
+def test_adafactor_on_a_model_matches_jax(arch, layers, slab):
+    """A model's parameters grouped by ``opt_leaves()``: a 2-period stack
+    (internlm2-1.8b, whose stacked norm scales the grouping changes), one
+    period and a ``rem`` layer (gemma3-1b at 7 layers of its 6-layer
+    pattern), the enc-dec stacks and the VLM's ``vision_proj``."""
+    from repro_torch.models import build_model
+
+    jc = jax_get_arch(arch).smoke().scaled(num_layers=layers)
+    tc = get_arch(arch).smoke().scaled(num_layers=layers)
+    tree = jax.tree.map(np.asarray, jax_build_model(jc, JAX_SMOKE).init(
+        jax.random.key(3)))
+    rng = np.random.default_rng(31)
+    grads = [jax.tree.map(lambda a, sc=sc: (sc * rng.standard_normal(
+        a.shape)).astype(np.float32), tree) for sc in ADA_SCALES]
+    want, _ = _jax_adafactor(tree, grads)
+    model = build_model(tc, SMOKE, device="cpu", seed=None)
+    bridge.load_jax_params(model, tree)
+    leaves = model.opt_leaves()
+    assert len({lf.name for lf in leaves.values()}) == \
+        len(jax.tree.leaves(tree))
+    o = opt.adafactor(opt.constant_schedule(ADA_LR), slab=slab)
+    params = dict(model.named_parameters())
+    state = o.init(params, leaves=leaves)
+    for step, g in enumerate(grads):
+        o.apply(params, bridge.state_dict_from_jax(g, tc), state, step,
+                leaves=leaves)
+    ref = bridge.state_dict_from_jax(want, tc)
+    for k, p in params.items():
+        _ada_close(_np(p), ref[k].numpy())
+
+
+# per-layer shapes of a ring case: (JAX leaf shape, stacked, shard dim of
+# the layer's tensor); n = 2 and 4 divide every split dimension
+ADA_RING = {"col": ((2, 8, 12), True, 1), "row": ((2, 12, 8), True, 0),
+            "exp": ((2, 4, 6, 8), True, 0), "expc": ((4, 6, 8), False, 2),
+            "expr": ((4, 8, 6), False, 1), "vec": ((2, 8), True, None),
+            "svec": ((2, 12), True, 0), "b": ((12,), False, 0),
+            "emb": ((12, 8), False, None)}
+
+
+@functools.lru_cache(maxsize=None)
+def ada_ring_case():
+    rng = np.random.default_rng(32)
+    tree = {k: rng.standard_normal(s).astype(np.float32)
+            for k, (s, _, _) in ADA_RING.items()}
+    grads = [{k: (sc * rng.standard_normal(a.shape)).astype(np.float32)
+              for k, a in tree.items()} for sc in ADA_SCALES]
+    stacked = [k for k, (_, st, _) in ADA_RING.items() if st]
+    params, lv = _stacked_to_port(tree, stacked)
+    leaves = {k: (leaf, i, ADA_RING[leaf][2]) for k, (leaf, i) in lv.items()}
+    return dict(params=params, leaves=leaves, lr=ADA_LR, slabs=ADA_SLABS,
+                grads=[_stacked_to_port(g, stacked)[0] for g in grads],
+                _want=_stacked_to_port(_jax_adafactor(tree, grads)[0],
+                                       stacked)[0])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_adafactor_on_a_ring_gives_each_shard_the_one_device_update(world):
+    """Column-, row- and expert-split leaves (stacked and not, the sums
+    that cross the split all-reduced) and whole ones: each rank's shard
+    after three steps equals its slice of JAX's one-device update,
+    streamed and not."""
+    case = ada_ring_case()
+    res = [r["adafactor"] for r in grad_ring(world)]
+    for slab in ADA_SLABS:
+        for name, want in case["_want"].items():
+            dim = case["leaves"][name][2]
+            parts = [r[slab][name] for r in res]
+            got = parts[0] if dim is None else np.concatenate(parts, dim)
+            _ada_close(got, want)
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_optimizer_converges_quadratic(name):
+    """``tests/test_substrate.py::test_optimizer_converges_quadratic`` on
+    the port: both optimizers drive a toy quadratic to its optimum."""
+    target = torch.tensor([1.5, -2.0, 0.5])
+    params = {"w": torch.zeros(3), "m": torch.zeros(4, 3)}
+    o = opt.make_optimizer(name, opt.constant_schedule(5e-2),
+                           weight_decay=0.0)
+    state = o.init(params)
+
+    def loss_fn(p):
+        return torch.sum((p["w"] - target) ** 2) + torch.sum(p["m"] ** 2)
+
+    for step in range(300):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss_fn(leaves), list(leaves.values()))))
+        o.apply(params, grads, state, step)
+    assert float(loss_fn(params)) < 1e-2, float(loss_fn(params))
 
 
 # ---------------------------------------------------------------------------
@@ -549,7 +735,8 @@ def test_config_fields_equal_repro(arch):
                     dataclasses.asdict(tf[name])
             else:
                 assert tf[name] == jf[name], (arch, smoke, name)
-        assert t.optimizer == "adamw"
+        assert t.optimizer == ("adafactor" if arch == "arctic-480b"
+                               else "adamw")
         assert t.param_count() == j.param_count()
         assert t.is_enc_dec == j.is_enc_dec
         # every field of repro's ArchConfig, the enc-dec and VLM families'
@@ -616,9 +803,20 @@ def test_launcher_runs_three_steps():
     with pytest.raises(NotImplementedError, match="hosts"):
         train_launch.main(["--arch", "deepseek-7b", "--smoke", "--device",
                            "cpu", "--mesh", "single"])
-    with pytest.raises(NotImplementedError, match="A15"):
-        train_launch.main(["--arch", "deepseek-7b", "--smoke", "--device",
-                           "cpu", "--ckpt-dir", "x"])
+    # --ckpt-dir: the same command again resumes from the latest
+    # checkpoint (step 2 of 3), bitwise the first run's step 2; more
+    # --steps go on from there
+    with tempfile.TemporaryDirectory() as d:
+        ck = argv[:-2] + ["--steps", "3", "--ckpt-dir", d, "--ckpt-every",
+                          "2"]
+        first, _ = _launch(ck)
+        again, lines = _launch(ck)
+        assert any("restored step 2" in e for e in again.events)
+        assert [h["step"] for h in again.history] == [2]
+        assert again.history[0]["loss"] == first.history[2]["loss"]
+        assert lines[0].startswith("step      2")
+        more, _ = _launch(ck[:-4] + ["--steps", "4"] + ck[-4:])
+        assert [h["step"] for h in more.history] == [2, 3]
 
 
 def test_train_entry_points_default_to_the_card():

@@ -313,9 +313,10 @@ def test_build_model_param_count_and_bridge():
                                   tree["vision_proj"])
     with pytest.raises(ValueError, match="no image prefix"):
         VLM(get_arch("gemma3-1b").smoke(), SMOKE, device="cpu")
-    from repro_torch.configs.registry import NOT_PORTED
+    from repro.configs.registry import ARCHS as JAX_ARCHS
+    from repro_torch.configs.registry import ARCHS
 
-    assert NOT_PORTED == ("arctic-480b",)
+    assert set(ARCHS) == set(JAX_ARCHS)
 
 
 def test_launcher_serves_and_trains():

@@ -210,7 +210,8 @@ def loss_cells(group, cases, tokens, planner=None):
     return res
 
 
-def grad_cells(group, cases, tokens, runs, norm_tree, plan_root=None):
+def grad_cells(group, cases, tokens, runs, norm_tree, plan_root=None,
+               adafactor_case=None):
     """``LM.loss`` and its backward on this rank for every (arch, mode,
     microbatches[, planner]) run, with the bridged JAX parameters of
     ``cases[arch]``: returns {run: (loss, {param: this rank's grad}, matmul
@@ -220,8 +221,9 @@ def grad_cells(group, cases, tokens, runs, norm_tree, plan_root=None):
     graphs, cross-direction overlap_asym nodes, the (M, K, N, layout) of
     every matmul call with a transposed operand, the microbatches the
     period ran)}, and under "norm" the ring's ``global_norm`` of
-    ``norm_tree`` (:func:`norm_cell`). A perfsim run plans through a cache
-    at ``plan_root``."""
+    ``norm_tree`` (:func:`norm_cell`), and under "adafactor" the ring's
+    Adafactor of ``adafactor_case`` (:func:`adafactor_cell`). A perfsim
+    run plans through a cache at ``plan_root``."""
     from repro_torch import bridge
     from repro_torch.configs import get_arch
     from repro_torch.core.backends import get_backend
@@ -301,7 +303,37 @@ def grad_cells(group, cases, tokens, runs, norm_tree, plan_root=None):
             made[0], derived, made[1], fderived, made[2], pairs, cross,
             sorted(transposed), period.mb)
     res["norm"] = norm_cell(group, norm_tree)
+    if adafactor_case is not None:
+        res["adafactor"] = adafactor_cell(group, adafactor_case)
     return res
+
+
+def adafactor_cell(group, case):
+    """Adafactor over this rank's shards: ``case`` holds "params" {name:
+    whole array}, "grads" (one such dict a step), "leaves" {name: (JAX
+    leaf, stack index, shard dim)}, "lr" and "slabs"; each parameter with
+    a shard dim is split over the ring along it. Returns {slab: {name:
+    this rank's parameter after the steps}}."""
+    from repro_torch.optim import optimizers as opt_mod
+
+    n, r = group.size, group.rank
+    leaves = {k: opt_mod.Leaf(*v) for k, v in case["leaves"].items()}
+
+    def local(tree):
+        return {k: _t(a).clone() if leaves[k].dim is None
+                else _rows(a, r, n, leaves[k].dim) for k, a in tree.items()}
+    sharded = {k: group for k, lf in leaves.items() if lf.dim is not None}
+    out = {}
+    for slab in case["slabs"]:
+        params = local(case["params"])
+        o = opt_mod.adafactor(opt_mod.constant_schedule(case["lr"]),
+                              slab=slab)
+        state = o.init(params, leaves=leaves)
+        for step, g in enumerate(case["grads"]):
+            o.apply(params, local(g), state, step, sharded=sharded,
+                    leaves=leaves)
+        out[slab] = {k: v.numpy() for k, v in params.items()}
+    return out
 
 
 def norm_cell(group, tree):
@@ -602,12 +634,13 @@ def _moe_e_lt_tp_cell(group, cfg, tree, x):
     return out.numpy(), float(aux)
 
 
-def _moe_step_cell(group, cfg, params, batch, lr):
-    """One AdamW train step (``make_train_step``) of the cais ring; returns
-    (loss, grad norm, {param: this rank's updated value})."""
+def _moe_step_cell(group, cfg, params, batch, lr, opt_name="adamw"):
+    """One train step (``make_train_step``, AdamW unless ``opt_name``) of
+    the cais ring; returns (loss, grad norm, {param: this rank's updated
+    value})."""
     from repro_torch import bridge
     from repro_torch.models import LM
-    from repro_torch.optim import adamw, constant_schedule
+    from repro_torch.optim import constant_schedule, make_optimizer
     from repro_torch.runtime import SMOKE, Runtime, TPConfig
     from repro_torch.train.step import init_state, make_train_step
 
@@ -615,7 +648,7 @@ def _moe_step_cell(group, cfg, params, batch, lr):
                  remat=False, tp=TPConfig(mode="cais", chunks=2))
     lm = LM(cfg, rt, device="cpu", seed=None, group=group)
     bridge.load_jax_params(lm, params)
-    opt = adamw(constant_schedule(lr))
+    opt = make_optimizer(opt_name, constant_schedule(lr))
     state = init_state(lm, opt)
     state, m = make_train_step(lm, opt, rt)(state, batch)
     return (float(m["loss"]), float(m["grad_norm"]),
@@ -644,5 +677,69 @@ def moe_cells(group, data):
         out["e_lt_tp"] = _moe_e_lt_tp_cell(group, *data["e_lt_tp"])
     if "step" in data:
         out["step"] = _moe_step_cell(group, *data["step"])
+    out["_jax_imported"] = "jax" in sys.modules
+    return out
+
+
+# ---------------------------------------------------------------------------
+# checkpoints across ring layouts (tests/test_torch_checkpoint.py)
+# ---------------------------------------------------------------------------
+
+
+CKPT_MESHES = {"4": {}, "2": dict(dp=2), "2x2": dict(tp_in=2, tp_out=2)}
+
+
+def ckpt_step_run(mesh, cfg, root, batches, opt_name, lr, layout, src=None):
+    """One layout's run of the checkpoint cells, on ``mesh`` (None: one
+    device): a fresh train state, then step 0 and a save as step 1 under
+    ``root/opt/layout`` (``src`` None), or the step-1 checkpoint of layout
+    ``src`` restored; then step 1, saved as step 2 under ``root/opt/out/
+    layout`` (``layout<-src`` for a restore). Returns (step 1's loss, grad norm). A replica of a data
+    axis steps on its rows of each batch."""
+    from repro_torch.checkpoint import store
+    from repro_torch.data.pipeline import replica_rows
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant_schedule, make_optimizer
+    from repro_torch.runtime import SMOKE, Runtime, TPConfig
+    from repro_torch.train.step import (init_state, make_train_step,
+                                        state_placement)
+
+    rt = Runtime(compute_dtype="float32", loss_chunk=SMOKE.loss_chunk,
+                 remat=False, tp=TPConfig(mode="cais", chunks=2))
+    lm = build_model(cfg, rt, device="cpu", seed=0, group=mesh)
+    opt = make_optimizer(opt_name, constant_schedule(lr))
+    state = init_state(lm, opt)
+    step = make_train_step(lm, opt, rt)
+    place = state_placement(lm, opt)
+    if lm.dp > 1:
+        batches = [replica_rows(b, lm.data.rank, lm.dp) for b in batches]
+    d = os.path.join(root, opt_name)
+    if src is None:
+        step(state, batches[0])
+        store.save(os.path.join(d, layout), state, 1, group=lm.mesh,
+                   placement=place)
+    else:
+        store.restore(os.path.join(d, src), state, placement=place, step=1)
+    _, m = step(state, batches[1])
+    run = layout if src is None else f"{layout}<-{src}"
+    store.save(os.path.join(d, "out", run), state, 2, group=lm.mesh,
+               placement=place)
+    return float(m["loss"]), float(m["grad_norm"])
+
+
+def ckpt_layout_cells(group, cfg, root, batches, runs, lr):
+    """Every (optimizer, layout, source) of ``runs`` on this rank
+    (:func:`ckpt_step_run`), the layouts the meshes of CKPT_MESHES factored
+    from this world of 4; returns {(optimizer, "layout<-source"): (loss,
+    grad norm)} ("layout" alone where it wrote its own)."""
+    from repro_torch.sharding import init_mesh
+
+    meshes = {k: group if not kw else init_mesh(group, **kw)
+              for k, kw in CKPT_MESHES.items()}
+    out = {}
+    for opt_name, layout, src in runs:
+        out[(opt_name, layout if src is None else f"{layout}<-{src}")] = \
+            ckpt_step_run(
+                meshes[layout], cfg, root, batches, opt_name, lr, layout, src)
     out["_jax_imported"] = "jax" in sys.modules
     return out
