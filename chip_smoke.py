@@ -254,7 +254,34 @@ Phases (any failure exits non-zero):
      gathered, rank 0 writes), step 1; the checkpoint restored on one
      device and step 1 there, and restored on the ring and step 1 again,
      each held to the ring's step 1 (loss, grad norm, parameters);
-     launches the graphs'.
+     launches the graphs'. Before (b2) changes it, the served model runs
+     phase 11 (a)'s scripted schedule in bf16: its logits and routing are
+     phase 17 (b)'s reference.
+ 17. MoE serving on a ring: 4 gloo ranks sharing the card, spawned once,
+     each serve graph routing the whole step on every rank alike, the
+     rank's experts (E/4 whole experts) on the matmul kernel, one
+     all-reduce of their partial outputs an MoE layer. (a) mixtral-8x7b at
+     full width cut to 2 layers: phase 11 (a)'s scripted f32 schedule held
+     to phase 11 (a)'s one-device card result (routing by the routing
+     rule, then the logits within LOGIT_TOL where routing agreed); then the
+     bf16 ``Engine`` on phase 5's traffic (every request finished, tokens
+     inside the vocabulary, TTFT and per-token p50 and the first token
+     difference from phase 11 (a)'s one-device engine reported, not held:
+     bf16 sums in another order on a ring). (b) arctic-480b cut to 1
+     layer, its runtime's bf16 parameters (32 experts a rank beside the
+     replicated dense residual MLP, added once after the sum): the same
+     schedule in bf16 against phase 16's one-device result (routing
+     differences counted; each step's logits held, over the rows whose
+     routing agreed, to the tightest bound phase 10 held a bf16 ring row
+     to), then the ``Engine``. Both: every
+     rank's routing and logits bitwise rank 0's at every step, flash once a
+     layer a step (decode ``splitkv``; prefill ``ffma`` f32, ``wgmma``
+     bf16), matmul launches equal to the recorded serve graphs'
+     (``tp.serve_launches``: q/k/v/o and three an owned expert; f32 all
+     ``ffma``, bf16 all ``wgmma``), one all-reduce node an MoE layer a
+     step, every call shape among phase 3's (which adds both models' ring
+     attention cores and every ring GEMM, the expert GEMMs at their decode
+     and prefill capacities 1 and 160 / 10 rows, f32 and bf16).
 Phase 3 also holds matmul_rmsnorm against its plain version at the TPU
 kernel's test shapes, at every shape phase 8 calls (b a column slice of
 ``wkv_a`` for the KV latent) and at N 8192, and flash attention at the MLA
@@ -265,6 +292,7 @@ device JSON. Imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -515,6 +543,15 @@ ADA_ULP, ADA_F32, ADA_STATE_RTOL = 2.0 ** -7, 2.0 ** -20, 1e-5
 # phase 9 holds gradients) + CKPT_ROUNDING·|p_ring| (two f32 roundings)
 CKPT_LAYERS, CKPT_RUN = 2, ("cais", 2, "float32")
 CKPT_ROUNDING = 2.0 ** -22
+# phase 17: MoE serving on TP_WORLD gloo ranks sharing the card, spawned
+# once: mixtral-8x7b (MOE_LAYERS layers, f32 parameters) and arctic-480b
+# (ARCTIC_LAYERS layer, bf16 parameters, 32 experts and about 7 GB a rank),
+# each serve graph's MoE on the cais backend. Arctic has no f32 reference
+# (its f32 weights would not fit beside the rest), so its bf16 logits are
+# held, each step over the rows whose routing agreed, by their relative
+# distance (Frobenius) from one device's bf16 logits, within the tightest
+# bound phase 10 held a bf16 ring row to: BF16_LOGIT_FACTOR times one
+# device's bf16 distance from f32 at one of its steps
 
 
 T_START: Optional[float] = None     # main() sets it
@@ -913,6 +950,11 @@ def phase_kernels(cfg, fa, ref) -> list:
     # 16 q / 8 kv heads)
     for name, make in arctic_flash_cases():
         rows.append(check_kernel_case(name, make(), fa, ref))
+    # phase 17: a rank's attention cores of both MoE models served on the
+    # ring (mixtral-8x7b's 8 q / 2 kv heads, f32 and bf16; arctic-480b's 14
+    # q / 2 kv heads, bf16), a decode step and a prefill chunk
+    for name, make in moe_ring_flash_cases():
+        rows.append(check_kernel_case(name, make(), fa, ref))
     return rows
 
 
@@ -1051,6 +1093,25 @@ def phase_matmul(mmk, ref) -> list:
                                               str(dtype)[6:]):
             rows.append(check_matmul_case("moe", M, K, N, dtype, mmk, ref,
                                           layout=lay))
+    # phase 17: every matmul call of a rank serving mixtral-8x7b (f32 and
+    # bf16) and arctic-480b (bf16) on the ring: the attention GEMMs, the
+    # expert GEMMs at their decode and prefill capacities; and arctic's
+    # expert GEMMs in f32 too
+    done = {(r["shape"]["M"], r["shape"]["K"], r["shape"]["N"], r["dtype"],
+             r["layout"]) for r in rows}
+    arc = get_arctic_cfg()
+    experts = {(arc.d_model, arc.d_ff), (arc.d_ff, arc.d_model)}
+    cases = [(M, K, N, dtype) for dtype in (torch.float32, torch.bfloat16)
+             for M, K, N in moe_serve_matmul_shapes(get_moe_cfg(),
+                                                    serve_traffic())]
+    cases += [(M, K, N, dtype)
+              for M, K, N in moe_serve_matmul_shapes(arc, serve_traffic())
+              for dtype in (torch.float32, torch.bfloat16)
+              if dtype == torch.bfloat16 or (K, N) in experts]
+    for M, K, N, dtype in cases:
+        if (M, K, N, str(dtype)[6:], "nn") not in done:
+            rows.append(check_matmul_case("moe_serve", M, K, N, dtype, mmk,
+                                          ref))
     # the meshes' runs, all f32, at the shapes not checked above: phase 9's
     # and phase 10's 2D runs (the tp_in ring's steps), phase 12 (a)'s data
     # 2 x model 2 step (a ring of 2 on a replica's rows) and (b)'s grouped-EP
@@ -1133,6 +1194,31 @@ def moe_matmul_shapes(cfg, dtype: str, world: int = TP_WORLD,
             m_ag, m_rs = batch * s_r // c, batch * s_r // (2 if two else 1)
         shapes |= {(m_ag, d, fq, "nn"), (m_ag, d, fkv, "nn"),
                    (m_rs, fq, d, "nn"), (m_rs, fq + 2 * fkv, d, "nt")}
+    return sorted(shapes)
+
+
+def moe_serve_matmul_shapes(cfg, tr: dict, world: int = TP_WORLD) -> list:
+    """(M, K, N) of every matmul call a rank makes serving the MoE ``cfg``
+    on a ring of ``world`` in phase 17, by the serve graph's arithmetic:
+    the q, k and v GEMMs over the B·S rows of a step (S 1 and a prefill
+    chunk); the out-projection's ``gemm_ar``, one GEMM over the decode
+    rows (S % world != 0: the monolithic all-reduce) or the cais ring's
+    partial GEMMs of B·(S/world)/2 rows; and each owned expert's up, gate
+    and down GEMMs over its G·C rows (the groups and capacity
+    ``route_tokens`` gives the step's B·S tokens)."""
+    from repro_torch.models.ffn import capacity
+
+    n, d, dh, f = world, cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    kv_tp = n if cfg.num_kv_heads % n == 0 else 1
+    fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // kv_tp
+    B, C = tr["requests"], tr["chunk"]
+    shapes = {(B * (C // n) // 2, fq, d), (B, fq, d)}
+    for tokens in (B, B * C):
+        g = min(cfg.moe.group_size, tokens)
+        while tokens % g:
+            g //= 2
+        e = tokens // g * capacity(g, cfg)
+        shapes |= {(tokens, d, fq), (tokens, d, fkv), (e, d, f), (e, f, d)}
     return sorted(shapes)
 
 
@@ -3374,14 +3460,16 @@ def moe_scripted_steps(cfg, tr: dict) -> list:
     return steps
 
 
-def phase_moe_serve(cfg, fa) -> dict:
+def phase_moe_serve(cfg, fa) -> tuple:
     """Phase 11 (a): ``cfg`` (mixtral-8x7b cut to MOE_LAYERS layers) served on
     one device through ``repro_torch.launch.serve`` (bf16 compute, f32
     params, phase 5's traffic), flash attention once a layer a step (decode
     on split-KV, prefill chunks on wgmma); then the scripted f32 schedule
     (:func:`moe_scripted_steps`) on the card (the kernels) and on the CPU
     (the plain versions): routing compared first, logits within LOGIT_TOL
-    for the steps before the first routing difference."""
+    for the steps before the first routing difference. Returns (the
+    report, phase 17 (a)'s reference: the card's scripted logits, routing
+    records and steps, the engine's prompts, tokens and latency report)."""
     import gc
 
     import numpy as np
@@ -3485,18 +3573,22 @@ def phase_moe_serve(cfg, fa) -> dict:
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"phase 11 (a): failed {failed}")
+    ref = dict(logits=card, routes=card_routes, steps=steps,
+               prompts=[r.prompt for r in reqs],
+               tokens=[list(r.out_tokens) for r in reqs], report=report)
     return dict(report=report, launches=launches + script[0],
                 flash_variants=variants, peak_gib=peak, wall_s=wall,
                 routing=diff, logits_held_steps=held, logits_max_abs=errs,
                 logits_err_over_tol=over, card_s=card_s, cpu_s=cpu_s,
-                call_shapes=sorted([*k, v] for k, v in calls.items()))
+                call_shapes=sorted([*k, v] for k, v in calls.items())), ref
 
 
-def phase_moe(fa) -> dict:
+def phase_moe(fa) -> tuple:
     """Phase 11: (a) :func:`phase_moe_serve`; (b) one training step of the
     same model on TP_WORLD gloo ranks sharing the card against one device
     (:func:`phase_train` with MOE_RUNS), batch MOE_BATCH of MOE_SEQ tokens
-    from ``make_batch``."""
+    from ``make_batch``. Returns (the report, (a)'s reference for phase
+    17)."""
     cfg = get_moe_cfg()
     log(f"  {MOE_ARCH} cut to {cfg.num_layers} of 32 layers at full width "
         f"(d {cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads "
@@ -3505,13 +3597,13 @@ def phase_moe(fa) -> dict:
         f"factor {cfg.moe.capacity_factor}, group {cfg.moe.group_size}, "
         f"window {cfg.window}): {cfg.param_count() / 1e9:.3f} B parameters")
     log("  (a) one device, the paged Engine")
-    serve = phase_moe_serve(cfg, fa)
+    serve, ref = phase_moe_serve(cfg, fa)
     log(f"  (b) one training step, {TP_WORLD} gloo ranks (E_loc "
         f"{cfg.moe.num_experts // TP_WORLD}) against one device, batch "
         f"{MOE_BATCH} x {MOE_SEQ}")
     train = phase_train(cfg, train_batch(cfg, MOE_SEQ, MOE_BATCH), MOE_RUNS,
                         "phase 11 (b)", quantities=("grad",))
-    return dict(serve=serve, train=train)
+    return dict(serve=serve, train=train), ref
 
 
 # ---------------------------------------------------------------------------
@@ -4337,12 +4429,32 @@ def arctic_flash_cases() -> list:
             get_tp_cfg(), TP_BATCH, TP_SEQ, torch.float32, 43))]
 
 
+def moe_ring_flash_cases() -> list:
+    """Phase 17's flash calls for phase 3: a rank's heads of mixtral-8x7b
+    (f32 scripted steps, bf16 engine) and arctic-480b (bf16) served on the
+    ring, a decode step and a prefill chunk."""
+    out = []
+    for i, (cfg, dtypes) in enumerate((
+            (get_moe_cfg(), (torch.bfloat16, torch.float32)),
+            (get_arctic_cfg(), (torch.bfloat16,)))):
+        rank, tag = serve_rank_cfg(cfg), cfg.name.split("-")[0]
+        for j, dtype in enumerate(dtypes):
+            seed = 50 + 4 * i + 2 * j
+            out += [(f"ring_{tag}_decode", functools.partial(
+                serving_case, rank, 1, q0=[699, 649, 0, 612],
+                ctx=[700, 650, 0, 613], dtype=dtype, seed=seed)),
+                (f"ring_{tag}_prefill_chunk", functools.partial(
+                    serving_case, rank, PREFILL_CHUNK, q0=[640, 0, 0, 512],
+                    ctx=[700, 128, 0, 640], dtype=dtype, seed=seed + 1))]
+    return out
+
+
 def phase_arctic_serve(cfg, fa) -> tuple:
     """Phase 16 (a): arctic-480b cut to ARCTIC_LAYERS served through
     ``launch.serve`` (phase 5's traffic, bf16 compute and parameters,
     greedy): flash once a layer a step, decode steps on split-KV (G = 7
     query rows a kv head), prefill chunks on wgmma. Returns (the report,
-    the served model)."""
+    the served model, the engine's prompts, tokens and latency report)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
@@ -4394,9 +4506,12 @@ def phase_arctic_serve(cfg, fa) -> tuple:
         f"{report['per_token_p50_ms']:.1f} ms; flash {launches} = "
         f"{eng.steps} x {L} {json.dumps(variants)}; peak {peak:.2f} GiB")
     del eng
+    engine = dict(prompts=[r.prompt for r in reqs],
+                  tokens=[list(r.out_tokens) for r in reqs], report=report)
     return dict(report=report, launches=launches, flash_variants=variants,
                 peak_gib=peak, wall_s=wall, params=params, checks=checks,
-                call_shapes=sorted([*k, v] for k, v in calls.items())), lm
+                call_shapes=sorted([*k, v] for k, v in calls.items())), lm, \
+        engine
 
 
 def adafactor_leaf_check(shape=None, device="cuda") -> dict:
@@ -4803,12 +4918,31 @@ def phase_ckpt(cfg, device="cuda", world: int = TP_WORLD,
                                     | {k for k in calls}))
 
 
-def phase_arctic(fa) -> dict:
-    """Phase 16: (a) :func:`phase_arctic_serve`, (b1)
-    :func:`adafactor_leaf_check`, (b2) :func:`arctic_train_step` of the
-    served model, (c) :func:`phase_ckpt`; each part returns its checks,
-    and the phase fails on the first part with a check that did not hold.
-    Returns the launches, the call shapes and the seconds of each part."""
+def scripted_reference(lm, cfg) -> dict:
+    """Phase 11 (a)'s scripted schedule (:func:`moe_scripted_steps`) on the
+    one-device MoE model ``lm`` in its runtime: the logits and routing
+    records phase 17 holds the ring to, and the steps."""
+    steps = moe_scripted_steps(cfg, serve_traffic())
+    routes, restore = routing_probe()
+    try:
+        t0 = time.monotonic()
+        logits, _ = run_scripted(lm, steps, BLOCK_SIZE)
+        _sync(lm.device)
+    finally:
+        restore()
+    log(f"  {cfg.name}: the scripted schedule in {lm.rt.compute_dtype} on "
+        f"one device, {time.monotonic() - t0:.2f}s (phase 17's reference)")
+    return dict(logits=logits, routes=list(routes), steps=steps)
+
+
+def phase_arctic(fa) -> tuple:
+    """Phase 16: (a) :func:`phase_arctic_serve` and, on the served model
+    before (b2) changes it, :func:`scripted_reference` (phase 17 (b)'s
+    reference), (b1) :func:`adafactor_leaf_check`, (b2)
+    :func:`arctic_train_step` of the served model, (c) :func:`phase_ckpt`;
+    each part returns its checks, and the phase fails on the first part
+    with a check that did not hold. Returns (the launches, the call shapes
+    and the seconds of each part; phase 17 (b)'s reference)."""
     import gc
 
     t0 = time.monotonic()
@@ -4826,7 +4960,8 @@ def phase_arctic(fa) -> dict:
         return res
 
     cfg = get_arctic_cfg()
-    out["a"], lm = part("a", phase_arctic_serve, cfg, fa)
+    out["a"], lm, engine = part("a", phase_arctic_serve, cfg, fa)
+    ref = dict(scripted_reference(lm, cfg), **engine)
     gc.collect()
     torch.cuda.empty_cache()
     out["b1"] = part("b1", adafactor_leaf_check)
@@ -4848,7 +4983,347 @@ def phase_arctic(fa) -> dict:
     log(f"  phase 16: {out['seconds']['total']:.1f}s "
         f"({json.dumps({k: round(v, 1) for k, v in out['seconds'].items()})})"
         f"; flash {out['flash_launches']}, matmul {out['matmul_launches']}")
+    return out, ref
+
+
+# ---------------------------------------------------------------------------
+# phase 17: MoE serving on a ring (mixtral-8x7b, arctic-480b)
+# ---------------------------------------------------------------------------
+
+
+def moe_ring_rank(group, tr: dict, cases, device="cuda") -> dict:
+    """One rank of phase 17. ``cases``: [(name, cfg, runtime, steps,
+    prompts, scripted dtype)]: the model drawn from seed SEED on the ring
+    in ``runtime`` (ranks sharing a card take turns), then (1) the scripted
+    ``serve_step`` schedule ``steps`` in the scripted dtype and (2) the
+    paged ``Engine`` in bf16 on ``prompts``. Each run sets the kernels'
+    launch counts to 0 just before it and reads them just after, beside
+    ``tp.serve_launches`` of the serve graphs it recorded and the expert
+    GEMMs those graphs hold; it keeps the routing records (rank 0) and
+    their digests, the logits digests (the logits on rank 0), the call
+    shapes, the seconds and the peak memory. The model is freed before the
+    next case is drawn."""
+    import dataclasses
+    import gc
+    import hashlib
+
+    from repro_torch.core import tp as tp_mod
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.runtime import TPConfig
+    from repro_torch.serve import Engine, Request
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mm_calls, fa_calls = {}, {}
+
+    def shapes(a, b, _inner=ops.matmul, **k):
+        key = (*a.shape, b.shape[1], str(a.dtype).replace("torch.", ""))
+        mm_calls[key] = mm_calls.get(key, 0) + 1
+        return _inner(a, b, **k)
+
+    ops.matmul = shapes
+    record_calls(ops, fa_calls)
+    routes, _ = routing_probe()
+    keep = group.rank == 0
+
+    def digest(record) -> str:
+        h = hashlib.sha256()
+        for a in record:
+            h.update(a.tobytes())
+        return h.hexdigest()
+
+    def expert_calls(graph) -> int:
+        return sum(getattr(n.fn, "matmul_calls", 0) for n in graph.nodes
+                   if n.op == "custom")
+
+    out = {}
+    for name, cfg, rt, steps, prompts, dtype in cases:
+        t0 = time.monotonic()
+        rt = dataclasses.replace(rt, tp=TPConfig(mode="cais"))
+        lm = LM(cfg, rt, device=device, seed=SEED, group=group)
+        if _on_card(device):
+            torch.cuda.empty_cache()    # the whole model drawn for the shards
+        res = dict(build_s=time.monotonic() - t0)
+        expert_kn = {(cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)}
+        for run in ("scripted", "engine"):
+            lm.rt = dataclasses.replace(
+                rt, compute_dtype=dtype if run == "scripted" else "bfloat16")
+            routes.clear()
+            mm_calls.clear()
+            fa_calls.clear()
+            _peak_start(device)
+            mmk.launches = fa.launches = 0
+            mmk.launches_by_variant = dict.fromkeys(mmk.COUNTERS, 0)
+            fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+            t0 = time.monotonic()
+            with tp_mod.recording() as rec:
+                if run == "scripted":
+                    logits, digests = run_scripted(lm, steps, tr["block"],
+                                                   keep=keep)
+                    r = dict(logits=logits, digests=digests)
+                else:
+                    reqs = [Request(rid=i, prompt=p,
+                                    max_new_tokens=tr["max_new"])
+                            for i, p in enumerate(prompts)]
+                    eng = Engine(lm, cfg, lm.rt, serve_config(tr),
+                                 device=lm.device)
+                    eng.run(reqs, seed=SEED)
+                    r = dict(tokens=[list(q.out_tokens) for q in reqs],
+                             finished=all(q.done and len(q.out_tokens)
+                                          == tr["max_new"] for q in reqs),
+                             report=dict(eng.last_report), steps=eng.steps)
+                    del eng         # it holds the model
+            _sync(device)
+            wall = time.monotonic() - t0
+            launches = dict(matmul=mmk.launches, flash=fa.launches)
+            decode = sum(tp_mod.flash_calls(g) for _, g, (_, S, _), _
+                         in rec.serve if S == 1)
+            prefill = sum(tp_mod.flash_calls(g) for _, g, (_, S, _), _
+                          in rec.serve if S > 1)
+            f32 = lm.rt.compute_dtype == "float32"
+            r.update(
+                dtype=lm.rt.compute_dtype, wall_s=wall,
+                peak_gib=_peak_gib(device), launches=launches,
+                derived=tp_mod.serve_launches(rec),
+                serve_periods=len(rec.serve),
+                matmul_variants=mmk.variant_totals(),
+                flash_variants=dict(fa.launches_by_variant),
+                flash_expected=dict(splitkv=decode,
+                                    wgmma=0 if f32 else prefill,
+                                    ffma=prefill if f32 else 0),
+                expert_calls=sum(n for (_, k, n_, _), n in mm_calls.items()
+                                 if (k, n_) in expert_kn),
+                expert_derived=sum(expert_calls(g) for _, g, _, _
+                                   in rec.serve),
+                experts=tp_mod.serve_experts(cfg, tp_mod.TPContext.from_config(
+                    lm.rt.tp, lm.group)),
+                routes=list(routes) if keep else None,
+                route_digests=[digest(x) for x in routes],
+                matmul_shapes=sorted([*k, v] for k, v in mm_calls.items()),
+                flash_shapes=sorted([*k, v] for k, v in fa_calls.items()))
+            res[run] = r
+        del lm
+        gc.collect()
+        if _on_card(device):
+            torch.cuda.empty_cache()
+        out[name] = res
     return out
+
+
+def routed_alike(got, want):
+    """Per token of two routing records (:func:`compact_routing`): the same
+    two experts, each kept or dropped alike (the slot inside a kept
+    buffer changes no token's output)."""
+    return ((got[:, 0] == want[:, 0]) & (got[:, 2] == want[:, 2])
+            & ((got[:, 1] >= 0) == (want[:, 1] >= 0))
+            & ((got[:, 3] >= 0) == (want[:, 3] >= 0)))
+
+
+def held_rows(got: list, want: list, steps, layers: int) -> list:
+    """Per step of ``steps``, the rows whose logits depend only on tokens
+    that routed alike in ``got`` and the reference ``want`` (one record a
+    layer a step): every token of the row at this step and every earlier
+    one in each layer but the last (their K/V reach later layers), and the
+    row's last token in the last layer."""
+    import numpy as np
+
+    B = steps[0][0].shape[0]
+    ok = np.ones(B, bool)
+    out = []
+    for i, (toks, view) in enumerate(steps):
+        for layer in range(layers):
+            k = i * layers + layer
+            alike = routed_alike(got[k][0], want[k][0]).reshape(B, -1)
+            if layer < layers - 1:
+                ok &= alike.all(1)
+            else:
+                out.append(ok & alike[np.arange(B), view[3]])
+    return out
+
+
+def moe_ring_checks(ranks: list, cases, refs: dict, rel_bound: float
+                    ) -> tuple:
+    """Phase 17's checks on what the ranks returned (:func:`moe_ring_rank`)
+    against the one-device references ``refs`` ({name: logits, routes,
+    tokens, report}). f32 runs: the routing rule, then the logits within
+    LOGIT_TOL for the steps before the first routing difference; bf16
+    runs: the routing differences counted, each step's logits within
+    ``rel_bound`` over :func:`held_rows`. Every run: routing and logits
+    bitwise rank 0's, the launches the recorded graphs'. Returns (rows,
+    failed); a check that reads a launch counter says "launches"."""
+    import numpy as np
+
+    rows, failed = [], []
+    for name, cfg, _, steps, _, _ in cases:
+        per = [rk[name] for rk in ranks]
+        ref = refs[name]
+        L = cfg.num_layers
+        E_loc = cfg.moe.num_experts // len(ranks)
+        row = dict(model=name, build_s=[p["build_s"] for p in per])
+        for run in ("scripted", "engine"):
+            rs = [p[run] for p in per]
+            head = rs[0]
+            f32 = head["dtype"] == "float32"
+            n_steps = head["serve_periods"] // -(-L // len(cfg.layer_pattern))
+            checks = {
+                "routing bitwise equal across ranks": all(
+                    r["route_digests"] == head["route_digests"] for r in rs),
+                "routing: one record a layer a step":
+                    len(head["route_digests"]) == n_steps * L > 0,
+                "flash launches: once a layer a step": all(
+                    r["launches"]["flash"] == r["derived"]["flash"]
+                    == n_steps * L for r in rs),
+                "flash launches by variant (decode splitkv; prefill ffma "
+                "f32, wgmma bf16)": all(
+                    r["flash_variants"] == r["flash_expected"] for r in rs),
+                "matmul launches = the recorded serve graphs'": all(
+                    r["launches"]["matmul"] == r["derived"]["matmul"] > 0
+                    for r in rs),
+                "matmul launches by variant (f32 ffma, bf16 wgmma)": all(
+                    r["matmul_variants"] == (
+                        dict(wgmma=0, ffma=r["launches"]["matmul"]) if f32
+                        else dict(wgmma=r["launches"]["matmul"], ffma=0))
+                    for r in rs),
+                "expert GEMMs: three an owned expert a layer a step, each "
+                "through the matmul kernel": all(
+                    r["expert_calls"] == r["expert_derived"]
+                    == 3 * E_loc * L * n_steps for r in rs),
+                "one all-reduce node an MoE layer a step": all(
+                    r["derived"]["allreduce"] == n_steps * L for r in rs),
+                "every expert computed once over the ring": sorted(
+                    e for r in rs for e in range(*r["experts"][:2]))
+                == list(range(cfg.moe.num_experts)),
+            }
+            out = dict(run=run, dtype=head["dtype"], steps=n_steps,
+                       wall_s=[r["wall_s"] for r in rs],
+                       peak_gib=[r["peak_gib"] for r in rs],
+                       launches=head["launches"], derived=head["derived"],
+                       flash_variants=head["flash_variants"],
+                       matmul_variants=head["matmul_variants"],
+                       expert_calls=head["expert_calls"])
+            if run == "scripted":
+                diff = routing_differences(head["routes"], ref["routes"])
+                checks["logits bitwise equal across ranks"] = all(
+                    r["digests"] == head["digests"] for r in rs)
+                checks["finite logits"] = all(
+                    np.isfinite(lg).all() for lg in head["logits"])
+                if f32:
+                    held = (len(steps) if diff["first"] is None
+                            else diff["first"] // L)
+                    over = [float((np.abs(g - w) / (
+                        LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * np.abs(w))
+                        ).max()) for g, w in zip(head["logits"],
+                                                 ref["logits"])]
+                    checks[f"routing differences at gaps < {ROUTE_TOL:g}"] \
+                        = routing_rule(diff)
+                    checks["logits within LOGIT_TOL where the routing "
+                           "agreed"] = held > 0 and all(
+                        o <= 1.0 for o in over[:held])
+                    out.update(logits_held_steps=held,
+                               logits_err_over_tol=over)
+                else:
+                    rows_held = held_rows(head["routes"], ref["routes"],
+                                          steps, L)
+                    rel = [float(np.linalg.norm(g[h] - w[h])
+                                 / np.linalg.norm(w[h])) if h.any() else None
+                           for g, w, h in zip(head["logits"], ref["logits"],
+                                              rows_held)]
+                    checks[f"bf16 logits within {rel_bound:.6g} (relative) "
+                           "over the rows whose routing agreed, every "
+                           "step"] = all(x is not None and x <= rel_bound
+                                         for x in rel)
+                    out.update(rows_held=[int(h.sum()) for h in rows_held],
+                               logits_rel=rel, rel_bound=rel_bound)
+                out.update(routing=diff)
+            else:
+                toks = head["tokens"]
+                checks["every request finished"] = all(
+                    r["finished"] for r in rs)
+                checks["tokens inside the vocabulary"] = all(
+                    0 <= t < cfg.vocab_size for q in toks for t in q)
+                checks["tokens equal across ranks"] = all(
+                    r["tokens"] == toks for r in rs)
+                first = [next((i for i, (a, b) in enumerate(zip(g, w))
+                               if a != b), None)
+                         for g, w in zip(toks, ref["tokens"])]
+                out.update(
+                    engine_steps=head["steps"],
+                    ttft_p50_ms=head["report"]["ttft_p50_ms"],
+                    per_token_p50_ms=head["report"]["per_token_p50_ms"],
+                    one_device_ttft_p50_ms=ref["report"]["ttft_p50_ms"],
+                    one_device_per_token_p50_ms=ref["report"][
+                        "per_token_p50_ms"],
+                    first_token_difference=first)
+            out["checks"] = checks
+            row[run] = out
+            failed += [(name, run, k) for k, v in checks.items() if not v]
+        rows.append(row)
+    return rows, failed
+
+
+def phase_moe_ring(moe_ref: dict, arctic_ref: dict, rel_bound: float
+                   ) -> dict:
+    """Phase 17: :func:`moe_ring_rank` on TP_WORLD gloo ranks sharing the
+    card, spawned once, serving mixtral-8x7b (scripted in f32) and then
+    arctic-480b (scripted in bf16), each held by :func:`moe_ring_checks`
+    to its one-device reference: phase 11 (a)'s and phase 16's."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.runtime import runtime_for
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = serve_traffic()
+    cases = [("mixtral", get_moe_cfg(), runtime_for(get_arch(MOE_ARCH)),
+              moe_ref["steps"], moe_ref["prompts"], "float32"),
+             ("arctic", get_arctic_cfg(),
+              runtime_for(get_arch(ARCTIC_ARCH)), arctic_ref["steps"],
+              arctic_ref["prompts"], "bfloat16")]
+    t0 = time.monotonic()
+    ranks = run_ranks(moe_ring_rank, TP_WORLD, tr, cases, device="cuda",
+                      timeout=900)
+    wall = time.monotonic() - t0
+    rows, failed = moe_ring_checks(ranks, cases, dict(
+        mixtral=moe_ref, arctic=arctic_ref), rel_bound)
+    for row in rows:
+        log(f"  ({'a' if row['model'] == 'mixtral' else 'b'}) "
+            f"{row['model']}: drawn on the ring in "
+            f"{max(row['build_s']):.1f}s")
+        for run in ("scripted", "engine"):
+            r = row[run]
+            log(f"    {run} {r['dtype']}: {r['steps']} steps, "
+                + ", ".join(f"{k} {json.dumps(r[k])}" for k in (
+                    "routing", "logits_held_steps", "logits_err_over_tol",
+                    "rows_held", "logits_rel", "rel_bound", "engine_steps",
+                    "ttft_p50_ms", "per_token_p50_ms",
+                    "one_device_ttft_p50_ms", "one_device_per_token_p50_ms",
+                    "first_token_difference") if k in r)
+                + f"; per rank: matmul {r['launches']['matmul']} (graphs "
+                f"{r['derived']['matmul']}; experts {r['expert_calls']}; "
+                f"{json.dumps(r['matmul_variants'])}), flash "
+                f"{r['launches']['flash']} {json.dumps(r['flash_variants'])}"
+                f", all-reduce nodes {r['derived']['allreduce']}; "
+                f"{max(r['wall_s']):.2f}s; peak {r['peak_gib']} GiB by rank")
+    if failed:
+        raise AssertionError(f"phase 17: failed {failed}")
+    total = {k: sum(p[n][run]["launches"][k] for p in ranks
+                    for n in ("mixtral", "arctic")
+                    for run in ("scripted", "engine"))
+             for k in ("matmul", "flash")}
+    log(f"  {TP_WORLD} ranks in {wall:.1f}s (spawn and weights included; "
+        "gloo stages every hop through the host: correctness, not TP "
+        f"speed); launches over all ranks and runs: matmul "
+        f"{total['matmul']}, flash {total['flash']}")
+    shapes = {k: sorted({tuple(s[:-1]) for p in ranks for n in p
+                         for run in ("scripted", "engine")
+                         for s in p[n][run][k]})
+              for k in ("matmul_shapes", "flash_shapes")}
+    return dict(runs=rows, wall_s=wall, matmul_launches=total["matmul"],
+                flash_launches=total["flash"], **shapes)
 
 
 def main() -> int:
@@ -5003,7 +5478,7 @@ def main() -> int:
         f"layers: served on one device, and one training step on "
         f"{TP_WORLD} TP ranks on one card over gloo against one device")
     log("  " + smi)
-    moe = phase_moe(fa)
+    moe, moe_ref = phase_moe(fa)
     unchecked = [("flash_attention", s) for s in moe["serve"]["call_shapes"]
                  if tuple(s[:-1]) not in checked_fa]
     checked = {(r["shape"]["M"], r["shape"]["K"], r["shape"]["N"],
@@ -5084,7 +5559,7 @@ def main() -> int:
         f"{CKPT_LAYERS} layers: a checkpoint written by {TP_WORLD} TP ranks "
         "on one card over gloo, restored on one device and on the ring")
     log("  " + smi)
-    arctic = phase_arctic(fa)
+    arctic, arctic_ref = phase_arctic(fa)
     unchecked = [("matmul", s_) for s_ in arctic["call_shapes"]
                  if tuple(s_) not in checked]
     unchecked += [("flash_attention", s_) for s_ in arctic["flash_shapes"]
@@ -5093,6 +5568,26 @@ def main() -> int:
         raise AssertionError(f"phase 16 called kernels at shapes phase 3 "
                              f"did not check: {unchecked}")
     log("  arctic " + json.dumps(arctic))
+
+    # arctic's bf16 bound: the tightest phase 10 held a bf16 ring row to
+    rel_bound = min(BF16_LOGIT_FACTOR * s_ for r in serve_tp["runs"]
+                    if r["dtype"] == "bfloat16"
+                    for s_ in r["one_device_bf16_rel_to_f32"])
+    log(f"phase 17: MoE serving on a ring: {MOE_ARCH} cut to {MOE_LAYERS} "
+        f"layers (scripted f32, the Engine bf16) and {ARCTIC_ARCH} cut to "
+        f"{ARCTIC_LAYERS} layer (bf16), {TP_WORLD} TP ranks on one card over "
+        f"gloo, against phases 11 (a) and 16's one device (arctic's logits "
+        f"within {rel_bound:.6g} relative)")
+    log("  " + smi)
+    ring = phase_moe_ring(moe_ref, arctic_ref, rel_bound)
+    unchecked = [("matmul", s_) for s_ in ring["matmul_shapes"]
+                 if tuple(s_) not in checked_mm]
+    unchecked += [("flash_attention", s_) for s_ in ring["flash_shapes"]
+                  if tuple(s_) not in checked_fa]
+    if unchecked:
+        raise AssertionError(f"phase 17 called kernels at shapes phase 3 "
+                             f"did not check: {unchecked}")
+    log("  moe_ring " + json.dumps(ring))
 
     log("kernel cases " + json.dumps({"flash_attention": rows,
                                       "matmul": mm_rows,
@@ -5143,7 +5638,7 @@ def main() -> int:
          + moe["train"]["flash_launches"] + topo["dp"]["flash_launches"]
          + topo["grouped_ep"]["flash_launches"] + subl["flash_launches"]
          + rec["flash_launches"] + pf["flash_launches"]
-         + arctic["flash_launches"],
+         + arctic["flash_launches"] + ring["flash_launches"],
          **record(head)},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -5153,7 +5648,7 @@ def main() -> int:
          + topo["dp"]["matmul_launches"]
          + topo["grouped_ep"]["matmul_launches"] + subl["matmul_launches"]
          + rec["matmul_launches"] + pf["matmul_launches"]
-         + arctic["matmul_launches"],
+         + arctic["matmul_launches"] + ring["matmul_launches"],
          **record(mm_head)},
         {"name": "matmul_rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul_rmsnorm.cu",

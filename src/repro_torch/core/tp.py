@@ -20,7 +20,10 @@ which pass 1 fuses to ``gemm_ar``.
 
 Serving over the ring (:func:`sp_serve_period`) runs a period of a mixed
 prefill/decode step as one graph in that layout, the paged KV pools and
-block tables riding through each attention core node.
+block tables riding through each attention core node. An MoE block there
+is the counterpart of JAX's per-block GSPMD fallback: every rank routes the
+whole step alike, runs the experts it holds on the matmul kernel, and one
+``allreduce`` node sums the ranks' partial outputs (:func:`serve_experts`).
 
 The backward of a period is graph-built, as ``repro``'s ``jax.custom_vjp``
 under ``TPConfig(graph_backward=True)``: :class:`_PeriodFunction` saves only
@@ -70,8 +73,7 @@ tp_in (:func:`grad_groups`, JAX's ``grad_psum_axes``).
 
 Not here yet: ``graph_backward=False`` on a ring (A15: JAX falls back to
 autodiff of the executed forward, through its collectives; the port has no
-autodiff through the ring collectives), and an MoE serve period (JAX's
-``_blocks_step`` runs MoE serving under GSPMD, which has no counterpart).
+autodiff through the ring collectives).
 """
 from __future__ import annotations
 
@@ -1131,13 +1133,17 @@ def build_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
 class StepRecord:
     """What the TP forwards run inside :func:`recording` executed on this
     rank: every :class:`Period` (a whole period, a per-block graph or a
-    one-sub-layer graph) in the order it ran, and how many mixers of each
-    kind ran replicated (:func:`sp_replicated_mixer`). A step's kernel
-    launches derive from it (:func:`step_launches`)."""
+    one-sub-layer graph) in the order it ran, how many mixers of each kind
+    ran replicated (:func:`sp_replicated_mixer`), and every serve period
+    (:func:`sp_serve_period`: its context, optimized graph, activation
+    shape and item size). A training step's kernel launches derive from it
+    (:func:`step_launches`), and so do serving steps'
+    (:func:`serve_launches`)."""
 
     def __init__(self):
         self.periods: List[Period] = []
         self.replicated_mixers: Dict[str, int] = {}
+        self.serve: List[tuple] = []
 
 
 _RECORDS: List[StepRecord] = []
@@ -1482,20 +1488,110 @@ def _serve_attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
     return core
 
 
+def serve_experts(cfg, tpc: TPContext):
+    """(first, end, stored) of an MoE serve period on this rank: the global
+    indices [first, end) of the experts it computes, and ``stored``, the
+    global index of its first stored expert (its expert weights' index
+    0). Where the route ring splits the experts (E % route_ring == 0) a rank
+    holds E/route_ring whole experts (:func:`param_placement`); on a 2D mesh
+    every tp_in rank of a tp_out index holds the same ones (grouped EP), and
+    each computes its tp_in share of them. So over the TP group every
+    expert is computed exactly once, and one all-reduce over the group sums
+    the ranks' partial outputs (JAX's grouped EP splits the expert hidden
+    dim over tp_in instead: its reduction too spans both axes). Otherwise
+    the experts replicate and every rank computes all E (``end - first ==
+    E``), with no reduction."""
+    E, ring = cfg.moe.num_experts, tpc.route_ring
+    if E % ring:
+        return 0, E, 0
+    e_loc = E // ring
+    stored = tpc.route_group.rank * e_loc
+    if not tpc.is_2d:
+        return stored, stored + e_loc, stored
+    n, i = tpc.group.tp_in.size, tpc.group.tp_in.rank
+    return stored + i * e_loc // n, stored + (i + 1) * e_loc // n, stored
+
+
+def _moe_serve_fn(cfg, tpc: TPContext) -> Callable:
+    """The MoE FFN of a serve period as a ``custom`` node fn of the normed
+    activation (B, S, d), whole and bitwise equal on every rank, and this
+    rank's expert weights: the routing of
+    :func:`repro_torch.models.ffn.route_tokens` on every rank alike (one
+    device's groups and capacities, padding rows included: a serving step's
+    output depends on its batch, ``docs/serving.md``), the dispatch to the
+    (G, C) buffers of the experts this rank computes
+    (:func:`serve_experts`), each one's gated FFN on its G·C rows through
+    :func:`repro_torch.core.primitives.mm` (``matmul_calls``: three an
+    expert), and the combine over them: this rank's partial sum of the FFN
+    output, all of it where the experts replicate."""
+    from repro_torch.models.ffn import route_tokens
+    from repro_torch.models.layers import activation
+
+    first, end, stored = serve_experts(cfg, tpc)
+    act = cfg.act
+
+    def moe(xn, router, wu, wg, wd):
+        B, S, d = xn.shape
+        xt, dispatch, combine, _ = route_tokens(xn, router, cfg)
+        if first == end:        # a tp_in rank with no expert of its own
+            return xn.new_zeros(xn.shape)
+        dt = xn.dtype
+        einp = torch.einsum("gsec,gsd->egcd",
+                            dispatch[:, :, first:end].to(dt), xt)
+        G, C = einp.shape[1], einp.shape[2]
+        rows = einp.reshape(end - first, G * C, d)
+        eout = torch.stack([
+            prim.mm(activation(act, prim.mm(r, wg[j])) * prim.mm(r, wu[j]),
+                    wd[j])
+            for r, j in zip(rows, range(first - stored, end - stored))])
+        y = torch.einsum("gsec,egcd->gsd", combine[:, :, first:end].to(dt),
+                         eout.reshape(end - first, G, C, d))
+        return y.reshape(B, S, d)
+
+    moe.matmul_calls = 3 * (end - first)
+    return moe
+
+
 def _serve_block_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
                           src: str, dtype=torch.float32):
-    """One dense block as a serve-period graph fragment: the
-    replicated-activation block (:func:`_dense_block_nodes` with
-    ``seq_sharded=False``) whose attention core is the pool-carrying
+    """One block as a serve-period graph fragment in the replicated
+    activation layout, its attention core the pool-carrying
     :func:`_serve_attention_core_fn` node, reading graph inputs ``bt``,
     ``qpos``, ``ctx``, ``b{idx}.kp``, ``b{idx}.vp`` and giving
-    ``b{idx}.kpn``/``b{idx}.vpn``. Returns (nodes, out_value, weights)."""
+    ``b{idx}.kpn``/``b{idx}.vpn``; the out-projection ends in an allreduce,
+    which pass 1 fuses to ``gemm_ar``. A dense block's FFN is the
+    replicated-layout chain of :func:`_dense_block_nodes`. An MoE block's is
+    ln2 → the :func:`_moe_serve_fn` node (this rank's experts' partial
+    output) → ONE ``allreduce`` where the experts split (none where they
+    replicate) → [+ the dense-residual MLP, replicated, so added once after
+    the sum] → the residual: GSPMD's per-block MoE of JAX's ``_blocks_step``
+    as explicit ops. Returns (nodes, out_value, weights)."""
     p = f"b{idx}."
     window = cfg.window if kind == "swa" else 0
     core = _serve_attention_core_fn(cfg, tpc.tp, window=window,
                                     rank=tpc.group.rank)
-    nodes, out = _dense_block_nodes(core, True, cfg.act, p=p, src=src,
-                                    seq_sharded=False)
+    if cfg.moe is None:
+        nodes, out = _dense_block_nodes(core, True, cfg.act, p=p, src=src,
+                                        seq_sharded=False)
+    else:
+        nodes = _attention_block_nodes(core, p, src, seq_sharded=False) + [
+            df.Node(f"{p}ln2", "layernorm", (f"{p}r1",), (f"{p}scale2",)),
+            df.Node(f"{p}moe", "custom", (f"{p}ln2",),
+                    tuple(p + k for k in ("router", "w_up", "w_gate",
+                                          "w_down")),
+                    fn=_moe_serve_fn(cfg, tpc))]
+        top = f"{p}moe"
+        if cfg.moe.num_experts % tpc.route_ring == 0:
+            nodes.append(df.Node(f"{p}moe_ar", "allreduce", (top,)))
+            top = f"{p}moe_ar"
+        if cfg.moe.dense_residual_d_ff:
+            nodes += [df.Node(f"{p}dmlp", "custom", (f"{p}ln2",),
+                              (p + "d_up", p + "d_gate", p + "d_down"),
+                              fn=_dense_residual_fn(cfg.act)),
+                      df.Node(f"{p}ymoe", "add", (top, f"{p}dmlp"))]
+            top = f"{p}ymoe"
+        out = f"{p}r2"
+        nodes.append(df.Node(out, "residual", (top, f"{p}r1")))
     serve = df.Node(f"{p}o", "custom",
                     (f"{p}q", f"{p}k", f"{p}v", "bt", "qpos", "ctx",
                      f"{p}kp", f"{p}vp"),
@@ -1531,8 +1627,11 @@ def serve_planner(tpc: TPContext, cfg, kinds: Sequence[str], weights,
     value shapes as ``repro`` gives them (x; the block tables, positions and
     context lens; each block's pools with all kv heads), the unsharded
     weight shapes and the cores' FLOP hints, memoized in the process on
-    those shapes and the block kinds."""
-    if tpc.planner != "perfsim":
+    those shapes and the block kinds. An MoE serve period takes no planner
+    under either: JAX plans none (its ``_blocks_step`` runs MoE serving
+    per block, under GSPMD), and the replicated layout has no pair to plan
+    anyway."""
+    if tpc.planner != "perfsim" or cfg.moe is not None:
         return None
     from repro_torch import plan as plan_mod
 
@@ -1574,7 +1673,9 @@ def sp_serve_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     in place and come back as graph outputs. Under ``planner="perfsim"``
     pass 3 comes from the plan over the serve graph's own value shapes
     (:func:`serve_planner`); the layout has no gemm_rs/ag_gemm pair, so the
-    plan pairs nothing.
+    plan pairs nothing. An MoE period routes the whole step on every rank,
+    runs the rank's experts and all-reduces their partial sum
+    (:func:`_serve_block_fragment`); it takes no planner.
 
     x: (B, S_step, d) whole on every rank. Returns (period output, the
     pools list)."""
@@ -1582,6 +1683,8 @@ def sp_serve_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
                                        dtype=x.dtype)
     graph = df.optimize(base, planner=serve_planner(
         tpc, cfg, kinds, weights, x, pools_seq, view))
+    for rec in _RECORDS:
+        rec.serve.append((tpc, graph, tuple(x.shape), x.element_size()))
     vals = {"x": x, "bt": view.block_tables, "qpos": view.positions,
             "ctx": view.context_lens}
     for i, pool in enumerate(pools_seq):
@@ -1669,6 +1772,8 @@ def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
             calls += 1      # bwd_ag_gemm: one GEMM over the gathered grad
         elif node.op == "custom" and node.fn in (df._dw, df._gemm_t):
             calls += 1      # a weight gradient, or a dx through wᵀ
+        elif node.op == "custom":   # a serve MoE's experts (_moe_serve_fn)
+            calls += getattr(node.fn, "matmul_calls", 0)
         elif node.op in ("ag_gemm", "ag_gemm_multi"):
             calls += ag(k)
         elif node.op in ("gemm_rs", "fused_rs_ln"):
@@ -1719,6 +1824,20 @@ def step_launches(rec: StepRecord, batch: int, seq: int, d_model: int,
         if i == 0:
             out["cross_direction_pairs"] = cross_direction_pairs(
                 period.merged, bwd)
+    return out
+
+
+def serve_launches(rec: StepRecord) -> dict:
+    """The kernel calls and all-reduce nodes one rank's serve periods
+    recorded in ``rec`` executed: matmul by :func:`matmul_calls` of each
+    optimized serve graph at its step's (batch, S), flash by
+    :func:`flash_calls` (one a layer a step), and the ``allreduce`` nodes
+    (one an MoE layer a step where the experts split)."""
+    out = dict(matmul=0, flash=0, allreduce=0)
+    for tpc, graph, (B, S, d), itemsize in rec.serve:
+        out["matmul"] += matmul_calls(graph, tpc, B, S, d, itemsize)
+        out["flash"] += flash_calls(graph)
+        out["allreduce"] += sum(n.op == "allreduce" for n in graph.nodes)
     return out
 
 

@@ -1,13 +1,20 @@
 """Run a function on every rank of a TP ring of local processes.
 
-``run_ranks(fn, world, *args)`` spawns ``world`` processes (the ``spawn``
-start method: nothing of the parent's state is inherited), joins each to one
-TP group (:func:`repro_torch.sharding.init_tp_group`), calls
+``run_ranks(fn, world, *args)`` starts ``world`` processes, joins each to
+one TP group (:func:`repro_torch.sharding.init_tp_group`), calls
 ``fn(group, *args)`` there and returns the results in rank order; ``fn``
 may factor ``group`` into a mesh (:func:`repro_torch.sharding.init_mesh`,
 every rank alike). ``fn`` must be importable by name, and its arguments and
 results picklable. A rank that raises makes ``run_ranks`` raise with that
 rank's traceback.
+
+The ranks come from a fork server that has imported torch once (the
+``forkserver`` start method, torch preloaded): a rank starts without
+importing torch again, which took each of four ranks starting together
+9–15 s on the card's host. Nothing else of the parent's state is inherited
+(the server holds no CUDA context), and each rank takes the parent's
+environment as it is when ``run_ranks`` is called, as a spawned process
+would.
 
 All ranks run on this host, so the gloo transport is bound to the loopback
 interface unless ``GLOO_SOCKET_IFNAME`` says otherwise, and each rank's CPU
@@ -29,6 +36,10 @@ def _rank_main(world, rank, init_method, backend, device, inbox, out):
 
     from repro_torch import sharding
 
+    # the parent's environment now, not the fork server's at its start
+    env = inbox.recv()
+    os.environ.clear()
+    os.environ.update(env)
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     # the ranks share this host's cores: no rank's CPU kernels take them all
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
@@ -52,7 +63,8 @@ def run_ranks(fn: Callable, world: int, *args: Any,
     process. ``backend``/``device`` go to ``init_tp_group``. Raises
     ``RuntimeError`` naming the rank if a rank fails, dies, or does not
     answer within ``timeout`` seconds."""
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch"])
     tmp = tempfile.mkdtemp(prefix="tp_ranks_")
     init_method = f"file://{os.path.join(tmp, 'rendezvous')}"
     out = ctx.Queue()
@@ -68,8 +80,10 @@ def run_ranks(fn: Callable, world: int, *args: Any,
         # fn and its arguments go to the ranks once every rank is starting:
         # sent with the process, a payload past the pipe's buffer would
         # hold each start until the rank before it had imported torch
+        env = dict(os.environ)
         for inbox, send in pipes:
             inbox.close()
+            send.send(env)
             send.send((fn, args))
             send.close()
         while len(results) < world:    # drain before joining

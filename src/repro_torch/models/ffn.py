@@ -5,9 +5,11 @@ MoE follows the GShard/Mesh-TF formulation: tokens are reshaped into
 ``(groups, group_size)`` and dispatched to experts with a one-hot
 capacity-bounded dispatch tensor. On one device the dispatch, expert and
 combine einsums are torch ops, as JAX's are plain ``jnp`` (no Pallas kernel
-computes them); on a TP ring the experts are sharded by whole expert and the
-expert path runs through the period graph's ``route`` → ``a2a_ffn`` →
-``unroute`` nodes (:mod:`repro_torch.core.tp`), whose expert GEMMs go through
+computes them); on a TP ring the experts are sharded by whole expert and, in
+training, the expert path runs through the period graph's ``route`` →
+``a2a_ffn`` → ``unroute`` nodes (:mod:`repro_torch.core.tp`); in serving,
+every rank routes the whole step alike (:func:`route_tokens`), runs its own
+experts and one all-reduce sums them. Either way the expert GEMMs go through
 the matmul kernel.
 
 Routing is discrete: the top-2 choice and the capacity slots come from
@@ -183,22 +185,32 @@ def router_probs(t: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
     return torch.softmax(t.float() @ router, dim=-1)
 
 
-def moe_forward(params: MoE, x: torch.Tensor, cfg: ArchConfig
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out, aux_loss), every expert on this device. Tokens
-    route in groups of ``group_size`` over the batch-major flattening,
-    halved until the group divides B·S (decode steps, odd batches);
-    padding tokens route with the rest, as in JAX."""
-    m = cfg.moe
+def route_tokens(x: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
+    """The routing of a (B, S, d) step or batch, as JAX's ``moe_forward``
+    routes it: tokens in groups of ``group_size`` over the batch-major
+    flattening, halved until the group divides B·S (decode steps, odd
+    batches; padding tokens route with the rest), the capacity from the
+    group, the f32 router and :func:`_top2_dispatch`. Returns (xt (G, g, d),
+    dispatch (G, g, E, C), combine (G, g, E, C), aux). One device's
+    :func:`moe_forward` and the TP ring's serve graph
+    (:func:`repro_torch.core.tp._moe_serve_fn`, on every rank alike) route
+    through it, so both route exactly the same groups."""
     B, S, d = x.shape
-    dtype = x.dtype
-    g = min(m.group_size, B * S)
+    g = min(cfg.moe.group_size, B * S)
     while (B * S) % g:  # shrink until it divides (small/odd batches)
         g //= 2
-    G = (B * S) // g
-    xt = x.reshape(G, g, d)
-    probs = router_probs(xt, params.router)
-    dispatch, combine, aux = _top2_dispatch(probs, capacity(g, cfg))
+    xt = x.reshape((B * S) // g, g, d)
+    probs = router_probs(xt, router)
+    return (xt,) + _top2_dispatch(probs, capacity(g, cfg))
+
+
+def moe_forward(params: MoE, x: torch.Tensor, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out, aux_loss), every expert on this device, routed
+    by :func:`route_tokens`."""
+    B, S, d = x.shape
+    dtype = x.dtype
+    xt, dispatch, combine, aux = route_tokens(x, params.router, cfg)
 
     # dispatch: tokens -> expert buffers (E, G, C, d)
     einp = torch.einsum("gsec,gsd->egcd", dispatch.to(dtype), xt)

@@ -27,10 +27,11 @@ on every rank and dense blocks run in the replicated-activation graphs; with
 its rows and gathering its output (:data:`LAYOUTS`). Paged serving
 (``serve_step``) on a ring keeps the activation whole on every rank and
 runs each period as one serve graph
-(:func:`repro_torch.core.tp.sp_serve_period`) against the rank's KV pools;
-the embedding and head are whole on every rank, so every rank computes the
-same logits. On one device there is no TP context and every block takes the
-per-block path, as in JAX.
+(:func:`repro_torch.core.tp.sp_serve_period`) against the rank's KV pools,
+an MoE's experts split over the ring (or replicated) and their partial
+outputs all-reduced; the embedding and head are whole on every rank, so
+every rank computes the same logits. On one device there is no TP context
+and every block takes the per-block path, as in JAX.
 
 On a mesh (``LM(..., group=mesh)``, a :class:`repro_torch.sharding.Mesh`)
 the TP group is the mesh's: a flat ring, or on a 2D (``tp_in`` x
@@ -478,32 +479,37 @@ def block_step(params: Block, x: torch.Tensor, pool: attn.Pool,
     return _ffn_residual(params, x + mixed, cfg), pool
 
 
+def _serve_applicable(cfg: ArchConfig, kind: str, tp: int) -> bool:
+    """Can a block of ``kind`` run in a serve graph on a ring of ``tp``:
+    attention whose query heads split over the ring, and a dense FFN that
+    splits or an MoE (its experts split by whole expert, or replicate)?"""
+    return (kind in ("attn", "swa") and tp_mod.tp_applicable(cfg, kind, tp)
+            and (cfg.moe is not None or tp_mod.tp_applicable(cfg, "ffn", tp)))
+
+
 def _blocks_step(kinds: Sequence[str], blocks: Sequence[Block],
                  x: torch.Tensor, pools: Sequence[attn.Pool],
                  view: attn.KVView, cfg: ArchConfig,
                  tpc: Optional[tp_mod.TPContext] = None):
-    """Consecutive blocks of a serving step. On a TP ring, when every block
-    is whole-block TP-applicable (attention kinds, dense FFN), the period
-    runs as ONE serve graph (``sp_serve_period``: replicated activation,
-    ``gemm_ar`` reductions, the pools through each core node); otherwise
-    the rank raises (JAX falls back per block under GSPMD; the port has no
-    such fallback in serving, ROADMAP A11 (b)). On one device, block by
-    block."""
+    """Consecutive blocks of a serving step. On a TP ring, when every
+    block's attention splits over the ring and its FFN is a dense FFN that
+    splits or an MoE, the period runs as ONE serve graph
+    (``sp_serve_period``: replicated activation, ``gemm_ar`` reductions,
+    the pools through each core node; an MoE routes the whole step on every
+    rank, runs the rank's experts and all-reduces their partial sum, JAX's
+    per-block GSPMD MoE as explicit ops); otherwise the rank raises (JAX
+    falls back per sub-layer under GSPMD; the port has no such fallback in
+    serving, ROADMAP A11 (b)). On one device, block by block."""
     if tpc is None:
         for blk, pool in zip(blocks, pools):
             x, _ = block_step(blk, x, pool, view, cfg)
         return x, list(pools)
-    if cfg.moe is not None:
+    if not all(_serve_applicable(cfg, k, tpc.tp) for k in kinds):
         raise NotImplementedError(
-            f"{cfg.name}: MoE serving over a TP ring is not ported yet (JAX "
-            "runs it under GSPMD, which has no counterpart here); serve it "
-            "on one device")
-    if not all(_whole_block_applicable(cfg, k, tpc.tp, tpc.route_ring)
-               for k in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: serving blocks {tuple(kinds)} that are not "
-            f"whole-block TP-applicable at tp={tpc.tp} (JAX falls back per "
-            "sub-layer under GSPMD) is not ported yet (ROADMAP A11 (b))")
+            f"{cfg.name}: serving blocks {tuple(kinds)} whose attention or "
+            f"FFN does not split over the ring at tp={tpc.tp} (JAX falls "
+            "back per sub-layer under GSPMD) is not ported yet (ROADMAP "
+            "A11 (b))")
     return tp_mod.sp_serve_period(tpc, x, list(blocks), cfg, kinds,
                                   list(pools), view, norm_kind=cfg.norm)
 
@@ -906,7 +912,9 @@ class LM(nn.Module):
         per-row logits at each row's last valid position, (B, 1, V) f32,
         and the pools (updated in place). On a TP ring every rank passes the
         same tokens and view with its own pools (:meth:`init_pools`) and
-        gets the same logits."""
+        gets the same logits: a dense or an MoE model (each rank routes the
+        whole step and runs the experts it holds), as long as every block's
+        attention splits over the ring."""
         if any(b.kind not in ("attn", "swa") for b in self.blocks):
             raise NotImplementedError(
                 f"{self.cfg.name}: only attention blocks have a paged path; "

@@ -18,10 +18,13 @@ so a request's tokens do not depend on what it was batched with.
 Tensor parallelism: the ``Engine`` serves on the model's own TP ring
 (``LM(..., group=...)``, the counterpart of JAX's ``mesh=``): a flat ring, or
 a 2D mesh with data axis 1, whose composite TP group runs the hierarchical
-``gemm_ar`` (JAX's ``sp_serve_period`` on ``tp_axes``). Every rank runs the
-same scheduler on the same requests, with the clock it admits by agreed
-over the whole TP group, so the ranks assemble the same batches, get the
-same logits and sample the same tokens. ``mesh=`` itself still refuses
+``gemm_ar`` (JAX's ``sp_serve_period`` on ``tp_axes``); an MoE model's
+experts split over the ring (grouped over tp_out on a 2D mesh), each rank
+routing the whole step alike and one all-reduce summing the experts'
+outputs (JAX's per-block GSPMD MoE). Every rank runs the same scheduler on
+the same requests, with the clock it admits by agreed over the whole TP
+group, so the ranks assemble the same batches, get the same logits and
+sample the same tokens. ``mesh=`` itself still refuses
 anything but ``None`` (the model carries its group; serving with a data
 axis is not ported, as JAX's period-graph serve path is dp 1), and
 ``DenseEngine``
@@ -134,9 +137,10 @@ def _ring_clock(group, now: float, device: torch.device) -> float:
 
 class Engine:
     """Paged-KV continuous-batching engine on one device or on the model's
-    TP ring (CUDA unless the caller passes ``device="cpu"``; the model must
-    lie there). Falls back to :class:`DenseEngine` for archs outside the
-    paged path and for requests with ``extras``."""
+    TP ring, a dense or an MoE model (CUDA unless the caller passes
+    ``device="cpu"``; the model must lie there). Falls back to
+    :class:`DenseEngine` for archs outside the paged path and for requests
+    with ``extras``."""
 
     def __init__(self, model, cfg: ArchConfig, rt: Runtime,
                  serve_cfg: Optional[ServeConfig] = None, *, mesh=None,

@@ -785,12 +785,16 @@ def test_engine_greedy_matches_jax():
     assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
 
 
-def test_moe_serving_on_a_ring_raises_by_name():
+def test_serving_attention_that_does_not_split_raises_by_name():
+    """MoE serving on a ring runs (``tests/test_torch_moe_serve_tp.py``);
+    a block whose query heads do not split over the ring (3 over 2 ranks)
+    still raises, by its ROADMAP name: JAX falls back per sub-layer under
+    GSPMD."""
     group = TPGroup(0, 2, "gloo")
-    _, tc = _cfgs()
+    _, tc = _cfgs(num_heads=3, num_kv_heads=1)
     lm = LM(tc, Runtime(compute_dtype="float32", tp=TPConfig(mode="cais")),
             device="cpu", seed=0, group=group)
     view = None
-    with pytest.raises(NotImplementedError, match="MoE serving"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A11 \(b\)"):
         lm.serve_step(torch.zeros(1, 1, dtype=torch.int32),
                       lm.init_pools(4, 4), view)
