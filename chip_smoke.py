@@ -414,6 +414,16 @@ BF16_LOGIT_FACTOR = 4.0
 MOE_ARCH, MOE_LAYERS, MOE_BATCH, MOE_SEQ = "mixtral-8x7b", 2, 1, 2048
 MOE_RUNS = [("barrier", 1, "float32"), ("cais", 1, "float32"),
             ("cais", 1, "bfloat16"), ("cais", "auto", "float32", "perfsim")]
+# phase 11 (b)'s second leg, in the same spawn: the same model at a ragged
+# sequence, batch MOE_RAGGED_BATCH x MOE_RAGGED_SEQ (S % 4 = 2: the
+# replicated activation layout, every rank routing the whole batch as one
+# device does: B·S 4112 tokens in groups of 16, capacity 5, where the
+# choices past an expert's 5 slots are dropped), each rank's experts on
+# the matmul kernel, summed by one all-reduce a layer. 8 x 1026 (8208
+# tokens, the same groups and capacity) passed too, but brought the script
+# to 1008.4 s on an NVIDIA H100 80GB HBM3, 700 W; 514 halves the leg
+MOE_RAGGED_BATCH, MOE_RAGGED_SEQ = 8, 514
+MOE_RAGGED_RUNS = [("cais", 1, "float32"), ("barrier", 1, "float32")]
 # routing is discrete: two f32 computations of the same router input that
 # differ by summation order (the CPU and the card, the ring and one device)
 # may choose another expert where the router's probabilities of the
@@ -1136,6 +1146,11 @@ def phase_matmul(mmk, ref) -> list:
         # and internlm2-1.8b's ragged step (gemm_ar partials whole)
         ("sp_ffn", sp_ffn_matmul_shapes(get_mla_train_cfg())),
         ("ragged", ragged_matmul_shapes(cfg)),
+        # phase 11 (b)'s ragged MoE leg: the attention GEMMs over the B·S
+        # rows and each of a rank's experts on its G·C rows
+        ("moe_ragged", ragged_matmul_shapes(get_moe_cfg(),
+                                            batch=MOE_RAGGED_BATCH,
+                                            seq=MOE_RAGGED_SEQ)),
         # phase 14 (c): recurrentgemma-2b's sp_ffn ring steps (2560 ->
         # 1920 a rank and back) and their backward
         ("rec_ffn", rec_matmul_shapes()),
@@ -1313,22 +1328,37 @@ def sp_ffn_matmul_shapes(cfg, batch: int = MLA_TRAIN_BATCH,
 
 def ragged_matmul_shapes(cfg, world: int = TP_WORLD, batch: int = TP_BATCH,
                          seq: int = RAGGED_SEQ) -> list:
-    """(M, K, N, layout) of every matmul call one rank makes in phase 13
-    (b)'s ragged step, by the replicated-activation graph's arithmetic over
-    the B·S rows (S % ring != 0, so each gemm_ar is cais's monolithic
-    fallback: one GEMM, then the all-reduce): the column GEMMs q, k, v, up
-    and gate (nn), their adjoints' gemm_ar through wᵀ (nt) and weight
-    grads xᵀ·dy (tn); the gemm_ar partials of wo and w_down (nn), their
-    adjoints' dx = dy·wᵀ (nt) and weight grads (tn)."""
+    """(M, K, N, layout) of every matmul call one rank makes in a ragged
+    step (phase 13 (b); phase 11 (b)'s MoE leg), by the replicated-
+    activation graph's arithmetic over the B·S rows (S % ring != 0, so each
+    gemm_ar is cais's monolithic fallback: one GEMM, then the all-reduce):
+    the column GEMMs q, k, v, up and gate (nn), their adjoints' gemm_ar
+    through wᵀ (nt) and weight grads xᵀ·dy (tn); the gemm_ar partials of wo
+    and w_down (nn), their adjoints' dx = dy·wᵀ (nt) and weight grads (tn).
+    An MoE's FFN is instead each of a rank's experts on its G·C rows (the
+    groups and capacity ``route_tokens`` gives the B·S tokens): up, gate
+    and down (nn, run again by the VJP), dh = dy·w_downᵀ and the row grads
+    du·w_upᵀ, dg·w_gateᵀ (nt), the weight grads (tn)."""
+    from repro_torch.models.ffn import capacity
+
     n, d, dh = world, cfg.d_model, cfg.resolved_head_dim
     kv_tp = n if cfg.num_kv_heads % n == 0 else 1
     fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // kv_tp
-    ff, rows = cfg.d_ff // n, batch * seq
+    rows = batch * seq
+    ff = cfg.d_ff // n
+    cols, outs = ((fq, fkv), (fq,)) if cfg.moe else ((fq, fkv, ff), (fq, ff))
     shapes = set()
-    for f in (fq, fkv, ff):
+    for f in cols:
         shapes |= {(rows, d, f, "nn"), (rows, f, d, "nt"), (d, rows, f, "tn")}
-    for f in (fq, ff):
+    for f in outs:
         shapes |= {(rows, f, d, "nn"), (rows, d, f, "nt"), (f, rows, d, "tn")}
+    if cfg.moe:
+        g = min(cfg.moe.group_size, rows)
+        while rows % g:
+            g //= 2
+        e, f = rows // g * capacity(g, cfg), cfg.d_ff
+        shapes |= {(e, d, f, "nn"), (e, f, d, "nn"), (e, d, f, "nt"),
+                   (e, f, d, "nt"), (f, e, d, "tn"), (d, e, f, "tn")}
     return sorted(shapes)
 
 
@@ -2576,12 +2606,15 @@ def train_legs(group, legs, cfg, device="cuda", mesh="flat",
                 mln_launches=launches[3],
                 mln_derived=derived["matmul_rmsnorm"],
                 gemm_ar=launches[4], gemm_ar_derived=nodes("gemm_ar"),
+                expert_ar=nodes("expert_ar"),
                 overlap_asym=launches[2],
                 overlap_asym_nodes=derived["overlap_asym"],
                 # a2a_ffn / bwd_a2a_ffn: backend dispatches and the matmul
                 # launches inside them, against the graphs' nodes and
                 # counts
-                a2a=[a2a["a2a_expert_ffn"], a2a["grad_a2a_expert_ffn"]],
+                # copies: the counters are reset in place for the next run
+                a2a=[list(a2a["a2a_expert_ffn"]),
+                     list(a2a["grad_a2a_expert_ffn"])],
                 a2a_derived=[[nodes(op), nodes(op, attr)]
                              for op, attr in (("a2a_ffn", "matmul_calls"),
                                               ("bwd_a2a_ffn",
@@ -2668,7 +2701,10 @@ def phase_train(cfg=None, batch=None, runs=None, label: str = "phase 9",
     did not the differences must sit at gaps below ROUTE_TOL and the loss
     within BF16_LOSS_RTOL. Its expert all-to-all and adjoint must have run
     through the backend as often as the graphs hold them, with the matmul
-    kernel inside, on tp_out alone on a 2D mesh (grouped EP). The ranks
+    kernel inside, on tp_out alone on a 2D mesh (grouped EP). In the
+    replicated layout (a ragged S) every rank routes one device's whole
+    batch, and each MoE layer is an ``expert_ar`` node in the forward and
+    in its recompute, with no all-to-all. The ranks
     build the model on ``mesh`` (phase 12: "dp2", "2x2"); a run may name
     another mesh of the same shards (phase 9's "2x2" runs). With
     ``compress``, each replica's grads are summed over the data axis in int8
@@ -2785,7 +2821,11 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
         head = per[0]
         f32 = head["dtype"] == "float32"
         route = None
-        if moe:       # rank r routes one device's group r
+        replicated = head["layout"] == "replicated"
+        if moe and replicated:    # every rank routes one device's batch
+            route = [routing_differences(p["routing"], ref["routing"])
+                     for p in per]
+        elif moe:     # rank r routes one device's group r
             route = [routing_differences(p["routing"], [
                 (w[r * T:(r + 1) * T], top[r * T:(r + 1) * T])
                 for w, top in ref["routing"]]) for r, p in enumerate(per)]
@@ -2828,7 +2868,15 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
                 if head["mb"] > 1 and head["planner"] == "greedy"
                 and graphs else True),
         }
-        if moe:
+        if moe and replicated:
+            checks["expert_ar a layer in the forward and its recompute, "
+                   "no expert all-to-all"] = all(
+                p["expert_ar"] == 2 * cfg.num_layers
+                and p["a2a"] == [[0, 0], [0, 0]] for p in per)
+            if f32:
+                checks[f"routing differences at gaps < {ROUTE_TOL:g}"] = \
+                    all(routing_rule(d) for d in route)
+        elif moe:
             checks["a2a_ffn / bwd_a2a_ffn through the backend, expert "
                    "GEMMs on the matmul kernel"] = all(
                 p["a2a"] == p["a2a_derived"] and min(min(p["a2a"])) > 0
@@ -2905,10 +2953,13 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
                 + json.dumps([[d["choice"], d["slots"], d["worst_gap"]]
                               for d in route])
                 + f"; element-wise holds {'made' if held else 'not made'}; "
-                f"a2a_ffn, bwd_a2a_ffn [dispatches, matmul launches inside] "
-                f"{json.dumps(head['a2a'])} (graphs "
-                f"{json.dumps(head['a2a_derived'])}) on "
-                f"{json.dumps(head['a2a_groups'])}")
+                + (f"expert_ar nodes {head['expert_ar']} (the whole batch "
+                   "routed on every rank, each rank's experts summed by "
+                   "the node's all-reduce)" if replicated else
+                   f"a2a_ffn, bwd_a2a_ffn [dispatches, matmul launches "
+                   f"inside] {json.dumps(head['a2a'])} (graphs "
+                   f"{json.dumps(head['a2a_derived'])}) on "
+                   f"{json.dumps(head['a2a_groups'])}"))
         if head["plans"] is not None:
             log(f"    perfsim plans (rank 0): {json.dumps(head['plans'])}")
         failed += [(run, k) for k, v in checks.items() if not v]
@@ -3587,7 +3638,9 @@ def phase_moe(fa) -> tuple:
     """Phase 11: (a) :func:`phase_moe_serve`; (b) one training step of the
     same model on TP_WORLD gloo ranks sharing the card against one device
     (:func:`phase_train` with MOE_RUNS), batch MOE_BATCH of MOE_SEQ tokens
-    from ``make_batch``. Returns (the report, (a)'s reference for phase
+    from ``make_batch``, and in the same spawn one at the ragged batch
+    MOE_RAGGED_BATCH x MOE_RAGGED_SEQ (MOE_RAGGED_RUNS), each held to its
+    own one-device step. Returns (the report, (a)'s reference for phase
     17)."""
     cfg = get_moe_cfg()
     log(f"  {MOE_ARCH} cut to {cfg.num_layers} of 32 layers at full width "
@@ -3600,9 +3653,14 @@ def phase_moe(fa) -> tuple:
     serve, ref = phase_moe_serve(cfg, fa)
     log(f"  (b) one training step, {TP_WORLD} gloo ranks (E_loc "
         f"{cfg.moe.num_experts // TP_WORLD}) against one device, batch "
-        f"{MOE_BATCH} x {MOE_SEQ}")
-    train = phase_train(cfg, train_batch(cfg, MOE_SEQ, MOE_BATCH), MOE_RUNS,
-                        "phase 11 (b)", quantities=("grad",))
+        f"{MOE_BATCH} x {MOE_SEQ}; then, in the same spawn, batch "
+        f"{MOE_RAGGED_BATCH} x {MOE_RAGGED_SEQ} (the replicated layout)")
+    train = phase_train(cfg, label="phase 11 (b)", quantities=("grad",),
+                        legs=[(train_batch(cfg, MOE_SEQ, MOE_BATCH),
+                               MOE_RUNS),
+                              (train_batch(cfg, MOE_RAGGED_SEQ,
+                                           MOE_RAGGED_BATCH),
+                               MOE_RAGGED_RUNS)])
     return dict(serve=serve, train=train), ref
 
 
@@ -5036,7 +5094,7 @@ def moe_ring_rank(group, tr: dict, cases, device="cuda") -> dict:
 
     def expert_calls(graph) -> int:
         return sum(getattr(n.fn, "matmul_calls", 0) for n in graph.nodes
-                   if n.op == "custom")
+                   if n.op in ("custom", "expert_ar"))
 
     out = {}
     for name, cfg, rt, steps, prompts, dtype in cases:

@@ -28,7 +28,11 @@ expert all-to-all ``a2a_ffn`` and its adjoint ``bwd_a2a_ffn`` run through
 the backend's ``a2a_expert_ffn`` / ``grad_a2a_expert_ffn``; the adjoint
 takes the per-row expert VJP from the node fn's ``vjp`` attribute where it
 has one (the period graph's expert fn, whose backward GEMMs go through the
-matmul kernel), and from ``torch.autograd`` of the fn otherwise.
+matmul kernel), and from ``torch.autograd`` of the fn otherwise. So does a
+``custom`` node's adjoint. ``expert_ar`` is the expert FFN of the replicated
+activation layout: each rank's experts on the routed rows, their partial
+output completed by one all-reduce; its adjoint all-reduces the partial
+cotangents of its inputs.
 
 Tensor layout conventions per value: ``seq`` (B, S_loc, d)
 sequence-sharded · ``feat`` (B, S, d_loc) feature-sharded · ``full``
@@ -62,6 +66,9 @@ from repro_torch.core.primitives import CAISConfig, mm, rows_vjp
 #                                                             aux)
 # unroute              (eout, combine, xn)   —               seq
 # a2a_ffn              (send,)               (expert ws...)  send-shaped
+# expert_ar            (xn: full, dispatch,  (expert ws...)  full (this rank's
+#                       combine)                              experts' partial
+#                                                             sum, all-reduced)
 # --- fused (produced by optimize) ---
 # ag_gemm              (x: seq)              w               feat
 # ag_gemm_multi        (x: seq)              (w...)          feat per weight
@@ -78,7 +85,7 @@ from repro_torch.core.primitives import CAISConfig, mm, rows_vjp
 VALID_OPS = {
     "input", "gemm_col", "gemm_row", "allgather", "reduce_scatter",
     "allreduce", "layernorm", "add", "residual", "custom",
-    "route", "unroute", "a2a_ffn",
+    "route", "unroute", "a2a_ffn", "expert_ar",
     "ag_gemm", "ag_gemm_multi", "gemm_rs", "gemm_ar", "fused_rs_ln_ag",
     "fused_rs_ln_ag_multi", "fused_rs_ln", "overlap_asym",
     "bwd_ag_gemm", "bwd_a2a_ffn",
@@ -93,10 +100,16 @@ ADJOINTS = {
     "input": (),
     "add": (), "residual": (),              # gradient fan-out, no new nodes
     "layernorm": ("custom",),               # norm VJP (local math)
-    "custom": ("custom",),                  # VJP of the node's fn
+    "custom": ("custom",),                  # VJP of the node's fn (its
+    #                                         declared ``vjp`` where it has
+    #                                         one)
     "route": ("custom",),                   # VJP of the routing closure
     "unroute": ("custom",),                 # the route adjoint's dual
     "a2a_ffn": ("bwd_a2a_ffn",),            # reverse expert all-to-all
+    "expert_ar": ("custom", "allreduce"),   # the fn's declared VJP, the
+    #                                         replicated cotangent taken as
+    #                                         it is, the partial d(xn) and
+    #                                         d(combine) all-reduced
     "ag_gemm": ("custom", "gemm_rs", "allgather"),
     "ag_gemm_multi": ("custom", "gemm_rs", "allgather"),
     "gemm_rs": ("bwd_ag_gemm", "custom"),
@@ -555,6 +568,9 @@ def execute(g: Graph, values: Dict[str, torch.Tensor],
                     env[name] = val
             else:
                 env[n.outputs[0]] = res
+        elif n.op == "expert_ar":
+            y = n.fn(*ins, *ws)
+            env[n.name] = group.all_reduce(y) if dist else y
         elif n.op == "a2a_ffn":
             fn = (lambda chunk, _n=n, _ws=tuple(ws): _n.fn(chunk, *_ws))
             env[n.name] = (be.a2a_expert_ffn(ins[0], fn, group, cais)
@@ -742,7 +758,8 @@ def grad_input_name(value: str) -> str:
 
 def supports_backward(g: Graph) -> bool:
     """True iff every node's op has a declared adjoint (:data:`ADJOINTS`):
-    the dense vocabulary, MoE routing and ``gemm_ar``/``gemm_col``. Raw
+    the dense vocabulary, MoE routing, ``expert_ar`` and
+    ``gemm_ar``/``gemm_col``. Raw
     collectives and pass-3 ``overlap_asym`` have none."""
     return all(n.op in ADJOINTS for n in g.nodes)
 
@@ -939,7 +956,10 @@ def build_training_graph(g: Graph, norm: str = "rmsnorm") -> TrainingGraph:
             # route the output triple is (send, combine, aux) — the aux
             # load-balance statistic is a first-class graph output, so its
             # cotangent (seeded from d.<aux>) rides the same VJP into the
-            # router-logit gradients.
+            # router-logit gradients. A one-output fn may declare its VJP
+            # (``fn.vjp(*ins, gy, *ws)``, one grad an input and a weight),
+            # e.g. one whose GEMMs go through the matmul kernel, which
+            # torch.autograd cannot differentiate
             gys = [finalize(v) for v in n.outputs]
             if all(q is None for q in gys):
                 continue
@@ -947,9 +967,14 @@ def build_training_graph(g: Graph, norm: str = "rmsnorm") -> TrainingGraph:
             mask = tuple(q is not None for q in gys)
             outs = (tuple(f"d.{v}@{an}" for v in n.inputs)
                     + tuple(f"{_DW_PREFIX}{an}.{w}" for w in n.weights))
-            nodes.append(Node(
-                an, "custom", n.inputs + have, n.weights, outputs=outs,
-                fn=_fn_vjp(n.fn, len(n.inputs), len(n.weights), mask)))
+            vjp = getattr(n.fn, "vjp", None)
+            if vjp is None:
+                vjp = _fn_vjp(n.fn, len(n.inputs), len(n.weights), mask)
+            elif len(n.outputs) != 1:
+                raise GraphError(f"node {n.name!r}: a declared vjp needs a "
+                                 f"one-output fn")
+            nodes.append(Node(an, "custom", n.inputs + have, n.weights,
+                              outputs=outs, fn=vjp))
             for v in n.inputs:
                 take(v, f"d.{v}@{an}")
             for w in n.weights:
@@ -964,6 +989,29 @@ def build_training_graph(g: Graph, norm: str = "rmsnorm") -> TrainingGraph:
             nodes.append(Node(an, "bwd_a2a_ffn", (sn, gy), n.weights,
                               outputs=(dsend,) + dw_names, fn=n.fn))
             take(sn, dsend)
+            for w, dwn in zip(n.weights, dw_names):
+                add_dw(w, dwn)
+        elif n.op == "expert_ar":
+            # y = psum(this rank's experts on the routed rows) is
+            # replicated, so its cotangent is taken as it is; the fn's
+            # declared VJP gives this rank's partial d(xn) and d(combine)
+            # and its experts' weight grads, and the two input cotangents
+            # are all-reduced (Megatron's f/g pair, whose GEMM instance is
+            # gemm_col's grad all-reduce through wᵀ). So the route node
+            # upstream gets complete cotangents. The dispatch mask carries
+            # none.
+            gy = finalize(n.name)
+            if gy is None:
+                continue
+            xin, mask_v, comb = n.inputs
+            part = (f"dpart.{xin}@{an}", f"dmask.{mask_v}@{an}",
+                    f"dpart.{comb}@{an}")
+            dw_names = tuple(f"{_DW_PREFIX}{an}.{w}" for w in n.weights)
+            nodes.append(Node(an, "custom", n.inputs + (gy,), n.weights,
+                              outputs=part + dw_names, fn=n.fn.vjp))
+            for v, pv in ((xin, part[0]), (comb, part[2])):
+                nodes.append(Node(f"d.{v}@{an}", "allreduce", (pv,)))
+                take(v, f"d.{v}@{an}")
             for w, dwn in zip(n.weights, dw_names):
                 add_dw(w, dwn)
         elif n.op in ("ag_gemm", "ag_gemm_multi"):

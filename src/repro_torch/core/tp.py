@@ -20,10 +20,14 @@ which pass 1 fuses to ``gemm_ar``.
 
 Serving over the ring (:func:`sp_serve_period`) runs a period of a mixed
 prefill/decode step as one graph in that layout, the paged KV pools and
-block tables riding through each attention core node. An MoE block there
+block tables riding through each attention core node. An MoE block in that
+layout, served or trained at a sequence that does not split over the ring,
 is the counterpart of JAX's per-block GSPMD fallback: every rank routes the
-whole step alike, runs the experts it holds on the matmul kernel, and one
-``allreduce`` node sums the ranks' partial outputs (:func:`serve_experts`).
+whole step alike (a ``route`` node), runs the experts it holds on the
+matmul kernel, and the ``expert_ar`` node's all-reduce sums the ranks'
+partial outputs (:func:`_moe_replicated_nodes`); its adjoint all-reduces
+the partial cotangents of the routed activation and the combine weights,
+so every rank's router and aux gradients are complete.
 
 The backward of a period is graph-built, as ``repro``'s ``jax.custom_vjp``
 under ``TPConfig(graph_backward=True)``: :class:`_PeriodFunction` saves only
@@ -34,7 +38,8 @@ reduce-scatter may pair with another chain's forward gather), executes it
 on this rank, sums each weight's per-use grads and all-reduces those that
 are partial over the ring (:func:`grad_groups`: in the replicated
 layout every rank sees the whole batch and sequence, so only replicated
-wk/wv, read a few heads a rank, are).
+wk/wv, read a few heads a rank, and on a 2D mesh the grouped experts over
+tp_in, are).
 
 Under ``planner="perfsim"`` the perfsim schedule planner
 (:mod:`repro_torch.plan`) decides the microbatch split and the pass-3
@@ -678,8 +683,8 @@ def _block_graph_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
                                         seq_sharded=seq_sharded)
         return nodes, out, None, weights
     if not seq_sharded:
-        raise ValueError("MoE blocks run only on the sequence-sharded "
-                         "period path")
+        nodes, out, aux = _moe_replicated_block_nodes(core, cfg, tpc, p, src)
+        return nodes, out, aux, weights
     if cfg.moe.num_experts % tpc.route_ring:
         raise ValueError("the period graph's MoE path requires "
                          "E % route_ring == 0 (see tp_applicable)")
@@ -726,10 +731,14 @@ def grad_groups(placements, group: TPGroup,
     grouped experts, split over tp_out only, sum over tp_in
     (``group.tp_in``); a weight split over the whole group sums over
     nothing. In the replicated layout every rank sees the whole batch and
-    sequence, so a norm scale's grad is complete; replicated wk/wv still
-    are partial, since a rank's attention reads only the kv heads its q
-    heads use (JAX's replicated-layout backward sums none of them, which
-    undercounts wk/wv there: ROADMAP C)."""
+    sequence, so a norm scale's grad is complete, and so are an MoE's
+    router and dense-residual MLP grads: the ``expert_ar`` adjoint
+    all-reduces the cotangents that reach them, and the aux loss is each
+    rank's whole one. Replicated wk/wv still are partial, since a rank's
+    attention reads only the kv heads its q heads use (JAX's
+    replicated-layout backward sums none of them, which undercounts wk/wv
+    there: ROADMAP C), and so, on a 2D mesh, are the grouped experts, of
+    which each tp_in rank computes a part."""
     out: Dict[str, TPGroup] = {}
     for k, place in placements.items():
         leaf = k.split(".", 1)[1]
@@ -886,7 +895,7 @@ def _plan_period(tpc: TPContext, base: df.Graph, x,
                  requested: Union[int, str, None], moe: bool,
                  view: Optional[_PlanView] = None, seq_sharded: bool = True):
     """The (num_microbatches, pass-3 planner, perfsim Plan) decision for one
-    period graph under ``tpc.planner``.
+    period graph: greedy where ``view`` is None, else perfsim.
 
     ``"greedy"`` keeps the α-β split (:func:`resolve_microbatches`) and the
     nearest-first pairing (planner and plan None). ``"perfsim"`` hands the
@@ -895,7 +904,7 @@ def _plan_period(tpc: TPContext, base: df.Graph, x,
     batch under ``"auto"`` (1 for MoE), an explicit request fixed, scored by
     simulated makespan together with pass-3 pairings and chunk counts,
     through the process-wide plan cache and its memo."""
-    if tpc.planner != "perfsim":
+    if view is None:
         return (resolve_microbatches(tpc, x, requested, moe, seq_sharded),
                 None, None)
     from repro_torch import plan as plan_mod
@@ -977,6 +986,7 @@ class Period:
     plan: Optional[object] = None   # the forward's perfsim Plan, or None
     bwd_planner: Optional[Callable] = None  # TrainingGraph -> planner
     n_aux: int = 0          # aux outputs a chain (one an MoE block)
+    seq_sharded: bool = True  # False: the replicated activation layout
     _trained: Optional[tuple] = field(default=None, init=False, repr=False,
                                       compare=False)
 
@@ -1093,11 +1103,18 @@ def _make_period(tpc: TPContext, x: torch.Tensor, base: df.Graph,
     ``weights`` (each key's placement in ``placements``): split into the
     planned microbatches, optimized by the planned pass 3, its weights' grad
     groups. ``role`` names the graph in the planner's memo key (the block
-    kinds of a period, ``"sub.*"`` for a one-sub-layer graph)."""
+    kinds of a period, ``"sub.*"`` for a one-sub-layer graph). An MoE graph
+    of the replicated layout routes the whole batch as one device does: it
+    is never split, and it is planned greedily under either planner, with
+    no plan lookup (JAX plans none: its MoE there runs under GSPMD, and the
+    layout has no pair to plan)."""
+    n_aux = len(base.outputs) - 1
+    if n_aux and not o.seq_sharded:
+        o = dataclasses.replace(o, num_microbatches=1)
     view = (_plan_view(tpc, weights, placements, role, x, o.seq_sharded,
                        hints)
-            if tpc.planner == "perfsim" else None)
-    n_aux = len(base.outputs) - 1
+            if tpc.planner == "perfsim" and not (n_aux and not o.seq_sharded)
+            else None)
     mb, planner, plan = _plan_period(tpc, base, x, o.num_microbatches,
                                      moe=n_aux > 0, view=view,
                                      seq_sharded=o.seq_sharded)
@@ -1107,7 +1124,7 @@ def _make_period(tpc: TPContext, x: torch.Tensor, base: df.Graph,
     return Period(tpc, merged, df.optimize(merged, planner=planner),
                   list(weights),
                   grad_groups(placements, tpc.group, o.seq_sharded),
-                  mb, o.norm_kind, plan, bwd, n_aux)
+                  mb, o.norm_kind, plan, bwd, n_aux, o.seq_sharded)
 
 
 def build_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
@@ -1178,7 +1195,10 @@ def _run_period(period: Period, x: torch.Tensor, ws: tuple):
             "yet (ROADMAP A15); use the graph-built backward")
     else:
         out, aux = _PeriodFunction.apply(period, x, *ws)
-    return out, (ring_mean(aux, tpc.group) if period.n_aux else aux)
+    # a sequence shard's aux is its own; in the replicated layout every
+    # rank's is the whole batch's already
+    mean = period.n_aux and period.seq_sharded
+    return out, (ring_mean(aux, tpc.group) if mean else aux)
 
 
 def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
@@ -1193,13 +1213,15 @@ def sp_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     shared weights; the outputs are concatenated back. Under
     ``planner="perfsim"`` the split and pass 3 come from the plan
     (:func:`build_period`). x: (B, S/tp, d) sequence-sharded, or with
-    ``seq_sharded=False`` (the decode/ragged layout, dense blocks only)
-    (B, S, d) whole on every rank, the sequence positions ``arange(S)``.
-    Returns (period output, shaped as x, aux loss): the aux loss is the
-    mean over the ring of each rank's (its shard's MoE statistics; the
-    same value on every rank), 0 for dense periods. ``"auto"`` never splits
-    an MoE period; an explicit split routes each chain with its own
-    capacity and reports the mean of the chains' aux, as JAX's does.
+    ``seq_sharded=False`` (the decode/ragged layout) (B, S, d) whole on
+    every rank, the sequence positions ``arange(S)``. Returns (period
+    output, shaped as x, aux loss): the aux loss is the mean over the ring
+    of each rank's (its shard's MoE statistics; the same value on every
+    rank), in the replicated layout every rank's own (the whole batch's),
+    0 for dense periods. ``"auto"`` never splits an MoE period; an explicit
+    split of a sequence-sharded one routes each chain with its own capacity
+    and reports the mean of the chains' aux, as JAX's does; one of the
+    replicated layout is never split.
 
     Where autograd records (x or a weight requires grad), the period runs
     as :class:`_PeriodFunction`, whose backward is graph-built
@@ -1310,22 +1332,30 @@ def sp_attention(tpc: TPContext, x: torch.Tensor, norm_scale, wq, wk, wv,
 
 
 def build_moe_sublayer(tpc: TPContext, x: torch.Tensor, norm_scale, params,
-                       cfg, norm_kind: str = "rmsnorm"):
+                       cfg, norm_kind: str = "rmsnorm",
+                       seq_sharded: bool = True):
     """The one-sub-layer :class:`Period` :func:`sp_moe_ffn` runs for ``x``
     and its weights dict: never split into microbatches (each chain would
     route with its own capacity, which JAX's ``sp_moe_ffn`` does not)."""
-    E, ring = cfg.moe.num_experts, tpc.route_ring
-    if not (E % ring == 0 or ring % E == 0):
-        raise ValueError(f"{E} experts do not map onto a ring of {ring}")
-    route_fn, expert_fn, unroute_fn = _moe_graph_fns(cfg, ring,
-                                                     tpc.route_group.rank)
     p = "b0."
     dense = params.dense is not None
-    e_keys = (p + "w_up", p + "w_gate", p + "w_down")
-    d_keys = (p + "d_up", p + "d_gate", p + "d_down") if dense else ()
-    base = moe_sublayer_graph(route_fn, expert_fn, unroute_fn, e_keys,
-                              _dense_residual_fn(cfg.act) if dense else None,
-                              d_keys, p=p)
+    if seq_sharded:
+        E, ring = cfg.moe.num_experts, tpc.route_ring
+        if not (E % ring == 0 or ring % E == 0):
+            raise ValueError(f"{E} experts do not map onto a ring of {ring}")
+        route_fn, expert_fn, unroute_fn = _moe_graph_fns(
+            cfg, ring, tpc.route_group.rank)
+        e_keys = (p + "w_up", p + "w_gate", p + "w_down")
+        d_keys = (p + "d_up", p + "d_gate", p + "d_down") if dense else ()
+        base = moe_sublayer_graph(
+            route_fn, expert_fn, unroute_fn, e_keys,
+            _dense_residual_fn(cfg.act) if dense else None, d_keys, p=p)
+    else:
+        ffn, top, aux = _moe_replicated_nodes(cfg, tpc, p, f"{p}ln2")
+        base = df.Graph([df.Node("x", "input"),
+                         df.Node(f"{p}ln2", "layernorm", ("x",),
+                                 (f"{p}scale2",))] + ffn,
+                        outputs=(top, aux))
     dt = x.dtype
     weights = {p + "scale2": norm_scale, p + "router": params.router,
                p + "w_up": params.w_up.to(dt),
@@ -1338,12 +1368,14 @@ def build_moe_sublayer(tpc: TPContext, x: torch.Tensor, norm_scale, params,
     period = _make_period(tpc, x, base, weights,
                           _placements(weights, cfg, tpc.group), {},
                           ("sub.moe",),
-                          SPOptions(norm_kind=norm_kind, num_microbatches=1))
+                          SPOptions(norm_kind=norm_kind, num_microbatches=1,
+                                    seq_sharded=seq_sharded))
     return period, weights
 
 
 def sp_moe_ffn(tpc: TPContext, x: torch.Tensor, norm_scale: torch.Tensor,
-               params, cfg, norm_kind: str = "rmsnorm"):
+               params, cfg, norm_kind: str = "rmsnorm",
+               seq_sharded: bool = True):
     """The MoE FFN sub-layer with the backend's expert all-to-all, as a
     one-sub-layer period (:func:`moe_sublayer_graph`; differentiable by its
     graph-built backward): each rank routes its sequence shard's tokens to
@@ -1353,10 +1385,13 @@ def sp_moe_ffn(tpc: TPContext, x: torch.Tensor, norm_scale: torch.Tensor,
     E < ring (ring % E == 0; expert e on rank e·(ring/E), the others
     computing on zero-capacity padding); on a 2D mesh the ring is tp_out
     (grouped EP). x: (B, S/tp, d) sequence-sharded. Returns (FFN(LN(x)),
-    the aux loss's mean over the TP group); the residual is the
-    caller's."""
+    the aux loss's mean over the TP group); the residual is the caller's.
+    With ``seq_sharded=False`` (x (B, S, d) whole on every rank) the MoE of
+    the replicated layout (:func:`_moe_replicated_nodes`: the whole batch
+    routed alike on every rank, this rank's experts, one all-reduce where
+    they split), and the aux loss every rank's own, the whole batch's."""
     period, weights = build_moe_sublayer(tpc, x, norm_scale, params, cfg,
-                                         norm_kind)
+                                         norm_kind, seq_sharded)
     return _run_period(period, x, tuple(weights.values()))
 
 
@@ -1489,7 +1524,8 @@ def _serve_attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0
 
 
 def serve_experts(cfg, tpc: TPContext):
-    """(first, end, stored) of an MoE serve period on this rank: the global
+    """(first, end, stored) of an MoE in the replicated activation layout
+    (a serve step, a ragged training step) on this rank: the global
     indices [first, end) of the experts it computes, and ``stored``, the
     global index of its first stored expert (its expert weights' index
     0). Where the route ring splits the experts (E % route_ring == 0) a rank
@@ -1512,44 +1548,144 @@ def serve_experts(cfg, tpc: TPContext):
     return stored + i * e_loc // n, stored + (i + 1) * e_loc // n, stored
 
 
-def _moe_serve_fn(cfg, tpc: TPContext) -> Callable:
-    """The MoE FFN of a serve period as a ``custom`` node fn of the normed
-    activation (B, S, d), whole and bitwise equal on every rank, and this
-    rank's expert weights: the routing of
-    :func:`repro_torch.models.ffn.route_tokens` on every rank alike (one
-    device's groups and capacities, padding rows included: a serving step's
-    output depends on its batch, ``docs/serving.md``), the dispatch to the
-    (G, C) buffers of the experts this rank computes
-    (:func:`serve_experts`), each one's gated FFN on its G·C rows through
-    :func:`repro_torch.core.primitives.mm` (``matmul_calls``: three an
-    expert), and the combine over them: this rank's partial sum of the FFN
-    output, all of it where the experts replicate."""
+def _moe_replicated_fns(cfg, tpc: TPContext):
+    """(route_fn, experts) of an MoE FFN in the replicated activation layout,
+    the node fns of :func:`_moe_replicated_nodes`.
+
+    ``route_fn(xn, router)`` routes the whole normed (B, S, d) activation,
+    bitwise equal on every rank, alike on every rank: one device's groups
+    and capacities, padding rows included
+    (:func:`repro_torch.models.ffn.route_tokens`), giving (dispatch,
+    combine, aux). ``experts(xn, dispatch, combine, wu, wg, wd)``
+    dispatches the tokens to the (G, C) buffers of the experts this rank
+    computes (:func:`serve_experts`), runs each one's gated FFN on its G·C
+    rows through :func:`repro_torch.core.primitives.mm` (three calls an
+    expert: ``matmul_calls``) and combines them: this rank's partial sum of
+    the FFN output, all of it where the experts replicate. ``experts.vjp``
+    is its declared VJP, ``(xn, dispatch, combine, gy, wu, wg, wd) ->
+    (d xn, zeros for the mask, d combine, d wu, d wg, d wd)``: this rank's
+    partial input cotangents and its experts' weight grads (zero for a
+    stored expert another tp_in rank computes), nine calls an expert on the
+    kernel: the forward's three again (d combine reads the expert outputs),
+    dh = dy·w_downᵀ and the row grads du·w_upᵀ, dg·w_gateᵀ (``nt``), the
+    weight grads hᵀ·dy, xᵀ·du, xᵀ·dg (``tn``)."""
     from repro_torch.models.ffn import route_tokens
     from repro_torch.models.layers import activation
 
     first, end, stored = serve_experts(cfg, tpc)
+    n = end - first
+    local = range(first - stored, end - stored)
     act = cfg.act
 
-    def moe(xn, router, wu, wg, wd):
-        B, S, d = xn.shape
-        xt, dispatch, combine, _ = route_tokens(xn, router, cfg)
-        if first == end:        # a tp_in rank with no expert of its own
-            return xn.new_zeros(xn.shape)
-        dt = xn.dtype
+    def route_fn(xn, router):
+        _, dispatch, combine, aux = route_tokens(xn, router, cfg)
+        return dispatch, combine, aux.float()[None]
+
+    def rows_of(xn, dispatch):
+        """(n, G·C, d): each computed expert's buffer rows."""
+        G, g = dispatch.shape[:2]
+        d = xn.shape[-1]
         einp = torch.einsum("gsec,gsd->egcd",
-                            dispatch[:, :, first:end].to(dt), xt)
-        G, C = einp.shape[1], einp.shape[2]
-        rows = einp.reshape(end - first, G * C, d)
+                            dispatch[:, :, first:end].to(xn.dtype),
+                            xn.reshape(G, g, d))
+        return einp.contiguous().reshape(n, -1, d)
+
+    def experts(xn, dispatch, combine, wu, wg, wd):
+        if n == 0:              # a tp_in rank with no expert of its own
+            return xn.new_zeros(xn.shape)
+        G, C = dispatch.shape[0], dispatch.shape[-1]
         eout = torch.stack([
             prim.mm(activation(act, prim.mm(r, wg[j])) * prim.mm(r, wu[j]),
                     wd[j])
-            for r, j in zip(rows, range(first - stored, end - stored))])
-        y = torch.einsum("gsec,egcd->gsd", combine[:, :, first:end].to(dt),
-                         eout.reshape(end - first, G, C, d))
-        return y.reshape(B, S, d)
+            for r, j in zip(rows_of(xn, dispatch), local)])
+        y = torch.einsum("gsec,egcd->gsd",
+                         combine[:, :, first:end].to(xn.dtype),
+                         eout.reshape(n, G, C, xn.shape[-1]))
+        return y.reshape(xn.shape)
 
-    moe.matmul_calls = 3 * (end - first)
-    return moe
+    def experts_vjp(xn, dispatch, combine, gy, wu, wg, wd):
+        # the weight grads are written in place, an expert at a time (at
+        # full width one expert's three are 0.7 GB in f32)
+        dws = tuple(torch.zeros_like(w) for w in (wu, wg, wd))
+        dmask, dcomb = torch.zeros_like(dispatch), torch.zeros_like(combine)
+        if n == 0:
+            return (torch.zeros_like(xn), dmask, dcomb) + dws
+        G, g, _, C = dispatch.shape
+        d = xn.shape[-1]
+        rows = rows_of(xn, dispatch)
+        gyt = gy.reshape(G, g, d)
+        # the rows' output cotangents: the combine's adjoint
+        dout = torch.einsum("gsec,gsd->egcd",
+                            combine[:, :, first:end].to(xn.dtype),
+                            gyt).contiguous().reshape(n, G * C, d)
+        eout, drows = torch.empty_like(rows), torch.empty_like(rows)
+        for i, j in enumerate(local):
+            r, dy = rows[i], dout[i]
+            u, gt = prim.mm(r, wu[j]), prim.mm(r, wg[j])
+            dh = prim.mm(dy, wd[j].T)
+            a, dgt = _act_vjp(act, gt, dh * u)
+            h = a * u
+            eout[i] = prim.mm(h, wd[j])
+            du = dh * a
+            dws[2][j] = prim.mm(h.T, dy)
+            dws[0][j] = prim.mm(r.T, du)
+            dws[1][j] = prim.mm(r.T, dgt)
+            drows[i] = prim.mm(du, wu[j].T) + prim.mm(dgt, wg[j].T)
+        dcomb[:, :, first:end] = torch.einsum(
+            "gsd,egcd->gsec", gyt, eout.reshape(n, G, C, d)).to(dcomb.dtype)
+        dxn = torch.einsum("gsec,egcd->gsd",
+                           dispatch[:, :, first:end].to(xn.dtype),
+                           drows.reshape(n, G, C, d))
+        return (dxn.reshape(xn.shape), dmask, dcomb) + dws
+
+    experts.vjp = experts_vjp
+    experts.matmul_calls = 3 * n
+    experts_vjp.matmul_calls = 9 * n
+    return route_fn, experts
+
+
+def _moe_replicated_nodes(cfg, tpc: TPContext, p: str, src: str):
+    """The MoE FFN of the replicated activation layout on the normed value
+    ``src`` (whole and bitwise equal on every rank): GSPMD's per-block MoE
+    of JAX (a serve step; a training step at a sequence that does not
+    split over the ring) as explicit ops. A ``route`` node, run alike on
+    every rank over the whole step, then this rank's experts: an
+    ``expert_ar`` node, whose all-reduce sums the ranks' partial outputs,
+    where the experts split (a ``custom`` node with no reduction where they
+    replicate; :func:`_moe_replicated_fns`), then the dense-residual MLP
+    where the arch has one (replicated, so added once, after the sum).
+    Returns (nodes, out_value, aux_value)."""
+    route_fn, experts = _moe_replicated_fns(cfg, tpc)
+    split = cfg.moe.num_experts % tpc.route_ring == 0
+    nodes = [
+        df.Node(f"{p}moe_route", "route", (src,), (f"{p}router",),
+                outputs=(f"{p}dispatch", f"{p}combine", f"{p}aux"),
+                fn=route_fn),
+        df.Node(f"{p}moe", "expert_ar" if split else "custom",
+                (src, f"{p}dispatch", f"{p}combine"),
+                (p + "w_up", p + "w_gate", p + "w_down"), fn=experts)]
+    top = f"{p}moe"
+    if cfg.moe.dense_residual_d_ff:
+        nodes += [df.Node(f"{p}dmlp", "custom", (src,),
+                          (p + "d_up", p + "d_gate", p + "d_down"),
+                          fn=_dense_residual_fn(cfg.act)),
+                  df.Node(f"{p}ymoe", "add", (top, f"{p}dmlp"))]
+        top = f"{p}ymoe"
+    return nodes, top, f"{p}aux"
+
+
+def _moe_replicated_block_nodes(core_fn: Callable, cfg, tpc: TPContext,
+                                p: str, src: str):
+    """A whole MoE block in the replicated activation layout: the attention
+    of :func:`_attention_block_nodes` (no gather; the out-projection's
+    allreduce, which pass 1 fuses to ``gemm_ar``), ln2, the MoE FFN of
+    :func:`_moe_replicated_nodes`, the residual. Returns (nodes, out_value,
+    aux_value)."""
+    ffn, top, aux = _moe_replicated_nodes(cfg, tpc, p, f"{p}ln2")
+    nodes = _attention_block_nodes(core_fn, p, src, seq_sharded=False) + [
+        df.Node(f"{p}ln2", "layernorm", (f"{p}r1",), (f"{p}scale2",))
+    ] + ffn + [df.Node(f"{p}r2", "residual", (top, f"{p}r1"))]
+    return nodes, f"{p}r2", aux
 
 
 def _serve_block_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
@@ -1560,12 +1696,9 @@ def _serve_block_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
     ``qpos``, ``ctx``, ``b{idx}.kp``, ``b{idx}.vp`` and giving
     ``b{idx}.kpn``/``b{idx}.vpn``; the out-projection ends in an allreduce,
     which pass 1 fuses to ``gemm_ar``. A dense block's FFN is the
-    replicated-layout chain of :func:`_dense_block_nodes`. An MoE block's is
-    ln2 → the :func:`_moe_serve_fn` node (this rank's experts' partial
-    output) → ONE ``allreduce`` where the experts split (none where they
-    replicate) → [+ the dense-residual MLP, replicated, so added once after
-    the sum] → the residual: GSPMD's per-block MoE of JAX's ``_blocks_step``
-    as explicit ops. Returns (nodes, out_value, weights)."""
+    replicated-layout chain of :func:`_dense_block_nodes`; an MoE block is
+    :func:`_moe_replicated_block_nodes` (its aux is not a graph output).
+    Returns (nodes, out_value, weights)."""
     p = f"b{idx}."
     window = cfg.window if kind == "swa" else 0
     core = _serve_attention_core_fn(cfg, tpc.tp, window=window,
@@ -1574,24 +1707,7 @@ def _serve_block_fragment(tpc: TPContext, params, cfg, kind: str, idx: int,
         nodes, out = _dense_block_nodes(core, True, cfg.act, p=p, src=src,
                                         seq_sharded=False)
     else:
-        nodes = _attention_block_nodes(core, p, src, seq_sharded=False) + [
-            df.Node(f"{p}ln2", "layernorm", (f"{p}r1",), (f"{p}scale2",)),
-            df.Node(f"{p}moe", "custom", (f"{p}ln2",),
-                    tuple(p + k for k in ("router", "w_up", "w_gate",
-                                          "w_down")),
-                    fn=_moe_serve_fn(cfg, tpc))]
-        top = f"{p}moe"
-        if cfg.moe.num_experts % tpc.route_ring == 0:
-            nodes.append(df.Node(f"{p}moe_ar", "allreduce", (top,)))
-            top = f"{p}moe_ar"
-        if cfg.moe.dense_residual_d_ff:
-            nodes += [df.Node(f"{p}dmlp", "custom", (f"{p}ln2",),
-                              (p + "d_up", p + "d_gate", p + "d_down"),
-                              fn=_dense_residual_fn(cfg.act)),
-                      df.Node(f"{p}ymoe", "add", (top, f"{p}dmlp"))]
-            top = f"{p}ymoe"
-        out = f"{p}r2"
-        nodes.append(df.Node(out, "residual", (top, f"{p}r1")))
+        nodes, out, _ = _moe_replicated_block_nodes(core, cfg, tpc, p, src)
     serve = df.Node(f"{p}o", "custom",
                     (f"{p}q", f"{p}k", f"{p}v", "bt", "qpos", "ctx",
                      f"{p}kp", f"{p}vp"),
@@ -1675,7 +1791,7 @@ def sp_serve_period(tpc: TPContext, x: torch.Tensor, params_seq, cfg,
     (:func:`serve_planner`); the layout has no gemm_rs/ag_gemm pair, so the
     plan pairs nothing. An MoE period routes the whole step on every rank,
     runs the rank's experts and all-reduces their partial sum
-    (:func:`_serve_block_fragment`); it takes no planner.
+    (:func:`_moe_replicated_nodes`); it takes no planner.
 
     x: (B, S_step, d) whole on every rank. Returns (period output, the
     pools list)."""
@@ -1723,7 +1839,9 @@ def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
     period ``graph``, a forward, training or serve graph (its backward
     ops, the ``_dw``/``_gemm_t`` customs and ``gemm_rs`` over derived
     weights included; an expert all-to-all runs its expert fn, or the fn's
-    VJP, on each of the route ring's rows), derived from its nodes alone:
+    VJP, on each of the route ring's rows; an ``expert_ar`` node, and the
+    ``custom`` node of its VJP or of replicated experts, the calls its fn
+    declares), derived from its nodes alone:
     ``batch`` is each chain's batch, ``seq`` the full sequence, so every
     gathered or replicated activation is (batch, seq, d_model) of
     ``itemsize`` bytes. ``barrier`` issues one GEMM per weight; ``cais``
@@ -1772,7 +1890,8 @@ def matmul_calls(graph: df.Graph, tpc: TPContext, batch: int, seq: int,
             calls += 1      # bwd_ag_gemm: one GEMM over the gathered grad
         elif node.op == "custom" and node.fn in (df._dw, df._gemm_t):
             calls += 1      # a weight gradient, or a dx through wᵀ
-        elif node.op == "custom":   # a serve MoE's experts (_moe_serve_fn)
+        elif node.op in ("custom", "expert_ar"):
+            # the experts of the replicated layout's MoE, or their VJP
             calls += getattr(node.fn, "matmul_calls", 0)
         elif node.op in ("ag_gemm", "ag_gemm_multi"):
             calls += ag(k)
@@ -1831,13 +1950,15 @@ def serve_launches(rec: StepRecord) -> dict:
     """The kernel calls and all-reduce nodes one rank's serve periods
     recorded in ``rec`` executed: matmul by :func:`matmul_calls` of each
     optimized serve graph at its step's (batch, S), flash by
-    :func:`flash_calls` (one a layer a step), and the ``allreduce`` nodes
-    (one an MoE layer a step where the experts split)."""
+    :func:`flash_calls` (one a layer a step), and the nodes that all-reduce
+    as they stand (``allreduce`` and ``expert_ar``: one an MoE layer a step
+    where the experts split)."""
     out = dict(matmul=0, flash=0, allreduce=0)
     for tpc, graph, (B, S, d), itemsize in rec.serve:
         out["matmul"] += matmul_calls(graph, tpc, B, S, d, itemsize)
         out["flash"] += flash_calls(graph)
-        out["allreduce"] += sum(n.op == "allreduce" for n in graph.nodes)
+        out["allreduce"] += sum(n.op in ("allreduce", "expert_ar")
+                                for n in graph.nodes)
     return out
 
 

@@ -6,11 +6,13 @@ MoE follows the GShard/Mesh-TF formulation: tokens are reshaped into
 capacity-bounded dispatch tensor. On one device the dispatch, expert and
 combine einsums are torch ops, as JAX's are plain ``jnp`` (no Pallas kernel
 computes them); on a TP ring the experts are sharded by whole expert and, in
-training, the expert path runs through the period graph's ``route`` →
-``a2a_ffn`` → ``unroute`` nodes (:mod:`repro_torch.core.tp`); in serving,
-every rank routes the whole step alike (:func:`route_tokens`), runs its own
-experts and one all-reduce sums them. Either way the expert GEMMs go through
-the matmul kernel.
+training on a sequence shard, the expert path runs through the period
+graph's ``route`` → ``a2a_ffn`` → ``unroute`` nodes
+(:mod:`repro_torch.core.tp`); in serving, and in training at a sequence
+that does not split over the ring, every rank routes the whole step alike
+(:func:`route_tokens`), runs its own experts and one all-reduce sums them
+(the ``expert_ar`` node). Either way the expert GEMMs go through the matmul
+kernel.
 
 Routing is discrete: the top-2 choice and the capacity slots come from
 argmax and cumsum, so the router logits are computed in f32 (the router
@@ -185,6 +187,34 @@ def router_probs(t: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
     return torch.softmax(t.float() @ router, dim=-1)
 
 
+def group_size(tokens: int, cfg: ArchConfig) -> int:
+    """The routing group of a step or batch of ``tokens``: ``group_size``,
+    halved until it divides ``tokens`` (JAX's ``moe_forward``)."""
+    g = min(cfg.moe.group_size, tokens)
+    while tokens % g:   # shrink until it divides (small/odd batches)
+        g //= 2
+    return g
+
+
+def check_replica_routing(cfg: ArchConfig, tokens: int, dp: int) -> None:
+    """Raise, before any collective, where a data replica that routes its
+    ``tokens`` rows of a global batch of ``dp`` such replicas in one piece
+    (the replicated activation layout) would not route them as JAX's
+    ``moe_forward`` routes the global batch under GSPMD: where the global
+    batch's :func:`group_size` is not the replica's own, its groups
+    straddle the replicas (each replica's capacity slots would depend on
+    the other's tokens) or differ in size and capacity."""
+    if cfg.moe is None or dp == 1:
+        return
+    g, own = group_size(dp * tokens, cfg), group_size(tokens, cfg)
+    if g != own:
+        raise NotImplementedError(
+            f"{cfg.name}: the global batch routes in groups of {g} tokens, "
+            f"the {dp} data replicas' {tokens} tokens each in groups of "
+            f"{own}; routing the replicas' rows in the global groups is not "
+            "ported (ROADMAP A11 (b))")
+
+
 def route_tokens(x: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
     """The routing of a (B, S, d) step or batch, as JAX's ``moe_forward``
     routes it: tokens in groups of ``group_size`` over the batch-major
@@ -192,13 +222,12 @@ def route_tokens(x: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
     batches; padding tokens route with the rest), the capacity from the
     group, the f32 router and :func:`_top2_dispatch`. Returns (xt (G, g, d),
     dispatch (G, g, E, C), combine (G, g, E, C), aux). One device's
-    :func:`moe_forward` and the TP ring's serve graph
-    (:func:`repro_torch.core.tp._moe_serve_fn`, on every rank alike) route
-    through it, so both route exactly the same groups."""
+    :func:`moe_forward` and the TP ring's graphs of the replicated layout
+    (:func:`repro_torch.core.tp._moe_replicated_fns`, on every rank alike:
+    serving, and training at a sequence that does not split over the ring)
+    route through it, so both route exactly the same groups."""
     B, S, d = x.shape
-    g = min(cfg.moe.group_size, B * S)
-    while (B * S) % g:  # shrink until it divides (small/odd batches)
-        g //= 2
+    g = group_size(B * S, cfg)
     xt = x.reshape((B * S) // g, g, d)
     probs = router_probs(xt, router)
     return (xt,) + _top2_dispatch(probs, capacity(g, cfg))

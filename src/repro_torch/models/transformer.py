@@ -22,7 +22,9 @@ do not split over the ring; an MoE whose experts do not split) runs
 sub-layer by sub-layer (:func:`block_routes`), each mixer that is not
 TP-applicable whole on every rank and run replicated. Where the
 sequence does not split over the ring (S % tp != 0) the activation is whole
-on every rank and dense blocks run in the replicated-activation graphs; with
+on every rank and blocks run in the replicated-activation graphs, an MoE's
+routed over the whole batch alike on every rank, each rank's experts
+summed by one all-reduce (its aux every rank's own, the whole batch's); with
 ``sequence_parallel=False`` it is whole between periods, each period taking
 its rows and gathering its output (:data:`LAYOUTS`). Paged serving
 (``serve_step``) on a ring keeps the activation whole on every rank and
@@ -41,8 +43,12 @@ that cuts the sequence and the shards, and whose MoE experts are grouped
 its rows of the global batch, the loss is the mean over the global batch
 (the masked CE sum and the token count all-reduced over the TP group and
 ``data``; an MoE's aux loss the mean over both), and
-:meth:`LM.sync_grads` sums every grad over ``data``. Serving with a data
-axis is not ported (JAX's period-graph serve path is dp 1 too).
+:meth:`LM.sync_grads` sums every grad over ``data``. Where an MoE's
+replicas each route their rows in one piece (the replicated layout) the
+global batch's routing groups must be each replica's own, or the step
+raises (:func:`repro_torch.models.ffn.check_replica_routing`). Serving
+with a data axis is not ported (JAX's period-graph serve path is dp 1
+too).
 
 Training: ``forward`` and ``loss`` are differentiable once the parameters
 require grad (``repro_torch.train.step.init_state`` sets that; the model is
@@ -183,14 +189,15 @@ def block_routes(kind: str, cfg: ArchConfig, tpc: tp_mod.TPContext,
     mixer that is not TP-applicable: MLA, SSM, RG-LRU, attention whose
     query heads do not split over the ring; JAX runs them under GSPMD), the
     FFN "sp_moe_ffn", "sp_ffn", "replicated" (an MoE whose experts do not
-    split over the route ring) or "none". MoE at ragged S, which JAX runs
-    replicated under GSPMD, raises (ROADMAP A11 (b))."""
-    if not seq_sharded and cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE at a sequence that does not split over the "
-            f"ring (tp={tpc.tp}) needs an MoE graph in the replicated "
-            "layout, which is not ported yet (ROADMAP A11 (b))")
-    if _whole_block_applicable(cfg, kind, tpc.tp, tpc.route_ring):
+    split over the route ring) or "none". An MoE block at a sequence that
+    does not split (``seq_sharded=False``), which JAX runs replicated under
+    GSPMD, takes the MoE graph of the replicated layout, its experts split
+    or replicated: the whole block where its attention splits, else its FFN
+    as "sp_moe_ffn"."""
+    moe_replicated = not seq_sharded and cfg.moe is not None
+    if _whole_block_applicable(cfg, kind, tpc.tp, tpc.route_ring) or (
+            moe_replicated and kind in ("attn", "swa")
+            and tp_mod.tp_applicable(cfg, kind, tpc.tp)):
         return "block", "block"
     if kind not in ("attn", "swa", "mla", "ssm", "rglru"):
         raise NotImplementedError(f"{kind!r} blocks are not ported yet")
@@ -198,7 +205,8 @@ def block_routes(kind: str, cfg: ArchConfig, tpc: tp_mod.TPContext,
              and tp_mod.tp_applicable(cfg, kind, tpc.tp) else "replicated")
     if not _has_ffn(cfg):
         ffn = "none"
-    elif tp_mod.tp_applicable(cfg, "moe", tpc.tp, tpc.route_ring):
+    elif moe_replicated or tp_mod.tp_applicable(cfg, "moe", tpc.tp,
+                                                tpc.route_ring):
         ffn = "sp_moe_ffn"
     elif tp_mod.tp_applicable(cfg, "ffn", tpc.tp):
         ffn = "sp_ffn"
@@ -234,9 +242,10 @@ def block_forward(kind: str, params: Block, x: torch.Tensor,
     :func:`block_routes`: the whole block as one dataflow graph
     (``sp_block``) where attention and FFN both are TP-applicable, in the
     replicated-activation graph where the sequence does not split
-    (``seq_sharded=False``: x (B, S, d) whole on every rank); otherwise
-    sub-layer by sub-layer, each TP-applicable one as its one-sub-layer
-    graph (``sp_attention``, ``sp_ffn``, ``sp_moe_ffn``) and the others
+    (``seq_sharded=False``: x (B, S, d) whole on every rank; an MoE's
+    experts split or replicated); otherwise sub-layer by sub-layer, each
+    TP-applicable one as its one-sub-layer graph (``sp_attention``,
+    ``sp_ffn``, ``sp_moe_ffn``) and the others
     replicated (:func:`repro_torch.core.tp.sp_replicated_mixer`,
     ``sp_replicated_ffn``)."""
     if tpc is None:
@@ -264,7 +273,8 @@ def block_forward(kind: str, params: Block, x: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "sp_moe_ffn":
         out, aux = tp_mod.sp_moe_ffn(tpc, x, params.norm2.scale.to(dt),
-                                     params.ffn, cfg, norm_kind=cfg.norm)
+                                     params.ffn, cfg, norm_kind=cfg.norm,
+                                     seq_sharded=seq_sharded)
         x = x + out
     elif ffn == "sp_ffn":
         f = params.ffn
@@ -730,13 +740,16 @@ class LM(nn.Module):
         """:meth:`forward` from the embedded (B, S, d) input, whole on every
         rank (its first ``prefix_len`` positions a prefix-LM prefix)."""
         tpc = _tp_context(self.rt, self.group)
-        S = x.shape[1]
+        B, S = x.shape[:2]
+        layout = activation_layout(self.rt, S, self.tp)
         if tpc is not None:
             x = x[:, self._seq_shard(S)].contiguous()
+            if layout == "replicated":
+                ffn_mod.check_replica_routing(self.cfg, B * S, self.dp)
         x, aux = stack_forward(self.blocks, x, self.cfg, tpc,
                                prefix_len=prefix_len,
                                remat=self.rt.remat and tpc is None,
-                               layout=activation_layout(self.rt, S, self.tp))
+                               layout=layout)
         return self.final_norm(x), aux
 
     def split_groups(self) -> Dict[str, TPGroup]:

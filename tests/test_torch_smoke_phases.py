@@ -24,8 +24,11 @@ tokens, so a rank's 16 tokens are the smoke routing group) with every check
 ``train_checks`` makes on the card except the launch counters, the routing
 of every rank equal to one device's, the backend's expert all-to-all
 dispatches equal to the graphs', and every matmul call among those
-``moe_matmul_shapes`` predicts; (a) the scripted serving schedule through
-``serve_step`` with its routing recorded once a layer a step.
+``moe_matmul_shapes`` predicts; in the same spawn its ragged leg (batch 8
+of 6, the replicated layout: every rank routes one device's whole batch,
+an ``expert_ar`` node a layer, every matmul among those
+``ragged_matmul_shapes`` predicts); (a) the scripted serving schedule
+through ``serve_step`` with its routing recorded once a layer a step.
 
 Phase 12: (a) the data 2 x model 2 training step (internlm2-1.8b smoke,
 batch 4 of 32) held to one device as phase 9's runs, and each replica's
@@ -176,25 +179,39 @@ def test_phase10_on_the_cpu(phase10, i):
 
 @pytest.fixture(scope="module")
 def phase11():
+    """Phase 11 (b)'s two legs in one spawn, as on the card: batch 1 of 64
+    (a rank's 16 tokens one routing group), then the ragged leg, batch 8
+    of 6 (S % 4 = 2: the replicated layout, 48 tokens in groups of 16,
+    capacity 10). Returns (cfg, the first leg's ranks and rows, the ragged
+    leg's (ranks, rows))."""
     cfg = get_arch(CS.MOE_ARCH).smoke()
-    batch = CS.train_batch(cfg, 64, 1)
+    legs = [(CS.train_batch(cfg, 64, 1), CS.MOE_RUNS),
+            (CS.train_batch(cfg, 6, 8), CS.MOE_RAGGED_RUNS)]
     with tempfile.TemporaryDirectory() as root:
-        ref, store = CS.train_reference(batch, root, cfg, "cpu",
-                                        quantities=("grad",))
+        refs = []
+        for i, (batch, _) in enumerate(legs):
+            (Path(root) / f"leg{i}").mkdir()
+            refs.append(CS.train_reference(batch, f"{root}/leg{i}", cfg,
+                                           "cpu", quantities=("grad",)))
         with CS.plan_cache_at(Path(root) / "plans"):
             got = run_ranks(CS.train_legs, 4, [
-                (batch, CS.MOE_RUNS, store,
-                 {k: v for k, v in ref.items() if k != "routing"})],
+                (batch, runs, store,
+                 {k: v for k, v in ref.items() if k != "routing"})
+                for (batch, runs), (ref, store) in zip(legs, refs)],
                 cfg, "cpu", device="cpu", timeout=600)
-    ranks = [g[0]["runs"] for g in got]
-    rows, _ = CS.train_checks(cfg, ref, ranks, CS.MOE_RUNS, 16)
-    return cfg, ranks, rows
+    out = []
+    for i, ((batch, runs), (ref, _)) in enumerate(zip(legs, refs)):
+        ranks = [g[i]["runs"] for g in got]
+        B, S = batch["tokens"].shape
+        out.append((ranks, CS.train_checks(cfg, ref, ranks, runs,
+                                           B * S // 4)[0]))
+    return (cfg,) + out[0] + (out[1],)
 
 
 @pytest.mark.parametrize("i", range(len(CS.MOE_RUNS)),
                          ids=["-".join(map(str, r)) for r in CS.MOE_RUNS])
 def test_phase11_training_on_the_cpu(phase11, i):
-    cfg, ranks, rows = phase11
+    cfg, ranks, rows, _ = phase11
     row, run = rows[i], CS.MOE_RUNS[i]
     bad = [k for k, v in row["checks"].items() if not v and not k.startswith(
         LAUNCH_CHECKS + ("transposed layouts", "a2a_ffn"))]
@@ -214,6 +231,35 @@ def test_phase11_training_on_the_cpu(phase11, i):
             <= predicted
         assert [a[0] for a in p["a2a"]] == [a[0] for a in p["a2a_derived"]] \
             == [2 * cfg.num_layers, cfg.num_layers]
+
+
+@pytest.mark.parametrize("i", range(len(CS.MOE_RAGGED_RUNS)),
+                         ids=["-".join(map(str, r))
+                              for r in CS.MOE_RAGGED_RUNS])
+def test_phase11_ragged_training_on_the_cpu(phase11, i):
+    """Phase 11 (b)'s ragged leg: the replicated layout, every rank's
+    routing one device's whole batch, element-wise held, an ``expert_ar``
+    node a layer in the forward and its recompute and no all-to-all, the
+    calls against the graphs and every matmul among those
+    ``ragged_matmul_shapes`` predicts for phase 3."""
+    cfg, _, _, (ranks, rows) = phase11
+    row = rows[i]
+    bad = [k for k, v in row["checks"].items() if not v and not k.startswith(
+        LAUNCH_CHECKS + ("transposed layouts",))]
+    assert not bad
+    assert (row["layout"], row["mb"]) == ("replicated", 1)
+    assert row["elementwise_held"]
+    assert all(d["choice"] == d["slots"] == 0
+               for d in row["routing_differences"])
+    predicted = set(CS.ragged_matmul_shapes(cfg, world=4, batch=8, seq=6))
+    for rk in ranks:
+        p = rk[i]
+        assert sum(c[-1] for c in p["call_shapes"]) == p["matmul_derived"]
+        assert p["flash_derived"] == 3 * cfg.num_layers
+        assert {(M, K, N, lay) for M, K, N, _, lay, _ in p["call_shapes"]} \
+            <= predicted
+        assert p["expert_ar"] == 2 * cfg.num_layers
+        assert p["a2a"] == [[0, 0], [0, 0]]
 
 
 def test_phase11_scripted_serving_on_the_cpu():

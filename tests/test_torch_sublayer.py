@@ -18,12 +18,13 @@ tensor's max):
   minicpm3-4b ``LM.loss`` with every grad against ``jax.value_and_grad``;
 - an MoE with E = 2 experts on 4 ranks (``sp_attention`` + the replicated
   MoE) as a whole ``LM.loss``;
-- ``LM.loss`` and grads at S = 1 and S = 3 (the ragged, replicated layout);
+- ``LM.loss`` and grads at S = 1 and S = 3 (the ragged, replicated layout),
+  and of an MoE at S = 31 on 2 ranks (its replicated-layout MoE graph);
 - ``sequence_parallel=False`` equal to ``True``;
 - every run's kernel calls equal to ``tp.step_launches``, derived from
   the graphs its forward recorded (``tp.recording``);
-- MoE at ragged S raising by name; the launcher's ``--mesh debug`` on
-  minicpm3-4b against ``--mesh none``;
+- MoE at ragged S running (it raised before); the launcher's ``--mesh
+  debug`` on minicpm3-4b against ``--mesh none``;
 - matmul_rmsnorm differentiable where its forward is not (the CUDA kernel
   writes through ctypes): an MLA block's latent-norm grads with a
   non-differentiable stand-in forward, against ``jax.grad``; and
@@ -57,7 +58,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.ranks import run_ranks  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models.transformer import block_forward  # noqa: E402
-from repro_torch.runtime import Runtime, TPConfig  # noqa: E402
+from repro_torch.runtime import Runtime  # noqa: E402
 from repro_torch.sharding import TPGroup  # noqa: E402
 
 ATOL = 1e-5                 # forward, f32
@@ -239,6 +240,9 @@ LM_CASES = {
     "moe_e2": (MOE_ARCH, dict(moe={"num_experts": 2,
                                    "capacity_factor": 8.0}), (1, 64),
                [("barrier", 1, True), ("cais", 1, True)], (4,)),
+    # an MoE at S % tp != 0: the replicated layout's MoE graph (every rank
+    # routes the whole batch, its experts summed by one all-reduce)
+    "moe_ragged": (MOE_ARCH, {}, (1, 31), [("cais", 1, True)], (2,)),
 }
 
 
@@ -448,7 +452,8 @@ def test_lm_loss_and_grads_match_jax(label, n, run):
     blocks sub-layer by sub-layer), internlm2-1.8b at S = 1 and S = 3 (the
     replicated layout: nothing outside the graphs is summed) and with
     ``sequence_parallel`` on and off, an E = 2 MoE on 4 ranks (its experts
-    replicated, their grads summed over the ring). The loss within 1e-5
+    replicated, their grads summed over the ring), mixtral-8x7b at S = 31
+    on 2 ranks (the replicated layout's MoE graph). The loss within 1e-5
     relative, every rank's the same; each rank's kernel calls (matmul,
     flash, matmul_rmsnorm) equal to ``tp.step_launches``."""
     loss, want = jax_lm(label)
@@ -502,16 +507,15 @@ def test_sublayer_rank_cells_import_no_jax():
 
 
 def test_moe_at_ragged_s_raises_by_name():
-    """MoE at S % tp != 0 (JAX runs it replicated under GSPMD) needs an MoE
-    graph in the replicated layout: ROADMAP A11 (b). The raise comes
-    before any collective."""
-    cfg = get_arch(MOE_ARCH).smoke()
-    lm = LM(cfg, Runtime(compute_dtype="float32",
-                         tp=TPConfig(mode="cais")),
-            device="cpu", seed=0, group=TPGroup(0, 2, "gloo"))
-    toks = torch.zeros((1, 31), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match=r"A11 \(b\)"):
-        lm.loss({"tokens": toks, "labels": toks})
+    """MoE at S % tp != 0 (JAX runs it replicated under GSPMD), which
+    raised until the replicated layout had an MoE graph (ROADMAP A11 (b)),
+    now runs: ``LM.loss`` of mixtral-8x7b's smoke config at S 31 on a ring
+    of 2 (the ``moe_ragged`` case) returns one finite loss on every rank,
+    held to JAX by ``test_lm_loss_and_grads_match_jax``."""
+    res = [r["lm"][("moe_ragged", "cais", 1, True)] for r in ring(2)]
+    assert len({r[0] for r in res}) == 1
+    assert np.isfinite(res[0][0])
+    assert res[0][3]["layout"] == "replicated"
 
 
 def test_launcher_mesh_debug_trains_minicpm():

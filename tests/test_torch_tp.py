@@ -40,6 +40,7 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import tp as tp_mod  # noqa: E402
 from repro_torch.launch.ranks import run_ranks  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models.transformer import block_routes  # noqa: E402
 from repro_torch.runtime import SMOKE, Runtime, TPConfig  # noqa: E402
 from repro_torch.serve import DenseEngine  # noqa: E402
 from repro_torch.sharding import TPGroup  # noqa: E402
@@ -234,12 +235,20 @@ def test_unported_tp_paths_raise():
         lm.loss(batch)                      # SMOKE's tp mode is "auto"
     lm.rt = Runtime(compute_dtype="float32", tp=TPConfig(mode="cais"))
     # ragged S trains on a ring in the replicated layout
-    # (tests/test_torch_sublayer.py); an MoE there does not (A11 (b))
-    odd = {"tokens": toks[:, :31], "labels": toks[:, :31]}
-    moe = LM(get_arch("mixtral-8x7b").smoke(), lm.rt, device="cpu", seed=0,
-             group=group)
-    with pytest.raises(NotImplementedError, match="A11"):
-        moe.loss(odd)
+    # (tests/test_torch_sublayer.py), an MoE too (A11 (b): its LM.loss on
+    # a ring of 2 is test_torch_sublayer's moe_ragged case, held to JAX in
+    # tests/test_torch_moe_ragged.py). Where it raised, its block now
+    # routes to, and builds, the replicated layout's MoE graph
+    moe_cfg = get_arch("mixtral-8x7b").smoke()
+    moe = LM(moe_cfg, lm.rt, device="cpu", seed=0, group=group)
+    tpc = tp_mod.TPContext(group, backend="cais")
+    kind = moe_cfg.layer_pattern[0]
+    assert block_routes(kind, moe_cfg, tpc, seq_sharded=False) == (
+        "block", "block")
+    period, _ = tp_mod.build_period(
+        tpc, torch.empty((1, 31, moe_cfg.d_model), device="meta"),
+        [moe.blocks[0]], moe_cfg, (kind,), seq_sharded=False)
+    assert {"route", "expert_ar"} <= {n.op for n in period.graph.nodes}
     # the perfsim planner is ported: its config builds
     assert TPConfig(mode="cais", planner="perfsim").planner == "perfsim"
     # paged serving runs on a ring (tests/test_torch_serve_tp.py); serving
