@@ -11,7 +11,8 @@ Phases (any failure exits non-zero):
      fail if any of the three libraries lacks either;
   3. each kernel against its plain PyTorch version on the card, in bf16 and
      f32: flash attention at the shapes the serving path, the
-     tensor-parallel path and a rank of phase 10 give it and at the TPU
+     tensor-parallel path (phase 9's auto and barrier runs' core over the
+     whole batch among them) and a rank of phase 10 give it and at the TPU
      kernel's own (BH, S, d) case; matmul at the TPU kernel's test shapes,
      at the shapes the ring schedules of phase 6 and the serve graphs of
      phase 10 give it, and at every shape phase 9's
@@ -82,7 +83,13 @@ Phases (any failure exits non-zero):
      backward, the ring's grad sums, AdamW) for ``barrier`` with 1 microbatch
      and ``cais`` with 2, in f32, ``cais`` with 2 in bf16, and ``cais`` in f32
      under ``planner="perfsim"`` with the split ``auto`` (the planner picks the
-     split and both directions' pairings). Each run's loss must lie within 1e-4
+     split and both directions' pairings), and the default TP mode ``auto``
+     in f32 and bf16 (DTensor placements over the one-device code: no graph,
+     no matmul launch, the flash kernel on each rank's heads once a layer in
+     the forward and once in the remat recompute; the collectives DTensor
+     issued are printed a layer and direction, one all-gather in and one
+     reduce-scatter out a sub-layer in the forward required, with the step
+     time beside barrier's). Each run's loss must lie within 1e-4
      (f32) or ``BF16_LOSS_RTOL`` (bf16) of one device's; in f32 the grad norm
      within ``TRAIN_RTOL``, every gradient, m and v within ``TRAIN_RTOL`` times
      the one-device tensor's max, and every parameter within the first-step
@@ -169,9 +176,9 @@ Phases (any failure exits non-zero):
      (routing first), every concrete expert all-to-all and adjoint on the
      tp_out ring. (c) ``python -m repro_torch.launch.train --arch
      DEBUG_ARCH --smoke --mesh debug`` (8 ranks, data 2 x model 4) in
-     ``barrier`` and ``cais``: rank 0's losses within 1e-5 of ``--mesh
-     none``'s. Phase 3 checks the matmul shapes of (a) and (b) and of the
-     2D runs of phases 9 and 10.
+     ``barrier``, ``cais`` and with no ``--tp-mode`` (the default ``auto``):
+     rank 0's losses within 1e-5 of ``--mesh none``'s. Phase 3 checks the
+     matmul shapes of (a) and (b) and of the 2D runs of phases 9 and 10.
  13. TP training past whole blocks, 4 gloo ranks sharing the card, every
      run f32 through phase 9's machinery (one-device reference first, one
      spawn) and held by its rules: (a) minicpm3-4b (MLA) at its published
@@ -338,8 +345,9 @@ TP_ARCH, TP_WORLD, TP_BATCH, TP_SEQ, SEED = "internlm2-1.8b", 4, 2, 4096, 0
 # phases 6, 9 and 10 run internlm2-1.8b at full width cut to TP_LAYERS of
 # its 24 layers: at all 24 the script took 1120-1264 s of its 1200 s limit
 # on an NVIDIA H100 80GB HBM3 at 700 W, most of it in these three phases'
-# gloo rings (a layer costs the same checks at any depth)
-TP_LAYERS = 6
+# gloo rings (a layer costs the same checks at any depth); at 6, with phase
+# 9's two auto runs added, 1048.5 s
+TP_LAYERS = 4
 TP_RUNS = [("barrier", 1, "float32"), ("barrier", 2, "float32"),
            ("cais", 1, "float32"), ("cais", 2, "float32"),
            ("cais", 2, "bfloat16")]
@@ -360,7 +368,13 @@ TRAIN_RUNS = [("barrier", 1, "float32"), ("cais", 2, "float32"),
               ("cais", 2, "bfloat16"),
               # the perfsim planner picks the split and both directions'
               # pairs (the others plan greedily)
-              ("cais", "auto", "float32", "perfsim")]
+              ("cais", "auto", "float32", "perfsim"),
+              # the default TP mode: DTensor placements over the one-device
+              # code (no period graph; the projections DTensor's local
+              # products, none on the matmul kernel; the attention core the
+              # flash kernel on each rank's heads, in the forward and the
+              # remat recompute)
+              ("auto", 1, "float32"), ("auto", 1, "bfloat16")]
 # phase 9 on a 2D (tp_in 2 x tp_out 2) mesh of the same 4 ranks: the same
 # shards (the composite index is the flat rank), the hierarchical schedules
 TRAIN_2D_RUNS = [("cais", 2, "float32", "greedy", "2x2")]
@@ -442,8 +456,8 @@ MOE_DECODE_STEPS = 2
 # COMPRESS_RTOL of the exact sum (JAX's compression.int8_close bound).
 # Every check holds each layer alike, so the depth is what the script's
 # 1200 s limit leaves room for (the ring's two steps took 132 s at 6
-# layers on an NVIDIA H100 80GB HBM3, 700 W)
-DP_LAYERS, DP_BATCH = 4, 4
+# layers, 80.6 s at 4, on an NVIDIA H100 80GB HBM3, 700 W)
+DP_LAYERS, DP_BATCH = 2, 4
 DP_RUNS = [("cais", 2, "float32", "greedy", "dp2"),
            ("barrier", 1, "float32", "greedy", "dp2")]
 COMPRESS_RTOL = 0.05
@@ -893,6 +907,10 @@ def phase_kernels(cfg, fa, ref) -> list:
         # this rank's heads (16/4 q heads, 8/4 kv heads), per microbatch
         rows.append(check_kernel_case("tp_core", tp_core_case(
             get_tp_cfg(), TP_BATCH // 2, dtype, seed=3), fa, ref))
+        # phase 9's auto runs (and its barrier run): the core on a rank's
+        # heads over the whole batch, 2 x 4096
+        rows.append(check_kernel_case("auto_tp_core", tp_core_case(
+            get_tp_cfg(), TP_BATCH, dtype, seed=25), fa, ref))
         for BH, S, d in ((8, 512, 128), (16, 2048, 128)):
             rows.append(check_kernel_case(
                 f"tpu_{BH}x{S}x{d}", tpu_case(BH, S, d, dtype, seed=S + d),
@@ -1262,7 +1280,8 @@ def train_matmul_shapes(cfg, world: int = TP_WORLD, batch: int = TP_BATCH,
     picks them) stand for every split the planner may take: 1, 2 and 4
     where they divide the batch. On a 2D mesh the reduce-scatter ring is
     tp_in (``ring``): b·S_r / 2 rows a hop, S_r = S / ring, and its overlap
-    pairs run the same hierarchical schedules."""
+    pairs run the same hierarchical schedules. A run of the ``auto`` TP mode
+    makes no matmul call."""
     runs = TRAIN_RUNS if runs is None else runs
     n, d, dh = world, cfg.d_model, cfg.resolved_head_dim
     r = ring or n
@@ -1270,7 +1289,7 @@ def train_matmul_shapes(cfg, world: int = TP_WORLD, batch: int = TP_BATCH,
     fq, fkv = cfg.num_heads * dh // n, cfg.num_kv_heads * dh // kv_tp
     ff, s_loc = cfg.d_ff // n, seq // n
     shapes = set()
-    splits = [(mode, mb) for mode, req, *_ in runs
+    splits = [(mode, mb) for mode, req, *_ in runs if mode != "auto"
               for mb in ((1, 2, 4) if req == "auto"
                          else (batch_split(batch, req),))
               if batch % mb == 0]
@@ -2396,8 +2415,9 @@ def train_legs(group, legs, cfg, device="cuda", mesh="flat",
     forward and training graphs the step ran (``tp.recording``,
     ``tp.step_launches``: whole periods, per-block graphs, one-sub-layer
     graphs and replicated MLA mixers alike), every kernel call's shape
-    (and a matmul's layout), the backend's ``gemm_ar`` dispatches, and in
-    f32 this rank's gradients, m, v
+    (and a matmul's layout), the backend's ``gemm_ar`` dispatches, under
+    the ``auto`` mode the collectives DTensor issued (:class:`CommCensus`),
+    and in f32 this rank's gradients, m, v
     and parameters against the one-device step's shards (the leg's
     ``store``). The model is built on the mesh ``mesh`` (a key of MESHES,
     factored from the world ``group``); a run naming another mesh with the
@@ -2540,8 +2560,10 @@ def train_legs(group, legs, cfg, device="cuda", mesh="flat",
             a2a_groups.clear()
             for v in a2a.values():
                 v[0] = v[1] = 0
+            census = CommCensus(lm) if mode == "auto" else None
             t0 = time.monotonic()
-            with tp_mod.recording() as rec:
+            with tp_mod.recording() as rec, \
+                    (census or contextlib.nullcontext()):
                 state, metrics = step(state, batch)
             _sync(device)
             wall = time.monotonic() - t0
@@ -2627,6 +2649,8 @@ def train_legs(group, legs, cfg, device="cuda", mesh="flat",
                 norm_shapes=sorted([*k, v] for k, v in norm_calls.items()),
                 flash_shapes=sorted([*k, v] for k, v in flash_calls.items()),
                 plans=plans,
+                comm=None if census is None else census.per_layer(
+                    cfg.num_layers),
                 wire=group.backend + (", staged through the host"
                                       if group.staged(metrics["grad_norm"])
                                       else ""))
@@ -2649,6 +2673,51 @@ def train_legs(group, legs, cfg, device="cuda", mesh="flat",
         comp = compress_check(lm, batch) if compress else None
         legs_out.append(dict(runs=out, compress=comp))
     return legs_out
+
+
+class CommCensus:
+    """The collectives DTensor issues in one ``auto`` training step, by
+    direction: entered around the step, it counts them all
+    (``CommDebugMode``), and those of the forward in a second mode entered
+    around ``lm.loss`` while it is active; the backward's are the rest (a
+    remat recompute's among them). The modes see every op of the step on
+    the host, which adds host time to the step's."""
+
+    def __init__(self, lm):
+        from torch.distributed.tensor.debug import CommDebugMode
+
+        self.lm, self.all, self.fwd = lm, CommDebugMode(), CommDebugMode()
+
+    def __enter__(self):
+        inner = self.lm.loss
+
+        def loss(batch):
+            with self.fwd:
+                return inner(batch)
+
+        self.lm.loss = loss
+        self.all.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.all.__exit__(*exc)
+        del self.lm.loss
+
+    def per_layer(self, layers: int) -> dict:
+        """{"forward": {op: count a layer}, "backward": ...} of DTensor's
+        functional collectives, and "outside": the step's other
+        collectives in all (the TP group's own: the loss's all-reduce of
+        (sum, count), ``sync_grads``', the grad norm's)."""
+        count = lambda m: {str(k).split(".")[-1]: v  # noqa: E731
+                           for k, v in m.get_comm_counts().items()}
+        fwd, tot = count(self.fwd), count(self.all)
+        bwd = {k: v - fwd.get(k, 0) for k, v in tot.items()
+               if v - fwd.get(k, 0)}
+        per = lambda d: {k: v / layers for k, v in sorted(d.items())  # noqa
+                         if not k.endswith("_")}
+        return dict(forward=per(fwd), backward=per(bwd),
+                    outside={k: v for k, v in sorted(tot.items())
+                             if k.endswith("_")})
 
 
 def plan_checks(per: list) -> dict:
@@ -2832,6 +2901,8 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
         agreed = route is None or all(
             d["choice"] == 0 and d["slots"] == 0 for d in route)
         held = f32 and agreed
+        # the auto TP mode runs no graph: no matmul launch, no overlap
+        auto = head["mode"] == "auto"
         ref_loss = ref["loss"] if f32 else ref["loss_bf16"]
         rtol = F32_LOSS_RTOL if held else BF16_LOSS_RTOL
         rel = abs(head["loss"] - ref_loss) / abs(ref_loss)
@@ -2842,7 +2913,8 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
             f"loss within {rtol:g} of one device": rel <= rtol,
             "matmul launches = graphs": all(
                 p["matmul_launches"] == p["matmul_derived"]
-                and (p["matmul_derived"] > 0) == graphs for p in per),
+                and (p["matmul_derived"] > 0) == (graphs and not auto)
+                for p in per),
             "flash launches = forward + recompute": all(
                 p["flash_launches"] == p["flash_derived"]
                 and (p["flash_derived"] > 0) == attends for p in per),
@@ -2858,7 +2930,8 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
                 dict(wgmma=0, ffma=p["matmul_launches"]) if f32 else
                 dict(wgmma=p["matmul_launches"], ffma=0)) for p in per),
             "transposed layouts launched": all(
-                (p["matmul_layouts"][f"{v}.{lay}"] > 0) == graphs
+                (p["matmul_layouts"][f"{v}.{lay}"] > 0) == (graphs
+                                                            and not auto)
                 for p in per for lay in ("nt", "tn")
                 for v in (("ffma",) if f32 else ("wgmma",))),
             "overlap_asym executed as the graphs say": all(
@@ -2868,6 +2941,17 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
                 if head["mb"] > 1 and head["planner"] == "greedy"
                 and graphs else True),
         }
+        if auto:
+            # Megatron-SP's census, as JAX's constraint on a block's output
+            # implies: per layer one all-gather of the normed input and one
+            # reduce-scatter of the output a sub-layer
+            sharded = head["layout"] == "sharded"
+            want = {"all_gather_into_tensor": 2.0,
+                    "reduce_scatter_tensor": 2.0} if sharded else \
+                {"all_reduce": 2.0}
+            checks["DTensor's forward: one gather in, one reduce out a "
+                   "sub-layer"] = all(p["comm"]["forward"] == want
+                                      for p in per)
         if moe and replicated:
             checks["expert_ar a layer in the forward and its recompute, "
                    "no expert all-to-all"] = all(
@@ -2962,7 +3046,18 @@ def train_checks(cfg, ref, ranks, runs, T: int) -> tuple:
                    f"{json.dumps(head['a2a_groups'])}"))
         if head["plans"] is not None:
             log(f"    perfsim plans (rank 0): {json.dumps(head['plans'])}")
+        if auto:
+            log(f"    DTensor's collectives a layer (rank 0; the backward "
+                f"with the remat recompute's): {json.dumps(head['comm'])}")
         failed += [(run, k) for k, v in checks.items() if not v]
+    barrier = [r for r in rows if r["mode"] == "barrier"]
+    for r in rows:
+        if r["mode"] == "auto" and barrier:
+            log(f"  step time auto {r['dtype']} {max(r['wall_s']):.2f}s "
+                f"(with the census's dispatch modes on), barrier mb "
+                f"{barrier[0]['mb']} {barrier[0]['dtype']} "
+                f"{max(barrier[0]['wall_s']):.2f}s: slowest rank, staged "
+                "through the host, so not TP speed")
     return rows, failed
 
 
@@ -3671,10 +3766,12 @@ def phase_moe(fa) -> tuple:
 
 def phase_debug_mesh() -> dict:
     """Phase 12 (c): ``python -m repro_torch.launch.train --arch DEBUG_ARCH
-    --smoke --mesh debug`` (8 ranks on the card, data 2 x model 4), barrier
-    and cais, against ``--mesh none`` (one device, where the TP mode does
-    not enter): rank 0's losses, written unrounded by ``--history``, within
-    1e-5 of one device's at every step. The three runs go at once (each
+    --smoke --mesh debug`` (8 ranks on the card, data 2 x model 4), barrier,
+    cais and with no ``--tp-mode`` (the default ``auto``: DTensor on each
+    replica's TP group, its functional collectives staged through the
+    host), against ``--mesh none`` (one device, where the TP mode does not
+    enter): rank 0's losses, written unrounded by ``--history``, within
+    1e-5 of one device's at every step. The four runs go at once (each
     rendezvous in its own directory); their seconds overlap."""
     import tempfile
 
@@ -3683,12 +3780,13 @@ def phase_debug_mesh() -> dict:
         p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
     out, failed = {}, []
 
-    def start(mesh: str, mode: str, root: str) -> tuple:
-        path = Path(root) / f"{mode}.{mesh}.json"
+    def start(mesh: str, mode: Optional[str], root: str) -> tuple:
+        path = Path(root) / f"{mode or 'default'}.{mesh}.json"
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
                DEBUG_ARCH, "--smoke", "--mesh", mesh, "--steps",
-               str(DEBUG_STEPS), "--tp-mode", mode, "--device", "cuda",
-               "--history", str(path)]
+               str(DEBUG_STEPS), "--device", "cuda", "--history", str(path)]
+        if mode is not None:
+            cmd += ["--tp-mode", mode]
         proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE)
@@ -3710,8 +3808,9 @@ def phase_debug_mesh() -> dict:
         return [h["loss"] for h in json.loads(path.read_text())], lines, secs
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_debug_") as root:
+        modes = ("barrier", "cais", None)
         runs = [start("none", "cais", root)] + [
-            start("debug", mode, root) for mode in ("barrier", "cais")]
+            start("debug", mode, root) for mode in modes]
         try:
             done = [finish(r) for r in runs]
         finally:
@@ -3721,7 +3820,8 @@ def phase_debug_mesh() -> dict:
                     r[2].communicate()
         (one, one_lines, one_s), debug = done[0], done[1:]
         log(f"  --mesh none: {json.dumps(one)} ({one_s:.1f}s)")
-        for mode, (got, lines, secs) in zip(("barrier", "cais"), debug):
+        for mode, (got, lines, secs) in zip(modes, debug):
+            mode = mode or "default (auto)"
             rel = [abs(a - b) / abs(b) for a, b in zip(got, one)]
             checks = {
                 f"{DEBUG_STEPS} step lines, rank 0's alone": len(lines)
@@ -5501,9 +5601,12 @@ def main() -> int:
     train = phase_train(runs=TRAIN_RUNS + TRAIN_2D_RUNS)
     checked = {(r["shape"]["M"], r["shape"]["K"], r["shape"]["N"],
                 r["dtype"], r["layout"]) for r in mm_rows}
-    unchecked = [s for s in train["call_shapes"] if tuple(s) not in checked]
+    unchecked = [("matmul", s) for s in train["call_shapes"]
+                 if tuple(s) not in checked]
+    unchecked += [("flash_attention", s) for s in train["flash_shapes"]
+                  if tuple(s) not in checked_fa]
     if unchecked:
-        raise AssertionError(f"phase 9 called matmul at shapes phase 3 did "
+        raise AssertionError(f"phase 9 called kernels at shapes phase 3 did "
                              f"not check: {unchecked}")
     flat = next(r for r in train["runs"] if r["mesh"] == "flat"
                 and (r["mode"], r["requested_mb"], r["dtype"], r["planner"])

@@ -12,9 +12,11 @@ GEMM), ``cais`` (the paper's decomposed ring schedules of
 :mod:`repro_torch.core.primitives`, with the chunking planned per collective
 by :func:`repro_torch.core.coordination.plan` unless
 ``CAISConfig.num_chunks`` pins it) and ``auto`` (``explicit = False``: in
-JAX the compiler schedules TP from sharding constraints; its torch
-counterpart, DTensor, is ROADMAP A5, so the port's model path raises for it
-on a group larger than one).
+JAX the compiler schedules TP from sharding constraints; in torch the model
+path runs its one-device code on DTensors, whose sharding propagation
+chooses the collectives: :mod:`repro_torch.models.transformer`, for dense
+attention blocks; every other block kind raises under it on a group,
+ROADMAP A5 (b)).
 
 Methods run on one rank with its local shards and take the
 :class:`repro_torch.sharding.TPGroup` where JAX took the axis name. The
@@ -447,14 +449,15 @@ class CAISBackend(CollectiveBackend):
 
 
 # ---------------------------------------------------------------------------
-# auto — compiler-scheduled reference (DTensor in torch: ROADMAP A5)
+# auto — framework-scheduled reference (DTensor in torch)
 # ---------------------------------------------------------------------------
 
 
 class AutoBackend(BarrierBackend):
-    """``explicit = False``: the model path does not run the explicit
-    schedules for it. Its inherited monolithic methods still execute
-    graphs."""
+    """``explicit = False``: the model path runs no explicit schedule for
+    it, but the one-device code on DTensors placed as the TP shards are
+    (``models.transformer``'s ``auto`` route). Its inherited monolithic
+    methods still execute graphs."""
 
     name = "auto"
     explicit = False

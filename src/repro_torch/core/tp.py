@@ -484,17 +484,20 @@ def _local_heads(cfg, tp: int):
 
 def _rank_kv(k: torch.Tensor, v: torch.Tensor, cfg, tp: int, rank: int):
     """With replicated KV, the kv heads (dim 2) the rank's q heads use, made
-    contiguous for the flash kernel (head sharding is contiguous, so they
-    are one run); sharded KV passes through."""
+    contiguous for the flash kernel
+    (:func:`repro_torch.models.attention.rank_kv_heads`: their run where
+    each of them serves as many of the rank's q heads, one copy a q head
+    where the rank's q heads span them unevenly, e.g. 6 of 12 q heads over
+    3 kv heads; JAX's ``shard_map`` path slices ``H_loc // g`` heads there,
+    which attends with the wrong kv heads, ROADMAP C fault 7); sharded KV
+    passes through."""
+    from repro_torch.models.attention import rank_kv_heads
+
     H, Hkv = cfg.num_heads, cfg.num_kv_heads
     if Hkv % tp == 0:
         return k, v
-    g = H // Hkv                        # q heads per kv head
-    H_loc = max(H // tp, 1)
-    need = max(H_loc // g, 1)
-    start = (rank * H_loc) // g
-    return (k[:, :, start:start + need].contiguous(),
-            v[:, :, start:start + need].contiguous())
+    hl, g = max(H // tp, 1), H // Hkv
+    return rank_kv_heads(k, rank, hl, g), rank_kv_heads(v, rank, hl, g)
 
 
 def _attention_core_fn(cfg, tp: int, window: int = 0, rank: int = 0,
@@ -1151,7 +1154,9 @@ class StepRecord:
     """What the TP forwards run inside :func:`recording` executed on this
     rank: every :class:`Period` (a whole period, a per-block graph or a
     one-sub-layer graph) in the order it ran, how many mixers of each kind
-    ran replicated (:func:`sp_replicated_mixer`), and every serve period
+    ran replicated (:func:`sp_replicated_mixer`) or on DTensors under the
+    ``auto`` mode (:func:`record_auto_mixer`; a remat recompute counts
+    again), and every serve period
     (:func:`sp_serve_period`: its context, optimized graph, activation
     shape and item size). A training step's kernel launches derive from it
     (:func:`step_launches`), and so do serving steps'
@@ -1160,6 +1165,7 @@ class StepRecord:
     def __init__(self):
         self.periods: List[Period] = []
         self.replicated_mixers: Dict[str, int] = {}
+        self.auto_mixers: Dict[str, int] = {}
         self.serve: List[tuple] = []
 
 
@@ -1176,6 +1182,13 @@ def recording():
         yield rec
     finally:
         _RECORDS.remove(rec)
+
+
+def record_auto_mixer(kind: str) -> None:
+    """Count one mixer of ``kind`` run under the ``auto`` mode in every
+    active :func:`recording`."""
+    for rec in _RECORDS:
+        rec.auto_mixers[kind] = rec.auto_mixers.get(kind, 0) + 1
 
 
 def _run_period(period: Period, x: torch.Tensor, ws: tuple):
@@ -1923,12 +1936,15 @@ def step_launches(rec: StepRecord, batch: int, seq: int, d_model: int,
     forward where it attends (MLA, attention) and an MLA mixer two
     matmul_rmsnorm calls (their backward is torch math:
     ``ops._FlashAttention``, ``ops._MatmulRMSNorm``); an SSM or RG-LRU
-    mixer none. Also the overlap_asym nodes the graphs execute, and those of
-    the first period's training graph that pair a backward collective with
-    a forward one."""
+    mixer none; under the ``auto`` mode an attention mixer one flash each
+    time it ran, its remat recompute included (the projections are
+    DTensor's own products, no matmul call). Also the overlap_asym nodes
+    the graphs execute, and those of the first period's training graph
+    that pair a backward collective with a forward one."""
     n = rec.replicated_mixers
     out = dict(matmul=0,
-               flash=sum(n.get(k, 0) for k in ("attn", "swa", "mla")),
+               flash=sum(m.get(k, 0) for m in (n, rec.auto_mixers)
+                         for k in ("attn", "swa", "mla")),
                matmul_rmsnorm=2 * n.get("mla", 0), overlap_asym=0,
                cross_direction_pairs=[])
     for i, period in enumerate(rec.periods):

@@ -5,7 +5,7 @@ mesh. Counterpart of ``repro/launch/train.py``.
     python -m repro_torch.launch.train --arch deepseek-7b --smoke \
         --device cpu --steps 3
     python -m repro_torch.launch.train --arch deepseek-7b --smoke \
-        --mesh debug --tp-mode cais --device cpu --steps 3
+        --mesh debug --device cpu --steps 3
 
 The flags are ``repro``'s plus ``--device`` (default ``cuda``: the launcher
 fails where there is no card unless told ``--device cpu``). ``--mesh debug``
@@ -13,8 +13,9 @@ spawns 8 local ranks (:func:`repro_torch.launch.ranks.run_ranks`; gloo where
 they share a card) on a ``data`` 2 x ``model`` 4 mesh
 (:func:`repro_torch.launch.mesh.make_debug_mesh`): each replica trains on
 its half of every global batch, the grads are summed over the replicas,
-and rank 0 prints the lines; it needs an explicit ``--tp-mode`` (``barrier``
-or ``cais``: ``auto``'s torch counterpart is ROADMAP A5). ``--mesh
+and rank 0 prints the lines; every ``--tp-mode`` runs there, the default
+``auto`` as DTensor placements over each replica's TP group (dense
+attention archs; the others raise under it, ROADMAP A5 (b)). ``--mesh
 single|multi`` raise (they need a multi-host launcher). ``--ckpt-dir DIR``
 checkpoints every ``--ckpt-every`` steps (and on a straggler or
 preemption) and resumes from DIR's latest step: rerunning the same command
@@ -33,7 +34,7 @@ import json
 from typing import List, Optional, Union
 
 from repro_torch.configs import SHAPES_BY_NAME, ShapeConfig, get_arch
-from repro_torch.core.backends import available_backends, get_backend
+from repro_torch.core.backends import available_backends
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.models import build_model
 from repro_torch.optim import cosine_schedule, make_optimizer
@@ -120,11 +121,6 @@ def main(argv: Optional[List[str]] = None) -> Union[Trainer, MeshRun]:
         from repro_torch.launch.ranks import run_ranks
         from repro_torch.runtime import resolve_device
 
-        if not get_backend(args.tp_mode).explicit:
-            raise NotImplementedError(
-                f"--mesh debug --tp-mode {args.tp_mode}: the framework-"
-                "scheduled mode's torch counterpart (DTensor) is not ported "
-                "(ROADMAP A5); use --tp-mode barrier or cais")
         resolve_device(args.device)       # no card: fail before spawning
         ranks = run_ranks(_debug_rank, DEBUG_SHAPE[0] * DEBUG_SHAPE[1], args,
                           device=args.device, timeout=3600)

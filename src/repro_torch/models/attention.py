@@ -31,6 +31,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
@@ -168,16 +169,80 @@ class Attention(nn.Module):
             dense_init_(w, generator)
 
 
-def _project_qkv(params: Attention, x: torch.Tensor, cfg: ArchConfig,
-                 positions: torch.Tensor, dtype: torch.dtype):
+def _project(params: Attention, x: torch.Tensor, cfg: ArchConfig,
+             dtype: torch.dtype):
+    """q, k, v before rope: (B, S, H, dh), (B, S, Hkv, dh) twice."""
     B, S, _ = x.shape
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = (x @ params.wq.to(dtype)).reshape(B, S, H, dh)
     k = (x @ params.wk.to(dtype)).reshape(B, S, Hkv, dh)
     v = (x @ params.wv.to(dtype)).reshape(B, S, Hkv, dh)
+    return q, k, v
+
+
+def _project_qkv(params: Attention, x: torch.Tensor, cfg: ArchConfig,
+                 positions: torch.Tensor, dtype: torch.dtype):
+    q, k, v = _project(params, x, cfg, dtype)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _rope_core(q, k, v, positions, cfg: ArchConfig, window: int,
+               prefix_len: int) -> torch.Tensor:
+    """Rope on q and k, then the causal core over ``positions``."""
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return attention_core(q, k, v, q_positions=positions,
+                          kv_positions=positions, causal=True,
+                          window=window, prefix_len=prefix_len)
+
+
+def rank_kv_heads(t: torch.Tensor, rank: int, local_heads: int,
+                  group: int) -> torch.Tensor:
+    """The kv heads (dim 2 of a whole (B, S, Hkv, dh) ``t``) that query
+    heads ``rank·local_heads ..`` of GQA groups of ``group`` attend to, in
+    the layout the core takes for this rank's ``local_heads`` query heads:
+    the range they span where each of its heads serves the same number of
+    them (gemma3-1b's one kv head for 1, 2 or 4 query heads), one copy a
+    query head otherwise."""
+    idx = [(rank * local_heads + i) // group for i in range(local_heads)]
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    if local_heads % n == 0 and all(
+            j - lo == i // (local_heads // n) for i, j in enumerate(idx)):
+        return t[:, :, lo:lo + n].contiguous()
+    return t[:, :, idx].contiguous()
+
+
+def _core_per_rank(q, k, v, positions, cfg: ArchConfig, window: int,
+                   prefix_len: int):
+    """The core of q, k, v DTensors (the ``auto`` TP mode): rope and the
+    flash kernel on each rank's own query heads, through ``local_map``. q
+    arrives split over heads (``Shard(2)``; whole where the heads do not
+    split) and k, v split alike where the kv heads split, else whole, the
+    rank taking the kv heads of its query heads (:func:`rank_kv_heads`);
+    their grads are then partial sums over the ranks (``Partial()``).
+    ``positions`` is a plain tensor, the same on every rank."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    qp, kvp = q.placements[0], k.placements[0]
+    pick = qp.is_shard() and not kvp.is_shard()
+    hl, group = q.shape[2] // mesh.size(), q.shape[2] // k.shape[2]
+    rank = mesh.get_local_rank()
+
+    def local(ql, kl, vl, pos):
+        if pick:
+            kl = rank_kv_heads(kl, rank, hl, group)
+            vl = rank_kv_heads(vl, rank, hl, group)
+        return _rope_core(ql, kl, vl, pos, cfg, window, prefix_len)
+
+    kv_grad = Partial() if pick else kvp
+    return local_map(local, out_placements=[qp],
+                     in_placements=([qp], [kvp], [kvp], None),
+                     in_grad_placements=([qp], [kv_grad], [kv_grad], None),
+                     device_mesh=mesh)(q, k, v, positions)
 
 
 def attention_forward(params: Attention, x: torch.Tensor, cfg: ArchConfig,
@@ -186,14 +251,15 @@ def attention_forward(params: Attention, x: torch.Tensor, cfg: ArchConfig,
                       ) -> torch.Tensor:
     """Training / prefill forward over a whole sequence, no cache.
     x: (B, S, d); positions default to 0..S-1; the first ``prefix_len``
-    positions attend bidirectionally (prefix-LM)."""
+    positions attend bidirectionally (prefix-LM). Under the ``auto`` TP
+    mode x and the weights are DTensors, and the core runs on each rank's
+    heads (:func:`_core_per_rank`)."""
     B, S, _ = x.shape
     if positions is None:
         positions = _arange_positions(B, S, x.device)
-    q, k, v = _project_qkv(params, x, cfg, positions, x.dtype)
-    o = attention_core(q, k, v, q_positions=positions,
-                       kv_positions=positions, causal=True, window=window,
-                       prefix_len=prefix_len)
+    q, k, v = _project(params, x, cfg, x.dtype)
+    core = _core_per_rank if isinstance(q, DTensor) else _rope_core
+    o = core(q, k, v, positions, cfg, window, prefix_len)
     return o.reshape(B, S, -1) @ params.wo.to(x.dtype)
 
 

@@ -141,7 +141,7 @@ class EncDecLM(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: the enc-dec model takes no TP group or mesh "
                 "(ROADMAP A15: enc-dec on a ring; JAX has no explicit-TP "
-                "path for it)")
+                "path for it; under tp mode 'auto', ROADMAP A5 (b))")
         device = resolve_device(device)
         self.cfg, self.rt = cfg, rt
         dtype = rt.pdtype

@@ -35,6 +35,16 @@ outputs all-reduced; the embedding and head are whole on every rank, so
 every rank computes the same logits. On one device there is no TP context
 and every block takes the per-block path, as in JAX.
 
+Under the ``auto`` TP mode (``rt.tp.mode`` a backend with ``explicit =
+False``, the default; JAX's compiler-scheduled path) a group runs no
+period graph: the stack's input becomes a DTensor on the TP group's
+device mesh, sequence-sharded or whole by the layout, and each block runs
+its one-device code on DTensors of this rank's parameter shards
+(:func:`auto_block_forward`), DTensor's sharding propagation choosing the
+collectives as GSPMD does for JAX. Dense attention blocks in training
+only: every other block kind, the VLM and every serving entry point raise
+under it on a group (:func:`auto_unported`, ROADMAP A5 (b)).
+
 On a mesh (``LM(..., group=mesh)``, a :class:`repro_torch.sharding.Mesh`)
 the TP group is the mesh's: a flat ring, or on a 2D (``tp_in`` x
 ``tp_out``) mesh the composite group, whose rank is the composite index
@@ -56,8 +66,8 @@ built frozen, for serving). On a ring each period's backward is graph-built
 (``sp_period``); the ring's partial grads of the replicated embedding, head
 and final norm are summed by :meth:`LM.sync_grads`, once, after backward.
 ``Runtime.remat`` checkpoints each period and the remainder tail on one
-device (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``); a period on a
-ring already saves only (x, weights) for its graph-built backward, which
+device and under the ``auto`` mode (``torch.utils.checkpoint``, JAX's
+``jax.checkpoint``); a period graph on a ring already saves only (x, weights) for its graph-built backward, which
 re-executes the forward, so there it adds nothing and is not applied (JAX's
 ``jax.checkpoint`` around its ``custom_vjp`` runs that forward a third
 time: the same values). Serving over dense caches (``prefill`` /
@@ -67,7 +77,8 @@ recurrent state, not K/V) and serve through the dense engine.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from types import SimpleNamespace
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -80,7 +91,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import Norm, embed_init_, softcap
+from repro_torch.models.layers import Norm, apply_norm, embed_init_, softcap
 from repro_torch.optim.optimizers import Leaf
 from repro_torch.runtime import Runtime, resolve_device
 from repro_torch.sharding import (CompositeGroup, Mesh, TPGroup, as_mesh,
@@ -133,21 +144,35 @@ class Block(nn.Module):
             self.ffn.reset_parameters(generator)
 
 
+class AutoTP(NamedTuple):
+    """The ``auto`` TP mode on ``group`` (JAX's ``explicit = False``
+    backends): no period graph; each block runs its one-device code on
+    DTensors over the group's device mesh, its parameters this rank's
+    shards by :func:`repro_torch.core.tp.param_placement`
+    (:func:`auto_block_forward`)."""
+
+    group: TPGroup
+
+
 def _tp_context(rt: Runtime, group: Optional[TPGroup]
-                ) -> Optional[tp_mod.TPContext]:
+                ) -> Union[None, tp_mod.TPContext, AutoTP]:
     """The TP execution context for ``group``, through the one
-    ``TPConfig → TPContext.from_config`` path; None on one device. The
-    ``auto`` backend (the compiler-scheduled reference in JAX; DTensor in
-    torch, ROADMAP A5) raises on a larger group instead of quietly computing
-    unsharded."""
+    ``TPConfig → TPContext.from_config`` path; None on one device; an
+    :class:`AutoTP` where ``rt.tp.mode`` leaves scheduling to the framework
+    (``auto``)."""
     if group is None or group.size <= 1:
         return None
     if not get_backend(rt.tp.mode).explicit:
-        raise NotImplementedError(
-            f"tp mode {rt.tp.mode!r} leaves scheduling to the framework; its "
-            "torch counterpart (DTensor) is not ported yet (ROADMAP A5): use "
-            "'barrier' or 'cais' on a TP group")
+        return AutoTP(group)
     return tp_mod.TPContext.from_config(rt.tp, group)
+
+
+def auto_unported(what: str) -> NotImplementedError:
+    """The error of a path that the ``auto`` TP mode does not run on a
+    group (ROADMAP A5 (b)), rather than computing it unsharded."""
+    return NotImplementedError(
+        f"{what} under tp mode 'auto' (DTensor) on a TP group is not ported "
+        "yet (ROADMAP A5 (b)): use 'barrier' or 'cais'")
 
 
 # the activation's layout on a TP ring (LM.forward picks it):
@@ -234,12 +259,81 @@ def replicated_block_params(kind: str, cfg: ArchConfig,
     return out
 
 
+# a block's parameters by module, as the one-device code reads them
+_BLOCK_LEAVES = {"norm1": ("scale",), "mixer": ("wq", "wk", "wv", "wo"),
+                 "norm2": ("scale",), "ffn": ("w_up", "w_gate", "w_down")}
+
+
+def _as_dtensors(kind: str, params: Block, cfg: ArchConfig, group: TPGroup,
+                 mesh) -> Dict[str, SimpleNamespace]:
+    """This rank's shards of a block's parameters as DTensors on ``mesh``:
+    ``Shard(dim)`` where :func:`repro_torch.core.tp.param_placement` splits
+    one over ``group``, ``Replicate()`` elsewhere (the layout
+    ``bridge.shard_for_group``, the optimizers and the checkpoint keep), by
+    module ({"mixer": namespace(wq=..., ...), ...})."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    out = {}
+    for mod, leaves in _BLOCK_LEAVES.items():
+        sub = getattr(params, mod)
+        if sub is None:
+            continue
+        views = {}
+        for leaf in leaves:
+            p = getattr(sub, leaf, None)
+            if p is not None:
+                place = tp_mod.param_placement(f"blocks.0.{mod}.{leaf}", cfg,
+                                               group, kind)
+                p = DTensor.from_local(
+                    p, mesh, [Replicate() if place is None
+                              else Shard(place[0])], run_check=False)
+            views[leaf] = p
+        out[mod] = SimpleNamespace(**views)
+    return out
+
+
+def auto_block_forward(kind: str, params: Block, x, cfg: ArchConfig,
+                       group: TPGroup, seq_sharded: bool = True,
+                       prefix_len: int = 0):
+    """Pre-norm residual attention block under the ``auto`` TP mode: the
+    one-device code (``apply_norm``, :func:`_mixer_forward`,
+    ``mlp_forward``) on DTensors, x (B, S, d) on ``x.device_mesh``
+    sequence-sharded (``Shard(1)``) where ``seq_sharded``, else whole. Each
+    sub-layer gathers its normed input whole once (the projections share
+    it), and its output, a partial sum over the ranks after the row-split
+    projection, is constrained as JAX constrains a block's
+    (:func:`repro_torch.sharding.shard`): one all-gather in and one
+    reduce-scatter out a sub-layer, or one all-reduce out where x is
+    whole."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.sharding import shard
+
+    mesh = x.device_mesh
+    p = _as_dtensors(kind, params, cfg, group, mesh)
+    tp_mod.record_auto_mixer(kind)
+
+    def normed(x, norm):
+        h = apply_norm(cfg.norm, x, norm.scale)
+        return h.redistribute(mesh, [Replicate()])
+
+    out = _mixer_forward(kind, p["mixer"], normed(x, p["norm1"]), cfg,
+                         prefix_len)
+    x = x + shard(out, mesh, seq_sharded)
+    if _has_ffn(cfg):
+        out = ffn_mod.mlp_forward(p["ffn"], normed(x, p["norm2"]), cfg.act)
+        x = x + shard(out, mesh, seq_sharded)
+    return x
+
+
 def block_forward(kind: str, params: Block, x: torch.Tensor,
-                  cfg: ArchConfig, tpc: Optional[tp_mod.TPContext] = None,
+                  cfg: ArchConfig,
+                  tpc: Union[None, tp_mod.TPContext, AutoTP] = None,
                   prefix_len: int = 0, seq_sharded: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pre-norm residual block. Returns (x, aux_loss). On a TP ring by
-    :func:`block_routes`: the whole block as one dataflow graph
+    """Pre-norm residual block. Returns (x, aux_loss). Under the ``auto``
+    TP mode (``tpc`` an :class:`AutoTP`) :func:`auto_block_forward`. On a
+    TP ring by :func:`block_routes`: the whole block as one dataflow graph
     (``sp_block``) where attention and FFN both are TP-applicable, in the
     replicated-activation graph where the sequence does not split
     (``seq_sharded=False``: x (B, S, d) whole on every rank; an MoE's
@@ -252,6 +346,10 @@ def block_forward(kind: str, params: Block, x: torch.Tensor,
         x = x + _mixer_forward(kind, params.mixer, params.norm1(x), cfg,
                                prefix_len)
         return _ffn_block(params, x, cfg)
+    if isinstance(tpc, AutoTP):
+        return (auto_block_forward(kind, params, x, cfg, tpc.group,
+                                   seq_sharded, prefix_len),
+                torch.zeros((), dtype=torch.float32, device=x.device))
     mixer, ffn = block_routes(kind, cfg, tpc, seq_sharded)
     if mixer == "block":
         return tp_mod.sp_block(tpc, x, params, cfg, kind,
@@ -332,12 +430,16 @@ def _blocks_forward(kinds: Sequence[str], blocks: Sequence[Block],
     as ONE period-level dataflow graph (``sp_period``); otherwise block by
     block (:func:`block_forward`). Under ``layout="gathered"`` the blocks
     take this rank's rows of the whole x on entry and all-gather their
-    output (:func:`repro_torch.core.tp.seq_rows`, ``seq_gather``)."""
-    if tpc is not None and layout == "gathered":
+    output (:func:`repro_torch.core.tp.seq_rows`, ``seq_gather``); under
+    the ``auto`` mode x stays whole there (JAX's ``_sp_axis`` None)."""
+    if isinstance(tpc, AutoTP):
+        layout = "replicated" if layout == "gathered" else layout
+    elif tpc is not None and layout == "gathered":
         x, aux = _blocks_forward(kinds, blocks, tp_mod.seq_rows(x, tpc.group),
                                  cfg, tpc, prefix_len, "sharded")
         return tp_mod.seq_gather(x, tpc.group, partial=False), aux
-    if (tpc is not None and len(blocks) > 0 and layout == "sharded"
+    if (isinstance(tpc, tp_mod.TPContext) and len(blocks) > 0
+            and layout == "sharded"
             and all(_whole_block_applicable(cfg, k, tpc.tp, tpc.route_ring)
                     for k in kinds)):
         return tp_mod.sp_period(tpc, x, list(blocks), cfg, kinds,
@@ -742,15 +844,44 @@ class LM(nn.Module):
         tpc = _tp_context(self.rt, self.group)
         B, S = x.shape[:2]
         layout = activation_layout(self.rt, S, self.tp)
-        if tpc is not None:
+        if isinstance(tpc, AutoTP):
+            x = self._auto_input(x[:, self._seq_shard(S)].contiguous(),
+                                 prefix_len, layout)
+        elif tpc is not None:
             x = x[:, self._seq_shard(S)].contiguous()
             if layout == "replicated":
                 ffn_mod.check_replica_routing(self.cfg, B * S, self.dp)
         x, aux = stack_forward(self.blocks, x, self.cfg, tpc,
                                prefix_len=prefix_len,
-                               remat=self.rt.remat and tpc is None,
+                               remat=self.rt.remat and not isinstance(
+                                   tpc, tp_mod.TPContext),
                                layout=layout)
+        if isinstance(tpc, AutoTP):
+            x = x.to_local()
         return self.final_norm(x), aux
+
+    def _auto_input(self, x: torch.Tensor, prefix_len: int, layout: str):
+        """The ``auto`` route's stack input: this rank's rows ``x`` (its
+        sequence shard in the ``"sharded"`` layout, else every row) as a
+        DTensor on the TP group's device mesh. Dense attention blocks only:
+        every other block kind raises before any collective."""
+        cfg = self.cfg
+        other = [k for k in cfg.layer_kinds() if k not in ("attn", "swa")]
+        if other:
+            raise auto_unported(f"{cfg.name}: {other[0]!r} blocks")
+        if cfg.moe is not None:
+            raise auto_unported(f"{cfg.name}: an MoE FFN")
+        if prefix_len or cfg.num_prefix_tokens:
+            raise auto_unported(f"{cfg.name}: a prefix-LM (the VLM)")
+        if cfg.d_ff % self.tp:
+            raise auto_unported(f"{cfg.name}: d_ff {cfg.d_ff} over "
+                                f"tp={self.tp}")
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh = self.group.device_mesh(x.device.type)
+        return DTensor.from_local(
+            x, mesh, [Shard(1) if layout == "sharded" else Replicate()],
+            run_check=False)
 
     def split_groups(self) -> Dict[str, TPGroup]:
         """{parameter: the group whose ranks split it} for the parameters
@@ -795,13 +926,16 @@ class LM(nn.Module):
         every rank, every rank computes the same loss from it, so the
         embedding's, head's and final norm's grads are complete, and in the
         ``"replicated"`` layout the replicated blocks' are too. The period
-        graphs' own weights are summed in their backward. Then, unless
+        graphs' own weights are summed in their backward, and under the
+        ``auto`` mode every block parameter's in DTensor's (a whole
+        parameter's partial grads all-reduced as ``DTensor.from_local``'s
+        backward makes its grad whole). Then, unless
         ``data`` is False, every grad over the data axis: each replica's is
         its rows' part of the global batch's. A no-op on one device."""
         if self.tp > 1:
             layout = activation_layout(self.rt, seq, self.tp)
             tpc = _tp_context(self.rt, self.group)
-            partial = tuple(
+            partial = () if isinstance(tpc, AutoTP) else tuple(
                 f"blocks.{i}.{q}" for i, blk in enumerate(self.blocks)
                 for q in replicated_block_params(blk.kind, self.cfg, tpc))
             for name, p in self.named_parameters():
@@ -872,7 +1006,14 @@ class LM(nn.Module):
         return softcap((x @ head.to(x.dtype)).float(), self.cfg.logits_softcap)
 
     # ----- serving over dense caches -----
+    @property
+    def auto(self) -> bool:
+        """Whether this model runs the ``auto`` TP mode on a group."""
+        return self.tp > 1 and not get_backend(self.rt.tp.mode).explicit
+
     def _one_device(self, what: str) -> None:
+        if self.auto:
+            raise auto_unported(f"{what} over dense caches")
         if self.tp > 1 or self.dp > 1:
             raise NotImplementedError(f"{what} over a TP ring is not ported "
                                       "yet (ROADMAP A11 (b), A12)")
@@ -928,6 +1069,8 @@ class LM(nn.Module):
         gets the same logits: a dense or an MoE model (each rank routes the
         whole step and runs the experts it holds), as long as every block's
         attention splits over the ring."""
+        if self.auto:
+            raise auto_unported("paged serving")
         if any(b.kind not in ("attn", "swa") for b in self.blocks):
             raise NotImplementedError(
                 f"{self.cfg.name}: only attention blocks have a paged path; "

@@ -25,8 +25,10 @@ class TPConfig:
     fields and defaults of ``repro.runtime.TPConfig``.
 
     ``mode`` is a :mod:`repro_torch.core.backends` registry name (``auto``,
-    the compiler-scheduled reference, is DTensor in torch: ROADMAP A5, and
-    the model path raises for it on a group larger than one);
+    the compiler-scheduled reference, is DTensor in torch: the one-device
+    code on DTensors placed as the TP shards, for dense attention blocks in
+    training; other blocks and serving raise under it on a group larger
+    than one, ROADMAP A5 (b));
     ``chunks=None`` lets the cais backend plan the ring chunking per
     collective; ``microbatches`` is the period-graph batch split (int, or
     ``"auto"``); ``planner`` drives the split and pass 3 (``"greedy"``, or

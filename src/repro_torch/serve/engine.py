@@ -110,9 +110,14 @@ def paged_supported(model, cfg: Optional[ArchConfig],
 
 
 def _engine_device(model, mesh, device) -> torch.device:
-    """The device an engine runs on; raises for a mesh, or for a model that
-    lies elsewhere."""
+    """The device an engine runs on; raises for a mesh, for a model that
+    lies elsewhere, or for one under the ``auto`` TP mode on a group
+    (ROADMAP A5 (b))."""
     device = resolve_device(device)
+    if getattr(model, "auto", False):
+        from repro_torch.models.transformer import auto_unported
+
+        raise auto_unported("serving through an engine")
     if mesh is not None:
         raise NotImplementedError(
             "an engine takes no mesh: tensor-parallel serving runs on the "

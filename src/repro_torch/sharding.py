@@ -26,6 +26,15 @@ tp_in·tp_out ranks in that order (JAX's collectives over the ``("tp_in",
 "tp_out")`` tuple), and it carries the ``tp_in`` and ``tp_out`` rings that
 the backends' hierarchical compositions run on
 (:mod:`repro_torch.core.backends`).
+
+The ``auto`` TP mode runs the one-device code on DTensors
+(:mod:`torch.distributed.tensor`) over a 1-D ``DeviceMesh`` of a TP group
+(:meth:`TPGroup.device_mesh`), :func:`shard` standing in for JAX's
+``sharding.shard`` constraint. DTensor issues its collectives as the
+functional ops (``torch.ops._c10d_functional``), which crash on CUDA
+tensors over gloo; on a gloo group the mesh's CUDA collectives are staged
+through the host instead (:func:`stage_functional_collectives`), as every
+other hop of a gloo group is.
 """
 from __future__ import annotations
 
@@ -58,6 +67,7 @@ class TPGroup:
             raise ValueError(f"rank {rank} outside a group of {size}")
         self.rank, self.size, self.backend, self.pg = rank, size, backend, pg
         self.ranks = tuple(range(size) if ranks is None else ranks)
+        self._meshes = {}
 
     def __repr__(self) -> str:
         return (f"TPGroup(rank={self.rank}, size={self.size}, "
@@ -70,6 +80,26 @@ class TPGroup:
 
     def _wire(self, x: torch.Tensor) -> torch.Tensor:
         return x.detach().cpu() if self.staged(x) else x.contiguous()
+
+    def device_mesh(self, device_type: str):
+        """The 1-D ``DeviceMesh`` of this group's process group for tensors
+        on ``device_type`` (the ``auto`` mode's DTensors), made once a
+        device type; a 2D mesh's composite group is one flat mesh over its
+        composite index, the index its weights split over. On a gloo group
+        the CUDA collectives go through the host
+        (:func:`stage_functional_collectives`). Every rank makes it after
+        its process group exists."""
+        if device_type not in self._meshes:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if self.pg is None:
+                raise ValueError(f"{self!r} has no process group to make a "
+                                 "device mesh of")
+            if self.backend == "gloo" and device_type == "cuda":
+                stage_functional_collectives()
+            self._meshes[device_type] = DeviceMesh.from_group(self.pg,
+                                                              device_type)
+        return self._meshes[device_type]
 
     # ----- point to point -----
     def ppermute_many(self, xs: Sequence[torch.Tensor],
@@ -161,6 +191,79 @@ class CompositeGroup(TPGroup):
     def __repr__(self) -> str:
         return (f"CompositeGroup(rank={self.rank}, tp_in={self.tp_in.size}, "
                 f"tp_out={self.tp_out.size}, backend={self.backend!r})")
+
+
+def shard(x, mesh, seq_sharded: bool):
+    """JAX's ``sharding.shard(x, BATCH_AXES, _sp_axis(rt, x), None)`` on a
+    (B, S, d) DTensor ``x``: redistributed to its sequence shard
+    (``Shard(1)``) where ``seq_sharded``, else whole on every rank
+    (``Replicate()``). From a ``Partial`` sum that is one reduce-scatter or
+    one all-reduce."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return x.redistribute(mesh, [Shard(1) if seq_sharded else Replicate()])
+
+
+# ----- DTensor's collectives on CUDA tensors over gloo -----------------------
+
+
+def _staged(group_name, x: torch.Tensor):
+    """(the process group ``group_name`` names, ``x`` as it goes on the
+    wire: in host memory on a gloo group)."""
+    from torch._C._distributed_c10d import _resolve_process_group
+
+    pg = group_name if isinstance(group_name, dist.ProcessGroup) \
+        else _resolve_process_group(group_name)
+    on_host = dist.get_backend(pg) == "gloo"
+    return pg, (x.detach().cpu() if on_host else x).contiguous()
+
+
+def _staged_all_gather(x, group_size, group_name):
+    pg, wire = _staged(group_name, x)
+    out = wire.new_empty((group_size * wire.shape[0], *wire.shape[1:]))
+    _all_gather_single(out, wire, group=pg)
+    return out.to(x.device)
+
+
+def _staged_reduce_scatter(x, reduce_op, group_size, group_name):
+    pg, wire = _staged(group_name, x)
+    out = wire.new_empty((wire.shape[0] // group_size, *wire.shape[1:]))
+    _reduce_scatter_single(out, wire, op=getattr(dist.ReduceOp,
+                                                 reduce_op.upper()), group=pg)
+    return out.to(x.device)
+
+
+def _staged_all_reduce(x, reduce_op, group_name):
+    pg, wire = _staged(group_name, x)
+    out = wire.clone()
+    dist.all_reduce(out, op=getattr(dist.ReduceOp, reduce_op.upper()),
+                    group=pg)
+    return out.to(x.device)
+
+
+# the functional collectives the auto route's DTensors issue
+STAGED_OPS = {"all_gather_into_tensor": _staged_all_gather,
+              "reduce_scatter_tensor": _staged_reduce_scatter,
+              "all_reduce": _staged_all_reduce}
+_STAGED_LIBS = {}
+
+
+def stage_functional_collectives(dispatch_key: str = "CUDA") -> None:
+    """Run the functional collectives DTensor issues (:data:`STAGED_OPS`)
+    on ``dispatch_key`` tensors as the c10d calls that gloo carries: the
+    input copied to the host, the collective over the group's gloo
+    backend, the result copied back (on a non-gloo group the same call on
+    the device). The functional ops' own kernels crash on CUDA tensors
+    over gloo (a SIGSEGV in ``wait_tensor``, torch 2.11 on an H100), while
+    the c10d calls work; the result is complete when returned, so the op's
+    ``wait_tensor`` finds nothing to wait for. Once a process and key;
+    ``"CPU"`` runs the same staging on the CPU, as the tests do."""
+    if dispatch_key in _STAGED_LIBS:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for name, fn in STAGED_OPS.items():
+        lib.impl(name, fn, dispatch_key)
+    _STAGED_LIBS[dispatch_key] = lib
 
 
 @dataclass(frozen=True)

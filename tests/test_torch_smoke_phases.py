@@ -2,7 +2,9 @@
 size.
 
 Phase 9: the one-device
-reference step and its host store, and the rank body on a gloo ring of 4,
+reference step and its host store, and the rank body on a gloo ring of 4
+(its ``auto`` runs: DTensor's census, no matmul call, a flash core a layer
+in the forward and in the remat recompute),
 with the plain versions in place of the kernels (so the kernels' launch
 counters, which only the card moves, are not read here). Everything else
 the phase asserts on the card is held: the ranks' losses, grad norms,
@@ -105,15 +107,30 @@ def test_phase9_on_the_cpu(phase9, i):
     predicted = {tuple(s) for s in CS.train_matmul_shapes(
         cfg, world=4, batch=2, seq=32, runs=[PHASE9_RUNS[i]],
         ring=_ring(PHASE9_RUNS[i]))}
+    auto = PHASE9_RUNS[i][0] == "auto"
     for p in per:
         assert sum(c[-1] for c in p["call_shapes"]) == p["matmul_derived"]
-        assert p["flash_derived"] == 3 * mb * cfg.num_layers
         assert p["overlap_asym"] == p["overlap_asym_nodes"]
-        if p["planner"] == "greedy":
-            assert bool(p["cross_direction_pairs"]) == (mb > 1)
         got = {(M, K, N, lay) for M, K, N, _, lay, _ in p["call_shapes"]
                if lay != "nn"}
-        assert got and got <= predicted
+        if auto:
+            # no graph: no matmul call, the flash core a layer in the
+            # forward and in its remat recompute, and DTensor's census (one
+            # gather in and one reduce-scatter out a sub-layer forward;
+            # their adjoints, and the recompute's, backward)
+            assert p["matmul_derived"] == 0 and not got
+            assert p["flash_derived"] == 2 * cfg.num_layers
+            assert p["comm"]["forward"] == {"all_gather_into_tensor": 2.0,
+                                            "reduce_scatter_tensor": 2.0}
+            bwd = p["comm"]["backward"]
+            assert bwd["all_gather_into_tensor"] >= 2
+            assert bwd["reduce_scatter_tensor"] >= 2
+            assert set(p["comm"]["outside"]) == {"allreduce_"}
+        else:
+            assert p["flash_derived"] == 3 * mb * cfg.num_layers
+            if p["planner"] == "greedy":
+                assert bool(p["cross_direction_pairs"]) == (mb > 1)
+            assert got and got <= predicted
         if f32:
             assert abs(p["grad_norm"] - ref["grad_norm"]) <= \
                 CS.TRAIN_RTOL * ref["grad_norm"]

@@ -230,9 +230,13 @@ def test_unported_tp_paths_raise():
     group = TPGroup(0, 2, "gloo")           # no process group: no wire
     toks = torch.from_numpy(TOKENS)
     batch = {"tokens": toks, "labels": toks}
+    # SMOKE's tp mode is "auto": DTensor runs dense attention blocks
+    # (tests/test_torch_auto.py); an MoE raises, before any collective
+    moe_auto = LM(get_arch("mixtral-8x7b").smoke(), SMOKE, device="cpu",
+                  seed=0, group=group)
+    with pytest.raises(NotImplementedError, match=r"A5 \(b\)"):
+        moe_auto.loss(batch)
     lm = LM(cfg, SMOKE, device="cpu", seed=0, group=group)
-    with pytest.raises(NotImplementedError, match="A5"):
-        lm.loss(batch)                      # SMOKE's tp mode is "auto"
     lm.rt = Runtime(compute_dtype="float32", tp=TPConfig(mode="cais"))
     # ragged S trains on a ring in the replicated layout
     # (tests/test_torch_sublayer.py), an MoE too (A11 (b): its LM.loss on

@@ -799,10 +799,14 @@ def test_launcher_runs_three_steps():
             "2", "--tp-mode", "cais"]
     one, _ = _launch(argv)
     run, _ = _launch(argv + ["--mesh", "debug"])
-    assert len(run.ranks) == 8 and len(run.history) == 2
-    for h in run.ranks:
-        for a, b in zip(h, one.history):
-            assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
+    # and with no --tp-mode: the default auto, DTensor on each replica's
+    # TP group
+    auto, _ = _launch(argv[:-2] + ["--mesh", "debug"])
+    for r in (run, auto):
+        assert len(r.ranks) == 8 and len(r.history) == 2
+        for h in r.ranks:
+            for a, b in zip(h, one.history):
+                assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
     with pytest.raises(NotImplementedError, match="hosts"):
         train_launch.main(["--arch", "deepseek-7b", "--smoke", "--device",
                            "cpu", "--mesh", "single"])
